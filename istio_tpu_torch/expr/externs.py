@@ -1,0 +1,81 @@
+"""Extern functions callable from expressions.
+
+Behavioral contract from mixer/pkg/il/runtime/externs.go:81-128:
+  ip(s)                — parse textual IP to bytes; error on bad input
+  ip_equal(a, b)       — net.IP-style equality (v4 == v4-in-v6)
+  timestamp(s)         — RFC3339 parse; error on bad input
+  timestamp_equal(a,b) — instant equality
+  match(str, pattern)  — glob-ish: trailing '*' = prefix, leading '*' =
+                         suffix, else exact
+  matches(pattern,str) — RE2 regex (unanchored search)
+  startsWith / endsWith
+"""
+from __future__ import annotations
+
+import datetime
+import re
+from typing import Any, Callable
+
+from istio_tpu_torch.attribute.types import (ip_equal, parse_ip, parse_rfc3339)
+
+
+class ExternError(ValueError):
+    """Runtime error raised by an extern (e.g. unparseable IP)."""
+
+
+def extern_ip(s: str) -> bytes:
+    try:
+        return parse_ip(s)
+    except ValueError:
+        raise ExternError(f"could not convert {s} to IP_ADDRESS")
+
+
+def extern_ip_equal(a: bytes, b: bytes) -> bool:
+    return ip_equal(a, b)
+
+
+def extern_timestamp(s: str) -> datetime.datetime:
+    try:
+        return parse_rfc3339(s)
+    except ValueError:
+        raise ExternError(
+            f"could not convert '{s}' to TIMESTAMP. expected format: RFC3339")
+
+
+def extern_timestamp_equal(a: datetime.datetime, b: datetime.datetime) -> bool:
+    return a == b
+
+
+def extern_match(value: str, pattern: str) -> bool:
+    if pattern.endswith("*"):
+        return value.startswith(pattern[:-1])
+    if pattern.startswith("*"):
+        return value.endswith(pattern[1:])
+    return value == pattern
+
+
+def extern_matches(pattern: str, value: str) -> bool:
+    try:
+        return re.search(pattern, value) is not None
+    except re.error as exc:
+        raise ExternError(f"bad regex {pattern!r}: {exc}")
+
+
+def extern_starts_with(value: str, prefix: str) -> bool:
+    return value.startswith(prefix)
+
+
+def extern_ends_with(value: str, suffix: str) -> bool:
+    return value.endswith(suffix)
+
+
+EXTERNS: dict[str, Callable[..., Any]] = {
+    "ip": extern_ip,
+    "ip_equal": extern_ip_equal,
+    "timestamp": extern_timestamp,
+    "timestamp_equal": extern_timestamp_equal,
+    "match": extern_match,
+    "matches": extern_matches,
+    "startsWith": extern_starts_with,
+    "endsWith": extern_ends_with,
+}
