@@ -7,18 +7,23 @@ Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and torch / CUDA versions;
   2. build every kernel of istio_tpu_torch/csrc/ with nvcc (in parallel);
   3. at the headline world (make_engine(10_000, with_quota=True), B=2048)
-     record what the main path hands each kernel, then hold each kernel
-     against its plain PyTorch version on those inputs (exact equality)
-     and time both (profiler device time and CUDA events); compute each
-     kernel's bound; then (3b) hold every kernel against its plain
-     version on edge-case inputs the headline world does not produce;
-  4. end to end at B ∈ {64, 256, 2048}: three consecutive batches with
-     quota carried, every verdict field and the quota counters equal to
-     the plain path (the same engine on the CPU) run from the same state;
-     an engine with small quotas must hit RESOURCE_EXHAUSTED; the
-     matched / err planes agree with the expression oracle on a sample;
-     device step ms and checks/s; the launch counters, zeroed just
-     before this phase, must show every kernel ran;
+     record what the main path hands each kernel, on two traffics: the
+     headline traffic of bench.py (workloads.make_bags +
+     make_request_ns) and make_hit_requests (aimed at deny, list and
+     quota rules, so that every branch of the fold runs). Hold each
+     kernel against its plain PyTorch version on both (exact equality);
+     on the headline traffic also time both (profiler device time and
+     CUDA events) and compute each kernel's bound; then (3b) hold every
+     kernel against its plain version on edge-case inputs neither
+     traffic produces;
+  4. end to end at B ∈ {64, 256, 2048}: three consecutive batches of
+     each traffic with quota carried, every verdict field and the quota
+     counters equal to the plain path (the same engine on the CPU) run
+     from the same state; an engine with small quotas must hit
+     RESOURCE_EXHAUSTED; the matched / err planes agree with the
+     expression oracle on a sample; device step ms and checks/s on the
+     headline traffic; the launch counters, zeroed just before this
+     phase, must show every kernel ran;
   5. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
@@ -36,23 +41,32 @@ HEADLINE_B = 2048
 E2E_BATCHES = (64, 256, 2048)
 N_STEPS = 3                 # consecutive batches with quota carried
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-# scalar int32 compares: Hopper has 64 INT32 lanes per SM, half the 128
-# FP32 lanes behind the published 67 TFLOP/s float32 rate
-INT_OPS_PER_S = 67e12 / 2
+INT32_LANES_PER_SM = 64     # Hopper: one simple int32 op per lane per clock
+OK, RESOURCE_EXHAUSTED = 0, 8
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def int_ops_per_s() -> tuple[float, str]:
+    """Peak simple int32 ops/s of card 0: INT32 lanes × SMs × the
+    maximum SM clock (an add or compare is one op; the published
+    67 TFLOP/s float32 rate counts an FMA as two on twice the lanes)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    rate = INT32_LANES_PER_SM * sms * mhz * 1e6
+    return rate, f"{INT32_LANES_PER_SM} lanes x {sms} SMs x {mhz:.0f} MHz"
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -114,15 +128,83 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts))
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, int_rate: float
+          ) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(captured: list, quota0) -> list[dict]:
-    """Phase 3: every captured launch, kernel vs plain, timed. quota0 is
-    the quota state the captured verdict_fold launch started from."""
+def fold_work(matched, req, batch, params, c, quota0, quota1, got
+              ) -> tuple[float, float]:
+    """(bytes, ops) the verdict fold must move and do on this run's
+    data. A request row reads its matched / err cells only for the rules
+    its namespace sees (every headline rule is namespaced), the per-rule
+    tables of the rules any row sees, the batch columns the list and
+    quota banks name, and one read per quota counter an active row keys
+    into plus one write per counter that changed (quota1 vs quota0);
+    got is the fold's output."""
+    import torch
+    status = got[0]
+    rule_ns = params["pe_rule_ns"]
+    ns_ok = (rule_ns[None, :] == c.default_ns) | \
+        (rule_ns[None, :] == req[:, None])
+    active = matched & ns_ok
+    cells = int(ns_ok.sum())
+    seen = int(ns_ok.any(0).sum())
+    per_rule = [params[k] for k in ("pe_deny_mask", "pe_deny_status",
+                                    "pe_deny_dur", "pe_deny_uses",
+                                    "pe_err_rule_mask")
+                if params.get(k) is not None]
+    nb = matched.shape[0]
+    b = nbytes(req, rule_ns, params["pe_ref_table"], *got) * 1.0
+    b += 2 * cells + seen * sum(t.element_size() for t in per_rule)
+    ops = 4.0 * cells
+    slots_p: set[int] = set()
+    if c.has_lists:
+        b += nbytes(*(params[k] for k in (
+            "pe_list_ids", "pe_list_rule", "pe_list_slot", "pe_list_black",
+            "pe_list_code", "pe_list_dur", "pe_list_uses")))
+        l_slot = params["pe_list_slot"].long()
+        slots = set(l_slot.tolist())
+        slots_p |= slots
+        b += nb * len(slots) * batch.ids.element_size()
+        l_act = active[:, params["pe_list_rule"].long()] & \
+            batch.present[:, l_slot]
+        ops += float(l_act.sum()) * params["pe_list_ids"].shape[1]
+    if c.has_quota:
+        if bool((params["pe_deny_status"] == RESOURCE_EXHAUSTED).any()) or \
+                bool((params["pe_list_code"] == RESOURCE_EXHAUSTED).any()):
+            raise AssertionError("fold_work: a deny or list status is "
+                                 "RESOURCE_EXHAUSTED; quota rows unknown")
+        q_slot = params["pe_q_slot"].long()
+        b += nbytes(*(params[k] for k in (
+            "pe_q_rule", "pe_q_slot", "pe_q_max", "pe_q_nb")))
+        slots = set(q_slot.tolist())
+        slots_p |= slots
+        b += nb * len(slots) * batch.hash_ids.element_size()
+        pre_ok = (status == OK) | (status == RESOURCE_EXHAUSTED)
+        q_act = active[:, params["pe_q_rule"].long()] & \
+            batch.present[:, q_slot] & pre_ok[:, None]
+        n_q, n_b = quota0.shape
+        key = torch.remainder(batch.hash_ids[:, q_slot],
+                              params["pe_q_nb"][None, :]) + \
+            torch.arange(n_q, device=quota0.device)[None, :] * n_b
+        reads = int(torch.unique(key[q_act]).numel())
+        writes = int((quota1 != quota0).sum())
+        b += (reads + writes) * quota0.element_size()
+        per_q = q_act.sum(0).double()
+        ops += float((per_q * (per_q - 1) / 2).sum()) + float(per_q.sum())
+    b += nb * len(slots_p) * batch.present.element_size()
+    return b, ops
+
+
+def check_kernels(captured: list, quota0, int_rate: float | None = None
+                  ) -> list[dict]:
+    """Phase 3: every captured launch, kernel vs plain (exact equality).
+    With int_rate, also time both and compute each kernel's bound →
+    the kernels table rows. quota0 is the quota state the captured
+    verdict_fold launch started from."""
     import torch
     from istio_tpu_torch.compiler import ruleset
     from istio_tpu_torch.models import policy_engine as pe
@@ -138,6 +220,8 @@ def check_kernels(captured: list, quota0) -> list[dict]:
             want = bytes_ops.dfa_scan_plain(data, lens, table, class_of,
                                             starts, accept)
             assert_equal(tag, got, want)
+            if int_rate is None:
+                continue
             ms, call, how = timed(
                 lambda: bytes_ops.dfa_scan(data, lens, bank), 200)
             plain, _, _ = timed(lambda: bytes_ops.dfa_scan_plain(
@@ -153,6 +237,8 @@ def check_kernels(captured: list, quota0) -> list[dict]:
             got = bytes_ops.byte_pred(data, lens, pats)
             want = bytes_ops.byte_pred_plain(data, lens, p, pl, kd)
             assert_equal(tag, got, want)
+            if int_rate is None:
+                continue
             ms, call, how = timed(
                 lambda: bytes_ops.byte_pred(data, lens, pats), 200)
             plain, _, _ = timed(lambda: bytes_ops.byte_pred_plain(
@@ -171,6 +257,8 @@ def check_kernels(captured: list, quota0) -> list[dict]:
             for part, g, w in zip(("matched", "not_matched", "err"), got,
                                   want):
                 assert_equal(f"{tag}.{part}", g, w)
+            if int_rate is None:
+                continue
             ms, call, how = timed(lambda: ruleset.rule_match(
                 ids, present, em, en, params, c), 50)
             plain, _, _ = timed(lambda: ruleset.rule_match_plain(
@@ -197,45 +285,52 @@ def check_kernels(captured: list, quota0) -> list[dict]:
                                    "referenced", "err_count"), got, want):
                 assert_equal(f"{tag}.{part}", g, w)
             assert_equal(f"{tag}.quota_counts", qk, qp)
+            if int_rate is None:
+                continue
             scratch = quota0.clone()
             ms, call, how = timed(lambda: pe.verdict_fold(
                 matched, errp, req, batch, params, scratch, c), 50)
             plain, _, _ = timed(lambda: pe.verdict_fold_plain(
                 matched, errp, req, batch, params, scratch, c), 10)
-            tabs = [params[k] for k in params if k.startswith("pe_")
-                    and k not in ("pe_attr_mask_bits", "pe_rb_rule",
-                                  "pe_rb_dur", "pe_rb_guard", "pe_rb_allow")]
-            b = nbytes(matched, errp, req, batch.ids, batch.present,
-                       batch.hash_ids, *tabs, *got) + 2 * nbytes(quota0)
-            nb, nr = matched.shape
-            n_q = int(params["pe_q_rule"].numel()) if c.has_quota else 0
-            ops = float(nb) * nr * 4 + float(nb) * nb * n_q / 2 + \
-                float(nb) * params["pe_list_ids"].numel()
+            b, ops = fold_work(matched, req, batch, params, c, quota0, qk,
+                               got)
             src, rep = ("verdict_fold.cu",
                         "istio_tpu/models/policy_engine.py:379")
             err = int(sum(int((g.float() != w.float()).sum())
                           for g, w in zip(got, want)))
         else:
             raise AssertionError(f"unknown kernel {name}")
-        bms, by = bound(b, ops)
+        bms, by = bound(b, ops, int_rate)
         log(f"  {tag:<16} kernel {ms:9.5f} ms (per call incl. launch "
             f"{call:8.5f})   plain {plain:9.5f} ms   bound {bms:8.5f} ms "
-            f"({by})   equal: yes   [{how}]")
+            f"({by}; {b:.0f} B, {ops:.0f} ops)   equal: yes   [{how}]")
         row = rows.setdefault(name, {
             "name": name, "route": "cuda",
             "source": f"istio_tpu_torch/csrc/{src}", "replaces": rep,
             "launches": 0, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
             "bound_ms": 0.0, "bound_by": by, "library_ms": None,
-            "calls_per_step": 0, "call_ms": 0.0, "ms_source": how})
-        # a kernel launched more than once per step (byte_pred: one
-        # launch per subject) reports the sum over its launches
+            "calls_per_step": 0, "grid_launches": 0, "call_ms": 0.0,
+            "ms_source": how, "bytes": 0.0, "ops": 0.0})
+        # a kernel called more than once per step (byte_pred: one call
+        # per subject) reports the sum over its calls, and the bound of
+        # their summed work
         row["ms"] += ms
         row["call_ms"] += call
         row["plain_ms"] += plain
-        row["bound_ms"] += bms
+        row["bytes"] += b
+        row["ops"] += ops
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
+                                                 int_rate)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["calls_per_step"] += 1
     return list(rows.values())
+
+
+def headline_batch(engine, b: int):
+    """bench.py's Check() traffic: make_bags(b) and make_request_ns."""
+    from istio_tpu_torch.testing import workloads
+    return (workloads.make_bags(b),
+            workloads.make_request_ns(engine, b))
 
 
 def hit_batch(engine, n_rules: int, b: int, seed: int):
@@ -451,11 +546,13 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- phase 1: the card
-    card = card_line()
+    card = smi("name,power.limit")
+    int_rate, int_how = int_ops_per_s()
     log(f"[1] card: {card}")
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"int32 peak {int_rate:.4g} op/s ({int_how})")
 
     # ---- phase 2: build
     t0 = time.perf_counter()
@@ -474,19 +571,27 @@ def main() -> int:
     log(f"[3] make_engine({HEADLINE_RULES}) host compile "
         f"{time.perf_counter() - t0:.2f} s; geometry "
         f"{json.dumps(eng.ruleset.geometry)}")
-    bags, req = hit_batch(eng, HEADLINE_RULES, HEADLINE_B, seed=100)
-    batch = eng.tensorizer.tensorize(bags).to("cuda")
-    eng.check(batch, req)                 # warm quota state
-    quota_before = eng.quota_counts.clone()
-    with kernels.launches.capture() as captured:
-        eng.check(batch, req)
-    torch.cuda.synchronize()
-    names = sorted({n for n, _ in captured})
-    if names != sorted(kernels.KERNELS):
-        raise AssertionError(f"main path launched {names}, want all of "
-                             f"{sorted(kernels.KERNELS)}")
-    table = check_kernels(captured, quota_before)
-    eng.quota_counts.copy_(quota_before)
+    table = None
+    for traffic, (bags, req) in (
+            ("headline", headline_batch(eng, HEADLINE_B)),
+            ("hit", hit_batch(eng, HEADLINE_RULES, HEADLINE_B, seed=100))):
+        batch = eng.tensorizer.tensorize(bags).to("cuda")
+        eng.check(batch, req)                 # warm quota state
+        quota_before = eng.quota_counts.clone()
+        with kernels.launches.capture() as captured:
+            eng.check(batch, req)
+        torch.cuda.synchronize()
+        names = sorted({n for n, _ in captured})
+        if names != sorted(kernels.KERNELS):
+            raise AssertionError(f"main path launched {names}, want all "
+                                 f"of {sorted(kernels.KERNELS)}")
+        log(f"[3] {traffic} traffic, B={HEADLINE_B}: "
+            f"{len(captured)} captured launches"
+            + (", timed:" if table is None else ", parity only"))
+        rows = check_kernels(captured, quota_before,
+                             int_rate if table is None else None)
+        table = table or rows
+        eng.quota_counts.copy_(quota_before)
     log(f"[3b] {edge_checks()} edge cases: every kernel equal to its "
         "plain version")
 
@@ -500,9 +605,16 @@ def main() -> int:
         for s in range(N_STEPS):
             bags, req = hit_batch(eng, HEADLINE_RULES, b, seed=1000 + 10 * b
                                   + s)
-            vg = compare_step(eng, cpu_eng, bags, req, f"e2e B={b} step {s}")
+            vg = compare_step(eng, cpu_eng, bags, req,
+                              f"e2e hit B={b} step {s}")
             steps += 1
         n_or = oracle_sample(eng, bags, vg, HEADLINE_RULES)
+        bags, req = headline_batch(eng, b)
+        for s in range(N_STEPS):           # bench.py repeats one batch
+            vg = compare_step(eng, cpu_eng, bags, req,
+                              f"e2e headline B={b} step {s}")
+            steps += 1
+        n_or += oracle_sample(eng, bags, vg, HEADLINE_RULES)
         staged = eng.tensorizer.tensorize(bags).to("cuda")
         req_d = torch.as_tensor(req).to("cuda")
         t0 = time.perf_counter()
@@ -516,11 +628,11 @@ def main() -> int:
         idle = "not measured" if busy is None else \
             f"busy {busy:.4f} ms, idle share {1 - busy / ms:.3f}"
         st = torch.bincount(vg.status.cpu(), minlength=14).tolist()
-        log(f"[4] B={b:5d}: {N_STEPS} steps equal to the plain path; "
-            f"{n_or} oracle cells agree; device step {ms:.4f} ms = "
-            f"{b / ms * 1e3:,.0f} checks/s ({idle}); host tensorize "
-            f"{host_ms:.1f} ms;"
-            f" statuses {dict((i, n) for i, n in enumerate(st) if n)}")
+        log(f"[4] B={b:5d}: {N_STEPS} hit and {N_STEPS} headline steps "
+            f"equal to the plain path; {n_or} oracle cells agree; headline "
+            f"traffic: device step {ms:.4f} ms = {b / ms * 1e3:,.0f} "
+            f"checks/s ({idle}); host tensorize {host_ms:.1f} ms; "
+            f"statuses {dict((i, n) for i, n in enumerate(st) if n)}")
     small = workloads.make_engine(HEADLINE_RULES, with_quota=True,
                                   device="cuda", quota_max=2)
     small_cpu = workloads.make_engine(HEADLINE_RULES, with_quota=True,
@@ -529,7 +641,7 @@ def main() -> int:
     for s in range(N_STEPS):
         bags, req = hit_batch(small, HEADLINE_RULES, 256, seed=5000 + s)
         vg = compare_step(small, small_cpu, bags, req, f"small quota {s}")
-        exhausted += int((vg.status == 8).sum())
+        exhausted += int((vg.status == RESOURCE_EXHAUSTED).sum())
         steps += 1
     if exhausted == 0:
         raise AssertionError("small-quota engine never hit "
@@ -537,15 +649,18 @@ def main() -> int:
     log(f"[4] small quotas (max 2): {exhausted} RESOURCE_EXHAUSTED over "
         f"{N_STEPS} batches, equal to the plain path")
     counts = dict(kernels.launches)
+    grids = dict(kernels.launches.grids)
     missing = [k for k in kernels.KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    log(f"[4] launches on the main path ({steps} steps): {counts}")
+    log(f"[4] wrapper calls on the main path ({steps} steps): {counts}; "
+        f"__global__ launches: {grids}")
 
     # ---- phase 5: result lines
     for row in table:
         row["launches"] = counts[row["name"]]
+        row["grid_launches"] = grids[row["name"]]
     log("kernels: " + ", ".join(f"{k}={counts[k]}" for k in kernels.KERNELS))
     log("e2e: " + ", ".join(f"B={b} {ms:.4f} ms {b / ms * 1e3:.0f} checks/s"
                              for b, ms in e2e.items()))

@@ -281,11 +281,9 @@ class RuleSetProgram:
     attr_names: list[set]                     # per REAL rule (n_rules)
     rule_ns: np.ndarray                       # int32 [n_rows]
     ns_ids: dict[str, int]
-    # ---- debugging surface (compiler/disasm.py — the il/text +
-    #      Stepper role). Retained source structure, not device state:
-    atom_asts: list[Any] = dataclasses.field(default_factory=list)
+    # ---- evaluation tier of each atom ("id-eq", "slot-eq", "dfa-pack",
+    #      "tensor")
     atom_tier: dict[int, str] = dataclasses.field(default_factory=dict)
-    per_rule_dnf: list[Any] = dataclasses.field(default_factory=list)
     # ---- compiled-shape geometry (atom tier counts, conjunction split,
     #      padded index widths)
     geometry: dict = dataclasses.field(default_factory=dict)
@@ -486,8 +484,8 @@ def rule_match(ids: torch.Tensor, present: torch.Tensor,
             n_rows, k_max, p(cm), p(cn),
             p(matched), p(not_matched), p(err),
             kernels.VP(kernels.stream_ptr()))
-    kernels.check(rc, "rule_match")
-    kernels.launched("rule_match", ids, present, ext_m, ext_n, params, c)
+    kernels.launched("rule_match", kernels.check(rc, "rule_match"), ids,
+                     present, ext_m, ext_n, params, c)
     return matched, not_matched, err
 
 
@@ -1005,8 +1003,7 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         host_fallback=host_fallback, fallback_reason=fallback_reason,
         attr_mask=attr_mask, attr_names=attr_names,
         rule_ns=rule_ns, ns_ids=ns_ids,
-        atom_asts=list(atoms.asts), atom_tier=atom_tier,
-        per_rule_dnf=list(per_rule), geometry=geometry, device=dev)
+        atom_tier=atom_tier, geometry=geometry, device=dev)
 
 
 def _collect_attr_names(e: Expression, finder: AttributeDescriptorFinder,

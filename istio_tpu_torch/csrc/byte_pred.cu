@@ -68,6 +68,7 @@ __global__ void byte_pred_kernel(const uint8_t* __restrict__ data,
 
 }  // namespace
 
+// Returns the number of kernels launched, or -cudaError_t on failure.
 extern "C" int byte_pred(const uint8_t* data, long long data_stride,
                          const int32_t* lens, long long lens_stride, int B,
                          int L, const uint8_t* pats, const int32_t* plens,
@@ -79,5 +80,6 @@ extern "C" int byte_pred(const uint8_t* data, long long data_stride,
   byte_pred_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       data, data_stride, lens, lens_stride, B, L, pats, plens, kind, P, Lp,
       out);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 1 : -(int)e;
 }

@@ -63,6 +63,7 @@ __global__ void dfa_scan_kernel(const uint8_t* __restrict__ data,
 
 }  // namespace
 
+// Returns the number of kernels launched, or -cudaError_t on failure.
 extern "C" int dfa_scan(const uint8_t* data, long long data_stride,
                         const int32_t* lens, long long lens_stride, int B,
                         int L, const int32_t* table, const int32_t* class_of,
@@ -77,7 +78,7 @@ extern "C" int dfa_scan(const uint8_t* data, long long data_stride,
     cudaError_t e = cudaFuncSetAttribute(
         dfa_scan_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return -(int)e;
     dfa_scan_kernel<true><<<blocks, kThreads, smem, s>>>(
         data, data_stride, lens, lens_stride, B, L, table, class_of, starts,
         accept, S, C, N, out);
@@ -86,5 +87,6 @@ extern "C" int dfa_scan(const uint8_t* data, long long data_stride,
         data, data_stride, lens, lens_stride, B, L, table, class_of, starts,
         accept, S, C, N, out);
   }
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 1 : -(int)e;
 }

@@ -160,6 +160,7 @@ inline dim3 grid_for(long long cols, int B) {
 
 }  // namespace
 
+// Returns the number of kernels launched, or -cudaError_t on failure.
 extern "C" int rule_match(
     const int32_t* ids, const uint8_t* present, int B, int C,
     // fused all-EQ conjunctions
@@ -177,7 +178,9 @@ extern "C" int rule_match(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
   const int lit_w = 2 * n_live + 1;
+  int n = 1;
   if (use_legacy) {
+    ++n;
     lit_plane_kernel<<<grid_for(lit_w, B), kThreads, 0, s>>>(
         ids, present, B, C, E, eq_cols, eq_cids, eq_neg, S, ss_a, ss_b,
         ss_neg, X, ext_m, ext_n, n_live, lit);
@@ -188,9 +191,11 @@ extern "C" int rule_match(
       ids, present, B, C, F, Lf, eqc_col, eqc_cid, eqc_xor, eqc_pad, NL, Ll,
       lit_idx, lit, lit_w, n_sat, sat);
   if (R > 0) {
+    ++n;
     rule_or_kernel<<<grid_for(R, B), kThreads, 0, s>>>(
         sat, B, n_sat + 2, R, K, conj_m_idx, conj_n_idx, matched,
         not_matched, err);
   }
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? n : -(int)e;
 }

@@ -261,6 +261,7 @@ __global__ void quota_commit_kernel(const int32_t* __restrict__ ckey,
 
 }  // namespace
 
+// Returns the number of kernels launched, or -cudaError_t on failure.
 extern "C" int verdict_fold(
     const uint8_t* matched, const uint8_t* err, const int32_t* req_ns, int B,
     int R, const int32_t* rule_ns, int default_ns, const uint8_t* deny_mask,
@@ -291,5 +292,6 @@ extern "C" int verdict_fold(
     quota_commit_kernel<<<row_blocks, kThreads, 0, s>>>(
         ckey, qstate, B, Q, q_rule, quota_counts, status, deny_rule);
   }
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? (Q > 0 ? 3 : 1) : -(int)e;
 }

@@ -8,9 +8,11 @@ module of the package on a machine with no nvcc and no card.
 
 `launches` counts, per kernel, the calls of its wrapper that launched
 the kernel on the card (a wrapper given CPU tensors runs its plain
-version and counts nothing). Inside `launches.capture()` each launch
-also records the wrapper's inputs, so a check can replay the kernel and
-its plain version on exactly what the main path gave it.
+version and counts nothing); `launches.grids` counts the `__global__`
+launches those calls made (rule_match and verdict_fold chain up to
+three each). Inside `launches.capture()` each call also records the
+wrapper's inputs, so a check can replay the kernel and its plain
+version on exactly what the main path gave it.
 """
 from __future__ import annotations
 
@@ -36,15 +38,18 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
 class LaunchCounts(dict):
-    """kernel name → launches since the last reset()."""
+    """kernel name → wrapper calls that launched it since the last
+    reset(); `grids`: kernel name → `__global__` launches of those calls."""
 
     def __init__(self) -> None:
         super().__init__({k: 0 for k in KERNELS})
+        self.grids = {k: 0 for k in KERNELS}
         self.captured: list | None = None
 
     def reset(self) -> None:
         for k in KERNELS:
             self[k] = 0
+            self.grids[k] = 0
 
     @contextmanager
     def capture(self):
@@ -60,9 +65,11 @@ class LaunchCounts(dict):
 launches = LaunchCounts()
 
 
-def launched(name: str, *inputs) -> None:
-    """Called by a wrapper right after it launched kernel `name`."""
+def launched(name: str, grids: int, *inputs) -> None:
+    """Called by a wrapper right after it launched kernel `name` as
+    `grids` `__global__` launches."""
     launches[name] += 1
+    launches.grids[name] += grids
     if launches.captured is not None:
         launches.captured.append((name, inputs))
 
@@ -139,7 +146,7 @@ def library(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """C entry point `symbol` of kernel `name`, typed: every pointer and
     the stream as c_void_p (a bare int would be cut to 32 bits), and an
-    int return that is the launch's cudaError_t."""
+    int return: the number of kernels launched, or -cudaError_t."""
     key = (name, symbol)
     fn = _funcs.get(key)
     if fn is None:
@@ -150,12 +157,13 @@ def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
-def check(rc: int, name: str) -> None:
+def check(rc: int, name: str) -> int:
     """Raise if a C entry point reported a CUDA error (cudaGetLastError
-    right after its launches)."""
-    if rc != 0:
+    right after its launches); → the number of kernels it launched."""
+    if rc < 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError_t {rc}")
+                           f"cudaError_t {-rc}")
+    return rc
 
 
 def stream_ptr() -> int:

@@ -336,9 +336,8 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
             p(status), p(dur), p(uses), p(deny_rule), p(referenced),
             p(err_count), p(ckey), p(qstate),
             kernels.VP(kernels.stream_ptr()))
-    kernels.check(rc, "verdict_fold")
-    kernels.launched("verdict_fold", matched, err, req_ns, batch, params,
-                     quota_counts, c)
+    kernels.launched("verdict_fold", kernels.check(rc, "verdict_fold"),
+                     matched, err, req_ns, batch, params, quota_counts, c)
     return status, dur, uses, deny_rule, referenced, err_count
 
 

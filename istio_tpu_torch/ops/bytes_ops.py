@@ -168,8 +168,8 @@ def byte_pred(data: torch.Tensor, lens: torch.Tensor,
             lens.stride(0), b, l, kernels.ptr(pats), kernels.ptr(plens),
             kernels.ptr(kind), patterns.n, pats.shape[1], kernels.ptr(out),
             kernels.VP(kernels.stream_ptr()))
-    kernels.check(rc, "byte_pred")
-    kernels.launched("byte_pred", data, lens, patterns)
+    kernels.launched("byte_pred", kernels.check(rc, "byte_pred"), data, lens,
+                     patterns)
     return out
 
 
@@ -357,6 +357,6 @@ def dfa_scan(data: torch.Tensor, lens: torch.Tensor,
             kernels.ptr(starts), kernels.ptr(accept), table.shape[0],
             table.shape[1], bank.n, kernels.ptr(out),
             kernels.VP(kernels.stream_ptr()))
-    kernels.check(rc, "dfa_scan")
-    kernels.launched("dfa_scan", data, lens, bank)
+    kernels.launched("dfa_scan", kernels.check(rc, "dfa_scan"), data, lens,
+                     bank)
     return out
