@@ -43,7 +43,24 @@ Phases, each fatal on failure:
      B=2048 (timed, with its bound: the kernels table), and check_pack /
      rule_stats on edge inputs (W > 1, C > 32, bit 31, padding rows,
      unknown namespaces, a served host-overlay world);
-  6. print the kernels JSON line, the card line, and last the device
+  6. the authz world (BASELINE config 2): make_rbac_store(1000) — one
+     authorization rule whose rbac policy lowers to ~1,000 pseudo-rule
+     rows — served on the card under MESH_MANIFEST against a
+     device="cpu" server at B ∈ {64, 256, 2048} of
+     make_rbac_request_dicts (responses and rule counts exact, the
+     denied fraction printed), timed like phase 5; K1, K3, K4, K5 and K6
+     held against their plain versions on its B=2048 inputs (timed);
+     counters zeroed before, and every kernel of the path must launch;
+  7. the list world (tests/test_fused_serving.py's store, rebuilt here
+     with the port's MemStore): REGEX and CIDR lists fused beside STRINGS
+     lists and deniers, served on the card against the CPU server on
+     bags that hit the regex prefix, a truncated path, IPv4, IPv6,
+     v4-mapped IPv6, malformed IP lengths and an absent source.ip; every
+     kernel must launch (list_banks among them) and is held against its
+     plain version on the B=2048 inputs (timed: the list_banks row);
+     then (7b) list_banks on random inputs at B=2048 (64 REGEX lists
+     over 256 patterns with truncated rows, 64 CIDR lists x 16 entries);
+  8. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
 is not beside this script.
@@ -57,8 +74,13 @@ import time
 
 HEADLINE_RULES = 10_000
 # the kernels of PolicyEngine.step (phases 3-4); the served path adds
-# check_pack and rule_stats
+# check_pack and rule_stats; the authz world (phase 6) runs no regex and
+# the list world (phase 7) every kernel
 ENGINE_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold")
+SERVED_KERNELS = ENGINE_KERNELS + ("check_pack", "rule_stats")
+AUTHZ_KERNELS = ("rule_match", "byte_pred", "verdict_fold", "check_pack",
+                 "rule_stats")
+AUTHZ_ROLE_RULES = 1000     # BASELINE config 2: make_rbac_store(1000)
 HEADLINE_B = 2048
 E2E_BATCHES = (64, 256, 2048)
 N_STEPS = 3                 # consecutive batches with quota carried
@@ -157,22 +179,37 @@ def bound(bytes_moved: float, ops: float, int_rate: float
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fold_work(matched, req, batch, params, c, quota0, quota1, got
-              ) -> tuple[float, float]:
+def fold_work(matched, req, batch, params, c, quota0, quota1, got,
+              lstate=None, list_kind=None) -> tuple[float, float]:
     """(bytes, ops) the verdict fold must move and do on this run's
-    data. A request row reads its matched / err cells only for the rules
-    its namespace sees (every headline rule is namespaced), the per-rule
+    data. A request row reads, of the rules its namespace sees, the
+    matched cells of the rules that carry a fused action (deny, list,
+    rbac, quota) and the err cells of the rules the error count covers;
+    the columns its RBAC specs' allow and guard rows name; the per-rule
     tables of the rules any row sees, the batch columns the list and
-    quota banks name, and one read per quota counter an active row keys
-    into plus one write per counter that changed (quota1 vs quota0);
-    got is the fold's output."""
+    quota banks name, the list-state bytes of its byte-level lists, and
+    one read per quota counter an active row keys into plus one write
+    per counter that changed (quota1 vs quota0); got is the fold's
+    output."""
     import torch
     status = got[0]
     rule_ns = params["pe_rule_ns"]
+    n_rules = rule_ns.shape[0]
     ns_ok = (rule_ns[None, :] == c.default_ns) | \
         (rule_ns[None, :] == req[:, None])
     active = matched & ns_ok
+    acting = params["pe_deny_mask"].clone()
+    if c.has_lists:
+        acting[params["pe_list_rule"].long()] = True
+    if c.has_rbac:
+        acting[params["pe_rb_rule"].long()] = True
+    if c.has_quota:
+        acting[params["pe_q_rule"].long()] = True
+    counted = params.get("pe_err_rule_mask")
+    counted = torch.ones_like(acting) if counted is None else counted
     cells = int(ns_ok.sum())
+    m_cells = int((ns_ok & acting[None, :]).sum())
+    e_cells = int((ns_ok & counted[None, :]).sum())
     seen = int(ns_ok.any(0).sum())
     per_rule = [params[k] for k in ("pe_deny_mask", "pe_deny_status",
                                     "pe_deny_dur", "pe_deny_uses",
@@ -180,8 +217,18 @@ def fold_work(matched, req, batch, params, c, quota0, quota1, got
                 if params.get(k) is not None]
     nb = matched.shape[0]
     b = nbytes(req, rule_ns, params["pe_ref_table"], *got) * 1.0
-    b += 2 * cells + seen * sum(t.element_size() for t in per_rule)
-    ops = 4.0 * cells
+    b += m_cells + e_cells + seen * sum(t.element_size() for t in per_rule)
+    ops = 2.0 * cells + m_cells + e_cells
+    if c.has_rbac:
+        cols = torch.cat([params["pe_rb_allow"].reshape(-1),
+                          params["pe_rb_guard"]])
+        n_cols = int(torch.unique(cols[cols < n_rules]).numel())
+        b += nb * n_cols + nbytes(*(params[k] for k in (
+            "pe_rb_rule", "pe_rb_dur", "pe_rb_guard", "pe_rb_allow")))
+        ops += float(nb) * (params["pe_rb_allow"].numel() + 8 *
+                            params["pe_rb_rule"].numel())
+    if lstate is not None:
+        b += nbytes(lstate)
     slots_p: set[int] = set()
     if c.has_lists:
         b += nbytes(*(params[k] for k in (
@@ -193,7 +240,10 @@ def fold_work(matched, req, batch, params, c, quota0, quota1, got
         b += nb * len(slots) * batch.ids.element_size()
         l_act = active[:, params["pe_list_rule"].long()] & \
             batch.present[:, l_slot]
-        ops += float(l_act.sum()) * params["pe_list_ids"].shape[1]
+        scan = torch.full_like(l_slot, params["pe_list_ids"].shape[1])
+        if lstate is not None:      # a state byte, not an id scan
+            scan = torch.where(list_kind != 0, 2, scan)
+        ops += float((l_act.double() * scan.double()[None, :]).sum())
     if c.has_quota:
         if bool((params["pe_deny_status"] == RESOURCE_EXHAUSTED).any()) or \
                 bool((params["pe_list_code"] == RESOURCE_EXHAUSTED).any()):
@@ -301,6 +351,84 @@ def stats_library_ms(inputs) -> tuple[float, str]:
             "index_add_ of the hit plane"
 
 
+def int_mm_ms(a, b01) -> tuple[float | None, str]:
+    """Time of one torch._int_mm of the 0/1 planes a [m, k] and b01
+    [k, n] as int8, zero-padded to the shapes it accepts (m > 16, k and
+    n multiples of 8); None when it refuses them."""
+    import torch
+    m, k = a.shape
+    n = b01.shape[1]
+    up = lambda x, q: max(q, -(-x // q) * q)  # noqa: E731
+    a8 = torch.zeros((max(m, 32), up(k, 16)), dtype=torch.int8,
+                     device=a.device)
+    a8[:m, :k] = a.to(torch.int8)
+    b8 = torch.zeros((up(k, 16), up(n, 16)), dtype=torch.int8,
+                     device=a.device)
+    b8[:k, :n] = b01.to(torch.int8)
+    try:
+        torch._int_mm(a8, b8)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return None, f"torch._int_mm refused the shapes ({exc})"
+    return time_ms(lambda: torch._int_mm(a8, b8), 50), \
+        f"torch._int_mm int8 [{a8.shape[0]}, {a8.shape[1]}] x " \
+        f"[{b8.shape[0]}, {b8.shape[1]}]"
+
+
+def rbac_library_ms(matched, params) -> tuple[float | None, str]:
+    """The RBAC allow product of the verdict fold as one library call:
+    matched int8 [B, R] x the specs' one-hot allow matrix [R, n_rbac]."""
+    import torch
+    n_rules = matched.shape[1]
+    allow = params["pe_rb_allow"].long()
+    onehot = torch.zeros((n_rules + 2, allow.shape[0]), dtype=torch.bool,
+                         device=matched.device)
+    onehot[allow, torch.arange(allow.shape[0],
+                               device=matched.device)[:, None]] = True
+    ms, how = int_mm_ms(matched, onehot[:n_rules])
+    return ms, how + " (RBAC allow product only)"
+
+
+def list_work(inputs, lstate, err) -> tuple[float, float]:
+    """(bytes, ops) a list_banks call must move and do on this run's
+    data. regex_list: each (row, list) reads the acceptance bytes of the
+    list's patterns and the value's length, writes its state byte, and
+    an err byte where und holds; cidr_list: each (row, list) reads the
+    value's 16 bytes and length and writes its state byte, and compares
+    (32 byte ops) every valid entry of the value's IP version up to the
+    first hit. The tables are read once."""
+    import torch
+    if inputs[0] == "regex_list":
+        _, acc, str_lens, max_len, lists, _, _ = inputs
+        pos, rule, bslot, ptr, pat, pdef = lists.on(acc.device)
+        nb, nnz, j = acc.shape[0], pat.numel(), lists.n
+        und = int(((lstate[:, pos.long()] & 2) != 0).sum())
+        b = nb * (nnz + 5 * j) + und + nbytes(pos, rule, bslot, ptr, pat,
+                                              pdef)
+        return float(b), float(nb) * (nnz + 4 * j)
+    _, str_bytes, str_lens, lists, _ = inputs
+    pos, bslot, prefix, mask, valid, ent_v4 = lists.on(str_bytes.device)
+    nb, k = str_bytes.shape[0], lists.n
+    sl = bslot.long()
+    vb = str_bytes[:, sl, :16]
+    vl = str_lens[:, sl]
+    is4 = vl == 4
+    v4m = torch.tensor([0] * 10 + [255, 255], dtype=torch.uint8,
+                       device=vb.device)
+    val_v4 = is4 | ((vl == 16) & (vb[:, :, :12] == v4m).all(dim=2))
+    mapped = torch.cat([v4m.expand(nb, k, 12), vb[:, :, :4]], dim=2)
+    v = torch.where(is4[:, :, None], mapped, vb)
+    cand = valid[None] & (ent_v4[None] == val_v4[:, :, None])  # [B, K, E]
+    hit = cand & ((v[:, :, None, :] & mask[None]) == prefix[None]).all(3)
+    first = torch.where(hit.any(2), hit.to(torch.int8).argmax(2) + 1,
+                        hit.shape[2])
+    upto = torch.arange(hit.shape[2], device=hit.device)[None, None, :] \
+        < first[:, :, None]
+    compared = int((cand & upto).sum())
+    b = nb * k * 21 + nbytes(pos, bslot, prefix, mask, valid, ent_v4)
+    return float(b), float(nb * k * 16 + 32 * compared)
+
+
 def check_kernels(captured: list, quota0, int_rate: float | None = None
                   ) -> list[dict]:
     """Phase 3: every captured launch, kernel vs plain (exact equality).
@@ -380,11 +508,12 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             src, rep = "rule_match.cu", "istio_tpu/compiler/ruleset.py:798"
             err = int(sum(int((g != w).sum()) for g, w in zip(got, want)))
         elif name == "verdict_fold":
-            matched, errp, req, batch, params, _, c = inputs
+            matched, errp, req, batch, params, _, c, lstate, kind = inputs
             qk, qp = quota0.clone(), quota0.clone()
-            got = pe.verdict_fold(matched, errp, req, batch, params, qk, c)
+            got = pe.verdict_fold(matched, errp, req, batch, params, qk, c,
+                                  lstate, kind)
             want = pe.verdict_fold_plain(matched, errp, req, batch, params,
-                                         qp, c)
+                                         qp, c, lstate, kind)
             for part, g, w in zip(("status", "dur", "uses", "deny_rule",
                                    "referenced", "err_count"), got, want):
                 assert_equal(f"{tag}.{part}", g, w)
@@ -393,11 +522,15 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
                 continue
             scratch = quota0.clone()
             ms, call, how = timed(lambda: pe.verdict_fold(
-                matched, errp, req, batch, params, scratch, c), 50)
+                matched, errp, req, batch, params, scratch, c, lstate,
+                kind), 50)
             plain, _, _ = timed(lambda: pe.verdict_fold_plain(
-                matched, errp, req, batch, params, scratch, c), 10)
+                matched, errp, req, batch, params, scratch, c, lstate,
+                kind), 10)
             b, ops = fold_work(matched, req, batch, params, c, quota0, qk,
-                               got)
+                               got, lstate, kind)
+            if c.has_rbac:
+                lib, lib_call = rbac_library_ms(matched, params)
             src, rep = ("verdict_fold.cu",
                         "istio_tpu/models/policy_engine.py:379")
             err = int(sum(int((g.float() != w.float()).sum())
@@ -431,6 +564,46 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             src, rep = ("rule_stats.cu",
                         "istio_tpu/runtime/rulestats.py:165")
             err = int(sum(int((g != w).sum()) for g, w in zip(*accs)))
+        elif name == "list_banks":
+            kind, *args = inputs
+            if kind == "regex_list":
+                acc, sl, ml, lists, ls0, err0 = args
+                run = lambda ls, e: bytes_ops.regex_list(  # noqa: E731
+                    acc, sl, ml, lists, ls, e)
+                run_plain = lambda ls, e: bytes_ops.regex_list_plain(  # noqa
+                    acc, sl, ml, *lists.on(acc.device), ls, e)
+            else:
+                sb, sl, lists, ls0 = args
+                err0 = torch.zeros(0, dtype=torch.bool, device=ls0.device)
+                run = lambda ls, e: bytes_ops.cidr_list(  # noqa: E731
+                    sb, sl, lists, ls)
+                run_plain = lambda ls, e: bytes_ops.cidr_list_plain(  # noqa
+                    sb, sl, *lists.on(sb.device), ls)
+            # from a zero state plane and the err plane as captured
+            outs = [(torch.zeros_like(ls0), err0.clone()) for _ in range(2)]
+            run(*outs[0])
+            run_plain(*outs[1])
+            for part, g, w in zip(("lstate", "err"), *outs):
+                assert_equal(f"{tag}.{kind}.{part}", g, w)
+            if int_rate is None:
+                continue
+            scratch = (torch.zeros_like(ls0), err0.clone())
+            ms, call, how = timed(lambda: run(*scratch), 200)
+            plain, _, _ = timed(lambda: run_plain(*scratch), 20)
+            b, ops = list_work(inputs, *outs[0])
+            if kind == "regex_list":
+                _, _, _, ptr, pat, _ = lists.on(acc.device)
+                owner = torch.repeat_interleave(
+                    torch.arange(lists.n, device=acc.device),
+                    (ptr[1:] - ptr[:-1]).long())
+                m01 = torch.zeros((acc.shape[1], lists.n), dtype=torch.bool,
+                                  device=acc.device)
+                m01[pat.long(), owner] = True
+                lib, lib_call = int_mm_ms(acc, m01)
+                lib_call += " (REGEX hit product only)"
+            src, rep = ("list_banks.cu",
+                        "istio_tpu/models/policy_engine.py:439")
+            err = int(sum(int((g != w).sum()) for g, w in zip(*outs)))
         else:
             raise AssertionError(f"unknown kernel {name}")
         bms, by = bound(b, ops, int_rate)
@@ -459,6 +632,8 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
                                                  int_rate)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["calls_per_step"] += 1
+        if row["library_ms"] is None and lib is not None:
+            row["library_ms"], row["library_call"] = lib, lib_call
     return list(rows.values())
 
 
@@ -766,7 +941,6 @@ def served_phase() -> dict:
     drainer thread included) with E2E_BATCHES as its buckets, so its
     constructor warms every timed shape. → the counts, per-B results,
     the captured B=2048 kernel inputs, and both servers for phase 5c."""
-    import numpy as np
     import torch
     from istio_tpu_torch import kernels
 
@@ -810,56 +984,72 @@ def served_phase() -> dict:
     results = {}
     for b in E2E_BATCHES:
         bags = served_traffic("headline", HEADLINE_RULES, b, seed=1)
-        for _ in range(2):
-            srv.check_many(bags)
-        steps += 2
-        cpu_before = rule_counts(cpu)
-        cpu.check_many(bags)
-        once = counts_since(cpu, cpu_before)
-        before = rule_counts(srv)
-        t_before = stage_sums()
-        walls = []
-        for _ in range(SERVED_ITERS):
-            t = time.perf_counter()
-            srv.check_many(bags)
-            walls.append((time.perf_counter() - t) * 1e3)
-        steps += SERVED_ITERS
-        t_after = stage_sums()
-        compare_counts(f"served B={b} timed loop", counts_since(srv, before),
-                       once, times=SERVED_ITERS)
-        busy = device_ms(lambda: srv.check_many(bags), 5)
-        steps += 6
-        p50, p99 = (float(np.percentile(walls, q)) for q in (50, 99))
-        stages = {k: (t_after[k] - t_before[k]) * 1e3 / SERVED_ITERS
-                  for k in t_after}
-        results[b] = {"p50_ms": p50, "p99_ms": p99,
-                      "checks_per_s": b / p50 * 1e3, "busy_ms": busy,
-                      "idle_share": None if busy is None else 1 - busy / p50,
-                      "stages_ms": stages}
-        idle = "not measured" if busy is None else \
-            f"busy {busy:.4f} ms, idle share {1 - busy / p50:.3f}"
-        log(f"[5] served B={b:5d}: wall p50 {p50:.4f} ms p99 {p99:.4f} ms "
-            f"= {b / p50 * 1e3:,.0f} checks/s ({idle}); stages ms/batch "
-            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-            + f"; rule counts = {SERVED_ITERS} x the plain server's")
+        results[b], n = time_check_many(srv, cpu, bags, "[5] served")
+        steps += n
+    out = path_counts("[5] served path", SERVED_KERNELS, steps)
+    return {**out, "results": results, "captured": captured,
+            "quota0": plan.engine.quota_counts.clone(),
+            "servers": (srv, store, cpu, cpu_store)}
+
+
+def time_check_many(srv, cpu, bags, label: str) -> tuple[dict, int]:
+    """Time srv.check_many(bags) over SERVED_ITERS calls after two warm
+    ones: wall p50 / p99, checks/s, device busy and idle share, and the
+    host stage breakdown; the loop's rule counts must equal SERVED_ITERS
+    x the plain server's for the batch. → (result, served steps)."""
+    import numpy as np
+    b = len(bags)
+    for _ in range(2):
+        srv.check_many(bags)
+    cpu_before = rule_counts(cpu)
+    cpu.check_many(bags)
+    once = counts_since(cpu, cpu_before)
+    before = rule_counts(srv)
+    t_before = stage_sums()
+    walls = []
+    for _ in range(SERVED_ITERS):
+        t = time.perf_counter()
+        srv.check_many(bags)
+        walls.append((time.perf_counter() - t) * 1e3)
+    t_after = stage_sums()
+    compare_counts(f"{label} B={b} timed loop", counts_since(srv, before),
+                   once, times=SERVED_ITERS)
+    busy = device_ms(lambda: srv.check_many(bags), 5)
+    p50, p99 = (float(np.percentile(walls, q)) for q in (50, 99))
+    stages = {k: (t_after[k] - t_before[k]) * 1e3 / SERVED_ITERS
+              for k in t_after}
+    idle = "not measured" if busy is None else \
+        f"busy {busy:.4f} ms, idle share {1 - busy / p50:.3f}"
+    log(f"{label} B={b:5d}: wall p50 {p50:.4f} ms p99 {p99:.4f} ms "
+        f"= {b / p50 * 1e3:,.0f} checks/s ({idle}); stages ms/batch "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+        + f"; rule counts = {SERVED_ITERS} x the plain server's")
+    return {"p50_ms": p50, "p99_ms": p99, "checks_per_s": b / p50 * 1e3,
+            "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / p50,
+            "stages_ms": stages}, 2 + SERVED_ITERS + 6
+
+
+def path_counts(label: str, required: tuple, steps: int) -> dict:
+    """Read the launch counters after a path's run (zeroed just before
+    it); every kernel of the path must have launched."""
+    from istio_tpu_torch import kernels
     counts = dict(kernels.launches)
     grids = dict(kernels.launches.grids)
-    missing = [k for k in kernels.KERNELS if counts[k] == 0]
+    missing = [k for k in required if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the served "
-                             f"path: {missing}")
+        raise AssertionError(f"kernels never launched on {label}: "
+                             f"{missing}")
     per_step = {k: counts[k] / steps for k in kernels.KERNELS}
-    per_call = {k: grids[k] / counts[k] for k in kernels.KERNELS}
-    log(f"[5] served path ({steps} served steps): wrapper calls {counts}; "
+    per_call = {k: grids[k] / counts[k] for k in kernels.KERNELS
+                if counts[k]}
+    log(f"{label} ({steps} served steps): wrapper calls {counts}; "
         f"__global__ launches {grids}; calls per step "
         + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items())
         + "; grids per call "
         + ", ".join(f"{k} {v:.2f}" for k, v in per_call.items()))
     return {"counts": counts, "grids": grids, "steps": steps,
-            "per_step": per_step, "results": results,
-            "captured": captured,
-            "quota0": plan.engine.quota_counts.clone(),
-            "servers": (srv, store, cpu, cpu_store)}
+            "per_step": per_step}
 
 
 def swap_phase(srv, store, cpu, cpu_store) -> None:
@@ -911,7 +1101,7 @@ def swap_phase(srv, store, cpu, cpu_store) -> None:
     compare_counts("across the swap", counts_since(srv, before),
                    counts_since(cpu, cpu_before))
     counts = dict(kernels.launches)
-    missing = [k for k in kernels.KERNELS if counts[k] == 0]
+    missing = [k for k in SERVED_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched across the swap: "
                              f"{missing}")
@@ -1017,6 +1207,316 @@ def served_edge_checks() -> int:
     for x in (gpu, cpu, gs, cs):
         x.close()
     return n + 1
+
+def authz_phase(int_rate: float) -> dict:
+    """Phase 6: the authz world (BASELINE config 2): make_rbac_store(1000)
+    served under default_manifest=MESH_MANIFEST on the card against a
+    device="cpu" server, with the launch counters zeroed just before its
+    drive and read just after. make_rbac_request_dicts(B) at B ∈
+    E2E_BATCHES: every response field and the rule counts equal, then
+    the timed loop; the B=2048 batch is captured and K1, K3, K4, K5 and
+    K6 are held against their plain versions on it (timed, with the
+    bounds and the RBAC allow product as a library call)."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.testing import workloads
+
+    man = workloads.MESH_MANIFEST
+    t0 = time.perf_counter()
+    store = workloads.make_rbac_store(AUTHZ_ROLE_RULES)
+    srv = RuntimeServer(store, ServerArgs(default_manifest=man,
+                                          buckets=E2E_BATCHES),
+                        device="cuda")
+    build_s = time.perf_counter() - t0
+    cpu_store = workloads.make_rbac_store(AUTHZ_ROLE_RULES)
+    cpu = RuntimeServer(cpu_store, ServerArgs(default_manifest=man,
+                                              **CPU_SERVER), device="cpu")
+    d = srv.controller.dispatcher
+    plan, snap = d.fused, d.snapshot
+    ((key, g),) = snap.rbac_groups.items()
+    if not g.lowered or plan.host_actions or plan.rbac_rules != {0}:
+        raise AssertionError(f"authz policy did not fuse: {g.reason}")
+    log(f"[6] authz world make_rbac_store({AUTHZ_ROLE_RULES}): snapshot + "
+        f"plan + warm on the card {build_s:.2f} s; {len(snap.rules)} config "
+        f"rule, rbac group {key}: {len(g.allow_rows)} allow rows "
+        f"({g.n_triples} (binding, subject, role-rule) triples) + guard "
+        f"row {g.guard_row}; {snap.ruleset.n_rules} ruleset rows, "
+        f"{snap.ruleset.rule_ns.shape[0]} after the pad to 8; "
+        f"{len(plan.item_names)} items, {len(plan.overlay_cols)} overlay "
+        f"columns")
+    kernels.launches.reset()
+    steps, results, denied = 0, {}, {}
+    for b in E2E_BATCHES:
+        bags = [bag_from_mapping(x) for x in
+                workloads.make_rbac_request_dicts(b, seed=b)]
+        before, cpu_before = rule_counts(srv), rule_counts(cpu)
+        got = srv.check_many(bags)
+        compare_responses(f"authz B={b}", got, cpu.check_many(bags))
+        compare_counts(f"authz B={b}", counts_since(srv, before),
+                       counts_since(cpu, cpu_before))
+        steps += 1
+        codes = [r.status_code for r in got]
+        denied[b] = sum(c != OK for c in codes) / b
+        if not {0, 7} <= set(codes):
+            raise AssertionError(f"authz B={b}: statuses {set(codes)}")
+        log(f"[6] authz B={b}: every response field and the rule counts "
+            f"equal to the device='cpu' server; denied fraction "
+            f"{denied[b]:.4f} (statuses {sorted(set(codes))})")
+        if b == HEADLINE_B:
+            with kernels.launches.capture() as captured:
+                srv.check_many(bags)
+            steps += 1
+            torch.cuda.synchronize()
+        results[b], n = time_check_many(srv, cpu, bags, "[6] authz")
+        steps += n
+    out = path_counts("[6] authz path", AUTHZ_KERNELS, steps)
+    log(f"[6] authz path, B={HEADLINE_B}: K1, K3, K4, K5, K6 against "
+        "their plain versions on its own inputs (timed):")
+    rows = check_kernels(captured, plan.engine.quota_counts.clone(),
+                         int_rate)
+    for x in (srv, cpu, store, cpu_store):
+        x.close()
+    return {**out, "results": results, "denied": denied, "rows": rows,
+            "pseudo_rows": len(g.allow_rows) + 1}
+
+
+def list_world_store():
+    """tests/test_fused_serving.py's store (the listchecker's usual
+    deployments beside deniers): a STRINGS whitelist, a map-derived
+    STRINGS blacklist, a fallback-expression whitelist and a
+    case-insensitive list (both stay on the host), a REGEX path
+    blacklist and an IP_ADDRESSES blacklist over source.ip, a denier, a
+    host-fallback predicate and a namespace-scoped rule."""
+    from istio_tpu_torch.runtime.store import MemStore
+    s = MemStore()
+    lst = lambda **p: {"adapter": "list", "params": p}  # noqa: E731
+    inst = lambda t, **p: {"template": t, "params": p}  # noqa: E731
+    for name, spec in (
+            ("nswhitelist", lst(overrides=["default", "prod"],
+                                blacklist=False, caching_ttl_s=30.0)),
+            ("uablacklist", lst(overrides=["badbot"], blacklist=True)),
+            ("verwhitelist", lst(overrides=["v1", "v2"], blacklist=False)),
+            ("rxlist", lst(overrides=["^/api/"], entry_type="REGEX",
+                           blacklist=True)),
+            ("ipblock", lst(overrides=["10.0.0.0/8", "2001:db8::/32"],
+                            entry_type="IP_ADDRESSES", blacklist=True)),
+            ("cilist", lst(overrides=["Mozilla"],
+                           entry_type="CASE_INSENSITIVE_STRINGS",
+                           blacklist=True)),
+            ("denyall", {"adapter": "denier", "params": {
+                "status_code": 7, "status_message": "admin is off limits",
+                "valid_duration_s": 3.0, "valid_use_count": 100}})):
+        s.set(("handler", "istio-system", name), spec)
+    for name, spec in (
+            ("srcns", inst("listentry", value="source.namespace")),
+            ("ua", inst("listentry", value='request.headers["user-agent"]')),
+            ("appversion", inst("listentry",
+                                value='source.labels["version"] | "none"')),
+            ("path", inst("listentry", value="request.path")),
+            ("srcip", inst("listentry", value="source.ip")),
+            ("nothing", inst("checknothing"))):
+        s.set(("instance", "istio-system", name), spec)
+    rule = lambda m, *acts: {"match": m, "actions": [  # noqa: E731
+        {"handler": h, "instances": list(i)} for h, *i in acts]}
+    for ns, name, spec in (
+            ("istio-system", "r0-denyadmin",
+             rule('request.path.startsWith("/admin")',
+                  ("denyall", "nothing"))),
+            ("istio-system", "r1-nscheck",
+             rule('destination.service == "ratings.default.svc.cluster.local"',
+                  ("nswhitelist", "srcns"))),
+            ("istio-system", "r2-uacheck",
+             rule("connection.mtls", ("uablacklist", "ua"))),
+            ("istio-system", "r3-version",
+             rule('request.method == "POST"', ("verwhitelist", "appversion"))),
+            ("istio-system", "r4-rx",
+             rule('request.scheme == "http"', ("rxlist", "path"))),
+            ("istio-system", "r5-dynkey",
+             rule('request.headers[request.method] == "x"',
+                  ("denyall", "nothing"))),
+            ("prod", "r6-prodonly",
+             rule("request.size > 100", ("denyall.istio-system",
+                                          "nothing.istio-system"))),
+            ("istio-system", "r7-mixed",
+             rule('request.method == "DELETE"', ("denyall", "nothing"),
+                  ("verwhitelist", "appversion"))),
+            ("istio-system", "r8-ip",
+             rule('request.scheme == "https"', ("ipblock", "srcip"))),
+            ("istio-system", "r9-ci",
+             rule('request.useragent == "x"', ("cilist", "ua")))):
+        s.set(("rule", ns, name), spec)
+    return s
+
+
+def list_world_dicts() -> list[dict]:
+    """Bags for the list world: a regex prefix hit and miss, truncated
+    paths either way, IPv4, IPv6, v4-mapped IPv6 in and out of the nets,
+    malformed IP lengths, an absent source.ip and path, beside the
+    store's denier, whitelist and blacklist cases."""
+    v4m = b"\x00" * 10 + b"\xff\xff"
+    http, https = {"request.scheme": "http"}, {"request.scheme": "https"}
+    return [
+        {"request.path": "/admin/keys"}, {"request.path": "/ratings/1"},
+        {"destination.service": "ratings.default.svc.cluster.local",
+         "source.namespace": "evil"},
+        {"connection.mtls": True, "request.headers": {"user-agent": "badbot"}},
+        {"request.method": "POST", "source.labels": {"version": "v9"}},
+        {"request.method": "GET", "request.headers": {"GET": "x"}},
+        {"destination.service": "api.prod.svc.cluster.local",
+         "request.size": 500},
+        dict(http, **{"request.path": "/api/x"}),
+        dict(http, **{"request.path": "/web/x"}),
+        dict(http, **{"request.path": "/api/" + "x" * 200}),
+        dict(http, **{"request.path": "/web/" + "x" * 200}),
+        dict(http),
+        dict(https, **{"source.ip": v4m + bytes([10, 1, 2, 3])}),
+        dict(https, **{"source.ip": bytes([10, 0, 0, 1])}),
+        dict(https, **{"source.ip": bytes.fromhex("20010db8") + b"\0" * 12}),
+        dict(https, **{"source.ip": v4m + bytes([11, 1, 2, 3])}),
+        dict(https, **{"source.ip": bytes([11, 0, 0, 1])}),
+        dict(https, **{"source.ip": bytes.fromhex("fe80") + b"\0" * 14}),
+        dict(https, **{"source.ip": b"\x01\x02\x03"}),
+        dict(https, **{"source.ip": b""}),
+        dict(https),
+        {"request.useragent": "x",
+         "request.headers": {"user-agent": "mozilla"}},
+    ]
+
+
+def list_phase(int_rate: float) -> dict:
+    """Phase 7: the list world on the card against the same store served
+    on the CPU, with the launch counters zeroed just before its drive and
+    read just after: every response field and the rule counts equal at
+    B ∈ {the bags once, 64, 2048 (the bags repeated)}, with the byte
+    tiers both used; every kernel must launch, list_banks among them.
+    The B=2048 batch is captured, and every kernel of it is held against
+    its plain version (timed: the list_banks row)."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+
+    store, cpu_store = list_world_store(), list_world_store()
+    srv = RuntimeServer(store, ServerArgs(buckets=E2E_BATCHES),
+                        device="cuda")
+    cpu = RuntimeServer(cpu_store, ServerArgs(**CPU_SERVER), device="cpu")
+    plan = srv.controller.dispatcher.fused
+    eng = plan.engine
+    log(f"[7] list world: {plan.fused_deny} deny / {plan.fused_lists} lists "
+        f"fused ({eng._rx_lists.n} REGEX, {eng._cidr_lists.n} IP_ADDRESSES); "
+        f"host-overlay rules {sorted(plan.host_actions)}; unfused list kinds "
+        f"{list(plan.unfused_list_kinds)}")
+    dicts = list_world_dicts()
+    kernels.launches.reset()
+    steps = 0
+    for b in (len(dicts), 64, HEADLINE_B):
+        bags = [bag_from_mapping(x) for x in
+                (dicts * (b // len(dicts) + 1))[:b]]
+        before, cpu_before = rule_counts(srv), rule_counts(cpu)
+        got = srv.check_many(bags)
+        compare_responses(f"lists B={b}", got, cpu.check_many(bags))
+        compare_counts(f"lists B={b}", counts_since(srv, before),
+                       counts_since(cpu, cpu_before))
+        steps += 1
+        codes = sorted({r.status_code for r in got})
+        if b == len(dicts):
+            short = [bag_from_mapping(x) for x in dicts
+                     if len(x.get("request.path", "")) <= 32]
+            compare_responses("lists, small byte tier",
+                              srv.check_many(short), cpu.check_many(short))
+            steps += 1
+            if codes != [0, 5, 7, 13]:
+                raise AssertionError(f"list world statuses {codes}")
+        log(f"[7] lists B={b}: every response field and the rule counts "
+            f"equal to the device='cpu' server (statuses {codes})")
+        if b == HEADLINE_B:
+            with kernels.launches.capture() as captured:
+                srv.check_many(bags)
+            steps += 1
+            torch.cuda.synchronize()
+    out = path_counts("[7] list path", kernels.KERNELS, steps)
+    log(f"[7] list path, B={HEADLINE_B}: every kernel against its plain "
+        "version on its own inputs (timed):")
+    rows = check_kernels(captured, eng.quota_counts.clone(), int_rate)
+    for x in (srv, cpu, store, cpu_store):
+        x.close()
+    return {**out, "rows": rows}
+
+
+def list_banks_edge_checks() -> int:
+    """Phase 7b: list_banks against its plain version on random inputs
+    at B=2048: 64 REGEX lists over 256 pattern columns (a third of the
+    patterns with `$`), values on four byte slots with a quarter of the
+    rows truncated, lists sharing rules; and 64 IP_ADDRESSES lists × 16
+    entries of mixed versions and prefix lengths, over values of length
+    4, 16 (v4-mapped or not), and malformed lengths. → cases."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.ops import bytes_ops
+
+    rng = np.random.default_rng(12)
+    b, n_slots, width, n_pat, n_rules = HEADLINE_B, 4, 128, 256, 200
+    acc = torch.from_numpy(rng.random((b, n_pat)) < 0.05).cuda()
+    lens = rng.integers(0, width + 40, size=(b, n_slots)).astype(np.int32)
+    lens[rng.random((b, n_slots)) < 0.25] = width
+    ptr, pat = [0], []
+    for _ in range(64):
+        pat.extend(rng.choice(n_pat, size=int(rng.integers(1, 9)),
+                              replace=False).tolist())
+        ptr.append(len(pat))
+    rx = bytes_ops.RegexLists(
+        pos=np.arange(0, 128, 2, dtype=np.int32),
+        rule=rng.integers(0, n_rules, size=64).astype(np.int32),
+        bslot=rng.integers(0, n_slots, size=64).astype(np.int32),
+        ptr=np.asarray(ptr, np.int32), pat=np.asarray(pat, np.int32),
+        pdef=(rng.random(n_pat) > 1 / 3).astype(np.uint8))
+    nets = []
+    for _ in range(64):
+        ents = []
+        for _ in range(16):
+            if rng.random() < 0.5:
+                a = rng.integers(0, 256, size=4)
+                ents.append(f"{a[0]}.{a[1]}.{a[2]}.{a[3]}/"
+                            f"{int(rng.integers(0, 33))}")
+            else:
+                a = rng.integers(0, 1 << 16, size=8)
+                ents.append(":".join(f"{x:x}" for x in a) +
+                            f"/{int(rng.integers(0, 129))}")
+        nets.append(ents)
+    cidr = bytes_ops.CidrLists.of(list(range(1, 128, 2)),
+                                  rng.integers(0, n_slots, size=64).tolist(),
+                                  nets)
+    data = rng.integers(0, 256, size=(b, n_slots, width)).astype(np.uint8)
+    data[::3, :, :8] = 0                      # near the :: and v4 nets
+    data[1::3, :, :12] = np.frombuffer(b"\0" * 10 + b"\xff\xff", np.uint8)
+    data[:, :, 12:16] = np.where(rng.random((b, n_slots, 1)) < 0.5, 10,
+                                 data[:, :, 12:16])
+    ip_lens = rng.choice([4, 16, 16, 0, 3, 5, 17], size=(b, n_slots))
+    cases = 0
+    for lens_np in (lens, ip_lens.astype(np.int32)):
+        sb = torch.from_numpy(data).cuda()
+        sl = torch.from_numpy(lens_np).cuda()
+        outs = [(torch.zeros((b, 128), dtype=torch.uint8, device="cuda"),
+                 torch.rand(b, n_rules, device="cuda") < 0.01)
+                for _ in range(2)]
+        outs[1][1].copy_(outs[0][1])
+        bytes_ops.regex_list(acc, sl, width, rx, *outs[0])
+        bytes_ops.regex_list_plain(acc, sl, width, *rx.on(acc.device),
+                                   *outs[1])
+        bytes_ops.cidr_list(sb, sl, cidr, outs[0][0])
+        bytes_ops.cidr_list_plain(sb, sl, *cidr.on(sb.device), outs[1][0])
+        for part, g, w in zip(("lstate", "err"), *outs):
+            assert_equal(f"list_banks edge {part}", g, w)
+        st = outs[0][0]
+        bits = [int(((st & m) != 0).sum()) for m in (1, 2, 4)]
+        if lens_np is lens and not (bits[0] and bits[1]):
+            raise AssertionError(f"list_banks edge: member / und {bits}")
+        if lens_np is not lens and not (bits[0] and bits[2]):
+            raise AssertionError(f"list_banks edge: member / bad {bits}")
+        cases += 1
+    return cases
 
 
 def main() -> int:
@@ -1156,15 +1656,44 @@ def main() -> int:
         "rule_stats equal to their plain versions; a served host-overlay "
         "world on padded batches equal to the CPU server")
 
-    # ---- phase 6: result lines
+    # ---- phase 6: the authz world, counters zeroed just before
+    az = authz_phase(int_rate)
+    # ---- phase 7: the list world, counters zeroed just before
+    ls = list_phase(int_rate)
+    log(f"[7b] {list_banks_edge_checks()} edge cases at B={HEADLINE_B}: "
+        "list_banks equal to its plain version")
+
+    # ---- phase 8: result lines. K1-K6 keep the headline served path's
+    # row; list_banks (this slice's kernel) reports the list path's. Each
+    # row carries its kernel's rows on the other paths under "paths".
+    paths = {"served": sv, "authz": az, "lists": ls}
+    by_name = {r["name"]: r for r in table}
+    by_name["list_banks"] = next(r for r in ls["rows"]
+                                 if r["name"] == "list_banks")
+    by_name["list_banks"]["path"] = "lists"
+    table = [by_name[k] for k in kernels.KERNELS]
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "calls_per_step", "bytes", "ops")
     for row in table:
         name = row["name"]
-        row["launches"] = sv["counts"][name]
-        row["grid_launches"] = sv["grids"][name]
-        row["calls_per_served_step"] = sv["per_step"][name]
+        home = paths[row.setdefault("path", "served")]
+        row["launches"] = home["counts"][name]
+        row["grid_launches"] = home["grids"][name]
+        row["calls_per_served_step"] = home["per_step"][name]
         row["engine_path_launches"] = counts[name]
-    log("kernels (served path): " + ", ".join(
-        f"{k}={sv['counts'][k]}" for k in kernels.KERNELS))
+        row["launches_by_path"] = {"engine": counts[name], **{
+            p: r["counts"][name] for p, r in paths.items()}}
+        row["paths"] = {p: {k: x[k] for k in keep} for p in ("authz", "lists")
+                        for x in paths[p]["rows"] if x["name"] == name
+                        and p != row["path"]}
+    log("kernels (launches by path): " + "; ".join(
+        f"{p}: " + ", ".join(f"{k}={r['counts'][k]}" for k in kernels.KERNELS)
+        for p, r in paths.items()))
+    log("authz (check_many, make_rbac_store(1000), "
+        f"{az['pseudo_rows']} pseudo-rule rows): " + ", ".join(
+            f"B={b} p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms "
+            f"{r['checks_per_s']:.0f} checks/s denied "
+            f"{az['denied'][b]:.4f}" for b, r in az["results"].items()))
     log("e2e (engine step): " + ", ".join(
         f"B={b} {ms:.4f} ms {b / ms * 1e3:.0f} checks/s"
         for b, ms in e2e.items()))

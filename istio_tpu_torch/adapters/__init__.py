@@ -4,7 +4,7 @@ Port of istio_tpu/adapters: an adapter declares `Info` (name, supported
 templates, builder factory, default config), a `Builder` validated and
 built once per distinct (adapter, config) signature, and a `Handler`
 receiving template instances per request. This slice carries denier,
-list, memquota, noop and prometheus; every other adapter of the
+list, memquota, noop, prometheus and rbac; every other adapter of the
 reference raises NotPorted when its handler is built (registry.py).
 """
 from istio_tpu_torch.adapters.sdk import (AdapterError, AdapterUnavailable,

@@ -3,7 +3,7 @@ reference: mixer/pkg/config/adapterInfoRegistry.go + generated
 mixer/adapter/inventory.gen.go).
 
 This slice carries the host adapters the served worlds name (denier,
-list, memquota, noop, prometheus). The reference's other adapters raise
+list, memquota, noop, prometheus, rbac). The reference's other adapters raise
 NotPorted when a handler for them is built, never a config error."""
 from __future__ import annotations
 
@@ -12,8 +12,8 @@ from istio_tpu_torch.device import NotPorted
 
 # adapters of the reference's inventory this slice does not carry
 NOT_PORTED = frozenset({"circonus", "fluentd", "kubernetesenv", "opa",
-                        "rbac", "servicecontrol", "stackdriver",
-                        "statsd", "stdio"})
+                        "servicecontrol", "stackdriver", "statsd",
+                        "stdio"})
 
 
 class AdapterRegistry:
@@ -45,5 +45,5 @@ def load_inventory() -> AdapterRegistry:
     """Import every built-in adapter module (each registers itself)."""
     from istio_tpu_torch.adapters import (denier, list_adapter,  # noqa
                                           memquota, noop,
-                                          prometheus_adapter)
+                                          prometheus_adapter, rbac)
     return adapter_registry

@@ -1,22 +1,34 @@
 // verdict_fold — the policy verdict of every request from its rule-match
-// planes: namespace mask, deny fold, STRINGS list scan, quota rank /
-// grant / commit, referenced attributes and the batch error count.
+// planes: namespace mask, deny fold, list fold, RBAC any-allow fold,
+// quota rank / grant / commit, referenced attributes and the batch error
+// count.
 //
 // Replaces the JAX package's istio_tpu/models/policy_engine.py:379-654,
-// PolicyEngine.__init__.<locals>.step, for the deny, STRINGS-list and
-// quota banks (REGEX / CIDR lists and RBAC are not ported yet). Three
+// PolicyEngine.__init__.<locals>.step, after the byte-level list banks
+// (the list_banks kernel computes the REGEX and CIDR memberships). Three
 // launches, one chain on the caller's stream:
 //
 //   1. row_fold      one block per request row b. Threads stride over the
 //      R rules: active = matched & (rule_ns == default | rule_ns ==
 //      req_ns); the deny fold keeps the LOWEST active deny rule (its
 //      status) and the min TTL / use count over all active deny rules;
-//      err & ns_ok (& the err-rule mask) is counted. Threads then stride
-//      over the lists (membership = any entry id == the slot's id; an
-//      absent value on an active list rule is INTERNAL); the winner is
-//      the lowest (rule, list) pair and beats the deny only with a
-//      strictly lower rule index. A block reduction combines them, the
-//      row's status / TTLs / deny_rule are written, every active quota
+//      err & ns_ok (& the err-rule mask) is counted — the err plane the
+//      regex banks already OR'd their undecidable rows into. Threads
+//      then stride over the lists: membership is the id scan (any entry
+//      id == the slot's id), or for a REGEX / IP_ADDRESSES list its
+//      state byte from list_banks (member, und, bad); an absent value,
+//      or a bad one, on an active list rule is INTERNAL, and an und row
+//      is neither evaluated nor INTERNAL. The list winner is the lowest
+//      (rule, list) pair and beats the deny only with a strictly lower
+//      rule index. Then, per RBAC spec, the block's threads stride over
+//      its allow rows (columns of matched; R is the FALSE sentinel, R + 1
+//      the TRUE one) and a block OR gives allow; an active spec whose
+//      guard row is not matched is INTERNAL, one whose guard holds and
+//      that no allow row matched is PERMISSION_DENIED, and the lowest
+//      (rule, spec) of those beats deny and list only with a strictly
+//      lower rule; the spec's TTL mins into the row's wherever it is
+//      active with its guard holding. A block reduction combines them,
+//      the row's status / TTLs / deny_rule are written, every active quota
 //      writes its composite key q·NB + (hash mod nb, floor modulo) to
 //      ckey[q, b] (-1 if inactive), the referenced row is copied from
 //      the per-namespace table, and the block's error count is added to
@@ -37,7 +49,11 @@
 // rank is O(B²·Q) compares but from shared memory, on a few columns.
 // The design reads each plane row by one block with consecutive threads
 // on consecutive rules (coalesced), keeps the per-rule tables in L1/L2,
-// and never materialises the [B, R] active plane.
+// and never materialises the [B, R] active plane. The RBAC fold re-reads
+// only its specs' allow-row columns of the matched row, which the rule
+// pass has just brought into L1: one spec of ~1,000 rows at the authz
+// world is four loads per thread and one block OR, where a thread per
+// spec would walk all of them alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,7 +63,9 @@ constexpr int kThreads = 256;
 constexpr int kTile = 4096;
 constexpr int32_t kIntMax = 2147483647;
 constexpr float kBig = 3.4e38f;
-constexpr int32_t kOK = 0, kInternal = 13, kResourceExhausted = 8;
+constexpr int32_t kOK = 0, kPermissionDenied = 7, kInternal = 13,
+                  kResourceExhausted = 8;
+constexpr uint8_t kListMember = 1, kListUnd = 2, kListBad = 4;
 constexpr float kDefaultDur = 5.0f;
 constexpr int32_t kDefaultUses = 10000;
 
@@ -70,6 +88,10 @@ __global__ void row_fold_kernel(
     const uint8_t* __restrict__ list_black,
     const int32_t* __restrict__ list_code,
     const float* __restrict__ list_dur, const int32_t* __restrict__ list_uses,
+    const uint8_t* __restrict__ list_kind, const uint8_t* __restrict__ lstate,
+    int NRB, int KA, const int32_t* __restrict__ rb_rule,
+    const float* __restrict__ rb_dur, const int32_t* __restrict__ rb_guard,
+    const int32_t* __restrict__ rb_allow,
     const int32_t* __restrict__ ids, const uint8_t* __restrict__ present,
     const int32_t* __restrict__ hash_ids, int C, int Q, int NB,
     const int32_t* __restrict__ q_rule, const int32_t* __restrict__ q_slot,
@@ -112,20 +134,30 @@ __global__ void row_fold_kernel(
   unsigned long long lkey = ~0ull;  // (rule << 32 | list), lowest wins
   float ldur = kBig;
   int32_t luses = kIntMax, lint = 0;
+  const uint8_t* ls_row =
+      lstate != nullptr ? lstate + (long long)b * NL : nullptr;
   for (int l = tid; l < NL; l += blockDim.x) {
     const int32_t rule = list_rule[l];
     const int32_t ns = rule_ns[rule];
     if (!(m_row[rule] && (ns == default_ns || ns == rns))) continue;
     const int slot = list_slot[l];
+    const bool byte = lstate != nullptr && list_kind[l];
+    const uint8_t st = byte ? ls_row[l] : 0;
     bool hit;
-    if (!pr_row[slot]) {
-      hit = true;  // absent value on an active list rule → INTERNAL
+    if (!pr_row[slot] || (st & kListBad)) {
+      hit = true;  // absent or unusable value on an active rule → INTERNAL
       lint = 1;
+    } else if (st & kListUnd) {
+      hit = false;  // undecidable: the rule errs instead (list_banks)
     } else {
-      const int32_t sym = id_row[slot];
       bool member = false;
-      for (int e = 0; e < E && !member; ++e)
-        member = list_ids[(long long)l * E + e] == sym;
+      if (byte) {
+        member = st & kListMember;
+      } else {
+        const int32_t sym = id_row[slot];
+        for (int e = 0; e < E && !member; ++e)
+          member = list_ids[(long long)l * E + e] == sym;
+      }
       hit = member == (list_black[l] != 0);
       ldur = fminf(ldur, list_dur[l]);
       luses = min(luses, list_uses[l]);
@@ -159,6 +191,36 @@ __global__ void row_fold_kernel(
     }
     __syncthreads();
   }
+  // RBAC: allow = OR over the spec's allow rows (a block OR per spec)
+  unsigned long long rbkey = ~0ull;  // (rule << 32 | spec), lowest wins
+  bool rb_deny = false;
+  float rbdur = kBig;
+  for (int i = 0; i < NRB; ++i) {
+    const int32_t* row = rb_allow + (long long)i * KA;
+    bool any = false;
+    for (int k = tid; k < KA && !any; k += blockDim.x) {
+      const int32_t col = row[k];
+      any = col < R ? m_row[col] != 0 : col == R + 1;
+    }
+    const bool allow = __syncthreads_or(any);
+    if (tid == 0) {
+      const int32_t rule = rb_rule[i];
+      const int32_t ns = rule_ns[rule];
+      const bool act = m_row[rule] && (ns == default_ns || ns == rns);
+      const int32_t g = rb_guard[i];
+      const bool guard_ok = g < R ? m_row[g] != 0 : g == R + 1;
+      const bool deny = act && guard_ok && !allow;
+      if (deny || (act && !guard_ok)) {
+        const unsigned long long k =
+            ((unsigned long long)(uint32_t)rule << 32) | (uint32_t)i;
+        if (k < rbkey) {
+          rbkey = k;
+          rb_deny = deny;
+        }
+      }
+      if (act && guard_ok) rbdur = fminf(rbdur, rb_dur[i]);
+    }
+  }
   if (tid == 0) {
     int32_t cand_rule = s_rule[0];
     int32_t cand_status = cand_rule < kIntMax ? deny_status[cand_rule] : kOK;
@@ -169,8 +231,10 @@ __global__ void row_fold_kernel(
         const int32_t l_rule = (int32_t)(s_lkey[0] >> 32);
         const int l_arg = (int)(s_lkey[0] & 0xffffffffull);
         if (l_rule < cand_rule) {  // strict: deny wins ties
-          cand_status = pr_row[list_slot[l_arg]] ? list_code[l_arg]
-                                                 : kInternal;
+          const bool bad = lstate != nullptr && list_kind[l_arg] &&
+                           (ls_row[l_arg] & kListBad);
+          cand_status = pr_row[list_slot[l_arg]] && !bad ? list_code[l_arg]
+                                                         : kInternal;
           cand_rule = l_rule;
         }
       }
@@ -181,6 +245,14 @@ __global__ void row_fold_kernel(
         u = min(u, kDefaultUses);
       }
     }
+    if (rbkey != ~0ull) {
+      const int32_t rb_rule_min = (int32_t)(rbkey >> 32);
+      if (rb_rule_min < cand_rule) {  // strict: deny and list win ties
+        cand_status = rb_deny ? kPermissionDenied : kInternal;
+        cand_rule = rb_rule_min;
+      }
+    }
+    d = fminf(d, rbdur);  // caching TTL; RBAC never touches uses
     const int32_t st = cand_rule < kIntMax ? cand_status : kOK;
     status[b] = st;
     dur[b] = d;
@@ -270,7 +342,10 @@ extern "C" int verdict_fold(
     const int32_t* list_ids, const int32_t* list_rule,
     const int32_t* list_slot, const uint8_t* list_black,
     const int32_t* list_code, const float* list_dur,
-    const int32_t* list_uses, const int32_t* ids, const uint8_t* present,
+    const int32_t* list_uses, const uint8_t* list_kind, const uint8_t* lstate,
+    int NRB, int KA, const int32_t* rb_rule, const float* rb_dur,
+    const int32_t* rb_guard, const int32_t* rb_allow, const int32_t* ids,
+    const uint8_t* present,
     const int32_t* hash_ids, int C, int Q, int NB, const int32_t* q_rule,
     const int32_t* q_slot, const int32_t* q_max, const int32_t* q_nb,
     int32_t* quota_counts, const uint8_t* table, int T_rows, int T_cols,
@@ -282,7 +357,8 @@ extern "C" int verdict_fold(
   row_fold_kernel<<<B, kThreads, 0, s>>>(
       matched, err, req_ns, B, R, rule_ns, default_ns, deny_mask, deny_status,
       deny_dur, deny_uses, err_rule_mask, NL, E, list_ids, list_rule,
-      list_slot, list_black, list_code, list_dur, list_uses, ids, present,
+      list_slot, list_black, list_code, list_dur, list_uses, list_kind,
+      lstate, NRB, KA, rb_rule, rb_dur, rb_guard, rb_allow, ids, present,
       hash_ids, C, Q, NB, q_rule, q_slot, q_nb, table, T_rows, T_cols, n_attr,
       status, dur, uses, deny_rule, referenced, err_count, ckey);
   if (Q > 0) {

@@ -59,6 +59,25 @@ def params_from_reference(params: Mapping[str, Any],
     return out
 
 
+def specs_from_reference(specs: Any) -> list:
+    """The reference engine's action specs (DenySpec, ListEntrySpec of
+    any entry_type, RbacSpec, QuotaSpec) → the port's dataclasses of the
+    same name and fields. The reference keeps its REGEX and CIDR banks
+    as closure constants of its step, not params, so a port engine built
+    from these specs rebuilds them; `params_from_reference` carries the
+    rest (the pe_rb_* tables among them)."""
+    import dataclasses
+
+    from istio_tpu_torch.models import policy_engine
+
+    out = []
+    for spec in specs:
+        cls = getattr(policy_engine, type(spec).__name__)
+        out.append(cls(**{f.name: getattr(spec, f.name)
+                          for f in dataclasses.fields(spec)}))
+    return out
+
+
 def batch_from_reference(ab: Any, device: str | torch.device = "cuda"
                          ) -> AttributeBatch:
     """The reference's AttributeBatch (numpy or jax planes) → the
@@ -80,8 +99,10 @@ def quota_counts_from_reference(arr: Any,
 
 def store_from_reference(ref_store: Any):
     """The reference's config store → a port MemStore holding the same
-    (kind, namespace, name) → spec entries (specs are plain dicts; a
-    provider callable in a list handler's params is carried as is)."""
+    (kind, namespace, name) → spec entries of every kind, the rbac
+    adapter's servicerole / servicerolebinding among them (specs are
+    plain dicts; a provider callable in a list handler's params is
+    carried as is)."""
     from istio_tpu_torch.runtime.store import Event, MemStore
 
     out = MemStore()

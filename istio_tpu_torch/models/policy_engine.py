@@ -3,24 +3,31 @@
 Port of istio_tpu/models/policy_engine.py. For a batch of B requests:
 
     ruleset match          rule_match kernel (+ dfa_scan, byte_pred)  [B, R]
+    REGEX / CIDR lists     dfa_scan + list_banks kernels → list states
     × namespace mask  ┐
     deny actions      │
-    listentry (STRINGS)│   verdict_fold kernel (csrc/verdict_fold.cu)
-    quota rank+grant  │   → status / TTLs / deny_rule / err_count,
-    referenced attrs  ┘     quota counters updated in place
+    listentry          │   verdict_fold kernel (csrc/verdict_fold.cu)
+    rbac any-allow    │   → status / TTLs / deny_rule / err_count,
+    quota rank+grant  │     quota counters updated in place
+    referenced attrs  ┘
 
 Adapter semantics fused on device (as in the reference):
   * denier: per-rule fixed status + TTLs.
-  * list: whitelist/blacklist membership of one value, STRINGS entries
-    as an interned-id equality scan. REGEX and IP_ADDRESSES lists and
-    RbacSpecs raise NotPorted in this slice (ROADMAP.md).
+  * list: whitelist/blacklist membership of one value, by entry_type:
+    STRINGS as an interned-id equality scan, REGEX as a DFA bank per
+    value byte slot (truncated values with no definitive prefix hit err
+    the rule and suppress the deny), IP_ADDRESSES as CIDR prefix
+    compares in v6-mapped space.
+  * rbac: a request is allowed iff any of its policy's pseudo-rule rows
+    (compiler/rbac_lower.py) matched; a guard row that is not
+    definitely true is INTERNAL.
   * memquota: fixed-window counters resident on the device; a batch
     ranks same-bucket requests, grants while prior + rank < max, and
     commits the grants.
 
 Status combining is LOWEST-RULE-INDEX-WINS (the host dispatcher's
-_combine order), ties deny → list → quota; TTLs take the min over every
-active fused rule.
+_combine order), ties deny → list → rbac → quota; TTLs take the min
+over every active fused rule.
 """
 from __future__ import annotations
 
@@ -35,9 +42,10 @@ from istio_tpu_torch.compiler.layout import (AttributeBatch, InternTable,
                                              Tensorizer)
 from istio_tpu_torch.compiler.ruleset import (Rule, RuleSetProgram,
                                               compile_ruleset)
-from istio_tpu_torch.device import NotPorted, resolve_device
+from istio_tpu_torch.device import resolve_device
 from istio_tpu_torch.expr.checker import AttributeDescriptorFinder
 from istio_tpu_torch.models.quota_alloc import batch_rank
+from istio_tpu_torch.ops import bytes_ops
 from istio_tpu_torch.ops.bytes_ops import pack_bits, unpack_bits
 from istio_tpu_torch.utils.log import scope
 
@@ -51,6 +59,7 @@ RESOURCE_EXHAUSTED = 8
 INTERNAL = 13
 _BIG = np.float32(3.4e38)
 INT32_MAX = int(np.iinfo(np.int32).max)
+_LIST_TYPES = ("STRINGS", "REGEX", "IP_ADDRESSES")
 # adapter CheckResult defaults — INTERNAL results min these into the TTL
 # fold (host _combine parity)
 DEFAULT_DUR = np.float32(5.0)
@@ -70,8 +79,18 @@ class DenySpec:
 class ListEntrySpec:
     """list adapter wiring for one rule (listentry template +
     mixer/adapter/list): check `value_attr`'s membership in a fixed
-    list. This slice lowers entry_type STRINGS (interned-id equality
-    scan); REGEX and IP_ADDRESSES raise NotPorted."""
+    list. Three lowerings by entry_type (list.go ListEntryType):
+
+      STRINGS       — interned-id equality scan (exact match)
+      REGEX         — DFA bank over the value's byte slot (Go regexp
+                      search semantics, ops/regex_dfa); truncated values
+                      with no definitive prefix hit mark the rule's err
+                      bit and suppress the deny
+      IP_ADDRESSES  — CIDR prefix compare over the value's IP bytes in
+                      v6-mapped space, version-strict
+
+    CASE_INSENSITIVE_STRINGS and provider-refreshed lists stay on the
+    host (runtime/fused.py)."""
     rule: int
     value_attr: str                # attribute (or (map,key)) whose value is checked
     entries: Sequence[Any]         # list payload per entry_type
@@ -83,8 +102,12 @@ class ListEntrySpec:
 
 @dataclasses.dataclass(frozen=True)
 class RbacSpec:
-    """rbac adapter wiring for one rule (mixer/adapter/rbac rbac.go:181).
-    Not ported in this slice: PolicyEngine raises NotPorted."""
+    """rbac adapter wiring for one rule (mixer/adapter/rbac rbac.go:181
+    HandleAuthorization): the policy's (binding, subject, role-rule)
+    triples were lowered to pseudo-rule rows (compiler/rbac_lower.py);
+    the request is allowed iff ANY `allow_rows` row matched. When the
+    `guard_row` is not definitely true the host path would have failed
+    the instance build with INTERNAL, so the device reports the same."""
     rule: int
     allow_rows: tuple[int, ...]
     guard_row: int = -1            # -1: instance can never error
@@ -142,16 +165,23 @@ class FoldConsts:
     has_lists: bool
     has_quota: bool
     n_attr_cols: int
+    has_rbac: bool
 
 
 def verdict_fold_plain(matched: torch.Tensor, err: torch.Tensor,
                        req_ns: torch.Tensor, batch: AttributeBatch,
                        params: Mapping[str, torch.Tensor],
-                       quota_counts: torch.Tensor, c: FoldConsts
+                       quota_counts: torch.Tensor, c: FoldConsts,
+                       lstate: torch.Tensor | None = None,
+                       list_kind: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, ...]:
     """Plain version of the verdict_fold kernel: the reference's
-    PolicyEngine step (istio_tpu/models/policy_engine.py:379-654) for
-    deny, STRINGS lists, quota and referenced attributes. Updates
+    PolicyEngine step (istio_tpu/models/policy_engine.py:379-654) after
+    the byte-level list banks: deny, lists, RBAC, quota and referenced
+    attributes. `lstate` uint8 [B, NL] holds the list_banks kernels'
+    state bytes (member | und << 1 | bad << 2), read for the lists whose
+    `list_kind` is non-zero in place of the id scan; `err` is the plane
+    the regex banks already OR'd their und bits into. Updates
     quota_counts in place; → (status, dur, uses, deny_rule, referenced,
     err_count)."""
     dev = matched.device
@@ -182,6 +212,17 @@ def verdict_fold_plain(matched: torch.Tensor, err: torch.Tensor,
         l_rule_act = active[:, l_rule_i.long()]
         l_internal = l_rule_act & ~sym_ok
         l_eval = l_rule_act & sym_ok
+        if lstate is not None:
+            byte = (list_kind != 0)[None, :]
+            member = torch.where(
+                byte, (lstate & bytes_ops.LIST_MEMBER) != 0, member)
+            # a present value the host adapter cannot parse (bad) is
+            # INTERNAL; a truncated undecidable regex value (und) is
+            # neither evaluated nor INTERNAL: its rule errs instead
+            bad = (lstate & bytes_ops.LIST_BAD) != 0
+            und = (lstate & bytes_ops.LIST_UND) != 0
+            l_internal = l_internal | (l_rule_act & sym_ok & bad)
+            l_eval = l_eval & ~bad & ~und
         l_hit = l_internal | (l_eval &
                               (member == params["pe_list_black"][None, :]))
         l_key = torch.where(l_hit, l_rule_i[None, :], INT32_MAX)
@@ -205,6 +246,35 @@ def verdict_fold_plain(matched: torch.Tensor, err: torch.Tensor,
         uses = torch.where(any_internal,
                            torch.minimum(uses, torch.tensor(
                                DEFAULT_USES, device=dev)), uses)
+
+    if c.has_rbac:
+        # allowed iff ANY lowered pseudo-rule matched; a guard row that
+        # is not definitely true is INTERNAL. Column R of m_ext is the
+        # FALSE sentinel (padding of allow rows), R + 1 the TRUE one (no
+        # guard)
+        m_ext = torch.cat([matched, torch.zeros((b, 1), dtype=torch.bool,
+                                                device=dev),
+                           torch.ones((b, 1), dtype=torch.bool,
+                                      device=dev)], dim=1)
+        rb_rule = params["pe_rb_rule"]
+        allow = m_ext[:, params["pe_rb_allow"].long()].any(dim=2)
+        guard_ok = m_ext[:, params["pe_rb_guard"].long()]
+        r_active = active[:, rb_rule.long()]
+        r_deny = r_active & guard_ok & ~allow
+        r_bad = r_deny | (r_active & ~guard_ok)
+        rb_key = torch.where(r_bad, rb_rule[None, :], INT32_MAX)
+        rb_arg = torch.argmin(rb_key, dim=1)
+        rb_rule_min = rb_key.min(dim=1).values
+        rb_status = torch.where(
+            torch.gather(r_deny, 1, rb_arg[:, None])[:, 0],
+            PERMISSION_DENIED, INTERNAL)
+        take_rb = rb_rule_min < cand_rule    # deny / list win ties
+        cand_status = torch.where(take_rb, rb_status, cand_status)
+        cand_rule = torch.minimum(cand_rule, rb_rule_min)
+        # caching_ttl on allow and deny alike; INTERNAL carries nothing
+        dur = torch.minimum(dur, torch.where(
+            r_active & guard_ok, params["pe_rb_dur"][None, :], big)
+            .min(dim=1).values)
     status = torch.where(cand_rule < INT32_MAX, cand_status, OK) \
         .to(torch.int32)
 
@@ -252,6 +322,8 @@ _K = kernels
 _FOLD_ARGS = ([_K.VP, _K.VP, _K.VP, _K.I32, _K.I32]           # matched..R
               + [_K.VP, _K.I32] + [_K.VP] * 5                  # ns, deny, mask
               + [_K.I32, _K.I32] + [_K.VP] * 7                 # lists
+              + [_K.VP, _K.VP]                                 # list states
+              + [_K.I32, _K.I32] + [_K.VP] * 4                 # rbac
               + [_K.VP, _K.VP, _K.VP, _K.I32]                  # batch planes
               + [_K.I32, _K.I32] + [_K.VP] * 5                 # quota
               + [_K.VP, _K.I32, _K.I32, _K.I32]                # ref table
@@ -261,15 +333,19 @@ _FOLD_ARGS = ([_K.VP, _K.VP, _K.VP, _K.I32, _K.I32]           # matched..R
 def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
                  req_ns: torch.Tensor, batch: AttributeBatch,
                  params: Mapping[str, torch.Tensor],
-                 quota_counts: torch.Tensor, c: FoldConsts
+                 quota_counts: torch.Tensor, c: FoldConsts,
+                 lstate: torch.Tensor | None = None,
+                 list_kind: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, ...]:
-    """The verdict fold of one batch: namespace mask, deny fold, STRINGS
-    list scan, quota rank / grant / commit (quota_counts updated in
-    place) and referenced attributes → (status, dur, uses, deny_rule,
-    referenced, err_count). CPU tensors run verdict_fold_plain."""
+    """The verdict fold of one batch: namespace mask, deny fold, list
+    fold (id scan, or the list_banks state bytes `lstate` for the lists
+    whose `list_kind` is non-zero), RBAC any-allow fold, quota rank /
+    grant / commit (quota_counts updated in place) and referenced
+    attributes → (status, dur, uses, deny_rule, referenced, err_count).
+    CPU tensors run verdict_fold_plain."""
     if matched.device.type == "cpu":
         return verdict_fold_plain(matched, err, req_ns, batch, params,
-                                  quota_counts, c)
+                                  quota_counts, c, lstate, list_kind)
     if matched.device.type != "cuda":
         raise ValueError(f"verdict_fold: unsupported device {matched.device}")
     dev = matched.device
@@ -288,8 +364,14 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
                   ("pe_list_code", torch.int32), ("pe_list_dur", torch.float32),
                   ("pe_list_uses", torch.int32), ("pe_q_rule", torch.int32),
                   ("pe_q_slot", torch.int32), ("pe_q_max", torch.int32),
-                  ("pe_q_nb", torch.int32), ("pe_ref_table", torch.bool)):
+                  ("pe_q_nb", torch.int32), ("pe_ref_table", torch.bool),
+                  ("pe_rb_rule", torch.int32), ("pe_rb_dur", torch.float32),
+                  ("pe_rb_guard", torch.int32),
+                  ("pe_rb_allow", torch.int32)):
         want[k] = (params[k], dt, None)
+    if lstate is not None:
+        want["lstate"] = (lstate, torch.uint8, None)
+        want["list_kind"] = (list_kind, torch.uint8, None)
     for k, dt in (("ids", torch.int32), ("present", torch.bool),
                   ("hash_ids", torch.int32)):
         want[k] = (getattr(batch, k), dt, None)
@@ -302,6 +384,12 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
     mask = params.get("pe_err_rule_mask")
     n_lists = int(params["pe_list_rule"].shape[0]) if c.has_lists else 0
     n_q = int(quota_counts.shape[0]) if c.has_quota else 0
+    n_rbac = int(params["pe_rb_rule"].shape[0]) if c.has_rbac else 0
+    if lstate is not None and (tuple(lstate.shape) != (b, n_lists) or
+                               tuple(list_kind.shape) != (n_lists,)):
+        raise ValueError(f"verdict_fold: lstate {tuple(lstate.shape)} / "
+                         f"list_kind {tuple(list_kind.shape)} do not fit "
+                         f"{b} rows × {n_lists} lists")
     table = params["pe_ref_table"]
     status = torch.empty(b, dtype=torch.int32, device=dev)
     dur = torch.empty(b, dtype=torch.float32, device=dev)
@@ -326,6 +414,11 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
             p(params["pe_list_slot"]), p(params["pe_list_black"]),
             p(params["pe_list_code"]), p(params["pe_list_dur"]),
             p(params["pe_list_uses"]),
+            null if lstate is None else p(list_kind),
+            null if lstate is None else p(lstate),
+            n_rbac, int(params["pe_rb_allow"].shape[1]),
+            p(params["pe_rb_rule"]), p(params["pe_rb_dur"]),
+            p(params["pe_rb_guard"]), p(params["pe_rb_allow"]),
             p(batch.ids), p(batch.present), p(batch.hash_ids),
             int(batch.ids.shape[1]),
             n_q, int(quota_counts.shape[1]), p(params["pe_q_rule"]),
@@ -337,7 +430,8 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
             p(err_count), p(ckey), p(qstate),
             kernels.VP(kernels.stream_ptr()))
     kernels.launched("verdict_fold", kernels.check(rc, "verdict_fold"),
-                     matched, err, req_ns, batch, params, quota_counts, c)
+                     matched, err, req_ns, batch, params, quota_counts, c,
+                     lstate, list_kind)
     return status, dur, uses, deny_rule, referenced, err_count
 
 
@@ -364,21 +458,22 @@ class PolicyEngine:
                  count_rules: int | None = None,
                  device: str | torch.device = "cuda"):
         dev = resolve_device(device)
-        if rbacs:
-            raise NotPorted("RbacSpec banks (RBAC any-allow fold)")
         for l in lists:
-            if l.entry_type == "REGEX":
-                raise NotPorted("REGEX list banks")
-            if l.entry_type == "IP_ADDRESSES":
-                raise NotPorted("IP_ADDRESSES (CIDR) list banks")
-            if l.entry_type != "STRINGS":
+            if l.entry_type not in _LIST_TYPES:
                 raise ValueError(f"unknown list entry_type {l.entry_type}")
         if ruleset is None:
             if rules is None or finder is None:
                 raise ValueError("PolicyEngine needs rules + finder, or a "
                                  "compiled ruleset")
-            ruleset = compile_ruleset(rules, finder, interner=interner,
-                                      max_str_len=max_str_len, device=dev)
+            # REGEX / CIDR lists match value BYTES: their value attrs
+            # need byte (and, for map reads, derived) layout slots
+            lsrcs = [l.value_attr for l in lists
+                     if l.entry_type in ("REGEX", "IP_ADDRESSES")]
+            ruleset = compile_ruleset(
+                rules, finder, interner=interner, max_str_len=max_str_len,
+                extra_derived_keys=[r for r in lsrcs
+                                    if isinstance(r, tuple)],
+                extra_byte_sources=sorted(set(lsrcs), key=str), device=dev)
         self.device = dev
         self.ruleset = ruleset
         self.finder = finder
@@ -401,9 +496,10 @@ class PolicyEngine:
             deny_dur[d.rule] = d.valid_duration_s
             deny_uses[d.rule] = d.valid_use_count
 
-        # --- list tensors (STRINGS) ---
+        # --- list tensors ---
         n_lists = len(lists)
-        max_entries = max((len(l.entries) for l in lists), default=1) or 1
+        max_entries = max((len(l.entries) for l in lists
+                           if l.entry_type == "STRINGS"), default=1) or 1
         # int32 ids: the reference builds int64 and jax (no x64) narrows
         list_ids = np.zeros((max(n_lists, 1), max_entries), np.int32)
         list_rule = np.zeros(max(n_lists, 1), np.int32)
@@ -412,10 +508,16 @@ class PolicyEngine:
         list_code = np.full(max(n_lists, 1), PERMISSION_DENIED, np.int32)
         list_dur = np.full(max(n_lists, 1), _BIG, np.float32)
         list_uses = np.full(max(n_lists, 1), INT32_MAX, np.int32)
+        list_kind = np.zeros(max(n_lists, 1), np.uint8)
         for i, l in enumerate(lists):
-            ids = [interner.intern(e) for e in l.entries]
-            # pad with ID_INVALID: a present slot's id is never 0
-            list_ids[i, :len(ids)] = ids
+            if l.entry_type == "STRINGS":
+                ids = [interner.intern(e) for e in l.entries]
+                # pad with ID_INVALID: a present slot's id is never 0
+                list_ids[i, :len(ids)] = ids
+            else:
+                # REGEX / IP rows keep all-zero ids; their membership
+                # comes from the list_banks kernels' state bytes
+                list_kind[i] = 1
             list_rule[i] = l.rule
             list_slot[i] = self._slot_for(l.value_attr)
             list_black[i] = l.blacklist
@@ -424,12 +526,27 @@ class PolicyEngine:
             list_dur[i] = l.valid_duration_s
             list_uses[i] = l.valid_use_count
 
-        # --- rbac tensors: none in this slice, kept as the reference's
-        #     empty banks so params carry the same keys
-        rb_rule = np.zeros(1, np.int32)
-        rb_dur = np.full(1, _BIG, np.float32)
-        rb_guard = np.full(1, n_rows + 1, np.int32)
-        rb_allow = np.full((1, 1), n_rows, np.int32)
+        self._max_len = int(self.ruleset.layout.max_str_len)
+        self._dfa_banks, self._rx_lists = self._build_regex_banks(lists)
+        self._cidr_lists = self._build_cidr_bank(lists)
+        self._list_kind = torch.from_numpy(list_kind).to(dev)
+
+        # --- rbac tensors ---
+        n_rbac = len(rbacs)
+        k_allow = max((len(r.allow_rows) for r in rbacs), default=1) or 1
+        # indices into [matched | FALSE col | TRUE col]: padding of allow
+        # rows points at FALSE (OR identity), a missing guard at TRUE
+        false_col, true_col = n_rows, n_rows + 1
+        rb_rule = np.zeros(max(n_rbac, 1), np.int32)
+        rb_dur = np.full(max(n_rbac, 1), _BIG, np.float32)
+        rb_guard = np.full(max(n_rbac, 1), true_col, np.int32)
+        rb_allow = np.full((max(n_rbac, 1), k_allow), false_col, np.int32)
+        for i, r in enumerate(rbacs):
+            rb_rule[i] = r.rule
+            rb_dur[i] = r.valid_duration_s
+            if r.guard_row >= 0:
+                rb_guard[i] = r.guard_row
+            rb_allow[i, :len(r.allow_rows)] = r.allow_rows
 
         # --- quota tensors ---
         n_quotas = len(quotas)
@@ -491,7 +608,8 @@ class PolicyEngine:
         self.fold_consts = FoldConsts(default_ns=default_ns,
                                       has_lists=n_lists > 0,
                                       has_quota=self._has_quota,
-                                      n_attr_cols=n_attr_cols)
+                                      n_attr_cols=n_attr_cols,
+                                      has_rbac=n_rbac > 0)
         # ruleset index tensors + the engine bank tensors — the one
         # argument dict every step takes (interop.params_from_reference
         # builds the same dict from the JAX package's engine)
@@ -507,9 +625,11 @@ class PolicyEngine:
             if not isinstance(req_ns, torch.Tensor) else req_ns
         req = req.to(device=self.device, dtype=torch.int32).contiguous()
         matched, _not_matched, err = self.ruleset.fn(params, batch)
+        lstate = self.list_states(batch, err)
         status, dur, uses, deny_rule, referenced, err_count = verdict_fold(
             matched, err, req, batch, params, quota_counts,
-            self.fold_consts)
+            self.fold_consts, lstate,
+            self._list_kind if lstate is not None else None)
         verdict = CheckVerdict(status=status, valid_duration_s=dur,
                                valid_use_count=uses, referenced=referenced,
                                matched=matched, err=err,
@@ -517,6 +637,31 @@ class PolicyEngine:
         return verdict, quota_counts
 
     raw_step = step
+
+    def list_states(self, batch: AttributeBatch, err: torch.Tensor
+                    ) -> torch.Tensor | None:
+        """State bytes of the REGEX and IP_ADDRESSES lists, uint8 [B, NL]
+        (bytes_ops.LIST_*; zero for STRINGS lists), or None when there
+        are none: one dfa_scan per regex bank, then the list_banks
+        kernels. The regex banks OR their undecidable rows into `err`
+        in place (the reference's err plane after its list fold)."""
+        if self._rx_lists is None and self._cidr_lists is None:
+            return None
+        b = int(batch.ids.shape[0])
+        n_lists = int(self._list_kind.shape[0])
+        lstate = torch.zeros((b, n_lists), dtype=torch.uint8,
+                             device=self.device)
+        if self._rx_lists is not None:
+            accs = [bytes_ops.dfa_scan(batch.str_bytes[:, bslot],
+                                       batch.str_lens[:, bslot], bank)
+                    for bslot, bank in self._dfa_banks]
+            acc = accs[0] if len(accs) == 1 else torch.cat(accs, dim=1)
+            bytes_ops.regex_list(acc, batch.str_lens, self._max_len,
+                                 self._rx_lists, lstate, err)
+        if self._cidr_lists is not None:
+            bytes_ops.cidr_list(batch.str_bytes, batch.str_lens,
+                                self._cidr_lists, lstate)
+        return lstate
 
     def _slot_for(self, attr: Any) -> int:
         lay = self.ruleset.layout
@@ -526,6 +671,80 @@ class PolicyEngine:
                                  "in a rule or add it to derived_keys")
             return lay.derived_slots[attr]
         return lay.slot_of(attr)
+
+    def _byte_slot_for(self, l: ListEntrySpec) -> int:
+        bslot = self.ruleset.layout.byte_slots.get(l.value_attr)
+        if bslot is None:
+            raise ValueError(
+                f"{l.entry_type} list value {l.value_attr!r} has no byte "
+                "slot; pass it via compile_ruleset(extra_byte_sources=...)")
+        return bslot
+
+    def _build_regex_banks(self, lists: Sequence[ListEntrySpec]
+                           ) -> tuple[list, bytes_ops.RegexLists | None]:
+        """REGEX lists grouped by value byte slot → one DFA bank per slot
+        (patterns deduplicated within a bank, in the reference's order)
+        and the lists' CSR pattern rows over the banks' acceptance
+        columns, concatenated in byte-slot order. → ([(bslot, DfaBank)],
+        RegexLists or None). Raises UnsupportedRegex for patterns outside
+        the DFA subset (runtime/fused.py gates fusability on that)."""
+        from istio_tpu_torch.ops.regex_dfa import (compile_regex,
+                                                   pack_dfas_tiered)
+
+        groups: dict[int, dict] = {}
+        for i, l in enumerate(lists):
+            if l.entry_type != "REGEX":
+                continue
+            bslot = self._byte_slot_for(l)
+            g = groups.setdefault(bslot, {"pat_idx": {}, "dfas": [],
+                                          "dollar": [], "lists": []})
+            idxs = []
+            for e in l.entries:
+                e = str(e)
+                j = g["pat_idx"].get(e)
+                if j is None:
+                    j = len(g["dfas"])
+                    g["pat_idx"][e] = j
+                    g["dfas"].append(compile_regex(e))
+                    g["dollar"].append("$" in e)
+                idxs.append(j)
+            g["lists"].append((i, idxs))
+        if not groups:
+            return [], None
+        banks, pos, rule, bslots, ptr, pat, pdef = [], [], [], [], [0], [], []
+        for bslot in sorted(groups):
+            g = groups[bslot]
+            off = len(pdef)
+            banks.append((bslot, bytes_ops.DfaBank.of(
+                pack_dfas_tiered(g["dfas"])["classes"])))
+            pdef.extend(not d for d in g["dollar"])
+            for i, idxs in g["lists"]:
+                pos.append(i)
+                rule.append(lists[i].rule)
+                bslots.append(bslot)
+                pat.extend(off + j for j in idxs)
+                ptr.append(len(pat))
+        return banks, bytes_ops.RegexLists(
+            pos=np.asarray(pos, np.int32), rule=np.asarray(rule, np.int32),
+            bslot=np.asarray(bslots, np.int32),
+            ptr=np.asarray(ptr, np.int32),
+            pat=np.asarray(pat or [0], np.int32),
+            pdef=np.asarray(pdef, np.uint8))
+
+    def _build_cidr_bank(self, lists: Sequence[ListEntrySpec]
+                         ) -> bytes_ops.CidrLists | None:
+        """IP_ADDRESSES lists → per-entry (prefix, mask) byte rows in
+        v6-mapped space. v4 nets map to ::ffff:0:0/96+len; membership
+        also requires the value's v4/v6 version to equal the entry's
+        (ipaddress `addr in net` is version-strict — host parity with
+        list_adapter._member)."""
+        items = [(i, l) for i, l in enumerate(lists)
+                 if l.entry_type == "IP_ADDRESSES"]
+        if not items:
+            return None
+        return bytes_ops.CidrLists.of(
+            [i for i, _ in items], [self._byte_slot_for(l) for _, l in items],
+            [list(l.entries) for _, l in items])
 
     # ------------------------------------------------------------------
     def check(self, batch: AttributeBatch, req_ns: Any) -> CheckVerdict:

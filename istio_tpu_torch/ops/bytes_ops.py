@@ -360,3 +360,262 @@ def dfa_scan(data: torch.Tensor, lens: torch.Tensor,
     kernels.launched("dfa_scan", kernels.check(rc, "dfa_scan"), data, lens,
                      bank)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K7: byte-level list banks (csrc/list_banks.cu)
+# ---------------------------------------------------------------------------
+
+# bits of the per-(row, list) state byte the list_banks kernels write and
+# the verdict_fold kernel reads
+LIST_MEMBER, LIST_UND, LIST_BAD = 1, 2, 4
+
+
+class _OnDevice:
+    """Host arrays with one copy per device, made on first use."""
+
+    _fields: tuple[str, ...] = ()
+
+    def __post_init__(self) -> None:
+        self._dev: dict[torch.device, tuple] = {}
+
+    def on(self, device: torch.device) -> tuple:
+        t = self._dev.get(device)
+        if t is None:
+            t = tuple(torch.from_numpy(np.ascontiguousarray(
+                getattr(self, f))).to(device) for f in self._fields)
+            self._dev[device] = t
+        return t
+
+
+@dataclasses.dataclass(eq=False)
+class RegexLists(_OnDevice):
+    """J REGEX lists over the DFA acceptance plane of their banks: list j
+    sits at list position pos[j], belongs to rule rule[j] and reads the
+    value of byte slot bslot[j]; its patterns are the columns
+    pat[ptr[j]:ptr[j+1]] of the acceptance plane, and pdef[n] marks the
+    $-free patterns (a prefix hit of theirs is definitive on a truncated
+    value). The CSR form of the reference's M / M_def matrices."""
+    pos: np.ndarray      # int32 [J]
+    rule: np.ndarray     # int32 [J]
+    bslot: np.ndarray    # int32 [J]
+    ptr: np.ndarray      # int32 [J + 1]
+    pat: np.ndarray      # int32 [nnz]
+    pdef: np.ndarray     # uint8 [N]
+    _fields = ("pos", "rule", "bslot", "ptr", "pat", "pdef")
+
+    @property
+    def n(self) -> int:
+        return int(self.pos.shape[0])
+
+
+@dataclasses.dataclass(eq=False)
+class CidrLists(_OnDevice):
+    """K IP_ADDRESSES lists as per-entry (prefix, mask) byte rows in
+    v6-mapped space (v4 nets as ::ffff:0:0/96 + len): list k sits at
+    list position pos[k] and reads byte slot bslot[k]; ent_v4 marks the
+    v4 entries (membership is version-strict, as `addr in net` is)."""
+    pos: np.ndarray      # int32 [K]
+    bslot: np.ndarray    # int32 [K]
+    prefix: np.ndarray   # uint8 [K, E, 16]
+    mask: np.ndarray     # uint8 [K, E, 16]
+    valid: np.ndarray    # bool [K, E]
+    ent_v4: np.ndarray   # bool [K, E]
+    _fields = ("pos", "bslot", "prefix", "mask", "valid", "ent_v4")
+
+    @classmethod
+    def of(cls, pos: list[int], bslot: list[int],
+           entries: list[list[str]]) -> "CidrLists":
+        """Encode each list's CIDR strings (v4 or v6, host bits
+        ignored)."""
+        import ipaddress
+
+        n_c = len(entries)
+        e_max = max((len(e) for e in entries), default=1) or 1
+        prefix = np.zeros((n_c, e_max, 16), np.uint8)
+        mask = np.zeros((n_c, e_max, 16), np.uint8)
+        valid = np.zeros((n_c, e_max), bool)
+        ent_v4 = np.zeros((n_c, e_max), bool)
+        for r, ents in enumerate(entries):
+            for e_i, e in enumerate(ents):
+                net = ipaddress.ip_network(str(e), strict=False)
+                if net.version == 4:
+                    plen = net.prefixlen + 96
+                    addr = (b"\x00" * 10 + b"\xff\xff" +
+                            net.network_address.packed)
+                    ent_v4[r, e_i] = True
+                else:
+                    plen = net.prefixlen
+                    addr = net.network_address.packed
+                m_int = (((1 << plen) - 1) << (128 - plen)) if plen else 0
+                mbytes = m_int.to_bytes(16, "big")
+                prefix[r, e_i] = np.frombuffer(
+                    bytes(a & mm for a, mm in zip(addr, mbytes)), np.uint8)
+                mask[r, e_i] = np.frombuffer(mbytes, np.uint8)
+                valid[r, e_i] = True
+        return cls(pos=np.asarray(pos, np.int32),
+                   bslot=np.asarray(bslot, np.int32), prefix=prefix,
+                   mask=mask, valid=valid, ent_v4=ent_v4)
+
+    @property
+    def n(self) -> int:
+        return int(self.pos.shape[0])
+
+
+def regex_list_plain(acc: torch.Tensor, str_lens: torch.Tensor,
+                     max_len: int, pos: torch.Tensor, rule: torch.Tensor,
+                     bslot: torch.Tensor, ptr: torch.Tensor,
+                     pat: torch.Tensor, pdef: torch.Tensor,
+                     lstate: torch.Tensor, err: torch.Tensor) -> None:
+    """Plain version of the regex_list kernel (the reference's
+    policy_engine.py:439-473 after the DFA scan), in place: hit / dec are
+    the acceptance plane times the list's pattern matrix M / M_def (> 0);
+    member = trunc ? dec : hit, und = trunc & ~dec with trunc = the
+    value's length >= max_len; lstate[:, pos] gets member | und << 1 and
+    err[:, rule] is OR'd with und."""
+    n, j = int(acc.shape[1]), int(pos.shape[0])
+    dev = acc.device
+    owner = torch.repeat_interleave(
+        torch.arange(j, device=dev), (ptr[1:] - ptr[:-1]).long())
+    m = torch.zeros((n, j), dtype=torch.float32, device=dev)
+    m[pat.long(), owner] = 1.0
+    m_def = m * pdef.to(torch.float32)[:, None]
+    a = acc.to(torch.float32)                # counts stay exact in f32
+    hit = (a @ m) > 0
+    dec = (a @ m_def) > 0
+    trunc = str_lens[:, bslot.long()] >= max_len               # [B, J]
+    member = torch.where(trunc, dec, hit)
+    und = trunc & ~dec
+    lstate[:, pos.long()] = member.to(torch.uint8) | \
+        (und.to(torch.uint8) << 1)
+    e8 = err.to(torch.uint8)
+    e8.scatter_reduce_(1, rule.long()[None, :].expand(und.shape[0], j),
+                       und.to(torch.uint8), reduce="amax")
+    err.copy_(e8 != 0)
+
+
+def cidr_list_plain(str_bytes: torch.Tensor, str_lens: torch.Tensor,
+                    pos: torch.Tensor, bslot: torch.Tensor,
+                    prefix: torch.Tensor, mask: torch.Tensor,
+                    valid: torch.Tensor, ent_v4: torch.Tensor,
+                    lstate: torch.Tensor) -> None:
+    """Plain version of the cidr_list kernel (the reference's
+    policy_engine.py:475-502), in place: lstate[:, pos] gets member |
+    bad << 2, member = any entry whose prefix the value's v6-mapped
+    bytes fall under with the entry's IP version, bad = the value's
+    length is neither 4 nor 16."""
+    sl = bslot.long()
+    vb = str_bytes[:, sl, :16]                                 # [B, K, 16]
+    vl = str_lens[:, sl]
+    mapped = torch.zeros_like(vb)
+    mapped[:, :, 10:12] = 255
+    mapped[:, :, 12:16] = vb[:, :, 0:4]
+    is4 = vl == 4
+    v6m_pre = torch.tensor([0] * 10 + [255, 255], dtype=torch.uint8,
+                           device=vb.device)
+    val_mapped = (vb[:, :, :12] == v6m_pre).all(dim=2)
+    v = torch.where(is4[:, :, None], mapped, vb)
+    val_ok = is4 | (vl == 16)
+    val_v4 = is4 | ((vl == 16) & val_mapped)
+    hit_e = ((v[:, :, None, :] & mask[None]) == prefix[None]).all(dim=3)
+    hit_e &= valid[None]
+    hit_e &= val_v4[:, :, None] == ent_v4[None]
+    member = hit_e.any(dim=2) & val_ok
+    lstate[:, pos.long()] = member.to(torch.uint8) | \
+        ((~val_ok).to(torch.uint8) << 2)
+
+
+_REGEX_LIST_ARGS = ([kernels.VP, kernels.I32, kernels.I32, kernels.VP,
+                     kernels.I64, kernels.I64, kernels.I32, kernels.I32]
+                    + [kernels.VP] * 7 + [kernels.I32, kernels.VP,
+                                          kernels.I32, kernels.VP])
+_CIDR_LIST_ARGS = ([kernels.VP, kernels.I64, kernels.I64, kernels.I32,
+                    kernels.VP, kernels.I64, kernels.I64, kernels.I32,
+                    kernels.VP, kernels.VP, kernels.I32]
+                   + [kernels.VP] * 5 + [kernels.I32, kernels.VP])
+
+
+def _planes(lstate: torch.Tensor, str_lens: torch.Tensor,
+            lists: RegexLists | CidrLists, b: int, name: str) -> None:
+    """The shapes a list_banks launch indexes by: lstate uint8 [B, NL]
+    (contiguous) and str_lens int32 [B, S], with every list's position
+    and byte slot inside them."""
+    if lstate.dim() != 2 or lstate.shape[0] != b or \
+            lstate.dtype != torch.uint8 or not lstate.is_contiguous():
+        raise ValueError(f"{name}: lstate must be a contiguous uint8 "
+                         f"[{b}, NL] tensor, got {lstate.dtype} "
+                         f"{tuple(lstate.shape)}")
+    if str_lens.dim() != 2 or str_lens.shape[0] != b or \
+            str_lens.dtype != torch.int32:
+        raise ValueError(f"{name}: str_lens must be int32 [{b}, S], got "
+                         f"{str_lens.dtype} {tuple(str_lens.shape)}")
+    if lists.n and (int(lists.pos.max()) >= lstate.shape[1] or
+                    int(lists.bslot.max()) >= str_lens.shape[1]):
+        raise ValueError(f"{name}: a list position or byte slot is "
+                         "outside lstate / str_lens")
+
+
+def regex_list(acc: torch.Tensor, str_lens: torch.Tensor, max_len: int,
+               lists: RegexLists, lstate: torch.Tensor,
+               err: torch.Tensor) -> None:
+    """Membership of every REGEX list from the DFA acceptance plane acc
+    bool [B, N] of its banks, in one launch: writes each list's state
+    byte (member | und << 1) into lstate uint8 [B, NL] and sets the err
+    plane bool [B, R] at the list's rule where und holds."""
+    b = int(acc.shape[0])
+    _planes(lstate, str_lens, lists, b, "regex_list")
+    if acc.dim() != 2 or err.dim() != 2 or err.shape[0] != b or \
+            lists.pdef.shape[0] != acc.shape[1] or \
+            (lists.n and int(lists.rule.max()) >= err.shape[1]):
+        raise ValueError(f"regex_list: acc {tuple(acc.shape)} / err "
+                         f"{tuple(err.shape)} do not fit the lists")
+    pos, rule, bslot, ptr, pat, pdef = lists.on(acc.device)
+    if not _kernel_or_plain(acc, str_lens, lstate, err):
+        regex_list_plain(acc, str_lens, max_len, pos, rule, bslot, ptr,
+                         pat, pdef, lstate, err)
+        return
+    for t, name in ((acc, "acc"), (err, "err")):
+        if t.dtype != torch.bool or not t.is_contiguous():
+            raise ValueError(f"regex_list: {name} must be a contiguous "
+                             "bool tensor")
+    if b == 0 or lists.n == 0:
+        return
+    p = kernels.ptr
+    fn = kernels.function("list_banks", "regex_list", _REGEX_LIST_ARGS)
+    rc = fn(p(acc), b, int(acc.shape[1]), p(str_lens), str_lens.stride(0),
+            str_lens.stride(1), int(max_len), lists.n, p(pos), p(rule),
+            p(bslot), p(ptr), p(pat), p(pdef), p(lstate),
+            int(lstate.shape[1]), p(err), int(err.shape[1]),
+            kernels.VP(kernels.stream_ptr()))
+    kernels.launched("list_banks", kernels.check(rc, "list_banks"),
+                     "regex_list", acc, str_lens, max_len, lists, lstate,
+                     err)
+
+
+def cidr_list(str_bytes: torch.Tensor, str_lens: torch.Tensor,
+              lists: CidrLists, lstate: torch.Tensor) -> None:
+    """Membership of every IP_ADDRESSES list, in one launch: writes each
+    list's state byte (member | bad << 2) into lstate uint8 [B, NL]."""
+    b = int(str_bytes.shape[0])
+    _planes(lstate, str_lens, lists, b, "cidr_list")
+    if str_bytes.dim() != 3 or str_bytes.shape[2] < 16 or \
+            str_bytes.shape[1] != str_lens.shape[1] or \
+            str_bytes.stride(2) != 1 or str_bytes.dtype != torch.uint8:
+        raise ValueError("cidr_list: str_bytes must be uint8 [B, S, L] "
+                         f"with L >= 16, got {tuple(str_bytes.shape)}")
+    fields = lists.on(str_bytes.device)
+    if not _kernel_or_plain(str_bytes, str_lens, lstate):
+        cidr_list_plain(str_bytes, str_lens, *fields, lstate)
+        return
+    if b == 0 or lists.n == 0:
+        return
+    pos, bslot, prefix, mask, valid, ent_v4 = fields
+    p = kernels.ptr
+    fn = kernels.function("list_banks", "cidr_list", _CIDR_LIST_ARGS)
+    rc = fn(p(str_bytes), str_bytes.stride(0), str_bytes.stride(1), b,
+            p(str_lens), str_lens.stride(0), str_lens.stride(1), lists.n,
+            p(pos), p(bslot), int(prefix.shape[1]), p(prefix), p(mask),
+            p(valid), p(ent_v4), p(lstate), int(lstate.shape[1]),
+            kernels.VP(kernels.stream_ptr()))
+    kernels.launched("list_banks", kernels.check(rc, "list_banks"),
+                     "cidr_list", str_bytes, str_lens, lists, lstate)

@@ -17,11 +17,10 @@ PolicyEngine construction by the controller.
 
 Port of istio_tpu/runtime/config.py: the snapshot build is the
 reference's, step for step, so layouts, rulesets and plans come out
-equal. The rbac device lowering (`_lower_rbac_groups`, with
-compiler/rbac_lower.py) waits for the RBAC fold and raises NotPorted
-rather than change the result; the reference's DecompCache is a host
-memo and is left out (`decomp_cache` stays None). The ruleset
-compiles onto `device`.
+equal, rbac pseudo-rule rows included (`_lower_rbac_groups` with
+compiler/rbac_lower.py); the reference's DecompCache is a host memo and
+is left out (`decomp_cache` stays None). The ruleset compiles onto
+`device`.
 """
 from __future__ import annotations
 
@@ -38,7 +37,8 @@ from istio_tpu_torch.compiler.layout import InternTable, Tensorizer
 from istio_tpu_torch.expr.checker import AttributeDescriptorFinder
 from istio_tpu_torch.templates import (InstanceBuilder, TemplateError, Variety,
                                        registry as template_registry)
-from istio_tpu_torch.device import NotPorted, resolve_device
+from istio_tpu_torch.device import resolve_device
+from istio_tpu_torch.utils.log import scope
 from istio_tpu_torch.runtime.store import Store
 
 KIND_MANIFEST = "attributemanifest"
@@ -471,19 +471,71 @@ class SnapshotBuilder:
     def _lower_rbac_groups(rules, handlers, instances,
                            instance_templates, roles, bindings, finder,
                            preds):
-        """The reference synthesizes rbac pseudo-rule predicates here
-        (compiler/rbac_lower.py) so the fused engine folds RBAC on the
-        device. That fold is not ported: a store whose rules wire an
-        authorization instance to an rbac handler raises NotPorted
-        (build with lower_rbac=False to leave them out). Every other
-        store lowers nothing, as in the reference."""
+        """Synthesize rbac pseudo-rule predicates, appending to `preds`.
+
+        Every synthesized AST is pre-validated (eval_type == BOOL) so
+        the whole-ruleset compile can never fail because of a pseudo
+        rule — an unfusable policy shape keeps its action on the host
+        adapter (group.lowered=False, logged), never changes
+        semantics."""
+        from istio_tpu_torch.compiler.rbac_lower import (RbacLowerError,
+                                                         lower_rbac)
+        from istio_tpu_torch.expr.checker import DEFAULT_FUNCS, eval_type
+        from istio_tpu_torch.attribute.types import ValueType
+
+        log = scope("runtime.config")
+
+        groups: dict[tuple[str, str], RbacGroup] = {}
         for rc in rules:
             for action in rc.actions:
                 hc = handlers.get(action.handler)
                 if hc is None or hc.adapter != "rbac":
                     continue
-                if any(instance_templates.get(i) == "authorization"
-                       for i in action.instances):
-                    raise NotPorted("rbac device lowering "
-                                    "(_lower_rbac_groups, the RBAC fold)")
-        return {}
+                for inst in action.instances:
+                    if instance_templates.get(inst) != "authorization" \
+                            or (action.handler, inst) in groups:
+                        continue
+                    key = (action.handler, inst)
+                    # handler params override store kinds, matching the
+                    # host build (runtime/handler_table.py setdefault —
+                    # an explicit empty list in params stays empty)
+                    eff_roles = hc.params["roles"] \
+                        if "roles" in hc.params else roles
+                    eff_bindings = hc.params["bindings"] \
+                        if "bindings" in hc.params else bindings
+                    try:
+                        low = lower_rbac(eff_roles, eff_bindings,
+                                         instances[inst].expr_tree(),
+                                         finder)
+                        for ast in low.allow_asts + (
+                                [low.guard_ast] if low.guard_ast
+                                is not None else []):
+                            t = eval_type(ast, finder, DEFAULT_FUNCS)
+                            if t != ValueType.BOOL:
+                                raise RbacLowerError(
+                                    f"pseudo-rule type {t.name}")
+                    except Exception as exc:
+                        reason = f"{type(exc).__name__}: {exc}"
+                        log.info("rbac policy for %s not device-"
+                                 "lowerable, serving via host adapter:"
+                                 " %s", inst, reason)
+                        groups[key] = RbacGroup(
+                            handler=action.handler, instance=inst,
+                            allow_rows=(), lowered=False, reason=reason)
+                        continue
+                    base = len(preds)
+                    for i, ast in enumerate(low.allow_asts):
+                        preds.append(RulePred(
+                            name=f"~rbac/{inst}/{i}", ast=ast))
+                    guard_row = -1
+                    if low.guard_ast is not None:
+                        guard_row = len(preds)
+                        preds.append(RulePred(
+                            name=f"~rbac/{inst}/guard",
+                            ast=low.guard_ast))
+                    groups[key] = RbacGroup(
+                        handler=action.handler, instance=inst,
+                        allow_rows=tuple(
+                            range(base, base + len(low.allow_asts))),
+                        guard_row=guard_row, n_triples=low.n_triples)
+        return groups

@@ -2,7 +2,8 @@
 
 Port of istio_tpu/runtime/fused.py. Given a validated Snapshot, extract
 every CHECK action the fused device step can absorb (denier →
-DenySpec, id-exact string lists → ListEntrySpec) and build one
+DenySpec, static STRINGS / REGEX / IP_ADDRESSES lists → ListEntrySpec,
+lowered rbac policies → RbacSpec) and build one
 PolicyEngine per snapshot, reusing the snapshot's compiled
 RuleSetProgram. Everything that cannot lower (handlers without a device
 lowering, case-insensitive or provider-refreshed lists, rules whose
@@ -14,10 +15,9 @@ the reference's field for field; `packed_check` makes one device trip
 The packer is the check_pack kernel (csrc/check_pack.cu, K5; the
 reference's `_base_packer.<locals>.pack` with the bit-lane codec B4
 inside). Not carried in this slice, each raising NotPorted where asked
-for: REGEX and IP_ADDRESSES list banks the reference would fuse, the
-report packer (`packed_report`, B11, so `report_lowering` stays None),
-the in-step quota packer (`packed_check_instep`, B8), the C++ wire
-tensorizer (`native` stays None) and mesh serving.
+for: the report packer (`packed_report`, B11, so `report_lowering`
+stays None), the in-step quota packer (`packed_check_instep`, B8), the
+C++ wire tensorizer (`native` stays None) and mesh serving.
 """
 from __future__ import annotations
 
@@ -480,7 +480,8 @@ def build_fused_plan(snapshot: Snapshot,
     rbac_rules: set[int] = set()
     host_actions: dict[int, list] = {}
     instance_attrs: list[frozenset] = []
-    # ruleset rows beyond the config rules would be rbac pseudo-rules
+    # ruleset rows beyond the config rules are rbac pseudo-rules — they
+    # carry no actions and never appear in overlays or host fallbacks
     n_real = len(snapshot.rules)
 
     def add_host(ridx: int, action) -> None:
@@ -542,13 +543,6 @@ def build_fused_plan(snapshot: Snapshot,
             if hc.adapter == "list" and template == "listentry":
                 fused, host = _split_list_instances(
                     snapshot, hc, inst_names, layout, unfused_kinds)
-                et = str(hc.params.get("entry_type", "STRINGS"))
-                if fused and et != "STRINGS":
-                    # the reference fuses this list into a device bank
-                    # the port does not have yet; sending it to the host
-                    # overlay would serve a different plan
-                    raise NotPorted(f"{et} list banks (rule "
-                                    f"{snapshot.rules[ridx].name})")
                 if pos == 0 and fused and not host:
                     fused_first.add(ridx)
                 for iname, value_attr in fused:
@@ -560,7 +554,8 @@ def build_fused_plan(snapshot: Snapshot,
                             hc.params.get("caching_ttl_s", 300.0)),
                         valid_use_count=int(
                             hc.params.get("caching_use_count", 10_000)),
-                        entry_type=et))
+                        entry_type=str(hc.params.get("entry_type",
+                                                     "STRINGS"))))
                     list_rules.add(ridx)
                 if host:
                     add_host(ridx, (hc, template, host))
@@ -584,9 +579,9 @@ def build_fused_plan(snapshot: Snapshot,
                           deny=list(deny_by_rule.values()), lists=lists,
                           quotas=(), rbacs=rbacs, count_rules=n_real,
                           device=rs.device)
-    log.info("fused plan: %d deny rules, %d lists, %d rbac actions, "
-             "%d host-overlay rules", len(deny_by_rule), len(lists),
-             len(rbacs), len(host_actions))
+    log.info("fused plan: %d deny rules, %d lists, %d rbac actions "
+             "(%d pseudo-rules), %d host-overlay rules", len(deny_by_rule),
+             len(lists), len(rbacs), rs.n_rules - n_real, len(host_actions))
 
     # referenced-attribute item space: every layout column (slot or
     # derived) plus every map slot

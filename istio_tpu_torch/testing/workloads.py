@@ -339,3 +339,94 @@ def make_hit_requests(n_rules: int, batch: int, seed: int = 3
         dicts.append(d)
         ns.append(f"ns{i % 23}" if rng.random() < 0.9 else "ns24")
     return dicts, ns
+
+
+def make_rbac_store(n_role_rules: int, n_users: int = 200,
+                    n_services: int = 128):
+    """BASELINE config 2: a 1k-role-rule RBAC world as real config
+    kinds. One ServiceRole per role rule (services/methods/paths mixing
+    exact, prefix `p*` and suffix `*s` stringMatch forms, every 5th
+    with a constraint), one binding per role (user or group subjects,
+    every 7th with a subject property) — all in namespace "default" —
+    plus one authorization instance + rule. The whole policy lowers to
+    device pseudo-rules (compiler/rbac_lower.py); reference semantics:
+    mixer/adapter/rbac/rbac.go:181 HandleAuthorization."""
+    from istio_tpu_torch.runtime.store import MemStore
+
+    s = MemStore()
+    s.set(("handler", "istio-system", "authzh"), {
+        "adapter": "rbac", "params": {"caching_ttl_s": 60.0}})
+    s.set(("instance", "istio-system", "authz"), {
+        "template": "authorization",
+        "params": {
+            "subject": {"user": 'source.user | ""',
+                        "groups": 'source.labels["group"] | ""',
+                        "properties": {
+                            "version": 'source.labels["version"] | ""'}},
+            "action": {"namespace": 'destination.namespace | ""',
+                       "service": 'destination.service | ""',
+                       "method": 'request.method | ""',
+                       "path": 'request.path | ""',
+                       "properties": {
+                           "version":
+                               'request.headers["version"] | ""'}}}})
+    s.set(("rule", "istio-system", "authz-rule"), {
+        "match": "", "actions": [{"handler": "authzh",
+                                  "instances": ["authz"]}]})
+    for i in range(n_role_rules):
+        k = i % 4
+        if k == 0:
+            services = [f"svc{i % n_services}.default.svc.cluster.local"]
+        elif k == 1:
+            services = ["*.default.svc.cluster.local"]
+        else:
+            services = [f"svc{i % n_services}.*"]
+        rule: dict = {"services": services,
+                      "methods": (["GET"], ["GET", "POST"], ["*"],
+                                  ["DELETE"])[i % 4],
+                      "paths": ([f"/api/v{i % 9}/*"], ["*"],
+                                [f"*/{i % 31}.html"],
+                                [f"/data/{i % 100}"])[i % 4]}
+        if i % 5 == 0:
+            rule["constraints"] = [{"key": "version",
+                                    "values": ["v1", f"v{i % 7}"]}]
+        s.set(("servicerole", "default", f"role{i}"), {"rules": [rule]})
+        subj: dict
+        if i % 3 == 0:
+            subj = {"user": f"user{i % n_users}"}
+        elif i % 3 == 1:
+            subj = {"group": f"group{i % 29}"}
+        else:   # combined user AND group constraint
+            subj = {"user": f"user{i % n_users}",
+                    "group": f"group{i % 29}"}
+        if i % 7 == 0:
+            subj["properties"] = {"version": f"v{i % 7}"}
+        s.set(("servicerolebinding", "default", f"bind{i}"), {
+            "roleRef": {"kind": "ServiceRole", "name": f"role{i}"},
+            "subjects": [subj]})
+    return s
+
+
+def make_rbac_request_dicts(batch: int, n_users: int = 200,
+                            n_services: int = 128,
+                            seed: int = 7) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(batch):
+        out.append({
+            "source.user": f"user{int(rng.integers(n_users))}",
+            "source.labels": {"group": f"group{int(rng.integers(32))}",
+                              "version": f"v{int(rng.integers(8))}"},
+            "destination.namespace": "default",
+            "destination.service":
+                f"svc{int(rng.integers(n_services))}"
+                ".default.svc.cluster.local",
+            "request.method": ("GET", "POST", "DELETE",
+                               "PUT")[int(rng.integers(4))],
+            "request.path": (f"/api/v{int(rng.integers(10))}/items",
+                             f"/data/{int(rng.integers(120))}",
+                             f"/static/{int(rng.integers(40))}.html"
+                             )[i % 3],
+            "request.headers": {"version": f"v{int(rng.integers(8))}"},
+        })
+    return out

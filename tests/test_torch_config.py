@@ -3,9 +3,9 @@ store, the Snapshot's rules (names, namespaces, matches, actions), the
 instance templates and referenced attributes, the soft errors, the
 layout and every array of the compiled ruleset (rule_pad 8, so pad rows
 included) must be equal, and so must its verdicts. The rbac device
-lowering is not ported and must raise NotPorted rather than serve a
-different plan; the store delivers watch events and the handler table
-reuses unchanged handlers."""
+lowering appends the reference's pseudo-rule rows and the rbac handler
+builds; the store delivers watch events and the handler table reuses
+unchanged handlers."""
 import numpy as np
 import pytest
 import torch
@@ -18,7 +18,6 @@ from istio_tpu.testing import workloads as ref_workloads
 from istio_tpu_torch import interop
 from istio_tpu_torch.attribute.bag import DictBag
 from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
-from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.runtime.config import SnapshotBuilder
 from istio_tpu_torch.runtime.handler_table import HandlerTable
 from istio_tpu_torch.runtime.store import MemStore
@@ -142,27 +141,71 @@ def test_snapshot_matches_reference(name):
 
 
 def test_rbac_lowering_raises_not_ported():
-    s = workloads.make_store(4)
+    """(Named from when the rbac lowering raised NotPorted.) A rule that
+    wires an authorization instance to an rbac handler now lowers to
+    pseudo-rule rows after the config rules, exactly the reference's,
+    and the rbac adapter's handler builds; lower_rbac=False leaves them
+    out."""
+    ref_store = ref_workloads.make_store(4)
+    s = interop.store_from_reference(ref_store)
     try:
         s.set(("handler", "istio-system", "authz"), {
             "adapter": "rbac", "params": {}})
         s.set(("instance", "istio-system", "req"), {
             "template": "authorization",
             "params": {"subject": {"user": "source.user"},
-                       "action": {"method": "request.method"}}})
+                       "action": {"namespace": "destination.namespace",
+                                  "method": "request.method"}}})
         s.set(("rule", "istio-system", "authz-rule"), {
             "match": "", "actions": [{"handler": "authz",
                                       "instances": ["req"]}]})
-        with pytest.raises(NotPorted):
-            SnapshotBuilder(GLOBAL_MANIFEST, device="cpu").build(s)
-        snap = SnapshotBuilder(GLOBAL_MANIFEST, lower_rbac=False,
+        s.set(("servicerole", "istio-system", "viewer"), {"rules": [
+            {"services": ["*"], "methods": ["GET", "HEAD"]}]})
+        s.set(("servicerolebinding", "istio-system", "viewer-b"), {
+            "roleRef": {"kind": "ServiceRole", "name": "viewer"},
+            "subjects": [{"user": "alice"}, {"user": "bob"}]})
+        ref_builder = RefBuilder(REF_MANIFEST)
+        ref_builder.decomp_cache = None
+        want = ref_builder.build(_ref_store_of(s))
+        snap = SnapshotBuilder(GLOBAL_MANIFEST, device="cpu").build(s)
+        key = ("authz.istio-system", "req.istio-system")
+        g, w = snap.rbac_groups[key], want.rbac_groups[key]
+        assert (g.allow_rows, g.guard_row, g.n_triples, g.lowered) == \
+            (w.allow_rows, w.guard_row, w.n_triples, w.lowered)
+        assert g.lowered and len(g.allow_rows) == 2 and g.guard_row >= 0
+        n_cfg = snap.n_config_rules
+        assert n_cfg == want.n_config_rules == len(snap.rules)
+        assert snap.ruleset.n_rules == want.ruleset.n_rules == n_cfg + 3
+        assert [r.name for r in snap.ruleset.rules] == \
+            [r.name for r in want.ruleset.rules]
+        for k in INDEX_PARAMS:
+            np.testing.assert_array_equal(
+                snap.ruleset.params[k].numpy(),
+                np.asarray(want.ruleset.params[k]), err_msg=k)
+        np.testing.assert_array_equal(snap.ruleset.attr_mask,
+                                      want.ruleset.attr_mask)
+        assert not snap.ruleset.attr_mask[n_cfg:].any()
+        handlers, _ = HandlerTable().rebuild(snap)
+        assert type(handlers["authz.istio-system"]).__name__ == \
+            "RbacHandler"
+        assert not snap.errors
+        bare = SnapshotBuilder(GLOBAL_MANIFEST, lower_rbac=False,
                                device="cpu").build(s)
-        # the rbac adapter itself is not carried: building its handler
-        # raises instead of turning into a config error
-        with pytest.raises(NotPorted):
-            HandlerTable().rebuild(snap)
+        assert bare.rbac_groups == {} and \
+            bare.ruleset.n_rules == len(bare.rules)
     finally:
         s.close()
+        ref_store.close()
+
+
+def _ref_store_of(pt_store):
+    """The port's store as a reference MemStore (the same entries)."""
+    from istio_tpu.runtime.store import Event as RefEvent
+    from istio_tpu.runtime.store import MemStore as RefMemStore
+    out = RefMemStore()
+    out.apply_events([RefEvent(k, dict(v))
+                      for k, v in pt_store.list().items()], notify=False)
+    return out
 
 
 def test_store_watch_delivers_events():

@@ -7,8 +7,8 @@ must return an int32 array byte-identical to the reference's at B ∈
 make_store with host_overlay_every (more than 32 overlay columns) and on
 a plan with neither items nor overlay columns. The packer's plain
 version runs (CPU tensors); pack_bool_rows is held against the
-reference with bit 31 set; a REGEX or CIDR list the reference would
-fuse raises NotPorted."""
+reference with bit 31 set; a REGEX or CIDR list fuses where the
+reference fuses it, with a byte-identical pull."""
 import dataclasses
 
 import numpy as np
@@ -178,6 +178,9 @@ def test_pack_bool_rows_matches_reference_with_bit_31():
     ("IP_ADDRESSES", ["10.0.0.0/8"], "source.ip"),
 ])
 def test_fusable_regex_and_cidr_lists_raise(entry_type, overrides, value):
+    """(Named from when these lists raised NotPorted.) A REGEX or CIDR
+    list fuses into the plan exactly where the reference's does, and
+    the packed pull is byte-identical; mesh serving still raises."""
     s = MemStore()
     try:
         s.set(("handler", "istio-system", "lst"), {
@@ -190,12 +193,38 @@ def test_fusable_regex_and_cidr_lists_raise(entry_type, overrides, value):
             "match": "", "actions": [{"handler": "lst",
                                       "instances": ["v"]}]})
         snap = SnapshotBuilder(GLOBAL_MANIFEST, device="cpu").build(s)
-        with pytest.raises(NotPorted, match=entry_type):
-            fused.build_fused_plan(snap)
+        ref_store = _ref_store_of(s)
+        rsnap = RefBuilder(REF_MANIFEST).build(ref_store)
+        ref_store.close()
+        want = ref_fused.build_fused_plan(rsnap, rule_telemetry=False)
+        got = fused.build_fused_plan(snap, rule_telemetry=False)
+        assert got.fused_lists == want.fused_lists == 1
+        assert got.list_rules == want.list_rules == frozenset({0})
+        assert not got.host_actions and not want.host_actions
+        dicts = [{}, {"request.path": "/api/x"}, {"request.path": "/web"},
+                 {"source.ip": bytes([10, 1, 2, 3])},
+                 {"source.ip": bytes([11, 1, 2, 3])},
+                 {"source.ip": b"\x01\x02\x03"}]
+        ns = np.zeros(len(dicts), np.int32)
+        a = want.packed_check(rsnap.tensorizer.tensorize(
+            [ref_bag(d) for d in dicts]), ns, observe=False)
+        h = got.packed_check(snap.tensorizer.tensorize(
+            [bag_from_mapping(d) for d in dicts]), ns, observe=False)
+        assert h.tobytes() == a.tobytes()
+        assert len(set(a[0].tolist())) > 1
         with pytest.raises(NotPorted):
             fused.build_fused_plan(snap, mesh=object())
     finally:
         s.close()
+
+
+def _ref_store_of(pt_store):
+    from istio_tpu.runtime.store import Event as RefEvent
+    from istio_tpu.runtime.store import MemStore as RefMemStore
+    out = RefMemStore()
+    out.apply_events([RefEvent(k, dict(v))
+                      for k, v in pt_store.list().items()], notify=False)
+    return out
 
 
 def test_warm_bookkeeping(plans):

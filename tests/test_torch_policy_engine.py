@@ -20,7 +20,6 @@ from istio_tpu.testing.corpus import CORPUS_MANIFEST
 from istio_tpu_torch import interop
 from istio_tpu_torch.attribute.bag import DictBag
 from istio_tpu_torch.compiler.ruleset import Rule
-from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.expr.checker import AttributeDescriptorFinder
 from istio_tpu_torch.models import policy_engine as pe
 from istio_tpu_torch.testing import workloads
@@ -269,19 +268,38 @@ def test_err_count_respects_count_rules():
     assert int(v.err_count) == 2
 
 
-# ---- what this slice does not carry
+# ---- the byte-level list banks and the RBAC fold
 
 def test_unported_banks_raise():
-    rules = [Rule("r", "")]
-    with pytest.raises(NotPorted):
-        pe.PolicyEngine(rules, PT_FINDER, device="cpu", lists=[
+    """(Named from when these banks raised NotPorted.) REGEX and
+    IP_ADDRESSES lists and an RbacSpec now build and fold exactly as
+    the reference's do; an unknown entry type is still refused."""
+    rules = [("r", ""), ("allow", 'request.user == "alice"'),
+             ("guard", "request.user == request.user")]
+    lists = [{"rule": 0, "value_attr": "request.path",
+              "entries": ["^/api/", "x$"], "blacklist": True,
+              "entry_type": "REGEX"},
+             {"rule": 0, "value_attr": "aip", "entries": ["10.0.0.0/8"],
+              "entry_type": "IP_ADDRESSES"}]
+    rbacs = [{"rule": 0, "allow_rows": (1,), "guard_row": 2}]
+    kr, kp = ({"lists": [mod.ListEntrySpec(**l) for l in lists],
+               "rbacs": [mod.RbacSpec(**r) for r in rbacs],
+               "count_rules": 1} for mod in (ref_pe, pe))
+    ip = bytes([10, 0, 0, 1])
+    _, (v,) = _scenario(rules, kr, kp, [[
+        {"request.user": "alice", "request.path": "/web", "aip": ip},
+        {"request.user": "alice", "request.path": "/api/v1", "aip": ip},
+        {"request.user": "bob", "request.path": "/web", "aip": ip},
+        {"request.path": "/web", "aip": ip},
+        {"request.user": "alice", "request.path": "/web",
+         "aip": bytes([11, 0, 0, 1])},
+        {"request.user": "alice", "request.path": "/web",
+         "aip": b"\x01\x02"}]])
+    assert v.status.tolist() == [pe.OK, pe.PERMISSION_DENIED,
+                                 pe.PERMISSION_DENIED, pe.INTERNAL,
+                                 pe.NOT_FOUND, pe.INTERNAL]
+    with pytest.raises(ValueError, match="entry_type"):
+        pe.PolicyEngine([Rule("r", "")], PT_FINDER, device="cpu", lists=[
             pe.ListEntrySpec(rule=0, value_attr="request.user",
-                             entries=["a.*"], entry_type="REGEX")])
-    with pytest.raises(NotPorted):
-        pe.PolicyEngine(rules, PT_FINDER, device="cpu", lists=[
-            pe.ListEntrySpec(rule=0, value_attr="request.user",
-                             entries=["10.0.0.0/8"],
-                             entry_type="IP_ADDRESSES")])
-    with pytest.raises(NotPorted):
-        pe.PolicyEngine(rules, PT_FINDER, device="cpu",
-                        rbacs=[pe.RbacSpec(rule=0, allow_rows=(0,))])
+                             entries=["a"],
+                             entry_type="CASE_INSENSITIVE_STRINGS")])

@@ -186,13 +186,11 @@ def test_non_bool_match_rejected():
 
 
 @pytest.mark.parametrize("rule_pad", [1, 8])
-def test_rule_pad_is_not_ported(rule_pad):
+def test_rule_pad_matches_reference(rule_pad):
     """rule_pad rounds the rule axis up to a multiple (the snapshot
     builder always compiles with 8): every ruleset array, the pad rows'
     sentinels (matched False, not_matched True, err False, namespace
-    -7) and the engine step equal the reference's. (The name is from
-    when rule_pad raised NotPorted; it is kept so that the test keeps
-    one identity across its history.)"""
+    -7) and the engine step equal the reference's."""
     from istio_tpu.models import policy_engine as ref_pe
     from istio_tpu_torch.models import policy_engine as pt_pe
     n_rules = 61

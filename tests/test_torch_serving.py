@@ -4,7 +4,7 @@ CheckResponses equal in every field (status_code, status_message,
 valid_duration_s, valid_use_count, referenced, referenced_presence,
 deny_rule, active_quota_rules) on make_store(200), on
 make_store(200, host_overlay_every=5) and on tests/test_fused_serving.py's
-world less its REGEX / CIDR lists; a config swap serves the new
+world; a config swap serves the new
 snapshot on both, on the device path of a plan warmed before it is
 published; the batcher entry answers like check_many; the name-keyed
 rule counts equal the reference aggregator's across a swap, and the
@@ -58,15 +58,9 @@ def _fused_serving_module():
 
 
 def fused_world_store():
-    """tests/test_fused_serving.py's store less its REGEX and CIDR list
-    handlers and rules (their device banks are not ported)."""
-    s = _fused_serving_module()._store()
-    for key in (("rule", "istio-system", "r4-rx"),
-                ("rule", "istio-system", "r8-ip"),
-                ("handler", "istio-system", "rxlist"),
-                ("handler", "istio-system", "ipblock")):
-        s.delete(key)
-    return s
+    """tests/test_fused_serving.py's store, its REGEX and CIDR lists
+    included."""
+    return _fused_serving_module()._store()
 
 
 def fused_world_dicts():
