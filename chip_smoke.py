@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's served Check() and Report() paths and their kernels on one
-NVIDIA H100.
+"""Drive the port's served Check(), Report() and Quota() paths and their kernels
+on one NVIDIA H100.
 
     python3 chip_smoke.py            (from the root of a checkout)
 
@@ -76,7 +76,23 @@ Phases, each fatal on failure:
      trip's inputs (timed: its kernels-table row), then (8b) on edge
      inputs (every opcode, LEAF rows, F = 0 / 1 / 22 / 33, empty rows,
      ephemeral ids);
-  9. print the kernels JSON line, the card line, and last the device
+  9. the Quota() path (this slice's main path): the quota world —
+     make_store(10_000) with its memquota limit set to the default quota
+     of Istio's Bookinfo rate-limit sample (5,000 per 1 s window) — on
+     the card against a device="cpu" server, each pool on an injected
+     clock: 100,000 unique users fill the keymap (classic path, fast-mode
+     flushes), then zipf(1.3) users at amount 1 through check_many +
+     quota_fused (unit-mode flushes) and through
+     check_batch_quota_instep, and at amounts 1-5 in-step (the seg kernel
+     gated on the verdict), B in {64, 256, 2048}: every CheckResponse and
+     QuotaResult equal; mixed-amount classic flushes on the card alone;
+     one quota_alloc launch per flush and per in-step trip; the plane
+     reads back the grants of each key's window and no key gets more
+     than 5,000 in one; quota_alloc against its plain version on a
+     captured trip of every mode and the scan on a captured seg batch
+     (timed), then (9b) on edge inputs; walls of both paths, busy and
+     idle share, quota_alloc per mode at 512 and 2048 rows;
+  10. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
 is not beside this script.
@@ -640,6 +656,20 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             src, rep = ("field_eval.cu",
                         "istio_tpu/runtime/report_lower.py:73")
             err = int((got != want).sum())
+        elif name == "quota_alloc":
+            mode, before, *qrows, gate = inputs
+            tag = f"{name}.{mode}" + ("+gate" if gate is not None else "")
+            if quota_alloc_check(tag, mode, before, qrows, gate) and \
+                    mode == "seg":
+                # the sequential oracle on the same captured seg batch
+                quota_alloc_check(f"{tag}.scan", "scan", before, qrows, gate)
+            if int_rate is None:
+                continue
+            ms, call, how, plain, b, ops, lib, lib_call = quota_alloc_times(
+                mode, before, qrows, gate)
+            src, rep = "quota_alloc.cu", QUOTA_REPLACES[
+                "instep" if gate is not None else mode]
+            err = 0
         else:
             raise AssertionError(f"unknown kernel {name}")
         bms, by = bound(b, ops, int_rate)
@@ -2098,6 +2128,639 @@ def report_phase(int_rate: float) -> dict:
     return {**out, "results": results, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the served Quota() path (K9 quota_alloc)
+# ---------------------------------------------------------------------------
+
+QUOTA_INSTANCE = "rq.istio-system"
+QUOTA_KEYS = 100_000          # bench.py's config 4: 100k live keys
+# the default quota of Istio's Bookinfo rate-limit sample
+# (samples/bookinfo/kube/mixer-rule-ratings-ratelimit.yaml: maxAmount
+# 5000, validDuration 1s); its per-destination overrides are dropped
+QUOTA_MAX, QUOTA_WINDOW_S = 5000, 1.0
+QUOTA_T0, QUOTA_STEP_S = 1000.0, 0.01   # injected clock, step per batch
+QUOTA_ZIPF = 1.3              # bench.py:2290's key skew
+# compared batches per stage: enough unit traffic at 2048 that the hot
+# keys ask for more than QUOTA_MAX inside one window
+QUOTA_UNIT_BATCHES = {64: 3, 256: 3, 2048: 10}
+QUOTA_MIXED_BATCHES = {64: 3, 256: 3, 2048: 4}
+QUOTA_ITERS = 20              # timed calls per batch size
+QUOTA_KERNELS = SERVED_KERNELS + ("quota_alloc",)
+QUOTA_REPLACES = {
+    "fast": "istio_tpu/models/quota_alloc.py:177",
+    "unit": "istio_tpu/models/quota_alloc.py:313",
+    "seg": "istio_tpu/models/quota_alloc.py:230",
+    "scan": "istio_tpu/models/quota_alloc.py:195",
+    "instep": "istio_tpu/runtime/fused.py:467"}
+
+
+def quota_world(store) -> None:
+    """make_store's memquota handler `mq` with the Bookinfo sample's
+    default limit on its `rq` quota (dimensions user: source.user |
+    "anon", sent there by make_store's quota-rule, match "")."""
+    store.set(("handler", "istio-system", "mq"), {
+        "adapter": "memquota",
+        "params": {"quotas": [{"name": QUOTA_INSTANCE,
+                               "max_amount": QUOTA_MAX,
+                               "valid_duration_s": QUOTA_WINDOW_S}]}})
+
+
+class StepClock:
+    """The pools' injected clock: moved only between batches."""
+
+    def __init__(self) -> None:
+        self.t = QUOTA_T0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def quota_server(device: str, args: dict):
+    """The quota world served on `device` with quota_in_step on → (server,
+    store, its one pool, the pool's clock)."""
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.testing import workloads
+    store = workloads.make_store(HEADLINE_RULES)
+    quota_world(store)
+    srv = RuntimeServer(store, ServerArgs(quota_in_step=True, **args),
+                        device=device)
+    pools = set(srv.controller.device_quotas.values())
+    if len(pools) != 1:
+        raise AssertionError(f"quota world: {len(pools)} device pools")
+    pool = pools.pop()
+    clock = StepClock()
+    pool._clock = clock
+    return srv, store, pool, clock
+
+
+def quota_bags(users, seed: int) -> tuple[list, list]:
+    """make_request_dicts traffic with source.user = user<u> → the same
+    requests as bags for the card's server and for the CPU's."""
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.testing import workloads
+    dicts = workloads.make_request_dicts(len(users), seed=seed)
+    for d, u in zip(dicts, users):
+        d["source.user"] = f"user{int(u)}"
+    return ([bag_from_mapping(d) for d in dicts],
+            [bag_from_mapping(d) for d in dicts])
+
+
+def zipf_users(rng, b: int):
+    return (rng.zipf(QUOTA_ZIPF, b) - 1) % QUOTA_KEYS
+
+
+def capture_if(on: bool):
+    """kernels.launches.capture() when `on`, else an empty list."""
+    from contextlib import nullcontext
+    from istio_tpu_torch import kernels
+    return kernels.launches.capture() if on else nullcontext([])
+
+
+def same_quota(label: str, got, want) -> None:
+    for f in ("granted_amount", "status_code", "valid_duration_s",
+              "status_message"):
+        if getattr(got, f) != getattr(want, f):
+            raise AssertionError(f"{label}: QuotaResult.{f}: card "
+                                 f"{getattr(got, f)!r}, plain "
+                                 f"{getattr(want, f)!r}")
+
+
+def resolve(q):
+    return q.result() if hasattr(q, "result") else q
+
+
+def classic_round(srv, bags, args):
+    """The served defer path: check_many, then quota_fused for every row
+    whose check passed (the fronts' grpcServer.go:188 gate) → (responses,
+    {row: QuotaResult})."""
+    resp = srv.check_many(bags)
+    futs = {i: srv.quota_fused(bags[i], "rq", a, r)
+            for i, (r, a) in enumerate(zip(resp, args))
+            if r.status_code == OK}
+    return resp, {i: resolve(q) for i, q in futs.items()}
+
+
+def quota_alloc_check(tag: str, mode: str, before, rows, gate) -> bool:
+    """K9 against its plain version on one set of inputs: granted, the
+    whole plane after the alloc, and the gate. → True."""
+    import torch
+    from istio_tpu_torch.models import quota_alloc as qa
+    got_plane, want_plane = before.clone(), before.clone()
+    b = int(rows[0].shape[0])
+    gate_k = None if gate is None else torch.full(
+        (b,), -1, dtype=torch.int32, device=before.device)
+    got = qa.quota_alloc(mode, got_plane, *rows, gate=gate, gate_out=gate_k)
+    want, want_gate = qa.quota_alloc_plain(mode, want_plane, *rows, gate)
+    assert_equal(f"{tag} {mode} granted", got, want)
+    assert_equal(f"{tag} {mode} plane", got_plane, want_plane)
+    if gate is not None:
+        assert_equal(f"{tag} {mode} gate", gate_k, want_gate.to(torch.int32))
+    return True
+
+
+def quota_work(mode: str, before, rows, gate) -> tuple[float, float]:
+    """(bytes, int32 ops) the alloc needs on these inputs: each row input
+    read once, granted (and gate) written once, and the rows of the
+    plane its live rows touch read and written once; ops: the roll and
+    the sum over K per live row, the grant's ~20, and for the contended
+    modes a comparison sort's B log2 B."""
+    import math
+    import torch
+    b = int(rows[0].shape[0])
+    k = int(before.shape[1])
+    live = rows[4] != 0
+    touched = int(torch.unique(rows[0][live]).numel())
+    n_bytes = 4.0 * b * len(rows) + 4.0 * b + 2 * 4.0 * k * touched
+    if gate is not None:
+        n_bytes += 4.0 * b * 4 + b + 4.0 * b   # status, rule, ns x2; matched
+    ops = float(int(live.sum())) * (2 * k + 20)
+    if mode != "fast":
+        ops += b * math.log2(max(b, 2))
+    return n_bytes, ops
+
+
+def quota_alloc_times(mode: str, before, rows, gate):
+    """Time K9 (in place on a scratch plane: later calls find the rolls
+    done and the hot buckets fuller), its plain version and the
+    library's stable argsort of the batch's bucket keys."""
+    import torch
+    from istio_tpu_torch.models import quota_alloc as qa
+    scratch = before.clone()
+    b = int(rows[0].shape[0])
+    gate_k = None if gate is None else torch.zeros(
+        b, dtype=torch.int32, device=before.device)
+    ms, call, how = timed(lambda: qa.quota_alloc(
+        mode, scratch, *rows, gate=gate, gate_out=gate_k), 200)
+    plain, _, _ = timed(lambda: qa.quota_alloc_plain(
+        mode, scratch, *rows, gate), 5 if mode == "scan" else 20)
+    n_bytes, ops = quota_work(mode, before, rows, gate)
+    lib, lib_call = None, None
+    if mode != "fast":
+        key = torch.where(rows[4] != 0, rows[0], 2**31 - 1)
+        lib = time_ms(lambda: torch.argsort(key, stable=True), 200)
+        lib_call = "torch.argsort(stable=True) of the bucket keys only"
+    return ms, call, how, plain, n_bytes, ops, lib, lib_call
+
+
+def quota_edge_rows(rng, n_buckets: int, k: int, b: int, kind: str,
+                    device: str):
+    """One edge batch → (plane, the 8 row tensors, modes to hold)."""
+    import numpy as np
+    import torch
+    nb = n_buckets
+    buckets = rng.integers(0, min(nb, 3 + b // 8), b)
+    amounts = rng.integers(-2, 9, b)
+    be = rng.random(b) < 0.4
+    mx = np.take(rng.integers(5, 40, nb), buckets)
+    active = rng.random(b) < 0.9
+    ticks = np.take(rng.integers(20, 40, nb), buckets)
+    gap = np.take(rng.choice([0, 1, k, k + 3, 3 * k, -1], nb), buckets)
+    lasts = ticks - gap
+    rolling = np.take(rng.random(nb) < 0.6, buckets)
+    plane = rng.integers(0, 4, (nb, k))
+    modes = ("scan", "unit", "seg")
+    if kind == "over_domain":
+        amounts[rng.random(b) < 0.2] = 1_500_000_000
+        amounts[rng.random(b) < 0.1] = 1 << 21
+        amounts[rng.random(b) < 0.1] = 0
+    elif kind == "shrunken":
+        plane[:, 0] = 2**31 - 5
+        mx = mx - 50
+    elif kind == "ties":
+        amounts = rng.choice([3, 3, 3, 5], b)
+        plane[:] = 2
+    elif kind == "unique":
+        buckets = rng.permutation(nb)[:b]
+        mx, ticks = np.take(rng.integers(5, 40, nb), buckets), \
+            np.take(rng.integers(20, 40, nb), buckets)
+        lasts = ticks - np.take(rng.choice([0, 1, k, k + 3], nb), buckets)
+        rolling = np.take(rng.random(nb) < 0.6, buckets)
+        modes = ("scan", "fast", "seg")
+    rows = [torch.from_numpy(np.asarray(x, np.int32)).to(device)
+            for x in (buckets, amounts, be, mx, active, ticks, lasts,
+                      rolling)]
+    return torch.from_numpy(plane.astype(np.int32)).to(device), rows, modes
+
+
+def quota_edge_checks(device: str = "cuda") -> int:
+    """Phase 9b: K9 against its plain version on inputs the served
+    traffic does not produce: negative, zero, DOMAIN_MAX and over-domain
+    amounts; used > max; same-amount ties at the budget boundary;
+    rolling and exact rows mixed with ticks - last of 0, 1, K, more
+    than K and negative; K = 1; B = 1, 64, 512, 2048 and a ragged 777;
+    the in-step gate with rule -1, a denied status, an invisible
+    namespace, an unmatched rule and R = 0."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.models import quota_alloc as qa
+    rng = np.random.default_rng(77)
+    n = 0
+    for b, kind, k in ((1, "plain", 10), (64, "over_domain", 10),
+                       (512, "shrunken", 10), (2048, "ties", 10),
+                       (777, "plain", 10), (512, "unique", 10),
+                       (2048, "unique", 10), (777, "over_domain", 1),
+                       (64, "ties", 1)):
+        plane, rows, modes = quota_edge_rows(rng, 4096, k, b, kind, device)
+        if k == 1:
+            rows[7].zero_()           # make_alloc_step: no row rolls
+        for mode in modes:
+            quota_alloc_check(f"edge {kind} B={b} K={k}", mode, plane, rows,
+                              None)
+            n += 1
+        for n_rules in (5, 0):
+            gate = qa.QuotaGate(
+                status=torch.from_numpy(np.where(
+                    rng.random(b) < 0.2, 7, 0).astype(np.int32)).to(device),
+                matched=torch.from_numpy(rng.random((b, n_rules)) < 0.7).to(
+                    device),
+                rule_idx=torch.from_numpy(rng.integers(
+                    -1, n_rules + 1, b).astype(np.int32)).to(device),
+                rule_ns=torch.from_numpy(rng.integers(
+                    0, 3, n_rules).astype(np.int32)).to(device),
+                req_ns=torch.from_numpy(rng.integers(
+                    -1, 3, b).astype(np.int32)).to(device),
+                default_ns=0)
+            quota_alloc_check(f"edge {kind} B={b} gate R={n_rules}", "seg",
+                              plane, rows, gate)
+            n += 1
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return n
+
+
+def quota_ledger_checks(pool, ledger: list) -> dict:
+    """Conservation on the card's pool after the drive: for every bucket
+    a grant was committed to, the plane's row reads back exactly the sum
+    of the grants committed at the ticks its last roll kept (last tick -
+    K, last tick]; rows past the keymap are zero; and no key was granted
+    more than QUOTA_MAX inside any window of K ticks."""
+    import numpy as np
+    from istio_tpu_torch.adapters.memquota import _key
+    k = pool.k_ticks
+    tick_len = QUOTA_WINDOW_S / k
+    key_of = pool._bucket_of
+    buckets = np.asarray([key_of[_key({"name": QUOTA_INSTANCE,
+                                       "dimensions": {"user": u}})]
+                          for u, _, _ in ledger], np.int64)
+    ticks = np.asarray([int(now / tick_len) for _, now, _ in ledger],
+                       np.int64)
+    grants = np.asarray([g for _, _, g in ledger], np.int64)
+    t0 = int(ticks.min())
+    span = int(ticks.max()) - t0 + 1
+    touched, inv = np.unique(buckets, return_inverse=True)
+    per_tick = np.zeros((touched.size, span + k), np.int64)
+    np.add.at(per_tick, (inv, ticks - t0 + k), grants)
+    cum = np.cumsum(per_tick, axis=1)
+    window = cum[:, k:] - cum[:, :-k]      # window ending at each tick
+    worst = int(window.max())
+    if worst > QUOTA_MAX:
+        raise AssertionError(f"a key was granted {worst} > {QUOTA_MAX} "
+                             "inside one window")
+    last = pool._last_tick[touched] - t0
+    if (last < 0).any() or (last >= span).any():
+        raise AssertionError("a touched bucket's last tick lies outside "
+                             "the drive")
+    expect = window[np.arange(touched.size), last]
+    plane = pool.counts.cpu().numpy().astype(np.int64)
+    got = plane[touched].sum(axis=1)
+    bad = np.nonzero(got != expect)[0]
+    if bad.size:
+        i = int(bad[0])
+        raise AssertionError(f"bucket {int(touched[i])} reads back "
+                             f"{int(got[i])}, its grants in the window sum "
+                             f"to {int(expect[i])} ({bad.size} buckets "
+                             "differ)")
+    beyond = int(np.count_nonzero(plane[len(key_of):]))
+    if beyond:
+        raise AssertionError(f"{beyond} nonzero cells past the keymap")
+    return {"buckets": int(touched.size), "grants": int(grants.sum()),
+            "max_window": worst, "ticks": span}
+
+
+def quota_phase(int_rate: float) -> dict:
+    """Phase 9: the served Quota() path on the quota world
+    (make_store(10_000) + the Bookinfo sample's limit, 100,000 live
+    keys), the launch counters zeroed just before its drive and read just
+    after. The card's server and a device="cpu" server, each pool on its
+    own injected clock stepped QUOTA_STEP_S per batch:
+      fill         100,000 unique users in a random order, check_many +
+                   quota_fused per row on the card, the CPU pool's alloc
+                   on the same instances (fast-mode flushes);
+      classic unit zipf users, amount 1, check_many + quota_fused per
+                   passed row from one thread (unit-mode flushes);
+      in-step      check_batch_quota_instep on zipf users at amount 1,
+                   then at amounts 1-5 (the seg kernel with the gate);
+    every CheckResponse and QuotaResult equal to the CPU server's, at
+    B in E2E_BATCHES. Then classic mixed amounts on the card alone
+    (seg-mode flushes, whose grants depend on flush boundaries: held at
+    the kernel level). One quota_alloc launch per flush and per in-step
+    trip; conservation and the window limit on the card's plane; K9 vs
+    its plain version on a captured trip of every mode (timed), then
+    edge inputs (9b); walls, busy and idle share; K9 per mode at 512 and
+    2048 rows."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.adapters.sdk import QuotaArgs
+
+    t0 = time.perf_counter()
+    srv, store, pool, clock = quota_server(
+        "cuda", dict(buckets=E2E_BATCHES, max_batch=HEADLINE_B,
+                     rulestats_drain_s=0))
+    build_s = time.perf_counter() - t0
+    cpu, cpu_store, cpu_pool, cpu_clock = quota_server(
+        "cpu", dict(CPU_SERVER, max_batch=HEADLINE_B))
+    plan = srv.controller.dispatcher.fused
+    if srv.instep_quota_target() is None or \
+            cpu.instep_quota_target() is None:
+        raise AssertionError("quota world: the snapshot is not in-step "
+                             "eligible")
+    warmed = plan._instep_warmed
+    log(f"[9] quota world: snapshot + plan + in-step warm {sorted(warmed)} "
+        f"on the card {build_s:.2f} s; "
+        f"{len(srv.controller.dispatcher.snapshot.rules)} rules, pool "
+        f"[{pool.n_buckets}, {pool.k_ticks}] int32 "
+        f"({pool.counts.numel() * 4 / 1e6:.2f} MB), limit {QUOTA_MAX} per "
+        f"{QUOTA_WINDOW_S} s window")
+    flushes, trips = [], []
+    flush, instep = pool._flush, plan.packed_check_instep
+
+    def counted_flush(batch):
+        flushes.append(len(batch))
+        return flush(batch)
+
+    def counted_instep(*a, **kw):
+        trips.append(1)
+        return instep(*a, **kw)
+
+    pool._flush, plan.packed_check_instep = counted_flush, counted_instep
+    ledger: list = []       # (user, now, units consumed) on the card
+
+    def book(users, results, resp=None):
+        for i, q in results.items():
+            if resp is None or resp[i].status_code == OK:
+                ledger.append((f"user{int(users[i])}", clock.t,
+                               q.granted_amount))
+
+    def step():
+        clock.t += QUOTA_STEP_S
+        cpu_clock.t += QUOTA_STEP_S
+
+    rng = np.random.default_rng(2279)
+    captured: dict = {}
+    kernels.launches.reset()
+    checks = 0
+    # ---- fill: 100k unique users through the classic path
+    t_fill = time.perf_counter()
+    users_all = rng.permutation(QUOTA_KEYS)
+    inst = cpu.controller.dispatcher.snapshot.instances[QUOTA_INSTANCE]
+    one = QuotaArgs(quota_amount=1)
+    for n, lo in enumerate(range(0, QUOTA_KEYS, HEADLINE_B)):
+        users = users_all[lo:lo + HEADLINE_B]
+        bags, cbags = quota_bags(users, seed=lo)
+        with capture_if(n == 0) as cap:
+            resp = srv.check_many(bags)
+            futs = [srv.quota_fused(b, "rq", one, r)
+                    for b, r in zip(bags, resp)]
+            got = {i: resolve(q) for i, q in enumerate(futs)}
+        checks += 1
+        want = [cpu_pool.alloc(QUOTA_INSTANCE, inst.build(b), one)
+                for b in cbags]
+        for i, q in enumerate(want):
+            same_quota(f"fill batch {n} row {i}", got[i], q.result())
+        book(users, got)
+        if n == 0:
+            captured["fast"] = [c for c in cap if c[0] == "quota_alloc"]
+        step()
+    if len(pool._bucket_of) != QUOTA_KEYS:
+        raise AssertionError(f"fill: {len(pool._bucket_of)} live keys")
+    modes = {c[1][0] for c in captured["fast"]}
+    if modes != {"fast"}:
+        raise AssertionError(f"fill flushes ran {modes}")
+    log(f"[9] fill: {QUOTA_KEYS:,} unique users, {len(flushes)} flushes "
+        f"(fast mode), every QuotaResult equal to the CPU pool's; "
+        f"{len(pool._bucket_of):,} live keys of {pool.n_buckets:,} "
+        f"({time.perf_counter() - t_fill:.1f} s)")
+    # ---- classic path, unit amounts, one thread: grant by grant
+    exhausted = {"classic": 0, "in-step unit": 0, "in-step mixed": 0}
+    for b, n_batches in QUOTA_UNIT_BATCHES.items():
+        for s in range(n_batches):
+            users = zipf_users(rng, b)
+            bags, cbags = quota_bags(users, seed=b + s)
+            args = [one] * b
+            cap_this = b == HEADLINE_B and s == 0
+            with capture_if(cap_this) as cap:
+                resp, got = classic_round(srv, bags, args)
+            checks += 1
+            cresp, want = classic_round(cpu, cbags, args)
+            compare_responses(f"classic B={b} batch {s}", resp, cresp)
+            if set(got) != set(want):
+                raise AssertionError(f"classic B={b}: quota rows differ")
+            for i in got:
+                same_quota(f"classic B={b} batch {s} row {i}", got[i],
+                           want[i])
+            exhausted["classic"] += sum(q.status_code == RESOURCE_EXHAUSTED
+                                        for q in got.values())
+            book(users, got)
+            if cap_this:
+                captured["unit"] = [c for c in cap if c[0] == "quota_alloc"]
+            step()
+    modes = {c[1][0] for c in captured["unit"]}
+    if modes != {"unit"}:
+        raise AssertionError(f"contended unit flushes ran {modes}")
+    log(f"[9] classic path (check_many + quota_fused), unit amounts: "
+        f"{sum(QUOTA_UNIT_BATCHES.values())} batches at B in "
+        f"{list(QUOTA_UNIT_BATCHES)}, responses and QuotaResults equal to "
+        f"the CPU server's grant by grant; {exhausted['classic']} "
+        "RESOURCE_EXHAUSTED (the hot keys pass the limit)")
+    # ---- in-step: unit, then mixed amounts
+    for label, batches in (("in-step unit", QUOTA_UNIT_BATCHES),
+                           ("in-step mixed", QUOTA_MIXED_BATCHES)):
+        for b, n_batches in batches.items():
+            for s in range(n_batches):
+                users = zipf_users(rng, b)
+                amounts = np.ones(b, np.int64) if label == "in-step unit" \
+                    else rng.integers(1, 6, b)
+                be = rng.random(b) < 0.5
+                bags, cbags = quota_bags(users, seed=7 * b + s)
+                qrows = [(i, "rq", QuotaArgs(quota_amount=int(a),
+                                             best_effort=bool(e)))
+                         for i, (a, e) in enumerate(zip(amounts, be))]
+                cap_this = b == HEADLINE_B and label == "in-step mixed"
+                with capture_if(cap_this) as cap:
+                    resp, got = srv.check_batch_quota_instep(
+                        bags, qrows, srv.instep_quota_target())
+                checks += 1
+                cresp, want = cpu.check_batch_quota_instep(
+                    cbags, qrows, cpu.instep_quota_target())
+                compare_responses(f"{label} B={b} batch {s}", resp, cresp)
+                if set(got) != set(want):
+                    raise AssertionError(f"{label} B={b}: quota rows differ")
+                for i in got:
+                    same_quota(f"{label} B={b} batch {s} row {i}", got[i],
+                               want[i])
+                exhausted[label] += sum(
+                    got[i].status_code == RESOURCE_EXHAUSTED
+                    for i in got if resp[i].status_code == OK)
+                book(users, got, resp)
+                if cap_this:
+                    captured["instep"] = [c for c in cap
+                                          if c[0] == "quota_alloc"]
+                step()
+    log(f"[9] in-step path (check_batch_quota_instep): unit and mixed "
+        f"amounts at B in {list(E2E_BATCHES)}, every CheckResponse and "
+        f"QuotaResult equal to the CPU server's; RESOURCE_EXHAUSTED: "
+        f"{exhausted['in-step unit']} unit, {exhausted['in-step mixed']} "
+        "mixed")
+    # ---- classic path, mixed amounts, the card alone (seg flushes)
+    for s in range(2):
+        users = zipf_users(rng, HEADLINE_B)
+        bags, _ = quota_bags(users, seed=99 + s)
+        args = [QuotaArgs(quota_amount=int(a), best_effort=bool(e))
+                for a, e in zip(rng.integers(1, 6, HEADLINE_B),
+                                rng.random(HEADLINE_B) < 0.5)]
+        with capture_if(s == 0) as cap:
+            resp, got = classic_round(srv, bags, args)
+        checks += 1
+        book(users, got)
+        if s == 0:
+            captured["seg"] = [c for c in cap if c[0] == "quota_alloc"]
+        step()
+    modes = {c[1][0] for c in captured["seg"]}
+    if modes != {"seg"}:
+        raise AssertionError(f"contended mixed flushes ran {modes}")
+    torch.cuda.synchronize()
+    pool._flush, plan.packed_check_instep = flush, instep
+    out = path_counts("[9] quota path", QUOTA_KERNELS, checks)
+    n_launch = out["counts"]["quota_alloc"]
+    if n_launch != len(flushes) + len(trips) or \
+            out["grids"]["quota_alloc"] != n_launch:
+        raise AssertionError(f"quota_alloc: {n_launch} launches for "
+                             f"{len(flushes)} flushes and {len(trips)} "
+                             "in-step trips")
+    log(f"[9] quota_alloc: {n_launch} launches = {len(flushes)} flushes "
+        f"+ {len(trips)} in-step trips (one each)")
+    cons = quota_ledger_checks(pool, ledger)
+    log(f"[9] conservation: {cons['buckets']:,} buckets read back exactly "
+        f"the grants committed inside their window ({cons['grants']:,} "
+        f"units over {cons['ticks']} ticks); the most any key got inside "
+        f"a window: {cons['max_window']} <= {QUOTA_MAX}; no cell past the "
+        "keymap")
+    # ---- K9 against its plain version on a captured trip of each mode
+    rows = {}
+    log("[9] quota_alloc against its plain version on captured trips "
+        "(timed; seg also through the sequential scan):")
+    for mode in ("fast", "unit", "seg", "instep"):
+        caps = captured[mode]
+        if not caps:
+            raise AssertionError(f"no captured {mode} launch")
+        for c in caps[1:]:
+            check_kernels([c], None)
+        # the largest captured launch of the mode is its timed row
+        big = max(caps, key=lambda c: int(c[1][2].shape[0]))
+        rows[mode] = check_kernels([big], None, int_rate)[0]
+    mode_rows = quota_mode_times(pool, rng, int_rate)
+    n_edge = quota_edge_checks(pool.counts.device.type)
+    log(f"[9b] {n_edge} edge cases: quota_alloc equal to its plain version")
+    results = quota_walls(srv, rng)
+    for x in (srv, cpu, store, cpu_store):
+        x.close()
+    row = dict(rows["instep"])
+    row["path"] = "quota"
+    row["modes"] = {m: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "bytes", "ops")}
+                    for m, r in {**rows, **mode_rows}.items()}
+    return {**out, "results": results, "rows": [row], "conservation": cons,
+            "flushes": len(flushes), "trips": len(trips)}
+
+
+def quota_mode_times(pool, rng, int_rate: float) -> dict:
+    """K9 per mode at 512 and 2048 rows on the live plane: the rows a
+    flush of zipf users (unique users for fast) would stage."""
+    import numpy as np
+    import torch
+    out = {}
+    tick_len = QUOTA_WINDOW_S / pool.k_ticks
+    abs_tick = int(pool._clock() / tick_len)
+    for b in (512, HEADLINE_B):
+        for mode in ("fast", "unit", "seg", "scan"):
+            users = rng.permutation(QUOTA_KEYS)[:b] if mode == "fast" \
+                else zipf_users(rng, b)
+            buckets = users.astype(np.int64)   # the fill's keys: any rows
+            amounts = np.ones(b) if mode == "unit" else rng.integers(1, 6, b)
+            base = pool._tick_base[buckets]
+            staged = np.stack([
+                buckets, amounts, rng.random(b) < 0.5,
+                np.full(b, QUOTA_MAX), np.ones(b), abs_tick - base,
+                pool._last_tick[buckets] - base, np.ones(b)]).astype(np.int32)
+            qrows = list(torch.from_numpy(staged).to(pool.counts.device))
+            quota_alloc_check(f"{mode} B={b}", mode, pool.counts, qrows, None)
+            ms, call, how, plain, n_bytes, ops, lib, _ = quota_alloc_times(
+                mode, pool.counts, qrows, None)
+            bms, by = bound(n_bytes, ops, int_rate)
+            log(f"  quota_alloc {mode:<5} B={b:5d} kernel {ms:9.5f} ms (per "
+                f"call incl. launch {call:8.5f})   plain {plain:9.5f} ms   "
+                f"bound {bms:9.7f} ms ({by})   equal: yes   [{how}]"
+                + ("" if lib is None else f"   argsort {lib:9.5f} ms"))
+            out[f"{mode}@{b}"] = {"ms": ms, "plain_ms": plain,
+                                  "bound_ms": bms, "bound_by": by,
+                                  "library_ms": lib, "bytes": n_bytes,
+                                  "ops": ops}
+    return out
+
+
+def quota_walls(srv, rng) -> dict:
+    """Walls of the two served paths on the card (zipf users): the
+    in-step trip (mixed amounts) and the classic check-then-quota round
+    (unit amounts), p50 / p99 over QUOTA_ITERS calls, and the in-step
+    trip's device busy and idle share."""
+    import numpy as np
+    from istio_tpu_torch.adapters.sdk import QuotaArgs
+    out = {}
+    for b in E2E_BATCHES:
+        users = zipf_users(rng, b)
+        bags, _ = quota_bags(users, seed=5 * b)
+        qrows = [(i, "rq", QuotaArgs(quota_amount=int(a)))
+                 for i, a in enumerate(rng.integers(1, 6, b))]
+        args = [QuotaArgs(quota_amount=1)] * b
+
+        def instep():
+            return srv.check_batch_quota_instep(bags, qrows,
+                                                srv.instep_quota_target())
+
+        pulls = dtoh_copies(instep)
+        if pulls is not None and pulls != 1:
+            raise AssertionError(f"in-step B={b}: {pulls} device-to-host "
+                                 "copies in one trip")
+
+        walls = {"instep": [], "classic": []}
+        for name, fn in (("instep", instep),
+                         ("classic", lambda: classic_round(srv, bags, args))):
+            fn()
+            for _ in range(QUOTA_ITERS):
+                t = time.perf_counter()
+                fn()
+                walls[name].append((time.perf_counter() - t) * 1e3)
+        busy = device_ms(instep, 5)
+        r = {name: {"p50_ms": float(np.percentile(w, 50)),
+                    "p99_ms": float(np.percentile(w, 99))}
+             for name, w in walls.items()}
+        r["instep"]["busy_ms"] = busy
+        r["instep"]["idle_share"] = None if busy is None else \
+            1 - busy / r["instep"]["p50_ms"]
+        out[b] = r
+        idle = "busy not measured" if busy is None else \
+            f"busy {busy:.4f} ms, idle share {1 - busy / r['instep']['p50_ms']:.3f}"
+        log(f"[9] B={b:5d}: check_batch_quota_instep ({pulls} "
+            "device-to-host copy) p50 "
+            f"{r['instep']['p50_ms']:.4f} ms p99 {r['instep']['p99_ms']:.4f}"
+            f" ms ({idle}); classic check_many + quota_fused p50 "
+            f"{r['classic']['p50_ms']:.4f} ms p99 "
+            f"{r['classic']['p99_ms']:.4f} ms")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2245,15 +2908,20 @@ def main() -> int:
     rp = report_phase(int_rate)
     log(f"[8b] {field_edge_checks()} edge cases: field_eval equal to "
         "field_eval_plain and to the op-table interpreter")
+    # ---- phase 9: the quota path, counters zeroed just before
+    qt = quota_phase(int_rate)
 
-    # ---- phase 9: result lines. K1-K6 keep the headline served path's
-    # row; list_banks reports the list path's and field_eval the report
-    # path's. Each row carries its kernel's rows on the other paths
-    # under "paths".
-    paths = {"served": sv, "authz": az, "lists": ls, "report": rp}
+    # ---- phase 10: result lines. K1-K6 keep the headline served path's
+    # row; list_banks reports the list path's, field_eval the report
+    # path's and quota_alloc the quota path's (its in-step trip, with
+    # every mode's row under "modes"). Each row carries its kernel's rows
+    # on the other paths under "paths".
+    paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
+             "quota": qt}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
-                            ("field_eval", "report", rp)):
+                            ("field_eval", "report", rp),
+                            ("quota_alloc", "quota", qt)):
         by_name[name] = next(r for r in res["rows"] if r["name"] == name)
         by_name[name]["path"] = path
     table = [by_name[k] for k in kernels.KERNELS]
@@ -2269,7 +2937,7 @@ def main() -> int:
         row["launches_by_path"] = {"engine": counts[name], **{
             p: r["counts"][name] for p, r in paths.items()}}
         row["paths"] = {p: {k: x[k] for k in keep}
-                        for p in ("authz", "lists", "report")
+                        for p in ("authz", "lists", "report", "quota")
                         for x in paths[p]["rows"] if x["name"] == name
                         and p != row["path"]}
     log("kernels (launches by path): " + "; ".join(
@@ -2284,6 +2952,13 @@ def main() -> int:
         f"B={b} p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms "
         f"{r['records_per_s']:.0f} records/s {r['trips_per_call']:.2f} "
         "trips/call" for b, r in rp["results"].items()))
+    log("quota (quota world, 100,000 live keys): " + ", ".join(
+        f"B={b} in-step p50 {r['instep']['p50_ms']:.4f} ms p99 "
+        f"{r['instep']['p99_ms']:.4f} ms, classic p50 "
+        f"{r['classic']['p50_ms']:.4f} ms p99 {r['classic']['p99_ms']:.4f} "
+        "ms" for b, r in qt["results"].items())
+        + f"; {qt['flushes']} flushes and {qt['trips']} in-step trips, one "
+        "quota_alloc launch each")
     log("e2e (engine step): " + ", ".join(
         f"B={b} {ms:.4f} ms {b / ms * 1e3:.0f} checks/s"
         for b, ms in e2e.items()))

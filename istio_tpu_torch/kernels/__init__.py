@@ -30,7 +30,8 @@ from typing import Sequence
 import torch
 
 KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
-           "check_pack", "rule_stats", "list_banks", "field_eval")
+           "check_pack", "rule_stats", "list_banks", "field_eval",
+           "quota_alloc")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"

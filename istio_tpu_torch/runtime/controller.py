@@ -14,9 +14,15 @@ still-warming shapes through the host oracle, to hide XLA compile time;
 here the kernels build once per process, at first use, and a warm trip
 is a handful of launches, so there is nothing to hide and no thread.
 
+Device quota pools (runtime/device_quota.DeviceQuotaTable) are built
+when the fused path is on, as in the reference: each rebuild reuses the
+pools whose memquota handler signature is unchanged and closes the
+orphans after the drain delay. `prewarm_hook(plan, pools)` runs after a
+new plan's warm, with the new generation's pools, before the publish
+(the server warms its in-step quota trip there).
+
 Not carried (each raises NotPorted when asked for): the config canary,
-mesh serving, the adapter executor, check-cache grants and device quota
-pools (the reference's DeviceQuotaTable).
+mesh serving, the adapter executor and check-cache grants.
 """
 from __future__ import annotations
 
@@ -61,7 +67,6 @@ class Controller:
                  device: str | torch.device = "cuda"):
         for name, value in (("mesh", mesh), ("canary", canary),
                             ("on_canary_reject", on_canary_reject),
-                            ("prewarm_hook", prewarm_hook),
                             ("executor", executor), ("grants", grants)):
             if value is not None:
                 raise NotPorted(f"Controller({name}=...)")
@@ -77,6 +82,7 @@ class Controller:
         self.fused_enabled = fused
         self.rule_telemetry = rule_telemetry
         self.prewarm_buckets = tuple(prewarm_buckets)
+        self.prewarm_hook = prewarm_hook
         # False skips the first build's warm; config-swap warms are
         # unaffected
         self.initial_prewarm = initial_prewarm
@@ -85,6 +91,12 @@ class Controller:
                                         InternTable(), max_str_len,
                                         lower_rbac=fused, device=device)
         self._handler_table = HandlerTable()
+        # device-backed served quota; pools keep their counters across
+        # snapshot swaps via signature reuse
+        self._quota_table = None
+        if fused:
+            from istio_tpu_torch.runtime.device_quota import DeviceQuotaTable
+            self._quota_table = DeviceQuotaTable(device=device)
         self.device_quotas: dict = {}
         self._lock = threading.Lock()
         self._rebuild_serial = threading.Lock()   # one rebuild at a time
@@ -132,9 +144,18 @@ class Controller:
             from istio_tpu_torch.runtime.fused import build_fused_plan
             plan = build_fused_plan(snapshot,
                                     rule_telemetry=self.rule_telemetry)
-            if plan is not None and self.prewarm_buckets and (
-                    self._dispatcher is not None or self.initial_prewarm):
-                plan.prewarm(self.prewarm_buckets)
+        quota_orphans: list = []
+        if self._quota_table is not None:
+            self.device_quotas, quota_orphans = \
+                self._quota_table.rebuild(snapshot)
+        if plan is not None and self.prewarm_buckets and (
+                self._dispatcher is not None or self.initial_prewarm):
+            plan.prewarm(self.prewarm_buckets)
+            if self.prewarm_hook is not None:
+                try:
+                    self.prewarm_hook(plan, self.device_quotas)
+                except Exception:
+                    log.exception("prewarm hook failed")
         handlers, orphans = self._handler_table.rebuild(snapshot)
         dispatcher = Dispatcher(snapshot, handlers, self.identity_attr,
                                 fused=plan,
@@ -144,6 +165,14 @@ class Controller:
             t = threading.Timer(
                 self.ORPHAN_DRAIN_S,
                 self._handler_table.close_handlers, args=(orphans,))
+            t.daemon = True
+            t.start()
+        if quota_orphans:
+            # same delayed drain as handler orphans: in-flight quota
+            # futures on the old pools resolve first
+            t = threading.Timer(
+                self.ORPHAN_DRAIN_S,
+                lambda: [p.close() for p in quota_orphans])
             t.daemon = True
             t.start()
         log.info("published config generation %d (%d rules, %d handlers,"
@@ -169,3 +198,5 @@ class Controller:
         with self._rebuild_serial:
             pass
         self._handler_table.close()
+        if self._quota_table is not None:
+            self._quota_table.close()

@@ -19,12 +19,14 @@ mixer/pkg/runtime/dispatcher.go + resolver.go):
 Report dispatch rides the fused plan's packed report trip: one device
 trip and one pull per chunk carry the active report rules' bits and
 every lowered instance field (runtime/report_lower.py), and adapters
-receive finished instances. Not carried in this slice: quota dispatch
-and the APA preprocess (they raise NotPorted), and the adapter-executor
-plane,
-check-cache grants, the canary recorder and the overlapped h2d staging
-(their constructor arguments raise NotPorted when set). Host-overlay
-actions run inline, the reference's behavioural-oracle loop.
+receive finished instances. `check(instep=...)` carries an in-step quota
+allocation on the check trip (FusedPlan.packed_check_instep), and
+`quota` is the host quota path through the adapter. Not carried in this
+slice: the APA preprocess (it raises NotPorted), and the adapter-executor
+plane, check-cache grants, the canary recorder and the overlapped h2d
+staging (their constructor arguments raise NotPorted when set).
+Host-overlay and host quota actions run inline, the reference's
+behavioural-oracle loop.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 
-from istio_tpu_torch.adapters.sdk import CheckResult, Handler
+from istio_tpu_torch.adapters.sdk import (CheckResult, Handler, QuotaArgs,
+                                          QuotaResult)
 from istio_tpu_torch.attribute.bag import Bag
 from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.expr.oracle import EvalError
@@ -247,14 +250,22 @@ class Dispatcher:
     def check(self, bags: Sequence[Bag], instep: Any = None,
               pre_tensorized: Any = None,
               deadline: float | None = None) -> list[CheckResponse]:
-        """`pre_tensorized`: (batch, ns_ids) computed by the caller;
-        must correspond to `bags` exactly. `instep` (the in-step quota
-        session) is not ported. `deadline` is accepted for the
-        batcher's contract; host actions run inline."""
-        if instep is not None:
-            raise NotPorted("Dispatcher.check(instep=...) (in-step quota)")
+        """`instep`: optional (q_arrays, counts, on_dispatch, on_pull)
+        from an in-step quota session (device_quota.InlineQuotaSession)
+        — the quota alloc rides the check trip; `on_dispatch(new_counts)`
+        fires once the trip is enqueued (the session moves the pool onto
+        the trip's output plane and releases its token) and
+        `on_pull(granted, gate)` right after the one pull, before any
+        per-row response python. `pre_tensorized`: (batch, ns_ids)
+        computed by the caller; must correspond to `bags` exactly. Both
+        require the fused path. `deadline` is accepted for the batcher's
+        contract; host actions run inline."""
         if self.fused is not None:
-            return self._check_fused(bags, pre_tensorized=pre_tensorized)
+            return self._check_fused(bags, instep=instep,
+                                     pre_tensorized=pre_tensorized)
+        if instep is not None:
+            raise ValueError("Dispatcher.check(instep=...) needs the fused "
+                             "path")
         actives, visibles = self._resolve(bags, observe=self.observe)
         t_respond = time.perf_counter()
         out = [self._check_one(bag, rule_idxs, vis)
@@ -264,7 +275,7 @@ class Dispatcher:
                                   time.perf_counter() - t_respond)
         return out
 
-    def _check_fused(self, bags: Sequence[Bag],
+    def _check_fused(self, bags: Sequence[Bag], instep: Any = None,
                      pre_tensorized: Any = None) -> list[CheckResponse]:
         """Fused serving path: ONE device step computes rule matching +
         denier/list verdicts + TTLs for the whole batch; the host loop
@@ -293,8 +304,27 @@ class Dispatcher:
                                           time.perf_counter() - t_tz)
             # ONE device→host pull for the whole verdict
             with tr.span("serve.device"):
-                packed = plan.packed_check(batch, ns_ids, observe=observe,
-                                           n_real=n_real)
+                if instep is not None:
+                    t_d = time.perf_counter()
+                    q_arrays, counts, on_dispatch, on_pull = instep
+                    packed_dev, new_counts = plan.packed_check_instep(
+                        batch, ns_ids, q_arrays, counts, n_real=n_real)
+                    # the trip is enqueued: the session moves the pool
+                    # onto its output plane and drops the token, so the
+                    # next trip chains on it while this pull is pending
+                    on_dispatch(new_counts)
+                    t_pull = time.perf_counter()
+                    monitor.observe_stage("h2d", t_pull - t_d)
+                    packed = packed_dev.cpu().numpy()   # the one pull
+                    monitor.observe_stage("device_step",
+                                          time.perf_counter() - t_pull)
+                    # granted / gate are the LAST two rows; everything
+                    # the decode below reads sits before them
+                    on_pull(packed[-2], packed[-1] != 0)
+                else:
+                    packed = plan.packed_check(batch, ns_ids,
+                                               observe=observe,
+                                               n_real=n_real)
             status = packed[0]
             dur = packed[1].view(np.float32)
             uses = packed[2]
@@ -688,8 +718,49 @@ class Dispatcher:
             fctx.seal()
         return out, fctx
 
-    def quota(self, bag: Bag, quota_name: str, args) -> Any:
-        raise NotPorted("Dispatcher.quota (the quota path, B8/B10)")
+    def quota(self, bag: Bag, quota_name: str, args: QuotaArgs,
+              deadline: float | None = None) -> QuotaResult:
+        """The host quota path: dispatches to at most ONE handler
+        (dispatcher.go:242-260), inline (the adapter-executor plane is
+        not ported; `deadline` is accepted for its contract)."""
+        actives = self._resolve([bag])[0][0]
+        for ridx in actives:
+            for hc, template, inst_names in self.snapshot.actions_for(
+                    ridx, Variety.QUOTA):
+                for iname in inst_names:
+                    if iname.split(".")[0] != quota_name and \
+                            iname != quota_name:
+                        continue
+                    handler = self._handler_for(hc)
+                    if handler is None:
+                        continue
+                    try:
+                        instance = self.snapshot.instances[iname].build(bag)
+                    except EvalError as exc:
+                        monitor.DISPATCH_ERRORS.inc()
+                        return QuotaResult(granted_amount=0,
+                                           status_code=INTERNAL,
+                                           status_message=str(exc))
+                    except Exception as exc:
+                        # safeDispatch parity: a malformed attribute
+                        # value degrades to a typed INTERNAL denial
+                        monitor.DISPATCH_ERRORS.inc()
+                        log.exception("quota instance build failed")
+                        return QuotaResult(granted_amount=0,
+                                           status_code=INTERNAL,
+                                           status_message=str(exc))
+                    try:
+                        with monitor.dispatch_timer():
+                            return handler.handle_quota(template, instance,
+                                                        args)
+                    except Exception as exc:
+                        monitor.DISPATCH_ERRORS.inc()
+                        log.exception("adapter quota failed")
+                        return QuotaResult(granted_amount=0,
+                                           status_code=INTERNAL,
+                                           status_message=str(exc))
+        # no matching quota rule: grant freely (reference returns empty)
+        return QuotaResult(granted_amount=args.quota_amount)
 
     def preprocess(self, bag: Bag) -> Bag:
         raise NotPorted("Dispatcher.preprocess (ATTRIBUTE_GENERATOR "

@@ -16,10 +16,12 @@ The packer is the check_pack kernel (csrc/check_pack.cu, K5; the
 reference's `_base_packer.<locals>.pack` with the bit-lane codec B4
 inside). `packed_report` serves report traffic on the same trip: the
 check rows, then the report field rows the field_eval kernel
-(csrc/field_eval.cu, K8) writes into the same buffer, and one pull. Not
-carried in this slice, each raising NotPorted where asked for: the
-in-step quota packer (`packed_check_instep`, B8), the C++ wire
-tensorizer (`native` stays None) and mesh serving.
+(csrc/field_eval.cu, K8) writes into the same buffer, and one pull.
+`packed_check_instep` carries an in-step quota allocation on the check
+trip: the quota_alloc kernel (csrc/quota_alloc.cu, K9, B8) writes its
+granted and gate rows after check_pack's, and one pull. Not carried,
+each raising NotPorted where asked for: the C++ wire tensorizer
+(`native` stays None) and mesh serving.
 """
 from __future__ import annotations
 
@@ -276,6 +278,8 @@ class FusedPlan:
     str_tiers: tuple = ()
     # (bucket rows, byte width) pairs that have run once
     _warmed_shapes: set = dataclasses.field(default_factory=set)
+    # (buckets, counter-plane shape) pairs prewarm_instep completed
+    _instep_warmed: set = dataclasses.field(default_factory=set)
 
     @property
     def n_ref_words(self) -> int:
@@ -400,12 +404,83 @@ class FusedPlan:
         self._warmed_shapes.add((b, w))
         return out
 
-    def packed_check_instep(self, batch, ns_ids, q, counts,
-                            n_real: int | None = None):
-        raise NotPorted("FusedPlan.packed_check_instep (in-step quota, B8)")
+    def packed_check_instep(self, batch: AttributeBatch, ns_ids,
+                            q: Mapping[str, Any], counts: torch.Tensor,
+                            n_real: int | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """packed_check's rows PLUS an in-step quota allocation on the
+        SAME trip: the quota-carrying batch pays one trip instead of a
+        check trip and a pool-flush trip.
 
-    def prewarm_instep(self, buckets, counts, should_stop=None) -> None:
-        raise NotPorted("FusedPlan.prewarm_instep (in-step quota, B8)")
+        `q` carries the staged per-row alloc arrays of an
+        InlineQuotaSession (buckets / amounts / be / mx / active / ticks
+        / lasts / rolling, plus rule_idx: the ruleset row whose matched
+        bit gates the row). `counts` is the pool's counter plane; the
+        alloc runs the quota_alloc kernel's seg mode, gated inside the
+        kernel on the device's own verdict (active & rule_idx >= 0 &
+        ns-visible rule & status OK & matched[row, rule]), into a clone
+        of it. Returns DEVICE tensors (packed, new_counts): packed's
+        last two rows are granted and gate once pulled; the caller moves
+        the pool onto new_counts and then pulls."""
+        from istio_tpu_torch.models.quota_alloc import QuotaGate, quota_alloc
+        from istio_tpu_torch.runtime.device_quota import ROW_FIELDS
+
+        batch = self.narrow_batch(batch)   # latency-tier byte plane
+        tables = self.pack_tables()
+        dev = self.engine.device
+        b, w = int(batch.ids.shape[0]), int(batch.str_bytes.shape[2])
+        ns_arr = np.asarray(ns_ids, np.int32)
+        req = torch.from_numpy(ns_arr).to(dev, non_blocking=True)
+        verdict = self.engine.check(batch, req)
+        if self.telemetry is not None:
+            # in-step quota batches ARE check traffic — the same per-rule
+            # fold as packed_check (prewarm passes n_real=0: its dummy
+            # trips count nothing)
+            real = np.arange(b) < (b if n_real is None else n_real)
+            self.telemetry.observe(verdict, req, real)
+        head = tables.n_rows_out
+        buf = torch.empty((head + 2, b), dtype=torch.int32, device=dev)
+        check_pack(verdict.status, verdict.valid_duration_s,
+                   verdict.valid_use_count, verdict.deny_rule,
+                   verdict.err_count, verdict.referenced, verdict.matched,
+                   req, tables, out=buf[:head])
+        # one host→device copy of the staged rows and the rule column
+        staged = np.stack([np.asarray(q[k], np.int32)
+                           for k in (*ROW_FIELDS, "rule_idx")])
+        rows = torch.from_numpy(staged).to(dev)
+        gate = QuotaGate(status=verdict.status, matched=verdict.matched,
+                         rule_idx=rows[len(ROW_FIELDS)],
+                         rule_ns=tables.rule_ns, req_ns=req,
+                         default_ns=tables.default_ns)
+        new_counts = counts.clone()
+        quota_alloc("seg", new_counts, *rows[:len(ROW_FIELDS)], gate=gate,
+                    granted=buf[head], gate_out=buf[head + 1])
+        self._warmed_shapes.add((b, w))
+        return buf, new_counts
+
+    def prewarm_instep(self, buckets, counts: torch.Tensor,
+                       should_stop=None) -> None:
+        """Run the in-step trip once for every serving shape (bucket ×
+        byte tier) before traffic selects it. `counts` supplies only the
+        plane's shape: the dummy trips run on a zero plane, all rows
+        inactive, and never touch the pool. Completed (buckets, shape)
+        pairs are memoized. `should_stop` is polled between shapes."""
+        key = (tuple(sorted(set(buckets))), tuple(counts.shape))
+        if key in self._instep_warmed:
+            return
+        zero_counts = torch.zeros_like(counts)
+        for b, tier in self.all_warm_shapes(buckets):
+            if should_stop is not None and should_stop():
+                return
+            q = {k: np.zeros(b, np.int32) for k in (
+                "buckets", "amounts", "be", "mx", "active", "ticks",
+                "lasts", "rolling")}
+            q["rule_idx"] = np.full(b, -1, np.int32)
+            packed, _ = self.packed_check_instep(
+                self._dummy_batch(b, tier), np.zeros(b, np.int32), q,
+                zero_counts, n_real=0)   # dummies feed no rule telemetry
+            packed.cpu()
+        self._instep_warmed.add(key)
 
     def pred_attrs_for_ns(self, ns_id: int) -> frozenset:
         """Union of predicate attr uses over rules visible to ns_id."""

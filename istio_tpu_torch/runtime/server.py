@@ -8,13 +8,18 @@ CheckBatcher, `check_many(bags)` serves a pre-formed batch, and
 `report(bags)` / `submit_report(bags)` coalesce report records across
 calls through a second CheckBatcher (the report coalescer) into shared
 packed report trips, with every record counted accepted and then
-exported or typed-rejected (monitor.report_conservation). It takes one
-argument the reference lacks, `device` ("cuda" by default; tests pass
-"cpu", where every kernel wrapper runs its plain version).
+exported or typed-rejected (monitor.report_conservation). Quota() has
+the reference's three entries: `quota_fused` allocates through the
+device quota pools on a check's activity bits (one quota_alloc launch
+per pool batch window), `check_batch_quota_instep` (with
+`quota_in_step`) allocates inside the check trip itself, and `quota` is
+the host path through the adapter. It takes one argument the reference
+lacks, `device` ("cuda" by default; tests pass "cpu", where every kernel
+wrapper runs its plain version).
 
 `ServerArgs` keeps the reference's field names and defaults. The fields
 this slice does not carry (sharding and replicas, mesh serving, the
-quota path, the adapter executor, the resilience breaker,
+adapter executor, the resilience breaker,
 grants, the flight recorder, the canary, the audit plane, mTLS) are
 accepted at their defaults, where the planes
 behind them simply do not run, and raise NotPorted when set to anything
@@ -27,12 +32,16 @@ import dataclasses
 import time
 from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 
+from istio_tpu_torch.adapters.sdk import QuotaArgs, QuotaResult
 from istio_tpu_torch.attribute.bag import Bag
 from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
 from istio_tpu_torch.attribute.types import ValueType
 from istio_tpu_torch.device import NotPorted, resolve_device
+from istio_tpu_torch.expr.oracle import EvalError
+from istio_tpu_torch.models.policy_engine import INTERNAL
 from istio_tpu_torch.runtime import monitor
 from istio_tpu_torch.runtime.batcher import CheckBatcher, default_buckets
 from istio_tpu_torch.runtime.controller import Controller
@@ -79,8 +88,10 @@ class ServerArgs:
     report_batching: bool = True
     # report coalescer queue cap (None → 16×max_batch)
     report_queue_cap: int | None = None
-    # -- not carried: accepted at these defaults only -----------------
+    # allocate quota inside the check trip when the live snapshot is
+    # eligible (RuntimeServer.instep_quota_target)
     quota_in_step: bool = False
+    # -- not carried: accepted at these defaults only -----------------
     shards: int = 0
     replicas: int = 1
     delta_compile: bool = True
@@ -136,7 +147,7 @@ CARRIED_ARGS = frozenset({
     "pipeline", "hold_at", "buckets", "initial_prewarm", "max_str_len",
     "preprocess", "fused", "check_queue_cap", "rule_telemetry",
     "rulestats_drain_s", "host_executor", "report_batching",
-    "report_queue_cap"})
+    "report_queue_cap", "quota_in_step"})
 
 
 def _check_carried(args: ServerArgs) -> None:
@@ -158,6 +169,7 @@ class RuntimeServer:
             manifest = GLOBAL_MANIFEST
         buckets = tuple(sorted(self.args.buckets)) if self.args.buckets \
             else default_buckets(self.args.max_batch)
+        self._buckets = buckets
         # rule-level telemetry: the aggregator follows every publish
         # (draining the outgoing plan first); the drainer empties the
         # device accumulators on an interval so they never wrap
@@ -171,6 +183,7 @@ class RuntimeServer:
             prewarm_buckets=buckets,
             rule_telemetry=self.args.rule_telemetry,
             initial_prewarm=self.args.initial_prewarm,
+            prewarm_hook=self._prewarm_instep_for,
             device=self.device)
         self._rulestats_drainer = RuleStatsDrainer(
             self.rulestats, self.args.rulestats_drain_s) \
@@ -316,8 +329,206 @@ class RuntimeServer:
         if first is not None:
             raise first
 
-    def quota(self, bag: Bag, quota_name: str, args: Any = None) -> Any:
-        raise NotPorted("RuntimeServer.quota (the quota path, B8/B10)")
+    def quota(self, bag: Bag, quota_name: str,
+              args: QuotaArgs | None = None,
+              preprocessed: bool = False,
+              deadline: float | None = None) -> QuotaResult:
+        """The host quota path (Dispatcher.quota): resolves the bag's
+        rules and calls the one matching quota handler."""
+        d = self.controller.dispatcher
+        if not preprocessed:
+            bag = self.preprocess(bag)
+        return d.quota(bag, quota_name, args or QuotaArgs(),
+                       deadline=deadline)
+
+    def quota_fused(self, bag: Bag, quota_name: str, args: QuotaArgs,
+                    check_result):
+        """Served quota via the device pools (runtime/device_quota.py):
+        reuses the CHECK step's activity bits instead of re-resolving.
+        Returns a QuotaFuture, a final QuotaResult (no device work
+        needed), or None → the caller takes the `quota` fallback
+        (generic path / non-memquota quota handler)."""
+        if check_result.active_quota_rules is None:
+            return None
+        # rule indices are positional within the snapshot that served
+        # the check — use THAT dispatcher, not the current one
+        d = check_result.quota_context
+        if d is None:
+            # no quota actions existed at check time: grant freely
+            return QuotaResult(granted_amount=args.quota_amount)
+        plan = d.fused
+        if plan is None:
+            return None
+        active = set(check_result.active_quota_rules)
+        snap = d.snapshot
+        for ridx, handler_q, inst_q, names in plan.quota_actions:
+            if ridx not in active or quota_name not in names:
+                continue
+            pool = self.controller.device_quotas.get(handler_q)
+            # limits are keyed by the handler config's quota names, which
+            # match QUALIFIED instance names
+            if pool is None or not pool.knows(inst_q):
+                return None   # non-memquota quota handler → host path
+            try:
+                instance = snap.instances[inst_q].build(bag)
+            except EvalError as exc:   # dispatcher.quota parity
+                return QuotaResult(granted_amount=0, status_code=INTERNAL,
+                                   status_message=str(exc))
+            except Exception as exc:   # safeDispatch parity
+                return QuotaResult(granted_amount=0, status_code=INTERNAL,
+                                   status_message=f"instance build: {exc}")
+            return pool.alloc(inst_q, instance, args)
+        # no matching active quota rule: grant freely
+        return QuotaResult(granted_amount=args.quota_amount)
+
+    # -- in-step quota (gated: ServerArgs.quota_in_step) ---------------
+
+    def instep_quota_target(self) -> tuple | None:
+        """(pool, {name → (ridx, inst_q)}) when the CURRENT snapshot is
+        in-step eligible: exactly one device pool, and every quota name
+        resolving to exactly one quota action on that pool's handler
+        whose rule predicate is device-evaluated. None → callers use the
+        classic check-then-quota_fused path."""
+        if not self.args.quota_in_step:
+            return None
+        d = self.controller.dispatcher
+        cached = getattr(self, "_instep_cache", None)
+        if cached is not None and cached[0] is d.snapshot:
+            return cached[1]
+        target = self._build_instep_target(d, self.controller.device_quotas)
+        self._instep_cache = (d.snapshot, target)
+        return target
+
+    @staticmethod
+    def _build_instep_target(d, pools: Mapping) -> tuple | None:
+        plan = d.fused
+        if plan is None or not plan.quota_actions or not pools:
+            return None
+        if len(set(map(id, pools.values()))) != 1:
+            return None
+        pool = next(iter(pools.values()))
+        rs = d.snapshot.ruleset
+        # the device alloc gates on the DEVICE status (a denied check
+        # must not consume, grpcServer.go:188); host overlay actions or
+        # host-fallback predicates could flip the final status after the
+        # trip — such snapshots keep the classic path
+        n_cfg = len(d.snapshot.rules)
+        if plan.host_actions or any(r < n_cfg for r in rs.host_fallback):
+            return None
+        by_name: dict[str, Any] = {}
+        for ridx, handler_q, inst_q, names in plan.quota_actions:
+            for name in names:
+                by_name.setdefault(name, []).append((ridx, handler_q, inst_q))
+        out: dict[str, tuple] = {}
+        for name, cands in by_name.items():
+            if len(cands) != 1:
+                continue
+            ridx, handler_q, inst_q = cands[0]
+            if pools.get(handler_q) is not pool or not pool.knows(inst_q) \
+                    or ridx in rs.host_fallback:
+                continue
+            out[name] = (ridx, inst_q)
+        return (pool, out) if out else None
+
+    def _prewarm_instep_for(self, plan, pools: Mapping) -> None:
+        """Controller prewarm hook: run the CANDIDATE plan's in-step trip
+        at every serving shape before the publish, against the new
+        generation's pool. On the card a warm is a few launches, so it
+        runs synchronously in the rebuilding thread."""
+        if not self.args.quota_in_step or not plan.quota_actions or \
+                len(set(map(id, pools.values()))) != 1:
+            return
+        pool = next(iter(pools.values()))
+        plan.prewarm_instep(self._buckets, pool.counts)
+
+    def prewarm_instep(self) -> None:
+        """Run the live plan's in-step trip at every serving shape (a
+        no-op unless quota_in_step is on and the snapshot is eligible)."""
+        target = self.instep_quota_target()
+        plan = self.controller.dispatcher.fused
+        if plan is None or target is None:
+            return
+        plan.prewarm_instep(self.controller.prewarm_buckets,
+                            target[0].counts)
+
+    def check_batch_quota_instep(self, bags: Sequence[Bag],
+                                 qrows: Sequence[tuple], target: tuple):
+        """One padded batch with its quota rows allocated IN the check
+        trip. `qrows`: [(slot, requested name, QuotaArgs)]; `target` from
+        instep_quota_target() (same snapshot). Returns (responses,
+        {slot → QuotaResult}). Rows whose instance build fails resolve
+        INTERNAL without the trip (quota_fused parity)."""
+        from istio_tpu_torch.runtime.batcher import trim_pads
+
+        t0 = time.perf_counter()
+        out = self._check_batch_quota_instep_inner(bags, qrows, target)
+        e2e = time.perf_counter() - t0
+        # observed on success only, like the batcher's e2e mass
+        for _ in trim_pads(bags):
+            monitor.observe_check_e2e(e2e)
+        return out
+
+    def _check_batch_quota_instep_inner(self, bags: Sequence[Bag],
+                                        qrows: Sequence[tuple],
+                                        target: tuple):
+        d = self.controller.dispatcher
+        snap = d.snapshot
+        pool, by_name = target
+        early: dict[int, QuotaResult] = {}
+        rows: list[tuple] = []
+        rule_idx = np.full(len(bags), -1, np.int32)
+        for slot, name, args in qrows:
+            ridx, inst_q = by_name[name]
+            try:
+                instance = snap.instances[inst_q].build(bags[slot])
+            except EvalError as exc:
+                early[slot] = QuotaResult(granted_amount=0,
+                                          status_code=INTERNAL,
+                                          status_message=str(exc))
+                continue
+            except Exception as exc:
+                early[slot] = QuotaResult(
+                    granted_amount=0, status_code=INTERNAL,
+                    status_message=f"instance build: {exc}")
+                continue
+            rule_idx[slot] = ridx
+            rows.append((slot, inst_q, instance, args))
+        # tensorize OUTSIDE the counter token: the token covers only
+        # stage → dispatch
+        t_tz = time.perf_counter()
+        pre = d._tensorize_for_device(bags)
+        monitor.observe_stage("tensorize", time.perf_counter() - t_tz)
+        sess = pool.inline_begin(len(bags), rows, pool._clock()) \
+            if rows else None
+        if sess is None:
+            if rows:   # pool closed under a config swap
+                for slot, _, _, _args in rows:
+                    early[slot] = QuotaResult(
+                        granted_amount=0, status_code=14,
+                        status_message="quota pool closed by config swap")
+            return d.check(bags, pre_tensorized=pre), early
+        results: dict[int, QuotaResult] = {}
+
+        def on_pull(granted, gate) -> None:
+            # right after the one pull, inside d.check: commits (in
+            # dispatch order) before the per-row response python runs
+            results.update(sess.commit(np.asarray(granted),
+                                       np.asarray(gate)))
+
+        try:
+            q = {"buckets": sess.buckets, "amounts": sess.amounts,
+                 "be": sess.be, "mx": sess.mx, "active": sess.active,
+                 "ticks": sess.ticks, "lasts": sess.lasts,
+                 "rolling": sess.rolling, "rule_idx": rule_idx}
+            responses = d.check(
+                bags, instep=(q, sess.prev_counts, sess.dispatched, on_pull),
+                pre_tensorized=pre)
+        except BaseException:
+            sess.abort()   # no-op when on_pull already committed
+            raise
+        results.update(sess.early)
+        results.update(early)
+        return responses, results
 
     def shutdown(self, deadline: float | None = 5.0) -> None:
         """Ordered graceful shutdown: stop admission, drain the batchers

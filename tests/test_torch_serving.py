@@ -373,11 +373,11 @@ def test_unported_options_raise():
         got = RuntimeServer(store, ServerArgs(initial_prewarm=False),
                             device="cpu")
         try:
+            d = got.controller.dispatcher
             with pytest.raises(NotPorted):
-                got.quota(bag_from_mapping({}), "rq.istio-system")
+                d.preprocess(bag_from_mapping({}))
             with pytest.raises(NotPorted):
-                got.controller.dispatcher.fused.packed_check_instep(
-                    None, None, None, None)
+                type(d)(d.snapshot, d.handlers, executor=object())
         finally:
             got.close()
     finally:
