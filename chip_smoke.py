@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's served Check(), Report() and Quota() paths and their kernels
-on one NVIDIA H100.
+"""Drive the port's served Check(), Report() and Quota() paths, Pilot's route
+selection and discovery service, and their kernels on one NVIDIA H100.
 
     python3 chip_smoke.py            (from the root of a checkout)
 
@@ -91,8 +91,34 @@ Phases, each fatal on failure:
      than 5,000 in one; quota_alloc against its plain version on a
      captured trip of every mode and the scan on a captured seg batch
      (timed), then (9b) on edge inputs; walls of both paths, busy and
-     idle share, quota_alloc per mode at 512 and 2048 rows;
-  10. print the kernels JSON line, the card line, and last the device
+     idle share, quota_alloc per mode at 512 and 2048 rows; then (9c)
+     the multi-block quota_alloc above the one-block path's 8,192 rows:
+     against its plain version at 8,193 and 32,768 rows in unit, seg,
+     scan and gated seg on zipf keys (the hottest key's run spans
+     several scan tiles), timed with its grids and bound, and an
+     in-step trip of 16,384 rows on a ServerArgs(max_batch=16384)
+     server warmed at a 16,384 bucket, equal to a CPU server result by
+     result, with conservation on the card's plane;
+  10. Pilot's route selection (BASELINE config 3): make_route_world
+     (10_000) — 1,000 services, 10,000 route rules — in a RouteTable on
+     the card against one on the CPU at B in {64, 256, 2048, 8192} of
+     make_route_requests: selects index-equal to the CPU table and to
+     select_host on 256 rows per B, the compact select (K10's
+     route_densify) equal to the dense one, H2D bytes of both, exactly
+     one rule_match and one route_winner launch per dense select and one
+     more route_densify per compact one; p50 / p99, busy and idle share;
+     every kernel of the B=2048 selects held against its plain version
+     (timed), then (10b) route_winner / route_densify on edge inputs and
+     a host-fallback world;
+  11. Pilot's discovery service at bench.py's fleet (10,000 sidecars,
+     2,500 route rules): a DiscoveryService on the card against one on
+     the CPU, every sidecar's RDS byte-equal cold and warm, CDS / LDS /
+     SDS for one node per namespace, the same node groups, 8 rounds of
+     one-namespace churn with every RDS equal after each and the scope
+     program carried while its digest holds; one rule_match launch per
+     batched generation; cold / warm poll rates and the route_eval
+     stage;
+  12. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
 is not beside this script.
@@ -473,7 +499,7 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
     import torch
     from istio_tpu_torch.compiler import ruleset
     from istio_tpu_torch.models import policy_engine as pe
-    from istio_tpu_torch.ops import bytes_ops, field_ops
+    from istio_tpu_torch.ops import bytes_ops, field_ops, route_ops
     from istio_tpu_torch.runtime import fused, rulestats
 
     rows: dict[str, dict] = {}
@@ -670,6 +696,54 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             src, rep = "quota_alloc.cu", QUOTA_REPLACES[
                 "instep" if gate is not None else mode]
             err = 0
+        elif name == "route_select":
+            kind, *args = inputs
+            tag = f"{name}.{kind}"
+            err = 0
+            if kind == "winner":
+                matched, weight, default = args
+                got = route_ops.route_winner(matched, weight, default)
+                want = route_ops.route_winner_plain(matched, weight,
+                                                    default)
+                assert_equal(tag, got, want)
+                if int_rate is None:
+                    continue
+                ms, call, how = timed(lambda: route_ops.route_winner(
+                    matched, weight, default), 200)
+                plain, _, _ = timed(lambda: route_ops.route_winner_plain(
+                    matched, weight, default), 20)
+                b = nbytes(matched, weight, got)
+                ops = 2.0 * matched.numel()     # a select and a compare
+                lib = time_ms(lambda: torch.max(
+                    matched.int() * weight, dim=1), 50)
+                lib_call = ("torch.max(matched.int() * weight, dim=1) "
+                            "(the max only)")
+                rep = "istio_tpu/pilot/route_nfa.py:115"
+            else:
+                flat, lens16, pres, n_cols, max_len = args
+                got = route_ops.route_densify(flat, lens16, pres, n_cols,
+                                              max_len)
+                want = route_ops.route_densify_plain(flat, lens16, pres,
+                                                     n_cols, max_len)
+                for part, g, w in zip(("str_bytes", "str_lens", "present"),
+                                      got, want):
+                    assert_equal(f"{tag}.{part}", g, w)
+                if int_rate is None:
+                    continue
+                ms, call, how = timed(lambda: route_ops.route_densify(
+                    flat, lens16, pres, n_cols, max_len), 200)
+                plain, _, _ = timed(lambda: route_ops.route_densify_plain(
+                    flat, lens16, pres, n_cols, max_len), 20)
+                # the flat bytes the lens cover, the lens and presence
+                # in; the dense planes out
+                b = int(lens16.int().clamp(min=0).sum()) + \
+                    nbytes(lens16, pres, *got)
+                ops = float(got[0].numel())     # one select per byte out
+                flat_lens = lens16.reshape(-1).int()
+                lib = time_ms(lambda: torch.cumsum(flat_lens, 0), 200)
+                lib_call = "torch.cumsum of the lens (the offsets only)"
+                rep = "istio_tpu/pilot/route_nfa.py:270"
+            src = "route_select.cu"
         else:
             raise AssertionError(f"unknown kernel {name}")
         bms, by = bound(b, ops, int_rate)
@@ -2665,14 +2739,176 @@ def quota_phase(int_rate: float) -> dict:
     results = quota_walls(srv, rng)
     for x in (srv, cpu, store, cpu_store):
         x.close()
+    log("[9c] quota_alloc above 8,192 rows (the multi-block path) against "
+        "its plain version, zipf keys over the 100,000-key pool (timed; "
+        f"{time.perf_counter() - t0:.1f} s into phase 9):")
+    mode_rows.update(quota_big_checks(int_rate, rng))
+    big = quota_instep_big(rng)
     row = dict(rows["instep"])
     row["path"] = "quota"
     row["modes"] = {m: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
-                                          "bytes", "ops")}
+                                          "bytes", "ops", "grids")
+                        if k in r}
                     for m, r in {**rows, **mode_rows}.items()}
     return {**out, "results": results, "rows": [row], "conservation": cons,
-            "flushes": len(flushes), "trips": len(trips)}
+            "flushes": len(flushes), "trips": len(trips),
+            "instep_16384": big}
+
+
+QUOTA_BIG_BATCHES = (8193, 32768)   # the multi-block K9 path
+QUOTA_INSTEP_BIG = 16384            # ServerArgs(max_batch=16384) trip
+QUOTA_INSTEP_BIG_TRIPS = 1
+K9_SCAN_TILE = 4096                 # csrc/quota_alloc.cu kScanTile
+
+
+def quota_big_rows(rng, b: int, mode: str, device: str):
+    """One contended batch of `b` rows: zipf(QUOTA_ZIPF) keys over the
+    QUOTA_KEYS pool (per-key max / tick / last / rolling), amounts 1
+    (unit) or -1..5, a random [QUOTA_KEYS, 10] plane, and for "gate"
+    the in-step gate inputs → (plane, rows, gate, the hot key's run)."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.models import quota_alloc as qa
+    nb, k = QUOTA_KEYS, 10
+    keys = zipf_users(rng, b).astype(np.int64)
+    amounts = np.ones(b) if mode == "unit" else rng.integers(-1, 6, b)
+    per_key = [rng.integers(40, 400, nb), rng.integers(0, 3 * k, nb),
+               rng.integers(0, 3 * k, nb), rng.random(nb) < 0.7]
+    mx, ticks, lasts, rolling = (np.take(x, keys) for x in per_key)
+    rows = [torch.from_numpy(np.asarray(x).astype(np.int32)).to(device)
+            for x in (keys, amounts, rng.random(b) < 0.4, mx,
+                      rng.random(b) < 0.9, ticks, lasts, rolling)]
+    plane = torch.from_numpy(rng.integers(0, 3, (nb, k)).astype(
+        np.int32)).to(device)
+    gate = None
+    if mode == "gate":
+        n_rules = 5
+
+        def t(x):
+            return torch.from_numpy(np.asarray(x)).to(device)
+
+        gate = qa.QuotaGate(
+            status=t(np.where(rng.random(b) < 0.2, 7, 0).astype(np.int32)),
+            matched=t(rng.random((b, n_rules)) < 0.7),
+            rule_idx=t(rng.integers(-1, n_rules + 1, b).astype(np.int32)),
+            rule_ns=t(rng.integers(0, 3, n_rules).astype(np.int32)),
+            req_ns=t(rng.integers(-1, 3, b).astype(np.int32)),
+            default_ns=0)
+    hot = int(np.bincount(keys).max())
+    return plane, rows, gate, hot
+
+
+def quota_big_checks(int_rate: float, rng) -> dict:
+    """Phase 9 (the K9 repair): quota_alloc above the one-block path's
+    8,192 rows, against its plain version in unit, seg, scan and gated
+    seg at QUOTA_BIG_BATCHES rows, each timed with its grids and bound.
+    At 32,768 rows the hottest key's run is longer than a scan tile, so
+    its sums and running maxima cross block seams."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.models import quota_alloc as qa
+    out = {}
+    for b in QUOTA_BIG_BATCHES:
+        for mode in ("unit", "seg", "scan", "gate"):
+            plane, rows, gate, hot = quota_big_rows(rng, b, mode, "cuda")
+            if b == QUOTA_BIG_BATCHES[-1] and hot <= K9_SCAN_TILE:
+                raise AssertionError(f"B={b}: the hottest key has {hot} "
+                                     "rows, no run spans several tiles")
+            kmode = "seg" if mode == "gate" else mode
+            quota_alloc_check(f"big {mode} B={b}", kmode, plane, rows, gate)
+            g0 = kernels.launches.grids["quota_alloc"]
+            gate_k = None if gate is None else torch.zeros(
+                b, dtype=torch.int32, device="cuda")
+            qa.quota_alloc(kmode, plane.clone(), *rows, gate=gate,
+                           gate_out=gate_k)
+            grids = kernels.launches.grids["quota_alloc"] - g0
+            if grids < 2:
+                raise AssertionError(f"B={b} {mode}: {grids} grid(s), the "
+                                     "multi-block path did not run")
+            ms, call, how, plain, n_bytes, ops, lib, _ = quota_alloc_times(
+                kmode, plane, rows, gate)
+            bms, by = bound(n_bytes, ops, int_rate)
+            log(f"  quota_alloc {mode:<5} B={b:6d} kernel {ms:9.5f} ms (per "
+                f"call incl. launch {call:8.5f}, {grids} grids)   plain "
+                f"{plain:9.5f} ms   bound {bms:9.7f} ms ({by})   equal: yes"
+                f"   hottest key {hot} rows   [{how}]   argsort "
+                f"{lib:9.5f} ms")
+            out[f"{mode}@{b}"] = {"ms": ms, "plain_ms": plain,
+                                  "bound_ms": bms, "bound_by": by,
+                                  "library_ms": lib, "bytes": n_bytes,
+                                  "ops": ops, "grids": grids,
+                                  "hot_rows": hot}
+    return out
+
+
+def quota_instep_big(rng) -> dict:
+    """Phase 9: in-step trips of QUOTA_INSTEP_BIG rows — the card's
+    server at ServerArgs(max_batch=16384, quota_in_step=True) with a
+    16,384 bucket (its constructor warms it) against a device="cpu"
+    server: every CheckResponse and QuotaResult equal, one quota_alloc
+    launch on the multi-block path, and conservation on the card's
+    plane."""
+    import numpy as np
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.adapters.sdk import QuotaArgs
+    b = QUOTA_INSTEP_BIG
+    t_build = time.perf_counter()
+    srv, store, pool, clock = quota_server(
+        "cuda", dict(buckets=(b,), max_batch=b, rulestats_drain_s=0))
+    cpu, cpu_store, _, cpu_clock = quota_server(
+        "cpu", dict(CPU_SERVER, max_batch=b))
+    build_s = time.perf_counter() - t_build
+    plan = srv.controller.dispatcher.fused
+    if not any(b in key[0] for key in plan._instep_warmed):
+        raise AssertionError(f"in-step warm {sorted(plan._instep_warmed)} "
+                             f"lacks the {b} bucket")
+    ledger, walls, cpu_walls = [], [], []
+    for s in range(QUOTA_INSTEP_BIG_TRIPS):
+        users = zipf_users(rng, b)
+        bags, cbags = quota_bags(users, seed=31 + s)
+        qrows = [(i, "rq", QuotaArgs(quota_amount=int(a),
+                                     best_effort=bool(e)))
+                 for i, (a, e) in enumerate(zip(rng.integers(1, 6, b),
+                                                rng.random(b) < 0.5))]
+        g0 = dict(kernels.launches.grids)
+        n0 = kernels.launches["quota_alloc"]
+        t0 = time.perf_counter()
+        resp, got = srv.check_batch_quota_instep(
+            bags, qrows, srv.instep_quota_target())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if kernels.launches["quota_alloc"] != n0 + 1 or \
+                kernels.launches.grids["quota_alloc"] - \
+                g0["quota_alloc"] < 2:
+            raise AssertionError(f"in-step B={b}: not one multi-block "
+                                 "quota_alloc launch")
+        t0 = time.perf_counter()
+        cresp, want = cpu.check_batch_quota_instep(
+            cbags, qrows, cpu.instep_quota_target())
+        cpu_walls.append((time.perf_counter() - t0) * 1e3)
+        compare_responses(f"in-step B={b} trip {s}", resp, cresp)
+        if set(got) != set(want):
+            raise AssertionError(f"in-step B={b}: quota rows differ")
+        for i in got:
+            same_quota(f"in-step B={b} trip {s} row {i}", got[i], want[i])
+            if resp[i].status_code == OK:
+                ledger.append((f"user{int(users[i])}", clock.t,
+                               got[i].granted_amount))
+        clock.t += QUOTA_STEP_S
+        cpu_clock.t += QUOTA_STEP_S
+    cons = quota_ledger_checks(pool, ledger)
+    n_ex = sum(q.status_code == RESOURCE_EXHAUSTED for q in got.values())
+    log(f"[9] in-step B={b} (ServerArgs(max_batch={b}), bucket {b}; both "
+        f"servers built in {build_s:.1f} s): {len(walls)} trip(s), every "
+        f"CheckResponse and QuotaResult equal to the CPU server's, one "
+        f"multi-block quota_alloc launch each; card walls "
+        + " / ".join(f"{w:.1f}" for w in walls) + " ms, CPU "
+        + " / ".join(f"{w:.1f}" for w in cpu_walls) + f" ms; {n_ex} "
+        f"RESOURCE_EXHAUSTED; conservation: {cons['buckets']:,} buckets "
+        f"read back their grants, most in a window {cons['max_window']}")
+    for x in (srv, cpu, store, cpu_store):
+        x.close()
+    return {"walls_ms": walls, "conservation": cons}
 
 
 def quota_mode_times(pool, rng, int_rate: float) -> dict:
@@ -2761,6 +2997,380 @@ def quota_walls(srv, rng) -> dict:
     return out
 
 
+ROUTE_RULES = 10_000          # BASELINE config 3: 10k route rules
+ROUTE_BATCHES = (64, 256, 2048, 8192)
+ROUTE_ITERS = 20              # timed selects per batch size
+ROUTE_ORACLE_ROWS = 256       # select_host sample per batch size
+ROUTE_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "route_select")
+
+
+def route_h2d_bytes(batch, planes) -> tuple[int, int]:
+    """Host-to-device bytes of one select: the dense batch's planes (what
+    AttributeBatch.to moves) and the compact select's."""
+    dense = nbytes(batch.ids, batch.present, batch.map_present,
+                   batch.str_bytes, batch.str_lens, batch.hash_ids)
+    compact = nbytes(batch.ids, batch.map_present) + int(sum(
+        x.nbytes for x in planes))
+    return dense, compact
+
+
+def compact_select(tbl, batch):
+    """The compact select of one tensorized batch → (int32 [B] on the
+    device, the shipped host planes)."""
+    planes = tbl._compact_planes(batch)
+    if planes is None:
+        raise AssertionError("compact select: the dense plane is smaller")
+    flat, pres, lens = planes
+    return tbl._select_on_device_compact(batch.ids, pres, batch.map_present,
+                                         flat, lens), planes
+
+
+def route_entry_counts() -> dict:
+    from istio_tpu_torch import kernels
+    return {"rule_match": kernels.launches["rule_match"],
+            **kernels.launches.entries}
+
+
+def route_edge_checks() -> int:
+    """Phase 10b: route_winner and route_densify against their plain
+    versions on inputs the route traffic does not produce (no match,
+    every row matched, R = 1, ties and non-positive weights; lens 0 and
+    L with cap > total, n_cols not a multiple of 8, several byte slots),
+    and a host-fallback world (tests/test_pilot.py:414's backreference
+    rule) selected on the card equal to the CPU table and select_host."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.ops import route_ops
+    from istio_tpu_torch.pilot.model import (Config, ConfigMeta, Port,
+                                             Service)
+    from istio_tpu_torch.pilot.route_nfa import RouteTable
+    rng = np.random.default_rng(10)
+    n = 0
+    for b, r, p, kind in ((2048, ROUTE_RULES, 0.0, "no match"),
+                          (256, ROUTE_RULES, 1.0, "all matched"),
+                          (300, 1, 0.5, "R = 1"), (64, 300, 0.3, "ties"),
+                          (64, 300, 0.3, "non-positive")):
+        m = torch.from_numpy(rng.random((b, r)) < p).cuda()
+        w = rng.permutation(r).astype(np.int32) + 1
+        if kind == "ties":
+            w = rng.integers(1, 4, r).astype(np.int32)
+        elif kind == "non-positive":
+            w = rng.integers(-3, 2, r).astype(np.int32)
+        w = torch.from_numpy(w).cuda()
+        assert_equal(f"route_winner {kind}", route_ops.route_winner(m, w, r),
+                     route_ops.route_winner_plain(m, w, r))
+        n += 1
+    for b, nbyte, max_len, n_cols in ((2048, 1, 256, 7), (300, 3, 256, 19),
+                                      (8192, 1, 256, 7), (5, 2, 16, 3)):
+        lens = rng.integers(0, 40, (b, nbyte))
+        lens[::3] = 0
+        lens[1::5] = max_len
+        cap = max(1024, 1 << int(lens.sum()).bit_length())
+        flat = torch.from_numpy(rng.integers(0, 256, cap).astype(
+            np.uint8)).cuda()
+        l16 = torch.from_numpy(lens.astype(np.int16)).cuda()
+        pres = torch.from_numpy(rng.integers(0, 256, (b, -(-n_cols // 8)))
+                                .astype(np.uint8)).cuda()
+        got = route_ops.route_densify(flat, l16, pres, n_cols, max_len)
+        want = route_ops.route_densify_plain(flat, l16, pres, n_cols,
+                                             max_len)
+        for part, g, w_ in zip(("bytes", "lens", "present"), got, want):
+            assert_equal(f"route_densify B={b} nbyte={nbyte} {part}", g, w_)
+        n += 1
+    svc = Service(hostname="svc0.default.svc.cluster.local",
+                  address="10.0.0.1", ports=(Port("http", 80, "HTTP"),))
+
+    def rule(name, headers):
+        return Config(ConfigMeta(type="route-rule", name=name,
+                                 namespace="default"),
+                      {"destination": {"name": "svc0"},
+                       "match": {"request": {"headers": headers}},
+                       "route": [{"labels": {}}]})
+
+    rules = {svc.hostname: [rule("rr-backref", {"uri": {"regex":
+                                                        r"^/(a+)\1$"}}),
+                            rule("rr-plain", {"uri": {"prefix": "/api/"}})]}
+    card = RouteTable([svc], rules, device="cuda")
+    cpu = RouteTable([svc], rules, device="cpu")
+    if not card.program.host_fallback:
+        raise AssertionError("host-fallback world: no rule fell back")
+    reqs = [{"destination.service": svc.hostname, "request.path": p}
+            for p in ("/aaaa", "/aaa", "/api/x", "/other", "/aa")]
+    got = card.select(reqs)
+    if not (got == cpu.select(reqs)).all() or \
+            list(got) != [card.select_host(q) for q in reqs]:
+        raise AssertionError("host-fallback world: selections differ")
+    torch.cuda.synchronize()
+    return n + 1
+
+
+def route_phase(int_rate: float) -> dict:
+    """Phase 10: Pilot's route selection at BASELINE config 3 —
+    make_route_world(10_000), 1,000 services and 10,000 route rules
+    (URI prefix, full-match regex, cookie exact, source-constrained
+    prefix) — on the card against the same RouteTable on the CPU, the
+    launch counters zeroed just before the drive and read just after. At
+    each B of ROUTE_BATCHES (make_route_requests): the dense select
+    index-equal to the CPU table and to select_host on a sample, the
+    compact select equal to the dense one, the H2D bytes of both, and
+    the launches of one select of each (dense: one rule_match and one
+    route_winner; compact: one more route_densify); select p50 / p99,
+    device busy and idle share. Every kernel of the B=2048 trips held
+    against its plain version (timed), then edge inputs (10b)."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.pilot.route_nfa import RouteTable
+    from istio_tpu_torch.testing import workloads
+
+    t0 = time.perf_counter()
+    services, rules = workloads.make_route_world(ROUTE_RULES)
+    tbl = RouteTable(services, rules, device="cuda")
+    compile_s = time.perf_counter() - t0
+    cpu = RouteTable(services, rules, device="cpu")
+    if tbl.program.host_fallback:
+        raise AssertionError("route world: host-fallback rules")
+    log(f"[10] route world: {len(services)} services, {len(tbl.entries)} "
+        f"route rules compiled on the card in {compile_s:.2f} s; geometry "
+        f"{json.dumps(tbl.program.geometry)}")
+    rng = np.random.default_rng(1010)
+    kernels.launches.reset()
+    steps, results, captured = 0, {}, {}
+    for b in ROUTE_BATCHES:
+        reqs = workloads.make_route_requests(b, n_services=len(services),
+                                             seed=b)
+        bags = [bag_from_mapping(r) for r in reqs]
+        c0 = route_entry_counts()
+        with capture_if(b == HEADLINE_B) as cap:
+            got = tbl.select(bags)
+        torch.cuda.synchronize()
+        c1 = route_entry_counts()
+        steps += 1
+        if {k: c1[k] - c0[k] for k in c1} != {
+                "rule_match": 1, "route_winner": 1, "route_densify": 0}:
+            raise AssertionError(f"B={b} dense select launched "
+                                 f"{ {k: c1[k] - c0[k] for k in c1} }")
+        want = cpu.select(bags)
+        if not (got == want).all():
+            raise AssertionError(f"B={b}: card and CPU tables select "
+                                 f"differently in {(got != want).sum()} rows")
+        sample = rng.choice(b, min(b, ROUTE_ORACLE_ROWS), replace=False)
+        for i in sample:
+            if tbl.select_host(reqs[i]) != got[i]:
+                raise AssertionError(f"B={b} row {i}: select_host differs")
+        batch = tbl.tensorizer.tensorize(bags)
+        with capture_if(b == HEADLINE_B) as cap_c:
+            comp, planes = compact_select(tbl, batch)
+            comp = comp.cpu().numpy()
+        c2 = route_entry_counts()
+        steps += 1
+        if {k: c2[k] - c1[k] for k in c2} != {
+                "rule_match": 1, "route_winner": 1, "route_densify": 1}:
+            raise AssertionError(f"B={b} compact select launched "
+                                 f"{ {k: c2[k] - c1[k] for k in c2} }")
+        if not (comp == got).all():
+            raise AssertionError(f"B={b}: compact and dense selects differ")
+        dense_b, compact_b = route_h2d_bytes(batch, planes)
+        if b == HEADLINE_B:
+            captured = {"dense": cap, "compact": cap_c}
+        walls = []
+        for _ in range(ROUTE_ITERS):
+            t = time.perf_counter()
+            tbl.select(bags)
+            walls.append((time.perf_counter() - t) * 1e3)
+        steps += ROUTE_ITERS
+        staged = batch.to("cuda")
+        busy = device_ms(lambda: tbl._select_on_device(staged), 5)
+        steps += 6
+        p50 = float(np.percentile(walls, 50))
+        r = {"p50_ms": p50, "p99_ms": float(np.percentile(walls, 99)),
+             "busy_ms": busy, "idle_share": None if busy is None else
+             1 - busy / p50, "selects_per_s": b / p50 * 1e3,
+             "h2d_dense": dense_b, "h2d_compact": compact_b,
+             "hit_rows": int((got != tbl.default_index).sum())}
+        results[b] = r
+        idle = "busy not measured" if busy is None else \
+            f"busy {busy:.4f} ms, idle share {r['idle_share']:.3f}"
+        log(f"[10] B={b:5d}: select equal to the CPU table and to "
+            f"select_host on {len(sample)} rows; compact equal to dense; "
+            f"{r['hit_rows']} rows routed; select p50 {p50:.4f} ms p99 "
+            f"{r['p99_ms']:.4f} ms ({r['selects_per_s']:,.0f} requests/s; "
+            f"{idle}); H2D dense {dense_b:,} B, compact {compact_b:,} B; "
+            "launches per select: dense rule_match 1 + route_winner 1, "
+            "compact + route_densify 1")
+    out = path_counts("[10] route path", ROUTE_KERNELS, steps)
+    out["entries"] = dict(kernels.launches.entries)
+    log(f"[10] route_select entry points: {out['entries']}")
+    log(f"[10] every kernel of the B={HEADLINE_B} dense select against its "
+        "plain version (timed):")
+    rows = check_kernels(captured["dense"], None, int_rate)
+    log(f"[10] route_densify of the B={HEADLINE_B} compact select (timed):")
+    dens = [c for c in captured["compact"] if c[0] == "route_select"
+            and c[1][0] == "densify"]
+    check_kernels([c for c in captured["compact"] if c not in dens], None)
+    dens_row = check_kernels(dens, None, int_rate)[0]
+    win_row = next(r for r in rows if r["name"] == "route_select")
+    win_row["entries"] = {e: {k: r[k] for k in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_call", "bytes", "ops")} for e, r in (
+            ("route_winner", win_row), ("route_densify", dens_row))}
+    log(f"[10b] {route_edge_checks()} edge cases: route_winner and "
+        "route_densify equal to their plain versions; a host-fallback "
+        "world equal to the CPU table and select_host")
+    return {**out, "results": results, "rows": rows}
+
+
+DISCOVERY_FLEET = dict(n_services=2000, n_namespaces=64, replicas=5,
+                       n_routes=2500, source_ns=2, seed=17)   # bench.py:2072
+DISCOVERY_CHURN_ROUNDS = 8
+
+
+def discovery_poll(ds, nodes, meta) -> tuple[list, float]:
+    """Every sidecar's RDS poll (its namespace's port) → (bodies, s)."""
+    replicas = DISCOVERY_FLEET["replicas"]
+    t0 = time.perf_counter()
+    bodies = [ds.list_routes(str(8000 + meta["ns_of"][i // replicas]), "c",
+                             n) for i, n in enumerate(nodes)]
+    return bodies, time.perf_counter() - t0
+
+
+def discovery_phase(int_rate: float) -> dict:
+    """Phase 11: Pilot's discovery service at bench.py's fleet
+    (make_discovery_world: 2,000 services over 64 namespaces, 5 replicas
+    = 10,000 sidecars, 2,500 route rules, the first 2 namespaces
+    source-constrained) — a DiscoveryService on the card against one on
+    the CPU, the launch counters zeroed just before the drive and read
+    just after: every sidecar's RDS byte-equal on a cold and a warm poll,
+    CDS / LDS / SDS byte-equal for one node per namespace, the same
+    node groups; then DISCOVERY_CHURN_ROUNDS rounds of one-namespace
+    churn, every sidecar's RDS equal after each and the scope program
+    carried while its digest holds. Exactly one rule_match launch per
+    admit_rows call that reaches the program; one captured launch held
+    against its plain version (timed)."""
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.pilot.discovery import DiscoveryService
+    from istio_tpu_torch.runtime import monitor
+    from istio_tpu_torch.testing import workloads
+
+    t0 = time.perf_counter()
+    registry, store, nodes, meta = workloads.make_discovery_world(
+        **DISCOVERY_FLEET)
+    c_registry, c_store, _, _ = workloads.make_discovery_world(
+        **DISCOVERY_FLEET)
+    ds = DiscoveryService(registry, store, device="cuda")
+    cpu = DiscoveryService(c_registry, c_store, device="cpu")
+    build_s = time.perf_counter() - t0
+    snap = ds.snapshot
+    log(f"[11] discovery fleet: {len(nodes):,} sidecars, "
+        f"{snap.n_services:,} services, {snap.n_rules:,} route rules "
+        f"({snap.scope.n_constrained} source-constrained) built on both in "
+        f"{build_s:.2f} s")
+    admits = {"calls": 0, "program": 0}
+    counted = set()
+
+    def count_admits():
+        """Count the admit_rows calls of the card's current scope
+        program (each snapshot's program is wrapped once)."""
+        scope = ds.snapshot.scope
+        if id(scope) in counted:
+            return
+        counted.add(id(scope))
+        real = scope.admit_rows
+
+        def admit_rows(sources):
+            admits["calls"] += 1
+            if scope._program is not None and sources:
+                admits["program"] += 1
+            return real(sources)
+        scope.admit_rows = admit_rows
+
+    count_admits()
+    kernels.launches.reset()
+    base = monitor.discovery_stage_baseline()
+    with kernels.launches.capture() as cap:
+        cold, cold_s = discovery_poll(ds, nodes, meta)
+    lat = monitor.discovery_latency_snapshot(base)["stages"]
+    c_cold, c_cold_s = discovery_poll(cpu, nodes, meta)
+    bad = sum(a != b for a, b in zip(cold, c_cold))
+    if bad:
+        raise AssertionError(f"cold poll: {bad} sidecars' RDS differ")
+    groups = ds._cache.stats()["by_endpoint"]
+    if groups != cpu._cache.stats()["by_endpoint"]:
+        raise AssertionError("node-group counts differ")
+    warm, warm_s = discovery_poll(ds, nodes, meta)
+    if warm != cold:
+        raise AssertionError("warm poll served other bytes")
+    k_of = {}
+    for i, n in enumerate(nodes):
+        k_of.setdefault(meta["ns_of"][i // DISCOVERY_FLEET["replicas"]], n)
+    n_other = 0
+    for k, n in sorted(k_of.items()):
+        host = meta["hosts_by_ns"][k][0]
+        for fn, args in ((ds.list_clusters, ("c", n)),
+                         (ds.list_listeners, ("c", n)),
+                         (ds.list_endpoints, (f"{host}|http",))):
+            other = getattr(cpu, fn.__name__)(*args)
+            if fn(*args) != other:
+                raise AssertionError(f"{fn.__name__}{args} differs")
+            n_other += 1
+    log(f"[11] cold poll: {len(nodes):,} sidecars' RDS byte-equal to the "
+        f"CPU service, {groups.get('rds', 0)} RDS node groups; card "
+        f"{cold_s:.3f} s ({len(nodes) / cold_s:,.0f} polls/s), CPU "
+        f"{c_cold_s:.3f} s; warm poll {warm_s:.3f} s "
+        f"({len(nodes) / warm_s:,.0f} polls/s); CDS / LDS / SDS equal for "
+        f"{len(k_of)} namespaces ({n_other} payloads)")
+    reused, churn_walls = 0, []
+    ks = sorted(meta["rules_by_ns"])
+    for tick in range(DISCOVERY_CHURN_ROUNDS):
+        k = ks[(tick * 7) % len(ks)]
+        prev = ds.snapshot.scope
+        workloads.churn_discovery_rule(store, meta, k, tick)
+        workloads.churn_discovery_rule(c_store, meta, k, tick)
+        if ds.snapshot.scope_reused != cpu.snapshot.scope_reused:
+            raise AssertionError(f"churn {tick}: scope reuse differs")
+        if ds.snapshot.scope_reused:
+            if ds.snapshot.scope is not prev:
+                raise AssertionError(f"churn {tick}: digest held but the "
+                                     "scope program was not carried")
+            reused += 1
+        count_admits()
+        bodies, s = discovery_poll(ds, nodes, meta)
+        churn_walls.append(s)
+        c_bodies, _ = discovery_poll(cpu, nodes, meta)
+        bad = sum(a != b for a, b in zip(bodies, c_bodies))
+        if bad:
+            raise AssertionError(f"churn round {tick} (ns{k}): {bad} "
+                                 "sidecars' RDS differ")
+        if ds._last_publish["changed_scopes"] != \
+                cpu._last_publish["changed_scopes"]:
+            raise AssertionError(f"churn {tick}: changed scopes differ")
+    out = path_counts("[11] discovery path", ("rule_match",),
+                      admits["program"])
+    if out["counts"]["rule_match"] != admits["program"]:
+        raise AssertionError(f"rule_match: {out['counts']['rule_match']} "
+                             f"launches for {admits['program']} admit_rows "
+                             "calls that reach the program")
+    route_eval = lat.get("route_eval", {})
+    log(f"[11] {DISCOVERY_CHURN_ROUNDS} churn rounds: every sidecar's RDS "
+        f"equal after each; scope program carried in {reused}; poll after "
+        f"churn {min(churn_walls):.3f}-{max(churn_walls):.3f} s; "
+        f"admit_rows calls {admits['calls']} ({admits['program']} reach "
+        f"the program), rule_match launches {out['counts']['rule_match']} "
+        f"= one per batched generation; the card's cold poll: route_eval "
+        f"{route_eval}, generate {lat.get('generate', {})}")
+    log("[11] rule_match of one captured admit_rows trip against its plain "
+        "version (timed):")
+    rows = check_kernels([c for c in cap if c[0] == "rule_match"][:1], None,
+                         int_rate)
+    for d in (ds, cpu):
+        d.stop()
+    return {**out, "rows": rows, "cold_s": cold_s, "warm_s": warm_s,
+            "churn_s": churn_walls, "stages": lat,
+            "sidecars": len(nodes), "groups": groups, "admits": admits,
+            "scope_reused": reused}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2785,6 +3395,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"int32 peak {int_rate:.4g} op/s ({int_how})")
 
+    log(f"[t] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 2: build
     t0 = time.perf_counter()
     built = kernels.build()
@@ -2795,6 +3406,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
+    log(f"[t] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 3: each kernel against its plain version, main-path inputs
     t0 = time.perf_counter()
     eng = workloads.make_engine(HEADLINE_RULES, with_quota=True,
@@ -2826,6 +3438,7 @@ def main() -> int:
     log(f"[3b] {edge_checks()} edge cases: every kernel equal to its "
         "plain version")
 
+    log(f"[t] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 4: end to end, counters zeroed just before
     kernels.launches.reset()
     cpu_eng = workloads.make_engine(HEADLINE_RULES, with_quota=True,
@@ -2888,6 +3501,7 @@ def main() -> int:
     log(f"[4] wrapper calls on the engine path ({steps} steps): {counts}; "
         f"__global__ launches: {grids}")
 
+    log(f"[t] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 5: the served Check() path, counters zeroed just before
     sv = served_phase()
     swap_phase(*sv["servers"])
@@ -2898,30 +3512,43 @@ def main() -> int:
         "rule_stats equal to their plain versions; a served host-overlay "
         "world on padded batches equal to the CPU server")
 
+    log(f"[t] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 6: the authz world, counters zeroed just before
     az = authz_phase(int_rate)
+    log(f"[t] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 7: the list world, counters zeroed just before
     ls = list_phase(int_rate)
     log(f"[7b] {list_banks_edge_checks()} edge cases at B={HEADLINE_B}: "
         "list_banks equal to its plain version")
+    log(f"[t] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 8: the report path, counters zeroed just before
     rp = report_phase(int_rate)
     log(f"[8b] {field_edge_checks()} edge cases: field_eval equal to "
         "field_eval_plain and to the op-table interpreter")
+    log(f"[t] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 9: the quota path, counters zeroed just before
     qt = quota_phase(int_rate)
+    log(f"[t] phase 10 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 10: route selection, counters zeroed just before
+    rt = route_phase(int_rate)
+    log(f"[t] phase 11 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 11: the discovery service, counters zeroed just before
+    dc = discovery_phase(int_rate)
 
-    # ---- phase 10: result lines. K1-K6 keep the headline served path's
+    log(f"[t] phase 12 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 12: result lines. K1-K6 keep the headline served path's
     # row; list_banks reports the list path's, field_eval the report
-    # path's and quota_alloc the quota path's (its in-step trip, with
-    # every mode's row under "modes"). Each row carries its kernel's rows
-    # on the other paths under "paths".
+    # path's, quota_alloc the quota path's (its in-step trip, with every
+    # mode's row under "modes") and route_select the route path's (its
+    # winner, with both entry points under "entries"). Each row carries
+    # its kernel's rows on the other paths under "paths".
     paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
-             "quota": qt}
+             "quota": qt, "routes": rt, "discovery": dc}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
                             ("field_eval", "report", rp),
-                            ("quota_alloc", "quota", qt)):
+                            ("quota_alloc", "quota", qt),
+                            ("route_select", "routes", rt)):
         by_name[name] = next(r for r in res["rows"] if r["name"] == name)
         by_name[name]["path"] = path
     table = [by_name[k] for k in kernels.KERNELS]
@@ -2937,7 +3564,8 @@ def main() -> int:
         row["launches_by_path"] = {"engine": counts[name], **{
             p: r["counts"][name] for p, r in paths.items()}}
         row["paths"] = {p: {k: x[k] for k in keep}
-                        for p in ("authz", "lists", "report", "quota")
+                        for p in ("authz", "lists", "report", "quota",
+                                  "routes", "discovery")
                         for x in paths[p]["rows"] if x["name"] == name
                         and p != row["path"]}
     log("kernels (launches by path): " + "; ".join(
@@ -2959,6 +3587,25 @@ def main() -> int:
         "ms" for b, r in qt["results"].items())
         + f"; {qt['flushes']} flushes and {qt['trips']} in-step trips, one "
         "quota_alloc launch each")
+    log("quota (K9 above 8,192 rows): " + ", ".join(
+        f"{m} {r['ms']:.4f} ms ({r['grids']} grids)"
+        for m, r in qt["rows"][0]["modes"].items() if "grids" in r)
+        + f"; in-step B={QUOTA_INSTEP_BIG} walls "
+        + " / ".join(f"{w:.1f}" for w in qt["instep_16384"]["walls_ms"])
+        + " ms")
+    log("routes (RouteTable.select, make_route_world(10_000)): " + ", ".join(
+        f"B={b} p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms "
+        f"{r['selects_per_s']:.0f} requests/s idle share "
+        f"{r['idle_share'] if r['idle_share'] is None else round(r['idle_share'], 4)}"
+        f" H2D {r['h2d_dense']} / {r['h2d_compact']} B"
+        for b, r in rt["results"].items()))
+    log(f"discovery ({dc['sidecars']:,} sidecars): cold poll "
+        f"{dc['cold_s']:.3f} s = {dc['sidecars'] / dc['cold_s']:.0f} "
+        f"polls/s, warm {dc['warm_s']:.3f} s = "
+        f"{dc['sidecars'] / dc['warm_s']:.0f} polls/s; route_eval "
+        f"{dc['stages'].get('route_eval')}; rule_match "
+        f"{dc['counts']['rule_match']} launches for "
+        f"{dc['admits']['program']} batched generations")
     log("e2e (engine step): " + ", ".join(
         f"B={b} {ms:.4f} ms {b / ms * 1e3:.0f} checks/s"
         for b, ms in e2e.items()))

@@ -5,7 +5,8 @@ reference's objects as plain data (numpy arrays, enums with a `.name`,
 dataclass fields) and rebuild the port's counterparts, so a test can
 feed the reference's own compiled params, batches and quota state
 through the port's step, serve the reference's config store, and
-continue a reference run's rule telemetry on the port.
+continue a reference run's rule telemetry on the port, and rebuild
+Pilot's route world and discovery registry and store.
 """
 from __future__ import annotations
 
@@ -128,3 +129,62 @@ def telemetry_state_from_reference(ref_tel: Any,
     err = np.array(ref_tel._acc_err, np.int64) + ref_tel._host_err
     return tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
                  for a in (hit, deny, err))
+
+
+def _service_from_reference(s: Any):
+    from istio_tpu_torch.pilot.model import Port, Service
+    return Service(hostname=s.hostname, address=s.address,
+                   ports=tuple(Port(p.name, p.port, p.protocol)
+                               for p in s.ports),
+                   external_name=s.external_name,
+                   service_account=s.service_account)
+
+
+def _config_from_reference(c: Any):
+    import copy
+
+    from istio_tpu_torch.pilot.model import Config, ConfigMeta
+    m = c.meta
+    return Config(ConfigMeta(type=m.type, name=m.name,
+                             namespace=m.namespace, domain=m.domain,
+                             labels=dict(m.labels),
+                             annotations=dict(m.annotations),
+                             resource_version=m.resource_version),
+                  copy.deepcopy(dict(c.spec)))
+
+
+def pilot_world_from_reference(services: Any, rules_by_host: Any
+                               ) -> tuple[list, dict]:
+    """The reference's route world (pilot Service list, hostname → route
+    rule Configs) → the port's pilot objects, in the same order. The
+    route world is the state a RouteTable compiles."""
+    return ([_service_from_reference(s) for s in services],
+            {h: [_config_from_reference(c) for c in rules]
+             for h, rules in rules_by_host.items()})
+
+
+def discovery_world_from_reference(registry: Any, store: Any
+                                   ) -> tuple[Any, Any]:
+    """The reference's discovery world (a registry answering services() /
+    instances(), a config store answering snapshot()) → a port
+    MemoryRegistry and MemoryConfigStore holding the same services,
+    instances (endpoint, labels, zone) and configs. Build it before any
+    DiscoveryService attaches its handlers."""
+    from istio_tpu_torch.pilot.model import MemoryConfigStore
+    from istio_tpu_torch.pilot.registry import MemoryRegistry
+
+    reg = MemoryRegistry()
+    for s in registry.services():
+        endpoints, seen = [], set()
+        for inst in registry.instances(s.hostname):
+            key = (inst.endpoint.address, inst.availability_zone,
+                   tuple(sorted(inst.labels.items())))
+            if key not in seen:
+                seen.add(key)
+                endpoints.append((inst.endpoint.address, dict(inst.labels),
+                                  inst.availability_zone))
+        reg.add_service(_service_from_reference(s), endpoints)
+    out = MemoryConfigStore()
+    for _, cfg in sorted(store.snapshot().items()):
+        out.create(_config_from_reference(cfg))
+    return reg, out

@@ -31,7 +31,9 @@ import torch
 
 KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
            "check_pack", "rule_stats", "list_banks", "field_eval",
-           "quota_alloc")
+           "quota_alloc", "route_select")
+# the C entry points of each source that has more than one
+ENTRY_POINTS = {"route_select": ("route_winner", "route_densify")}
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -41,17 +43,21 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 class LaunchCounts(dict):
     """kernel name → wrapper calls that launched it since the last
-    reset(); `grids`: kernel name → `__global__` launches of those calls."""
+    reset(); `grids`: kernel name → `__global__` launches of those calls;
+    `entries`: entry point → calls, for the sources of ENTRY_POINTS."""
 
     def __init__(self) -> None:
         super().__init__({k: 0 for k in KERNELS})
         self.grids = {k: 0 for k in KERNELS}
+        self.entries = {e: 0 for es in ENTRY_POINTS.values() for e in es}
         self.captured: list | None = None
 
     def reset(self) -> None:
         for k in KERNELS:
             self[k] = 0
             self.grids[k] = 0
+        for e in self.entries:
+            self.entries[e] = 0
 
     @contextmanager
     def capture(self):
@@ -67,11 +73,15 @@ class LaunchCounts(dict):
 launches = LaunchCounts()
 
 
-def launched(name: str, grids: int, *inputs) -> None:
+def launched(name: str, grids: int, *inputs, entry: str | None = None
+             ) -> None:
     """Called by a wrapper right after it launched kernel `name` as
-    `grids` `__global__` launches."""
+    `grids` `__global__` launches (through C entry point `entry`, for a
+    source of ENTRY_POINTS)."""
     launches[name] += 1
     launches.grids[name] += grids
+    if entry is not None:
+        launches.entries[entry] += 1
     if launches.captured is not None:
         launches.captured.append((name, inputs))
 

@@ -34,10 +34,6 @@ from istio_tpu_torch import kernels
 # (512 × 2^21 = 2^30). Over-domain all-or-nothing rows are denied;
 # best-effort rows cap here.
 DOMAIN_MAX = 1 << 21
-# the most rows a contended (scan / unit / seg) batch may carry: the
-# kernel holds every row in one block's shared memory (csrc/quota_alloc.cu
-# kMaxRows); the wrapper raises above it
-MAX_ROWS = 8192
 MODES = {"scan": 0, "fast": 1, "unit": 2, "seg": 3}
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -259,8 +255,9 @@ def quota_alloc(mode: str, slots: torch.Tensor, buckets, amounts, best_effort,
     With `gate`, the in-step gate is applied and written as int32 0/1
     into `gate_out` (required then). Modes: "fast" (unique active
     buckets), "unit" (every active amount 1), "seg" (contended mixed
-    amounts), "scan" (the sequential oracle); the contended three take at
-    most MAX_ROWS rows. CPU tensors run quota_alloc_plain."""
+    amounts), "scan" (the sequential oracle). A contended batch of up to
+    8,192 rows runs in one block, a larger one on many blocks over a
+    scratch buffer allocated here. CPU tensors run quota_alloc_plain."""
     if mode not in MODES:
         raise ValueError(f"quota_alloc: unknown mode {mode!r}")
     dev = slots.device
@@ -286,9 +283,6 @@ def quota_alloc(mode: str, slots: torch.Tensor, buckets, amounts, best_effort,
             not slots.is_contiguous():
         raise ValueError("quota_alloc: slots must be a contiguous int32 "
                          "[n_buckets, K] tensor")
-    if mode != "fast" and b > MAX_ROWS:
-        raise ValueError(f"quota_alloc: a {mode} batch of {b} rows exceeds "
-                         f"the kernel's {MAX_ROWS}-row limit")
     rows = []
     for name, x in (("buckets", buckets), ("amounts", amounts),
                     ("best_effort", best_effort),
@@ -322,6 +316,10 @@ def quota_alloc(mode: str, slots: torch.Tensor, buckets, amounts, best_effort,
     # replay the kernel and its plain version on the same state
     before = slots.clone() if kernels.launches.captured is not None else None
     p = kernels.ptr
+    n_scratch = kernels.function("quota_alloc", "quota_alloc_scratch_bytes",
+                                 [_K.I32, _K.I32])(b, MODES[mode])
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
+        if n_scratch > 0 else None
     fn = kernels.function("quota_alloc", "quota_alloc", _ALLOC_ARGS)
     st, mt, ri, rn, rq, dns = gate_args
     rc = fn(p(slots), int(slots.shape[0]), int(slots.shape[1]),
@@ -330,6 +328,7 @@ def quota_alloc(mode: str, slots: torch.Tensor, buckets, amounts, best_effort,
             n_rules, None if ri is None else p(ri),
             None if rn is None else p(rn), None if rq is None else p(rq),
             int(dns), p(granted), None if gate_out is None else p(gate_out),
+            None if scratch is None else p(scratch),
             kernels.VP(kernels.stream_ptr()))
     kernels.launched("quota_alloc", kernels.check(rc, "quota_alloc"), mode,
                      before, *rows, gate)
@@ -340,7 +339,7 @@ _K = kernels
 _ALLOC_ARGS = ([_K.VP, _K.I32, _K.I32] + [_K.VP] * 8      # slots, rows
                + [_K.I32, _K.I32]                           # B, mode
                + [_K.VP, _K.VP, _K.I32, _K.VP, _K.VP, _K.VP, _K.I32]  # gate
-               + [_K.VP, _K.VP, _K.VP])                     # outs, stream
+               + [_K.VP, _K.VP, _K.VP, _K.VP])      # outs, scratch, stream
 
 
 # ---------------------------------------------------------------------------

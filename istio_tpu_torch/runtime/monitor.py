@@ -7,7 +7,10 @@ timers and their counters (`resolve_timer`, `dispatch_timer`,
 histogram and the batch-size histograms; for Report, the report stage
 histogram (`observe_report_stage`), the per-template and per-exporter
 record counts, and the record-conservation ledger (accepted == exported
-+ rejected at quiescence; `report_conservation`). The reference exports
++ rejected at quiescence; `report_conservation`); for Pilot's discovery
+service, its stage histogram, push fan-out histogram, cache-event
+counts and generation (`observe_discovery_stage` …
+`discovery_latency_snapshot`). The reference exports
 them through prometheus_client and its own registry; the port keeps
 plain in-process counters (the card's machine has no prometheus_client),
 and the exposition, SLO gauges and /debug views wait for the fronts.
@@ -65,6 +68,39 @@ class Histogram:
     def sum(self, label: str = "") -> float:
         s = self._series.get(label)
         return 0.0 if s is None else s[1]
+
+    def state(self, label: str = "") -> tuple[list[int], float, int]:
+        """(per-bucket counts copy, sum, n) of one label value."""
+        with self._lock:
+            s = self._series.get(label)
+            return ([], 0.0, 0) if s is None else (list(s[0]), s[1], s[2])
+
+
+class Gauge:
+    """One value, set."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._v = 0.0
+
+    def set(self, v: float) -> None:
+        self._v = float(v)
+
+    def value(self) -> float:
+        return self._v
+
+
+def quantile_from_counts(buckets: tuple, counts: list, n: int,
+                         q: float) -> float:
+    """The upper bound of the bucket holding the q-th observation."""
+    if not counts or n <= 0:
+        return 0.0
+    cum = 0
+    for i, c in enumerate(counts):
+        cum += c
+        if cum >= q * n:
+            return buckets[i] if i < len(buckets) else float("inf")
+    return float("inf")
 
 
 RESOLVE_COUNT = Counter("mixer_runtime_resolve_count")
@@ -208,3 +244,98 @@ def report_conservation(since: dict | None = None) -> dict:
             "rejected": rejected, "rejected_total": rej_total,
             "in_flight": accepted - exported - rej_total,
             "exact": accepted == exported + rej_total}
+
+
+# -- Pilot's discovery service (pilot/discovery.py). Stage semantics, one
+# observation per unit of discovery work:
+#   snapshot_build — registry/config freeze + per-namespace content
+#                    digests + per-host indexes, per publish
+#   scope_plan     — namespace→shard delta planning, per publish
+#   invalidate     — snapshot diff + scoped cache sweep + shard
+#                    version bumps/wakeups, per publish
+#   route_eval     — ONE batched source-admission device trip shared by
+#                    every pending node group (RouteScopeProgram
+#                    .admit_rows), per batch
+#   generate       — config JSON assembly + cache fill, per batch of
+#                    node groups
+#   serve          — cache lookup → response bytes, per endpoint call
+DISCOVERY_STAGES = ("snapshot_build", "scope_plan", "invalidate",
+                    "route_eval", "generate", "serve")
+DISCOVERY_STAGE_SECONDS = Histogram("pilot_discovery_stage_seconds")
+# publish → a parked version-watcher waking with the new generation
+DISCOVERY_PUSH_FANOUT_SECONDS = Histogram(
+    "pilot_discovery_push_fanout_seconds")
+# hit / miss per endpoint call; carried / invalidated per publish sweep
+DISCOVERY_CACHE_EVENTS = ("hit", "miss", "carried", "invalidated")
+DISCOVERY_CACHE = Counter("pilot_discovery_cache_events_total")
+DISCOVERY_GENERATION = Gauge("pilot_discovery_generation")
+
+
+def observe_discovery_stage(stage: str, seconds: float) -> None:
+    DISCOVERY_STAGE_SECONDS.observe(seconds, stage=stage)
+
+
+def observe_discovery_push(seconds: float) -> None:
+    DISCOVERY_PUSH_FANOUT_SECONDS.observe(seconds)
+
+
+def note_discovery_cache(event: str, n: int = 1) -> None:
+    if n:
+        DISCOVERY_CACHE.inc(n, event=event)
+
+
+def set_discovery_generation(version: int) -> None:
+    DISCOVERY_GENERATION.set(float(version))
+
+
+def discovery_stage_baseline() -> dict:
+    """Subtraction token for discovery_latency_snapshot(since=...)."""
+    token = {stage: DISCOVERY_STAGE_SECONDS.state(stage)
+             for stage in DISCOVERY_STAGES}
+    token["__push__"] = DISCOVERY_PUSH_FANOUT_SECONDS.state()
+    return token
+
+
+def _delta(state, base):
+    counts, total, n = state
+    bcounts, btotal, bn = base
+    if bcounts:
+        counts = [c - b for c, b in zip(counts, bcounts)] if counts else []
+    return counts, total - btotal, n - bn
+
+
+def discovery_latency_snapshot(since: dict | None = None) -> dict:
+    """Discovery stage decomposition + push fan-out percentiles as one
+    JSON-able dict (`since`: a discovery_stage_baseline() token)."""
+    empty = ([], 0.0, 0)
+    stages: dict[str, dict] = {}
+    h = DISCOVERY_STAGE_SECONDS
+    for stage in DISCOVERY_STAGES:
+        counts, total, n = h.state(stage)
+        if since is not None:
+            counts, total, n = _delta((counts, total, n),
+                                      since.get(stage, empty))
+        if not n:
+            continue
+        stages[stage] = {
+            "count": n,
+            "sum_ms": round(total * 1e3, 3),
+            "p50_ms": round(quantile_from_counts(
+                h.buckets, counts, n, 0.5) * 1e3, 3),
+            "p99_ms": round(quantile_from_counts(
+                h.buckets, counts, n, 0.99) * 1e3, 3),
+        }
+    ph = DISCOVERY_PUSH_FANOUT_SECONDS
+    counts, total, n = ph.state()
+    if since is not None:
+        counts, total, n = _delta((counts, total, n),
+                                  since.get("__push__", empty))
+    push = {"count": n}
+    if n:
+        push.update({
+            "p50_ms": round(quantile_from_counts(
+                ph.buckets, counts, n, 0.5) * 1e3, 3),
+            "p99_ms": round(quantile_from_counts(
+                ph.buckets, counts, n, 0.99) * 1e3, 3),
+        })
+    return {"stages": stages, "push": push}

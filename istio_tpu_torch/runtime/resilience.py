@@ -4,9 +4,10 @@ Port of the part of istio_tpu/runtime/resilience.py that the served
 check path calls: the typed `CheckRejected` errors the batcher
 resolves futures with, the process-wide `CHAOS` fault-injection seams
 at the device step (FusedPlan.packed_check) and the quota backend
-(memquota), and `_takes_deadline`. The circuit breaker with its
-CPU-oracle fallback (`ResilientChecker`) is not carried: the port's
-RuntimeServer calls the dispatcher directly (ROADMAP.md).
+(memquota), the discovery publish seam (`discovery_publish`), and
+`_takes_deadline`. The circuit breaker with its CPU-oracle fallback
+(`ResilientChecker`) is not carried: the port's RuntimeServer calls the
+dispatcher directly (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -57,6 +58,9 @@ class ChaosHooks:
             self.quota_latency_s: dict[str, float] = {}
             self.quota_failures: dict[str, int] = {}
             self.injected_quota = 0
+            # a delay slept at the top of every discovery publish
+            self.discovery_push_delay_s = 0.0
+            self.injected_discovery = 0
 
     def device_step(self) -> None:
         """Called immediately before a real check device step."""
@@ -90,6 +94,16 @@ class ChaosHooks:
             self.injected_quota += 1
         raise RuntimeError(
             f"chaos: injected quota-backend failure ({name})")
+
+    def discovery_publish(self) -> None:
+        """Called inside DiscoveryService.publish's lock, before the
+        snapshot build: watchers stay parked on the old generation for
+        the armed delay."""
+        lat = self.discovery_push_delay_s
+        if lat:
+            time.sleep(lat)
+            with self._lock:
+                self.injected_discovery += 1
 
 
 CHAOS = ChaosHooks()

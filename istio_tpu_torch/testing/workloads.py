@@ -2,9 +2,10 @@
 
 The Check() world of the reference: Bookinfo-style denier + listchecker
 rules, authz predicates over source/destination attributes, and
-header/URI match clauses (exact, prefix, glob, regex). These copies
-produce the same rules and bags as the reference's for the same
-arguments; `make_engine` builds the port's PolicyEngine on `device`.
+header/URI match clauses (exact, prefix, glob, regex), and Pilot's
+route world and discovery fleet. These copies produce the same rules,
+bags, services and configs as the reference's for the same arguments;
+`make_engine` builds the port's PolicyEngine on `device`.
 """
 from __future__ import annotations
 
@@ -428,5 +429,202 @@ def make_rbac_request_dicts(batch: int, n_users: int = 200,
                              f"/static/{int(rng.integers(40))}.html"
                              )[i % 3],
             "request.headers": {"version": f"v{int(rng.integers(8))}"},
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pilot: the route world and the discovery fleet
+# ---------------------------------------------------------------------------
+
+def _fleet_ns_assignment(n_rules: int, n_namespaces: int,
+                         seed: int) -> np.ndarray:
+    """Item → namespace index for the fleet workloads, Zipf-skewed so
+    namespace SIZES are realistic (a few big app namespaces, a long
+    tail of small ones): item i lands in namespace
+    `(zipf(a=1.1) - 1) mod n_namespaces`. The same (n, n_namespaces,
+    seed) gives the reference's assignment, bit for bit."""
+    rng = np.random.default_rng(seed)
+    return ((rng.zipf(1.1, n_rules) - 1) % n_namespaces).astype(
+        np.int64)
+
+
+def make_route_world(n_routes: int = 1000, n_services: int | None = None,
+                     seed: int = 3):
+    """Synthetic mesh routing world for the route-NFA bench: services
+    with v1alpha1 route rules mixing URI prefix/regex, header exact
+    matches, and source-label constraints (the VirtualService diet
+    route.go compiles)."""
+    from istio_tpu_torch.pilot.model import (Config, ConfigMeta, Port, Service)
+
+    rng = np.random.default_rng(seed)
+    n_services = n_services or max(8, n_routes // 10)
+    services = [Service(hostname=f"svc{i}.default.svc.cluster.local",
+                        address=f"10.2.{i // 250}.{i % 250}",
+                        ports=(Port("http", 9080, "HTTP"),))
+                for i in range(n_services)]
+    rules_by_host: dict = {}
+    for r in range(n_routes):
+        svc = services[int(rng.integers(n_services))]
+        kind = int(rng.integers(4))
+        match: dict = {"request": {"headers": {}}}
+        headers = match["request"]["headers"]
+        if kind == 0:
+            headers["uri"] = {"prefix": f"/api/v{r % 7}/"}
+        elif kind == 1:
+            headers["uri"] = {"regex": f"^/items/[0-9]+/r{r % 11}$"}
+        elif kind == 2:
+            headers["cookie"] = {"exact": f"user=group{r % 13}"}
+        else:
+            headers["uri"] = {"prefix": f"/svc/{r % 17}/"}
+            match["source"] = (f"svc{int(rng.integers(n_services))}"
+                               ".default.svc.cluster.local")
+        cfg = Config(ConfigMeta(type="route-rule", name=f"rr{r}",
+                                namespace="default"),
+                     {"destination": {"name": svc.hostname.split(".")[0]},
+                      "precedence": int(rng.integers(4)),
+                      "match": match,
+                      "route": [{"labels": {"version": "v1"}}]})
+        rules_by_host.setdefault(svc.hostname, []).append(cfg)
+    return services, rules_by_host
+
+
+def make_discovery_world(n_services: int = 48, n_namespaces: int = 8,
+                         replicas: int = 3,
+                         n_routes: int | None = None,
+                         source_ns: int = 2, seed: int = 0):
+    """Discovery-plane fleet world (the PR 9 Zipf fleet harness applied
+    to Pilot): `n_services` services Zipf-assigned over `n_namespaces`
+    namespaces (_fleet_ns_assignment — real namespace skew, a few big
+    app namespaces and a long tail), each namespace's services sharing
+    a PER-NAMESPACE http port (8000+k — per-namespace apps on their own
+    ports is what makes RDS genuinely namespace-scoped: one-namespace
+    churn touches one port's route configs), each service running
+    `replicas` sidecar-fronted instances at distinct IPs. Route rules
+    mix URI prefix/regex, header exact and presence matchers (the
+    VirtualService diet), and services in the first `source_ns`
+    namespaces additionally carry source-constrained rules — the part
+    of generation that is per-node and rides the batched
+    RouteScopeProgram device step; every other namespace's sidecars
+    collapse to ONE shared RDS config per port.
+
+    → (registry, store, nodes, meta): `nodes` are sidecar node-id
+    strings (`sidecar~ip~id~domain`), meta carries ns_ports /
+    nodes_by_ns / rules_by_ns for churn targeting. Build the world
+    BEFORE constructing the DiscoveryService — store/registry events
+    fire per mutation."""
+    from istio_tpu_torch.pilot.model import (Config, ConfigMeta,
+                                       MemoryConfigStore, Port,
+                                       Service)
+    from istio_tpu_torch.pilot.registry import MemoryRegistry
+
+    rng = np.random.default_rng(seed)
+    ns_of = _fleet_ns_assignment(n_services, n_namespaces, seed)
+    registry = MemoryRegistry()
+    store = MemoryConfigStore()
+    nodes: list[str] = []
+    nodes_by_ns: dict[int, list[str]] = {}
+    hosts_by_ns: dict[int, list[str]] = {}
+    node_idx = 0
+    for i in range(n_services):
+        k = int(ns_of[i])
+        ns = f"ns{k}"
+        host = f"svc{i}.{ns}.svc.cluster.local"
+        port = Port("http", 8000 + k, "HTTP")
+        endpoints = []
+        for r in range(replicas):
+            ip = (f"10.{8 + (node_idx >> 14)}."
+                  f"{(node_idx >> 7) & 127}.{node_idx & 127}")
+            endpoints.append((ip, {"version": f"v{r}"}))
+            node = f"sidecar~{ip}~svc{i}-{r}.{ns}~cluster.local"
+            nodes.append(node)
+            nodes_by_ns.setdefault(k, []).append(node)
+            node_idx += 1
+        registry.add_service(
+            Service(hostname=host,
+                    address=f"10.3.{i // 250}.{i % 250}",
+                    ports=(port,)),
+            endpoints)
+        hosts_by_ns.setdefault(k, []).append(host)
+    n_routes = n_routes if n_routes is not None else n_services
+    rules_by_ns: dict[int, list[str]] = {}
+    for j in range(n_routes):
+        i = int(rng.integers(n_services))
+        k = int(ns_of[i])
+        ns = f"ns{k}"
+        host = f"svc{i}.{ns}.svc.cluster.local"
+        kind = j % 4
+        headers: dict = {}
+        if kind == 0:
+            headers["uri"] = {"prefix": f"/api/v{j % 7}/"}
+        elif kind == 1:
+            headers["uri"] = {"regex": f"^/items/[0-9]+/r{j % 11}$"}
+        elif kind == 2:
+            headers["cookie"] = {"exact": f"user=group{j % 13}"}
+        else:
+            headers["uri"] = {"prefix": f"/svc/{j % 17}/"}
+            headers["x-debug"] = {"presence": True}
+        match: dict = {"request": {"headers": headers}}
+        if k < source_ns and j % 2 == 0:
+            peers = hosts_by_ns[k]
+            match["source"] = peers[(j * 7) % len(peers)]
+        name = f"dr{j}"
+        store.create(Config(
+            ConfigMeta(type="route-rule", name=name, namespace=ns),
+            {"destination": {"service": host},
+             "precedence": int(rng.integers(4)),
+             "match": match,
+             "route": [{"labels": {"version": f"v{j % replicas}"}}]}))
+        rules_by_ns.setdefault(k, []).append(name)
+    meta = {
+        "n_sidecars": len(nodes),
+        "ns_ports": {k: 8000 + k for k in range(n_namespaces)},
+        "ns_of": [int(x) for x in ns_of],
+        "nodes_by_ns": nodes_by_ns,
+        "hosts_by_ns": hosts_by_ns,
+        "rules_by_ns": rules_by_ns,
+        "source_ns": source_ns,
+        "n_routes": n_routes,
+    }
+    return registry, store, nodes, meta
+
+
+def churn_discovery_rule(store, meta: dict, ns_index: int,
+                         tick: int) -> str:
+    """One-namespace churn unit: bump one existing route rule's
+    timeout in namespace `ns_index` (store.update fires the change
+    event → scoped publish). Returns the rule name."""
+    from istio_tpu_torch.pilot.model import Config
+
+    names = meta["rules_by_ns"].get(ns_index)
+    if not names:
+        raise ValueError(f"namespace ns{ns_index} has no route rules "
+                         f"to churn")
+    name = names[tick % len(names)]
+    cfg = store.get("route-rule", name, f"ns{ns_index}")
+    spec = dict(cfg.spec)
+    spec["httpReqTimeout"] = {
+        "simpleTimeout": {"timeout": f"{10 + tick}s"}}
+    store.update(Config(cfg.meta, spec))
+    return name
+
+
+def make_route_requests(batch: int, n_services: int | None = None,
+                        seed: int = 4) -> list[dict]:
+    """Route-manifest-shaped requests (destination.service +
+    request.path/headers + source.service)."""
+    rng = np.random.default_rng(seed)
+    n_services = n_services or 100
+    out = []
+    for i in range(batch):
+        out.append({
+            "destination.service": f"svc{int(rng.integers(n_services))}"
+                                   ".default.svc.cluster.local",
+            "request.path": f"/api/v{int(rng.integers(9))}/x{i}"
+            if i % 2 == 0 else f"/items/{int(rng.integers(1e6))}/r3",
+            "request.headers": {"cookie":
+                                f"user=group{int(rng.integers(15))}"},
+            "source.service": f"svc{int(rng.integers(n_services))}"
+                              ".default.svc.cluster.local",
         })
     return out

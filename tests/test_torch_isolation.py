@@ -17,6 +17,9 @@ from istio_tpu_torch.compiler.ruleset import Rule, compile_ruleset
 from istio_tpu_torch.compiler.tensor_expr import compile_expression
 from istio_tpu_torch.interop import manifest_from_reference
 from istio_tpu_torch.models.policy_engine import PolicyEngine
+from istio_tpu_torch.pilot.discovery import DiscoveryService
+from istio_tpu_torch.pilot.route_nfa import RouteScopeProgram, RouteTable
+from istio_tpu_torch.pilot.snapshot import build_snapshot
 from istio_tpu_torch.runtime import RuntimeServer, SnapshotBuilder
 from istio_tpu_torch.testing import workloads
 
@@ -52,9 +55,13 @@ def test_every_module_imports_without_jax_and_istio_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 56
+    assert len(names) >= 68
     assert {"istio_tpu_torch.compiler.rbac_lower",
-            "istio_tpu_torch.adapters.rbac"} <= set(names)
+            "istio_tpu_torch.adapters.rbac",
+            "istio_tpu_torch.ops.route_ops",
+            "istio_tpu_torch.pilot.route_nfa",
+            "istio_tpu_torch.pilot.discovery",
+            "istio_tpu_torch.sharding.planner"} <= set(names)
 
 
 def test_the_refusing_hook_would_catch_a_leak():
@@ -93,6 +100,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     lay = build_layout(dict(workloads.MESH_MANIFEST))
     with pytest.raises(RuntimeError, match="CUDA"):
         compile_expression("true", finder, lay, InternTable())
+    services, rules = workloads.make_route_world(20)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RouteTable(services, rules)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RouteScopeProgram(rules)
+    registry, pstore, _, _ = workloads.make_discovery_world(
+        n_services=6, n_namespaces=2, replicas=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiscoveryService(registry, pstore)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_snapshot(registry, pstore, version=1)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

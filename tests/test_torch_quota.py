@@ -6,7 +6,9 @@ plain version of the quota_alloc kernel, K9):
     scenarios — contention, adversarial, negative and over-domain
     amounts, a shrunken limit, same-amount ties at the budget boundary,
     rolling and exact rows mixed, ticks - last of 0, 1, K and more, K = 1
-    — grants and the whole counter plane equal;
+    — and on 32,768 zipf(1.3) rows over a 100,000-key pool, the batch
+    the kernel's multi-block path takes on the card — grants and the
+    whole counter plane equal;
   * DeviceQuotaPool against the reference pool under an injected clock
     (contention, burst, dedup replay within and across windows, rolling
     reclaim, full expiry, keyspace exhaustion, alloc after close);
@@ -153,6 +155,21 @@ def _scenario(name: str, seed: int):
              np.full(b, 12, np.int32), rng.random(b) < 0.9, z, z,
              np.zeros(b, bool)]
         return 6, 1, a, ("scan", "seg")
+    if name in ("zipf_32768", "zipf_unit_32768"):
+        # the multi-block kernel's batch: zipf(1.3) keys over a 100,000-
+        # key pool, so the hot keys' runs span many of its scan tiles
+        b, n = 32768, 100_000
+        amounts = np.ones(b) if name == "zipf_unit_32768" else \
+            rng.integers(-1, 6, b)
+        a = _rolling_batch(rng, n, k, b, amounts)
+        a[1] = ((rng.zipf(1.3, b) - 1) % n).astype(np.int32)
+        # per-bucket max / tick / last / rolling follow the keys
+        a[4] = np.take(rng.integers(40, 400, n), a[1]).astype(np.int32)
+        for j in (6, 7):
+            a[j] = np.take(rng.integers(0, 3 * k, n), a[1]).astype(np.int32)
+        a[8] = np.take(rng.random(n) < 0.7, a[1])
+        return n, k, a, (("scan", "unit", "seg") if name.startswith(
+            "zipf_unit") else ("scan", "seg"))
     raise KeyError(name)
 
 
@@ -160,7 +177,8 @@ SCENARIOS = [("contended", s) for s in range(4)] + [
     ("unit", 7), ("ragged", 5), ("ragged_unit", 6), ("single_row", 1),
     ("unique", 3), ("unique_512", 4), ("negative", 0), ("adversarial", 0),
     ("adversarial_be", 0), ("over_then_legit", 0), ("shrunken", 0),
-    ("ties", 11), ("ties", 12), ("ticks", 2), ("k1", 9)]
+    ("ties", 11), ("ties", 12), ("ticks", 2), ("k1", 9),
+    ("zipf_32768", 13), ("zipf_unit_32768", 14)]
 CASES = [(name, seed, mode) for name, seed in SCENARIOS
          for mode in _scenario(name, seed)[3]]
 
