@@ -49,9 +49,16 @@ Phases, each fatal on failure:
      rows — served on the card under MESH_MANIFEST against a
      device="cpu" server at B ∈ {64, 256, 2048} of
      make_rbac_request_dicts (responses and rule counts exact, the
-     denied fraction printed), timed like phase 5; K1, K3, K4, K5 and K6
-     held against their plain versions on its B=2048 inputs (timed);
-     counters zeroed before, and every kernel of the path must launch;
+     denied fraction printed), timed like phase 5; K1, K3, K4, K5, K6
+     and atom_eval (the 306 check atoms as op programs) held against
+     their plain versions on its B=2048 inputs (timed); counters zeroed
+     before, every kernel of the path must launch, and atom_eval exactly
+     once per step; then (6b) atom_eval against its plain versions on
+     the atom world (every BOOL expression of the port's copy of the
+     conformance corpus that lowers on the device, over the corpus
+     inputs tiled to B=2048) and on edge atoms (runtime and constant
+     patterns, strings at the cap, NaN and malformed order keys, a
+     narrowed byte plane, operand swaps, a 40-deep LAND chain);
   7. the list world (tests/test_fused_serving.py's store, rebuilt here
      with the port's MemStore): REGEX and CIDR lists fused beside STRINGS
      lists and deniers, served on the card against the CPU server on
@@ -72,10 +79,11 @@ Phases, each fatal on failure:
      launch and one device-to-host copy per report trip, no rule-
      telemetry fold and unchanged rule counts; report() timed (p50 /
      p99, records/s, the five report stages, device busy and idle
-     share); field_eval held against its plain versions on the B=2048
-     trip's inputs (timed: its kernels-table row), then (8b) on edge
-     inputs (every opcode, LEAF rows, F = 0 / 1 / 22 / 33, empty rows,
-     ephemeral ids);
+     share); field_eval (every field an op program, no LEAF rows) held
+     against its plain versions on the B=2048 trip's inputs (timed: its
+     kernels-table row), then (8b) on edge inputs (every opcode, F = 0 /
+     1 / 22 / 33, empty rows, ephemeral ids, full and narrowed byte
+     planes);
   9. the Quota() path (this slice's main path): the quota world —
      make_store(10_000) with its memquota limit set to the default quota
      of Istio's Bookinfo rate-limit sample (5,000 per 1 s window) — on
@@ -105,8 +113,9 @@ Phases, each fatal on failure:
      make_route_requests: selects index-equal to the CPU table and to
      select_host on 256 rows per B, the compact select (K10's
      route_densify) equal to the dense one, H2D bytes of both, exactly
-     one rule_match and one route_winner launch per dense select and one
-     more route_densify per compact one; p50 / p99, busy and idle share;
+     one rule_match, one atom_eval (the cookie-fallback atoms) and one
+     route_winner launch per dense select and one more route_densify
+     per compact one; p50 / p99, busy and idle share;
      every kernel of the B=2048 selects held against its plain version
      (timed), then (10b) route_winner / route_densify on edge inputs and
      a host-fallback world;
@@ -125,6 +134,7 @@ is not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -139,7 +149,7 @@ HEADLINE_RULES = 10_000
 ENGINE_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold")
 SERVED_KERNELS = ENGINE_KERNELS + ("check_pack", "rule_stats")
 AUTHZ_KERNELS = ("rule_match", "byte_pred", "verdict_fold", "check_pack",
-                 "rule_stats")
+                 "rule_stats", "atom_eval")
 LIST_KERNELS = SERVED_KERNELS + ("list_banks",)
 AUTHZ_ROLE_RULES = 1000     # BASELINE config 2: make_rbac_store(1000)
 HEADLINE_B = 2048
@@ -506,6 +516,7 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
     for idx, (name, inputs) in enumerate(captured):
         tag = f"{name}#{idx}"
         lib, lib_call = None, None
+        extra: dict = {}
         if name == "dfa_scan":
             data, lens, bank = inputs
             table, class_of, starts, accept = bank.on(data.device)
@@ -682,6 +693,31 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             src, rep = ("field_eval.cu",
                         "istio_tpu/runtime/report_lower.py:73")
             err = int((got != want).sum())
+        elif name == "atom_eval":
+            batch, atoms, em, en = inputs
+            got, want, ops_want = (
+                (torch.zeros_like(em), torch.zeros_like(en))
+                for _ in range(3))
+            field_ops.atom_eval(batch, atoms, *got)
+            field_ops.atom_eval_plain(batch, atoms, *want)
+            field_ops.atom_eval_ops_plain(batch, atoms, *ops_want)
+            for part, g, w, o in zip(("m", "n"), got, want, ops_want):
+                assert_equal(f"{tag}.{part}", g, w)
+                assert_equal(f"{tag}.{part} (op table)", g, o)
+            if int_rate is None:
+                continue
+            scratch = (torch.zeros_like(em), torch.zeros_like(en))
+            ms, call, how = timed(
+                lambda: field_ops.atom_eval(batch, atoms, *scratch), 200)
+            plain, _, _ = timed(lambda: field_ops.atom_eval_plain(
+                batch, atoms, *scratch), 10)
+            b, ops = atom_work(batch, atoms)
+            extra["coalesced_store_ms"] = atom_store_probe(batch, atoms, got)
+            log(f"  {tag:<16} the same launch with its m / n stores "
+                "coalesced (a transposed [A, B] plane): "
+                f"{extra['coalesced_store_ms']:.5f} ms")
+            src, rep = "field_eval.cu", "istio_tpu/compiler/tensor_expr.py:291"
+            err = int(sum(int((g != w).sum()) for g, w in zip(got, want)))
         elif name == "quota_alloc":
             mode, before, *qrows, gate = inputs
             tag = f"{name}.{mode}" + ("+gate" if gate is not None else "")
@@ -771,6 +807,7 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
                                                  int_rate)
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update(extra)
         row["calls_per_step"] += 1
         if row["library_ms"] is None and lib is not None:
             row["library_ms"], row["library_call"] = lib, lib_call
@@ -1412,14 +1449,229 @@ def authz_phase(int_rate: float) -> dict:
         results[b], n = time_check_many(srv, cpu, bags, "[6] authz")
         steps += n
     out = path_counts("[6] authz path", AUTHZ_KERNELS, steps)
-    log(f"[6] authz path, B={HEADLINE_B}: K1, K3, K4, K5, K6 against "
-        "their plain versions on its own inputs (timed):")
+    one_atom_launch_per_step("[6] authz path", out, snap.ruleset)
+    log(f"[6] authz path, B={HEADLINE_B}: K1, K3, K4, K5, K6 and "
+        "atom_eval against their plain versions on its own inputs (timed):")
     rows = check_kernels(captured, plan.engine.quota_counts.clone(),
                          int_rate)
     for x in (srv, cpu, store, cpu_store):
         x.close()
     return {**out, "results": results, "denied": denied, "rows": rows,
             "pseudo_rows": len(g.allow_rows) + 1}
+
+
+def atom_store_probe(batch, atoms, want) -> float:
+    """atom_eval's device ms with its m / n stores coalesced, to weigh
+    the served layout's: the same C entry point over the same programs,
+    given x_stride 1 and column a at a * B, writes a transposed [A, B]
+    plane, so a warp's stores are consecutive bytes instead of bytes X
+    apart. Held equal to the served launch's columns `want` (m, n)."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.ops import field_ops as fo
+    b = int(batch.ids.shape[0])
+    args = fo._launch_args(batch, atoms.prog, "atom_eval")
+    dev = batch.ids.device
+    cols = torch.arange(atoms.n, dtype=torch.int32, device=dev) * b
+    tm = torch.empty((atoms.n, b), dtype=torch.bool, device=dev)
+    tn = torch.empty_like(tm)
+    fn = kernels.function("atom_eval", "atom_eval", fo._ATOM_EVAL_ARGS)
+    p = kernels.ptr
+
+    def run():
+        kernels.check(fn(*args, p(cols), p(tm), p(tn), 1,
+                         kernels.VP(kernels.stream_ptr())), "atom_eval")
+    run()
+    c = atoms.cols_on(dev).long()
+    assert_equal("atom_eval coalesced probe.m", tm.T, want[0][:, c])
+    assert_equal("atom_eval coalesced probe.n", tn.T, want[1][:, c])
+    return timed(run, 200)[0]
+
+
+def one_atom_launch_per_step(label: str, out: dict, ruleset) -> None:
+    """Every rule_match launch of the path's drive came with exactly one
+    atom_eval launch (one grid), where the ruleset has op-program atoms;
+    none where it has none."""
+    counts, grids = out["counts"], out["grids"]
+    want = counts["rule_match"] if ruleset.atoms.n else 0
+    if counts["atom_eval"] != want or grids["atom_eval"] != want:
+        raise AssertionError(f"{label}: {counts['atom_eval']} atom_eval "
+                             f"launches ({grids['atom_eval']} grids) for "
+                             f"{counts['rule_match']} rule_match launches "
+                             f"and {ruleset.atoms.n} op-program atoms")
+    log(f"{label}: one atom_eval launch per step ({want} launches, "
+        f"{ruleset.atoms.n} atoms as {len(ruleset.atoms.prog.ops)} op "
+        f"rows, stack {ruleset.atoms.prog.need}); no per-atom closure")
+
+
+# atoms for atom_eval's edge inputs (phase 6b) over EDGE_ATOM_MANIFEST:
+# runtime and constant patterns (empty, `*` only, leading / trailing `*`,
+# longer than the subject), subjects at and past the cap, regexes, ordered
+# compares with numeric NaN and malformed order keys, type mismatches,
+# `|` views and map views, operand-order swaps with an error on either
+# side, and a 40-deep LAND chain
+EDGE_ATOM_MANIFEST = {"s": "STRING", "p": "STRING", "q": "STRING",
+                      "n": "INT64", "m": "INT64", "d": "DOUBLE",
+                      "d2": "DOUBLE", "t": "TIMESTAMP", "b": "BOOL",
+                      "b2": "BOOL", "h": "STRING_MAP"}
+EDGE_ATOMS = (
+    "s.startsWith(p)", "s.endsWith(p)", "match(s, p)",
+    "(s | q).startsWith(p | q)", 'match(h["k"] | s, h["j"] | "*")',
+    'match("abc", p)', '"".endsWith(p)', 's.startsWith("abc")',
+    's.endsWith("bc")', 'match(s, "*bc")', 'match(s, "abc*")',
+    'match(s, "abcdefgh")', 's.endsWith("abcdefghijk")', '"^ab".matches(s)',
+    '"c$".matches(s)', '"b+c".matches(h["k"] | p)', '"(".matches(s)',
+    "s < p", "q >= p", '"abc" < s', 's >= "abcdefgh"', "n < m", "d < d2",
+    "d > 1.5", "b < b2", "s < n", "b || (b2 && (n == 1 || m == 2))",
+    'timestamp(s) == t || (b && (b2 || n == 1))',
+    '(s | (p | (q | "z"))) == "abc"', 's < (p | (q | "zz"))',
+    'match(s, p | (q | "*"))',
+    " && ".join(f"n == {i % 3}" if i % 3 == 0 else
+                ("b" if i % 3 == 1 else 's.startsWith("ab")')
+                for i in range(40)))
+
+
+def edge_atom_dicts(b: int, seed: int) -> list[dict]:
+    """Records for atom_eval's edge inputs: strings around the cap of 8
+    (empty, 1, 3, 7, 8, 10 bytes, `*`-led and -ended), NaN / inf / -0.0
+    doubles, malformed numbers, maps, every attribute absent on some."""
+    import datetime
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    strs = ["", "a", "abc", "abcdefg", "abcdefgh", "abcdefghij", "xbc",
+            "*bc", "bc", "abc*", "*", "**", "a*c", "abcdefghijk"]
+    nums = [0, -3, 7, 2 ** 40, "malformed", 7.5, 1]
+    dbls = [float("nan"), 1.5, -0.0, 0.0, 2.5, "bad", float("inf")]
+    t0 = datetime.datetime(2018, 3, 1, tzinfo=datetime.timezone.utc)
+    out = []
+    for _ in range(b):
+        d = {}
+        for k, vals in (("s", strs), ("p", strs), ("q", strs), ("n", nums),
+                        ("m", nums), ("d", dbls), ("d2", dbls),
+                        ("t", [t0]), ("b", [True, False]),
+                        ("b2", [True, False])):
+            if rng.random() < 0.8:
+                d[k] = vals[int(rng.integers(len(vals)))]
+        if rng.random() < 0.3:
+            d["s"] = "2018-03-01T00:00:00Z"
+        if rng.random() < 0.5:
+            d["h"] = {"k": strs[int(rng.integers(len(strs)))],
+                      "j": strs[int(rng.integers(len(strs)))]}
+        out.append(d)
+    return out
+
+
+def atom_world(texts, manifest: dict, dicts, max_str_len: int):
+    """BOOL expressions that lower on the device as one atom each over
+    one layout → (AtomProgram, CPU batch of `dicts`)."""
+    import numpy as np
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.compiler import layout as lay_mod
+    from istio_tpu_torch.compiler import tensor_expr as te
+    from istio_tpu_torch.compiler.op_lower import lower_programs
+    from istio_tpu_torch.expr.checker import (AttributeDescriptorFinder,
+                                              DEFAULT_FUNCS, eval_type)
+    from istio_tpu_torch.expr.parser import parse
+    from istio_tpu_torch.ops import field_ops as fo
+
+    finder = AttributeDescriptorFinder(manifest)
+    asts, reqs = [], te.Requirements()
+    for text in texts:
+        try:
+            ast = parse(text)
+            if eval_type(ast, finder, DEFAULT_FUNCS).name != "BOOL":
+                continue
+            r = te.Requirements()
+            te.collect_requirements(ast, finder, r)
+        except Exception:          # parse / type errors, host fallback
+            continue
+        reqs.merge(r)
+        asts.append(ast)
+    layout = lay_mod.build_layout(
+        manifest, sorted(reqs.derived_keys),
+        sorted(reqs.byte_sources, key=str), max_str_len=max_str_len,
+        extern_sources=[(n, k, a) for (n, k), a in
+                        sorted(reqs.extern_sources.items(),
+                               key=lambda kv: kv[0])])
+    interner = lay_mod.InternTable()
+    ctx = te._Ctx(layout, interner, finder)
+    fns, kept = [], []
+    for ast in asts:
+        try:
+            fns.append(te._compile_node(ast, ctx))
+        except te.HostFallback:
+            continue
+        kept.append(ast)
+    atoms = fo.AtomProgram(
+        fns=fns, prog=lower_programs(kept, layout, interner, finder),
+        cols=np.arange(len(fns), dtype=np.int32))
+    batch = lay_mod.Tensorizer(layout, interner).tensorize(
+        [bag_from_mapping(d) for d in dicts])
+    return atoms, batch
+
+
+def atom_edge_checks(int_rate: float) -> list[dict]:
+    """Phase 6b: atom_eval against atom_eval_plain (the closures) and
+    atom_eval_ops_plain (the op table) on the card: the atom world —
+    every BOOL expression of the port's copy of the conformance corpus
+    that lowers on the device, one atom each, over the corpus inputs
+    tiled to B=2048 — and EDGE_ATOMS over B = 777 records at a cap of 8
+    bytes, and at a cap of 32 on a plane narrowed to 12 bytes (records
+    whose strings fit). Each world's launch is timed beside its plain
+    version and its bound: the byte ops (B3's rest) dominate the edge
+    worlds. → one row per world."""
+    import torch
+    from istio_tpu_torch.attribute.types import ValueType
+    from istio_tpu_torch.ops import field_ops as fo
+    from istio_tpu_torch.testing import corpus
+
+    inputs = [c.input for c in corpus.CORPUS if c.compile_err is None]
+    edge_man = {k: ValueType[v] for k, v in EDGE_ATOM_MANIFEST.items()}
+    edge = edge_atom_dicts(777, seed=61)
+    worlds = [("corpus", [c.e for c in corpus.CORPUS],
+               corpus.CORPUS_MANIFEST,
+               (inputs * (HEADLINE_B // len(inputs) + 1))[:HEADLINE_B], 128,
+               None),
+              ("edge cap 8", EDGE_ATOMS, edge_man, edge, 8, None),
+              ("edge narrowed", EDGE_ATOMS, edge_man, [d for d in edge if all(
+                  len(v) <= 12 for v in d.values() if isinstance(v, str))],
+               32, 12)]
+    rows = []
+    for tag, texts, man, dicts, cap, width in worlds:
+        atoms, batch = atom_world(texts, man, dicts, cap)
+        if width is not None:
+            batch = dataclasses.replace(
+                batch, str_bytes=batch.str_bytes[:, :, :width].contiguous())
+        batch = batch.to("cuda")
+        b = batch.ids.shape[0]
+        got, want, ops_want = (
+            (torch.zeros((b, atoms.n), dtype=torch.bool, device="cuda"),
+             torch.zeros((b, atoms.n), dtype=torch.bool, device="cuda"))
+            for _ in range(3))
+        fo.atom_eval(batch, atoms, *got)
+        torch.cuda.synchronize()
+        fo.atom_eval_plain(batch, atoms, *want)
+        fo.atom_eval_ops_plain(batch, atoms, *ops_want)
+        for part, g, w, o in zip(("m", "n"), got, want, ops_want):
+            assert_equal(f"atom_eval {tag}.{part}", g, w)
+            assert_equal(f"atom_eval {tag}.{part} (op table)", g, o)
+        opcodes = {int(o) for o in atoms.prog.ops[:, 0]}
+        ms, call, how = timed(lambda: fo.atom_eval(batch, atoms, *got), 100)
+        plain, _, _ = timed(lambda: fo.atom_eval_plain(batch, atoms, *want),
+                            5)
+        nb, ops = atom_work(batch, atoms)
+        bms, by = bound(nb, ops, int_rate)
+        log(f"[6b] atom_eval {tag}: {atoms.n} atoms ({len(atoms.prog.ops)} "
+            f"op rows, {len(opcodes)} opcodes, stack {atoms.prog.need}) x "
+            f"B={b} width {batch.str_bytes.shape[2]}: m and n equal to the "
+            f"closures and to the op table; kernel {ms:.5f} ms (per call "
+            f"incl. launch {call:.5f}) plain {plain:.5f} ms bound "
+            f"{bms:.6f} ms ({by}; {nb:.0f} B, {ops:.0f} ops) [{how}]")
+        rows.append({"world": tag, "atoms": atoms.n, "b": b, "ms": ms,
+                     "call_ms": call, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by})
+    return rows
 
 
 def list_world_store():
@@ -1801,32 +2053,59 @@ class CaptureSink:
                 self.refused += 1
 
 
-def field_work(batch, prog, got) -> tuple[float, float]:
-    """(bytes, ops) field_eval must move and do on this run's data: each
-    record reads the id and presence of every distinct column its
-    programs name and the map-presence byte of every map slot, and the
-    LEAF planes; the op table is read once; the output rows are written
-    once. Each op row is a few int32 ops per record."""
+def program_work(batch, prog) -> tuple[float, float]:
+    """(bytes, ops) an op program interpreter must read and do on this
+    run's data: each record reads the id and presence of every distinct
+    column the programs name, the map-presence byte of every map slot,
+    and the length and the stored bytes (up to its length) of every
+    byte slot; the op and constant tables are read once. Each op row is
+    a few int32 ops per record, and each byte op compares one byte per
+    stored byte of the slot it reads."""
+    import torch
     from istio_tpu_torch.ops import field_ops as fo
     ops = prog.ops
-    cols, maps = set(), set()
+    cols, maps, slots, byte_rows = set(), set(), set(), {}
     for o in ops:
         if o[0] in (fo.OP_VAR, fo.OP_DSLOT, fo.OP_EXTERN):
             cols.add(int(o[1]))
         elif o[0] == fo.OP_MAPSEL:
             cols |= {int(o[1]), int(o[2])}
             maps |= {int(o[3]), int(o[4])}
+        elif o[0] == fo.OP_BSLOT:
+            cols.add(int(o[2]))
+            slots.add(int(o[1]))
+            byte_rows[int(o[1])] = byte_rows.get(int(o[1]), 0) + 1
     nb = batch.ids.shape[0]
-    b = nb * (5 * len(cols) + len(maps) + 6 * len(prog.leaves)) + \
-        ops.nbytes + prog.starts.nbytes + nbytes(got)
-    return float(b), float(nb) * 4 * len(ops)
+    w = batch.str_bytes.shape[2]
+    stored = {s: int(torch.clamp(batch.str_lens[:, s], 0, w).sum())
+              for s in slots}
+    b = nb * (5 * len(cols) + len(maps) + 4 * len(slots)) + \
+        sum(stored.values()) + ops.nbytes + prog.starts.nbytes + \
+        prog.consts.nbytes
+    return float(b), float(nb) * 4 * len(ops) + float(
+        sum(stored[s] * k for s, k in byte_rows.items()))
 
 
-# report fields for field_eval's edge inputs: every op of the field
-# programs (CONST, VAR, DSLOT, MAPSEL, EXTERN, ERR, OR, EQ, NEQ, LAND, LOR)
-# and LEAF rows of every kind (byte predicates through byte_pred and
-# dfa_scan, a runtime-pattern prefix, an ordered compare, a `|` chain
-# deeper than the kernel's stack)
+def field_work(batch, prog, got) -> tuple[float, float]:
+    """(bytes, ops) field_eval must move and do on this run's data: its
+    programs' reads (program_work) and the output rows, written once."""
+    b, ops = program_work(batch, prog.prog)
+    return b + nbytes(got), ops
+
+
+def atom_work(batch, atoms) -> tuple[float, float]:
+    """(bytes, ops) atom_eval must move and do on this run's data: its
+    programs' reads (program_work) and each atom's m and n bytes per
+    record, written once."""
+    b, ops = program_work(batch, atoms.prog)
+    return b + 2.0 * batch.ids.shape[0] * atoms.n + atoms.cols.nbytes, ops
+
+
+# report fields for field_eval's edge inputs: every op of the op programs
+# (CONST, VAR, DSLOT, MAPSEL, EXTERN, ERR, OR, EQ, NEQ, LAND, LOR, the byte
+# views BSLOT and BCONST, an ordered compare CMP, a runtime-pattern prefix
+# DPRED, constant byte predicates BPRED, a regex DFA, and a `|` chain
+# deeper than a left-to-right stack of 8)
 EDGE_FIELDS = (
     "request.size | 0", "connection.mtls", 'source.user | "anon"',
     'request.headers["host"]', '(request.headers | response.headers)["host"]',
@@ -1888,16 +2167,17 @@ def field_edge_checks() -> int:
     field_eval_ops_plain (the op table) on the card, on EDGE_FIELDS over
     GLOBAL_MANIFEST: F = 0, 1, 22 and 33 fields, B = 777 records (not a
     multiple of the block) with empty rows and ephemeral ids, every
-    opcode present. → cases."""
+    opcode present, on the full byte plane and on one narrowed to 32
+    bytes (records whose strings fit). → cases."""
     import torch
     from istio_tpu_torch.attribute.bag import bag_from_mapping
     from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
     from istio_tpu_torch.compiler import layout as lay_mod
     from istio_tpu_torch.compiler import tensor_expr as te
+    from istio_tpu_torch.compiler.op_lower import lower_programs
     from istio_tpu_torch.expr.checker import AttributeDescriptorFinder
     from istio_tpu_torch.expr.parser import parse
     from istio_tpu_torch.ops import field_ops as fo
-    from istio_tpu_torch.runtime.report_lower import field_program
 
     finder = AttributeDescriptorFinder(GLOBAL_MANIFEST)
     asts = [parse(t) for t in EDGE_FIELDS]
@@ -1911,30 +2191,36 @@ def field_edge_checks() -> int:
                         sorted(reqs.extern_sources.items(),
                                key=lambda kv: kv[0])])
     interner = lay_mod.InternTable()
-    fns, progs = [], []
-    for a in asts:
-        fns.append(te.compile_field(a, finder, layout, interner)[0])
-        progs.append(field_program(a, finder, layout, interner))
-    bags = [bag_from_mapping(d) for d in edge_field_dicts(777, seed=21)]
-    batch = lay_mod.Tensorizer(layout, interner).tensorize(bags).to("cuda")
+    fns = [te.compile_field(a, finder, layout, interner)[0] for a in asts]
+    dicts = edge_field_dicts(777, seed=21)
+    tens = lay_mod.Tensorizer(layout, interner)
+    full = tens.tensorize([bag_from_mapping(d) for d in dicts]).to("cuda")
+    short = tens.tensorize([bag_from_mapping(d) for d in dicts if all(
+        len(v) <= 32 for v in d.values() if isinstance(v, str))])
+    short = dataclasses.replace(
+        short, str_bytes=short.str_bytes[:, :, :32].contiguous()).to("cuda")
     n = len(asts)
     cases = 0
     for pick in ([], [0], list(range(n)), [i % n for i in range(33)]):
-        prog = fo.FieldProgram.of([fns[i] for i in pick],
-                                  [progs[i] for i in pick])
-        got = fo.field_eval(batch, prog)
-        torch.cuda.synchronize()
-        assert_equal(f"field_eval edge F={len(pick)}", got,
-                     fo.field_eval_plain(batch, prog))
-        assert_equal(f"field_eval edge F={len(pick)} (op table)", got,
-                     fo.field_eval_ops_plain(batch, prog))
+        prog = fo.FieldProgram(
+            fns=[fns[i] for i in pick],
+            prog=lower_programs([asts[i] for i in pick], layout, interner,
+                                finder))
+        for width, batch in (("full", full), ("narrowed", short)):
+            got = fo.field_eval(batch, prog)
+            torch.cuda.synchronize()
+            tag = f"field_eval edge F={len(pick)} {width}"
+            assert_equal(tag, got, fo.field_eval_plain(batch, prog))
+            assert_equal(f"{tag} (op table)", got,
+                         fo.field_eval_ops_plain(batch, prog))
+            cases += 1
         if len(pick) == n:
-            seen = {int(o) for o in prog.ops[:, 0]}
+            seen = {int(o) for o in prog.prog.ops[:, 0]}
             if seen != set(range(len(fo.OP_NAMES))):
                 raise AssertionError(f"field_eval edge: opcodes {seen}")
+            got = fo.field_eval(full, prog)
             if not bool((got[:len(pick)] < 0).any()):
                 raise AssertionError("field_eval edge: no ephemeral id")
-        cases += 1
     return cases
 
 
@@ -2068,7 +2354,8 @@ def report_phase(int_rate: float) -> dict:
         f"{build_s:.2f} s; {shape[0]} rules, errors {len(snap.errors)}, "
         f"{shape[1]} report rules, {shape[2]} report instances lowered "
         f"({shape[3]} host-built), F = {shape[4]} field programs "
-        f"({len(rl.program.ops)} op rows, {len(rl.program.leaves)} leaves); "
+        f"({len(rl.program.prog.ops)} op rows, stack "
+        f"{rl.program.prog.need}, 0 LEAF rows: every field an op program); "
         f"pull {head} check rows + {rl.n_fields} value rows + "
         f"{rl.n_valid_words} valid words = "
         f"{head + rl.n_fields + rl.n_valid_words} int32 rows x B")
@@ -2185,6 +2472,7 @@ def report_phase(int_rate: float) -> dict:
         raise AssertionError("report traffic changed the rule counts")
     steps = len(trips)
     out = path_counts("[8] report path", REPORT_KERNELS, steps)
+    one_atom_launch_per_step("[8] report path", out, snap.ruleset)
     if out["counts"]["field_eval"] != steps or out["counts"]["rule_stats"]:
         raise AssertionError(f"report path: {out['counts']['field_eval']} "
                              f"field_eval launches for {steps} trips, "
@@ -3001,7 +3289,8 @@ ROUTE_RULES = 10_000          # BASELINE config 3: 10k route rules
 ROUTE_BATCHES = (64, 256, 2048, 8192)
 ROUTE_ITERS = 20              # timed selects per batch size
 ROUTE_ORACLE_ROWS = 256       # select_host sample per batch size
-ROUTE_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "route_select")
+ROUTE_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "route_select",
+                 "atom_eval")
 
 
 def route_h2d_bytes(batch, planes) -> tuple[int, int]:
@@ -3135,6 +3424,7 @@ def route_phase(int_rate: float) -> dict:
         f"route rules compiled on the card in {compile_s:.2f} s; geometry "
         f"{json.dumps(tbl.program.geometry)}")
     rng = np.random.default_rng(1010)
+    n_atom = int(tbl.program.atoms.n > 0)     # atom_eval per select
     kernels.launches.reset()
     steps, results, captured = 0, {}, {}
     for b in ROUTE_BATCHES:
@@ -3148,7 +3438,8 @@ def route_phase(int_rate: float) -> dict:
         c1 = route_entry_counts()
         steps += 1
         if {k: c1[k] - c0[k] for k in c1} != {
-                "rule_match": 1, "route_winner": 1, "route_densify": 0}:
+                "rule_match": 1, "route_winner": 1, "route_densify": 0,
+                "field_eval": 0, "atom_eval": n_atom}:
             raise AssertionError(f"B={b} dense select launched "
                                  f"{ {k: c1[k] - c0[k] for k in c1} }")
         want = cpu.select(bags)
@@ -3166,7 +3457,8 @@ def route_phase(int_rate: float) -> dict:
         c2 = route_entry_counts()
         steps += 1
         if {k: c2[k] - c1[k] for k in c2} != {
-                "rule_match": 1, "route_winner": 1, "route_densify": 1}:
+                "rule_match": 1, "route_winner": 1, "route_densify": 1,
+                "field_eval": 0, "atom_eval": n_atom}:
             raise AssertionError(f"B={b} compact select launched "
                                  f"{ {k: c2[k] - c1[k] for k in c2} }")
         if not (comp == got).all():
@@ -3197,9 +3489,10 @@ def route_phase(int_rate: float) -> dict:
             f"{r['hit_rows']} rows routed; select p50 {p50:.4f} ms p99 "
             f"{r['p99_ms']:.4f} ms ({r['selects_per_s']:,.0f} requests/s; "
             f"{idle}); H2D dense {dense_b:,} B, compact {compact_b:,} B; "
-            "launches per select: dense rule_match 1 + route_winner 1, "
-            "compact + route_densify 1")
+            "launches per select: dense rule_match 1 + atom_eval 1 + "
+            "route_winner 1, compact + route_densify 1")
     out = path_counts("[10] route path", ROUTE_KERNELS, steps)
+    one_atom_launch_per_step("[10] route path", out, tbl.program)
     out["entries"] = dict(kernels.launches.entries)
     log(f"[10] route_select entry points: {out['entries']}")
     log(f"[10] every kernel of the B={HEADLINE_B} dense select against its "
@@ -3515,6 +3808,9 @@ def main() -> int:
     log(f"[t] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 6: the authz world, counters zeroed just before
     az = authz_phase(int_rate)
+    az["atom_worlds"] = atom_edge_checks(int_rate)
+    log(f"[6b] {len(az['atom_worlds'])} atom worlds: atom_eval equal to "
+        "atom_eval_plain and to the op-table interpreter")
     log(f"[t] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 7: the list world, counters zeroed just before
     ls = list_phase(int_rate)
@@ -3546,12 +3842,14 @@ def main() -> int:
              "quota": qt, "routes": rt, "discovery": dc}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
+                            ("atom_eval", "authz", az),
                             ("field_eval", "report", rp),
                             ("quota_alloc", "quota", qt),
                             ("route_select", "routes", rt)):
         by_name[name] = next(r for r in res["rows"] if r["name"] == name)
         by_name[name]["path"] = path
     table = [by_name[k] for k in kernels.KERNELS]
+    by_name["atom_eval"]["worlds"] = az["atom_worlds"]
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "calls_per_step", "bytes", "ops")
     for row in table:

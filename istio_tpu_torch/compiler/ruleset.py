@@ -5,7 +5,9 @@ reference's, step for step, so the emitted index tensors (lit_idx,
 conj_m_idx, conj_n_idx, eqc_*) are array_equal to the JAX package's.
 The device program runs through the rule_match kernel
 (csrc/rule_match.cu); constant regex atoms through dfa_scan and constant
-byte predicates through byte_pred (ops/bytes_ops.py).
+byte predicates through byte_pred (ops/bytes_ops.py), and every other
+generic-tier atom as an op program of the atom_eval kernel
+(csrc/field_eval.cu, ops/field_ops.py), one launch per step.
 
 This is the batched replacement for the reference resolver's per-request
 loop (mixer/pkg/runtime/resolver.go:202-238 filterActions — which calls
@@ -46,8 +48,12 @@ distinct predicates in practice) and evaluated in three tiers:
   1. a vectorized gather-compare for EQ/NEQ(slot, const) — covers the
      overwhelming majority of real istio match clauses;
   2. a vectorized slot-vs-slot compare;
-  3. per-atom compiled closures from tensor_expr for everything else
-     (byte predicates, `|` fallback chains, nested EQ of booleans).
+  3. everything else (byte predicates, `|` fallback chains, nested EQ
+     of booleans): constant byte predicates batched per subject into
+     byte_pred, the rest as op programs (compiler/op_lower.py) that one
+     atom_eval launch interprets. The tensor_expr closures of these
+     atoms are atom_eval's plain version (the CPU path) and nothing
+     else.
 
 Rules whose predicate cannot lower (dynamic patterns, DNF blowup past
 `dnf_cap`) are marked host-fallback and carry an OracleProgram; the
@@ -70,7 +76,7 @@ from istio_tpu_torch.attribute.types import ValueType
 from istio_tpu_torch.compiler.layout import (AttributeBatch, BatchLayout,
                                              ID_FALSE, ID_TRUE, InternTable,
                                              build_layout)
-from istio_tpu_torch.compiler import tensor_expr
+from istio_tpu_torch.compiler import op_lower, tensor_expr
 from istio_tpu_torch.compiler.tensor_expr import (HostFallback, Requirements,
                                                   collect_requirements)
 from istio_tpu_torch.device import resolve_device
@@ -82,6 +88,7 @@ from istio_tpu_torch.expr.externs import (ExternError, extern_ip,
                                           extern_timestamp)
 from istio_tpu_torch.expr.oracle import OracleProgram
 from istio_tpu_torch.expr.parser import parse
+from istio_tpu_torch.ops import field_ops as fo
 from istio_tpu_torch.ops.regex_dfa import compile_regex
 
 V = ValueType
@@ -288,6 +295,8 @@ class RuleSetProgram:
     #      padded index widths)
     geometry: dict = dataclasses.field(default_factory=dict)
     device: torch.device = torch.device("cpu")
+    # the generic-tier atoms that run as op programs (atom_eval)
+    atoms: Any = None
 
     @property
     def n_rules(self) -> int:
@@ -885,11 +894,15 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         eq_neg=eq_neg_a, ss_a=ss_a_a, ss_b=ss_b_a, ss_neg=ss_neg_a,
         device=dev)
 
-    # Constant startsWith / endsWith / match() atoms of the generic tier
-    # are batched per subject into one byte_pred launch; their columns
-    # are scattered back into the reference's gen-atom order below.
+    # The ext literal planes [B, n_ext] hold the DFA-group atoms, then
+    # the generic tier in the reference's gen-atom order. Constant
+    # startsWith / endsWith / match() atoms of the generic tier are
+    # batched per subject into one byte_pred launch; every other generic
+    # atom is one op program of the atom_eval kernel, which writes its
+    # literal pair straight into its columns (op_lower, field_ops).
+    n_dfa = len(dfa_atom_idx)
     byte_groups: dict[str, dict] = {}
-    other_gen: list[tuple[int, Callable]] = []
+    prog_atoms: list[tuple[int, Callable, int]] = []
     for gpos, (aidx, gfn) in enumerate(zip(gen_atom_idx, gen_fns)):
         ast = atoms.asts[aidx]
         if tensor_expr.is_const_byte_pred(ast):
@@ -897,50 +910,42 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
             g = byte_groups.setdefault(str(subj), {"subject": subj,
                                                    "calls": [], "pos": []})
             g["calls"].append(ast.fn)
-            g["pos"].append(gpos)
+            g["pos"].append(n_dfa + gpos)
         else:
-            other_gen.append((gpos, gfn))
-    byte_group_fns = [tensor_expr.compile_byte_group(
-        g["subject"], g["calls"], ctx) for g in byte_groups.values()]
-    # gen_perm[gen position] = its column in the concatenation (byte
-    # groups in order, then the remaining closures)
-    cat_pos = [p for g in byte_groups.values() for p in g["pos"]] + \
-        [p for p, _ in other_gen]
-    gen_perm_np = np.zeros(len(cat_pos), np.int64)
-    gen_perm_np[cat_pos] = np.arange(len(cat_pos))
-    gen_perm = torch.from_numpy(gen_perm_np).to(dev)
-    n_ext = len(dfa_atom_idx) + len(gen_atom_idx)
+            prog_atoms.append((aidx, gfn, n_dfa + gpos))
+    byte_group_fns = [
+        (tensor_expr.compile_byte_group(g["subject"], g["calls"], ctx),
+         torch.tensor(g["pos"], dtype=torch.long, device=dev))
+        for g in byte_groups.values()]
+    dfa_cols, off = [], 0
+    for gfn, g in zip(dfa_group_fns, dfa_groups.values()):
+        dfa_cols.append((gfn, off, len(g["atoms"])))
+        off += len(g["atoms"])
+    atom_prog = fo.AtomProgram(
+        fns=[gfn for _, gfn, _ in prog_atoms],
+        prog=op_lower.lower_programs([atoms.asts[a] for a, _, _ in prog_atoms],
+                                     layout, interner, finder),
+        cols=np.asarray([c for _, _, c in prog_atoms], np.int32))
+    n_ext = n_dfa + len(gen_atom_idx)
 
     def run(params: Mapping[str, Any],
             batch: AttributeBatch) -> tuple[Any, Any, Any]:
         b = batch.ids.shape[0]
-        ext_m: list[torch.Tensor] = []
-        ext_n: list[torch.Tensor] = []
+        dev_b = batch.ids.device
+        width = n_ext if use_legacy else 0
+        em = torch.empty((b, width), dtype=torch.bool, device=dev_b)
+        en = torch.empty((b, width), dtype=torch.bool, device=dev_b)
         if use_legacy:
-            for gfn in dfa_group_fns:
+            for gfn, off, k in dfa_cols:
                 gval, gee = gfn(batch)
-                ext_m.append(gval)             # already masked by ~ee
-                ext_n.append(~gval & ~gee)
-            gm: list[torch.Tensor] = []
-            gn: list[torch.Tensor] = []
-            for gfn in byte_group_fns:
+                em[:, off:off + k] = gval      # already masked by ~ee
+                en[:, off:off + k] = ~gval & ~gee
+            for gfn, cols in byte_group_fns:
                 gval, gee = gfn(batch)
-                gm.append(gval)
-                gn.append(~gval & ~gee)
-            for _, fn in other_gen:
-                t = fn(batch)
-                ee = t.err | ~t.ok
-                gm.append((t.val & ~ee)[:, None])
-                gn.append((~t.val & ~ee)[:, None])
-            if gm:
-                ext_m.append(torch.cat(gm, dim=1)[:, gen_perm])
-                ext_n.append(torch.cat(gn, dim=1)[:, gen_perm])
-        if ext_m:
-            em = torch.cat(ext_m, dim=1)
-            en = torch.cat(ext_n, dim=1)
-        else:
-            em = en = torch.zeros((b, n_ext if use_legacy else 0),
-                                  dtype=torch.bool, device=batch.ids.device)
+                cols = cols.to(dev_b)
+                em[:, cols] = gval
+                en[:, cols] = ~gval & ~gee
+            fo.atom_eval(batch, atom_prog, em, en)
         return rule_match(batch.ids, batch.present, em, en, params, consts)
 
     # ---- per-rule attribute bitmaps (compile-time ReferencedAttributes) ----
@@ -985,6 +990,9 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         "n_gen_atoms": len(gen_atom_idx),
         "n_dfa_groups": len(dfa_group_fns),
         "n_byte_groups": len(byte_group_fns),
+        "n_prog_atoms": atom_prog.n,
+        "n_atom_ops": int(atom_prog.prog.ops.shape[0]),
+        "atom_stack": atom_prog.prog.need,
         "n_live": n_live,
         "n_conjs": n_conjs,
         "n_fused_conjs": n_fused,
@@ -1003,7 +1011,8 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         host_fallback=host_fallback, fallback_reason=fallback_reason,
         attr_mask=attr_mask, attr_names=attr_names,
         rule_ns=rule_ns, ns_ids=ns_ids,
-        atom_tier=atom_tier, geometry=geometry, device=dev)
+        atom_tier=atom_tier, geometry=geometry, device=dev,
+        atoms=atom_prog)
 
 
 def _collect_attr_names(e: Expression, finder: AttributeDescriptorFinder,

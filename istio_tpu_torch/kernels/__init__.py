@@ -1,6 +1,6 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled on first use by its own `nvcc`
+Each `csrc/<source>.cu` is compiled on first use by its own `nvcc`
 (`-gencode arch=compute_90a,code=sm_90a`) into a shared library with a
 plain C interface under `istio_tpu_torch/_build/`, and loaded with
 ctypes. Nothing here runs at import time: the CPU tests import every
@@ -31,9 +31,13 @@ import torch
 
 KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
            "check_pack", "rule_stats", "list_banks", "field_eval",
-           "quota_alloc", "route_select")
+           "quota_alloc", "route_select", "atom_eval")
 # the C entry points of each source that has more than one
-ENTRY_POINTS = {"route_select": ("route_winner", "route_densify")}
+ENTRY_POINTS = {"route_select": ("route_winner", "route_densify"),
+                "field_eval": ("field_eval", "atom_eval")}
+# kernels built from another kernel's source (one interpreter, two
+# entry points: csrc/field_eval.cu)
+SOURCE_OF = {"atom_eval": "field_eval"}
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -102,21 +106,28 @@ def _nvcc() -> str:
     return path
 
 
+def source_of(name: str) -> str:
+    """The csrc/ source (without .cu) that kernel `name` is built from."""
+    return SOURCE_OF.get(name, name)
+
+
 def _lib_path(name: str) -> Path:
+    name = source_of(name)
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: Sequence[str] = KERNELS) -> dict[str, dict]:
-    """Compile every named source that has no up-to-date library yet,
-    one nvcc per source, all started together. → {name: {"seconds",
-    "log", "cached"}}; raises with nvcc's output if any build fails."""
+    """Compile the source of every named kernel that has no up-to-date
+    library yet, one nvcc per source, all started together. → {source:
+    {"seconds", "log", "cached"}}; raises with nvcc's output if any
+    build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     out: dict[str, dict] = {}
     t0 = time.perf_counter()
-    for name in names:
+    for name in dict.fromkeys(source_of(n) for n in names):
         dst = _lib_path(name)
         if dst.exists():
             out[name] = {"seconds": 0.0, "log": "", "cached": True}
@@ -145,6 +156,7 @@ def build(names: Sequence[str] = KERNELS) -> dict[str, dict]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
+    name = source_of(name)
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -10,12 +10,12 @@ evaluates all fields for all records at once, the host decodes intern
 ids back to Python values with one unique-id pass per chunk, and
 adapters receive finished instances — only adapter I/O stays host-side.
 
-One addition to the reference: each field's AST is also lowered to a
-FIELD PROGRAM (ops/field_ops.py), the postfix op table that the
-field_eval kernel interprets for every field of a batch in one launch.
-The closures stay: they are the kernel's plain version, and they compute
-the LEAF rows (byte predicates, ordered compares) the op set does not
-take.
+One addition to the reference: each field's AST is also lowered to an
+op program (compiler/op_lower.py, ops/field_ops.py), the postfix op
+table that the field_eval kernel interprets for every field of a batch
+in one launch. The closures stay as the kernel's plain version and
+nothing else: every node kind has an op, so no closure runs beside the
+kernel.
 
 Fallback contract: an instance with ANY unlowerable field keeps
 InstanceBuilder.build (host oracle) — mixed configs serve with fused
@@ -31,11 +31,8 @@ from typing import Any
 import numpy as np
 
 from istio_tpu_torch.attribute.types import ValueType
-from istio_tpu_torch.compiler.tensor_expr import (HostFallback, _Ctx,
-                                                  _compile_node, compile_field)
-from istio_tpu_torch.expr.exprs import Expression
-from istio_tpu_torch.expr.externs import (ExternError, extern_ip,
-                                          extern_timestamp)
+from istio_tpu_torch.compiler.op_lower import lower_programs
+from istio_tpu_torch.compiler.tensor_expr import HostFallback, compile_field
 from istio_tpu_torch.ops import field_ops as fo
 from istio_tpu_torch.templates import Variety
 from istio_tpu_torch.utils.log import scope
@@ -172,87 +169,23 @@ def _set_path(d: dict, path: tuple, value: Any) -> None:
     d[path[-1]] = value
 
 
-def _emit(e: Expression, ctx: _Ctx, ops: list, leaves: list) -> int:
-    """Append e's postfix op rows (LEAF rows numbered from len(leaves))
-    and return the value-stack depth they need. Follows _compile_node
-    node for node over an expression compile_field already accepted:
-    the constants it interns are interned already, in the same order."""
-    if e.const_ is not None:
-        c = e.const_
-        ops.append((fo.OP_CONST, int(bool(c.value)) if c.vtype is
-                    ValueType.BOOL else ctx.interner.intern(c.value)))
-        return 1
-    lay = ctx.layout
-    if e.var is not None:
-        is_bool = ctx.finder.get_attribute(e.var.name) is ValueType.BOOL
-        ops.append((fo.OP_VAR, lay.slot_of(e.var.name), int(is_bool)))
-        return 1
-    f = e.fn
-    name = f.name
-    if name == "INDEX":
-        key, tgt = f.args[1].const_.value, f.args[0]
-        if tgt.var is not None:
-            ops.append((fo.OP_DSLOT, lay.derived_slot_of(tgt.var.name, key)))
-            return 1
-        m1, m2 = tgt.fn.args[0].var.name, tgt.fn.args[1].var.name
-        ops.append((fo.OP_MAPSEL, lay.derived_slot_of(m1, key),
-                    lay.derived_slot_of(m2, key), lay.map_slots[m1],
-                    lay.map_slots[m2]))
-        return 1
-    if name in fo.BINARY_OPS:
-        n_ops, n_leaves = len(ops), len(leaves)
-        da = _emit(f.args[0], ctx, ops, leaves)
-        db = _emit(f.args[1], ctx, ops, leaves)
-        depth = max(da, db + 1)
-        if depth <= fo.MAX_STACK:
-            ops.append((fo.BINARY_OPS[name],))
-            return depth
-        # deeper than the kernel's stack: the whole subtree is one LEAF
-        del ops[n_ops:], leaves[n_leaves:]
-    elif name in ("ip", "timestamp"):
-        arg = f.args[0]
-        if arg.const_ is None:
-            ops.append((fo.OP_EXTERN, lay.extern_slots[(name, str(arg))]))
-            return 1
-        try:
-            value = (extern_ip(arg.const_.value) if name == "ip"
-                     else extern_timestamp(arg.const_.value))
-        except ExternError:
-            ops.append((fo.OP_ERR,))
-            return 1
-        ops.append((fo.OP_CONST, ctx.interner.intern(value)))
-        return 1
-    ops.append((fo.OP_LEAF, len(leaves)))
-    leaves.append(_compile_node(e, ctx))
-    return 1
-
-
-def field_program(ast: Expression, finder, layout, interner
-                  ) -> tuple[list, list]:
-    """One field's (op rows, LEAF closures) for field_ops.FieldProgram.of."""
-    ops: list = []
-    leaves: list = []
-    _emit(ast, _Ctx(layout, interner, finder), ops, leaves)
-    return ops, leaves
-
-
 def _lower_instance(ib, finder, layout, interner, next_row: int
                     ) -> tuple[InstanceSpec, list, list]:
     """Compile every field of one instance (all-or-nothing: raises
     HostFallback if any field cannot lower) → (spec, closures, field
-    programs)."""
+    ASTs)."""
     fields: list[FieldSlot] = []
     consts: list[tuple[tuple, Any]] = []
     containers: list[tuple] = []
     fns: list = []
-    programs: list = []
+    asts: list = []
 
     def lower(ast, path: tuple) -> None:
         node, rtype = compile_field(ast, finder, layout, interner)
         fields.append(FieldSlot(path=path, row=next_row + len(fns),
                                 is_bool=rtype is ValueType.BOOL))
         fns.append(node)
-        programs.append(field_program(ast, finder, layout, interner))
+        asts.append(ast)
 
     def walk(plan: list[tuple], prefix: tuple) -> None:
         for fname, kind, payload in plan:
@@ -272,7 +205,7 @@ def _lower_instance(ib, finder, layout, interner, next_row: int
     walk(ib.compiled_plan(), ())
     return InstanceSpec(name=ib.name, fields=tuple(fields),
                         consts=tuple(consts),
-                        containers=tuple(containers)), fns, programs
+                        containers=tuple(containers)), fns, asts
 
 
 def build_report_lowering(snapshot) -> ReportLowering | None:
@@ -287,7 +220,7 @@ def build_report_lowering(snapshot) -> ReportLowering | None:
     specs: dict[str, InstanceSpec] = {}
     host: set[str] = set()
     field_fns: list = []
-    programs: list = []
+    field_asts: list = []
     for ridx in range(len(snapshot.rules)):
         for hc, template, inst_names in snapshot.actions_for(
                 ridx, Variety.REPORT):
@@ -296,7 +229,7 @@ def build_report_lowering(snapshot) -> ReportLowering | None:
                     continue
                 ib = snapshot.instances[iname]
                 try:
-                    spec, fns, progs = _lower_instance(
+                    spec, fns, asts = _lower_instance(
                         ib, finder, layout, interner, len(field_fns))
                 except (HostFallback, KeyError) as exc:
                     host.add(iname)
@@ -305,13 +238,15 @@ def build_report_lowering(snapshot) -> ReportLowering | None:
                     continue
                 specs[iname] = spec
                 field_fns.extend(fns)
-                programs.extend(progs)
+                field_asts.extend(asts)
     if not specs:
         return None
-    program = fo.FieldProgram.of(field_fns, programs)
+    program = fo.FieldProgram(
+        fns=field_fns,
+        prog=lower_programs(field_asts, layout, interner, finder))
     log.info("report lowering: %d instances / %d field programs on "
-             "device (%d op rows, %d leaves), %d instances host-built",
-             len(specs), len(field_fns), len(program.ops),
-             len(program.leaves), len(host))
+             "device (%d op rows, stack %d), %d instances host-built",
+             len(specs), len(field_fns), len(program.prog.ops),
+             program.prog.need, len(host))
     return ReportLowering(specs=specs, host_instances=frozenset(host),
                           program=program)

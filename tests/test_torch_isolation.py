@@ -61,7 +61,9 @@ def test_every_module_imports_without_jax_and_istio_tpu():
             "istio_tpu_torch.ops.route_ops",
             "istio_tpu_torch.pilot.route_nfa",
             "istio_tpu_torch.pilot.discovery",
-            "istio_tpu_torch.sharding.planner"} <= set(names)
+            "istio_tpu_torch.sharding.planner",
+            "istio_tpu_torch.compiler.op_lower",
+            "istio_tpu_torch.testing.corpus"} <= set(names)
 
 
 def test_the_refusing_hook_would_catch_a_leak():

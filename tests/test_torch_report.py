@@ -5,8 +5,9 @@ Report instance fields lower to the same specs and field rows
 closures (field_eval_plain) and the op-table interpreter
 (field_eval_ops_plain) — equal the reference's field_planes +
 pack_bool_rows bit for bit, on every conformance-corpus expression and on
-stores with LEAF rows (byte predicates, ordered compares, a subtree
-deeper than the kernel's stack) and F not a multiple of 32;
+stores whose field programs take every op (byte predicates, ordered
+compares, a subtree deeper than a left-to-right stack of 8) with no
+closure beside them, and F not a multiple of 32;
 FusedPlan.packed_report's pull is byte-equal; Dispatcher.report and
 RuntimeServer.report deliver == instances in the same order on
 tests/test_report_lower.py's stores and seeded sweep and on the
@@ -49,7 +50,7 @@ from istio_tpu_torch.expr.parser import parse
 from istio_tpu_torch.ops import field_ops
 from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
 from istio_tpu_torch.runtime import monitor
-from istio_tpu_torch.runtime.report_lower import field_program
+from istio_tpu_torch.compiler.op_lower import lower_programs
 from istio_tpu_torch.runtime.resilience import ResourceExhaustedError
 from istio_tpu_torch.testing import workloads
 
@@ -96,10 +97,10 @@ class Capture:
 
 
 def _leaf_store():
-    """A metric whose dimensions take every op of the field programs and
-    every LEAF kind: byte predicates (startsWith, a suffix glob, a regex,
-    a runtime-pattern prefix), an ordered compare, a right-nested `|`
-    chain deeper than the kernel's stack, map fallback selects, extern
+    """A metric whose dimensions take every op of the field programs:
+    byte predicates (startsWith, a suffix glob, a regex, a
+    runtime-pattern prefix), an ordered compare, a right-nested `|`
+    chain deeper than a left-to-right stack of 8, map fallback selects, extern
     ip() / timestamp() columns, LAND / LOR / EQ / NEQ; and an instance
     whose only field is an invalid ip() constant (always an error)."""
     s = RefMemStore()
@@ -248,15 +249,19 @@ def test_lowering_equal(pairs, world):
     want = ref.controller.dispatcher.fused.report_lowering
     got = port.controller.dispatcher.fused.report_lowering
     assert _spec_view(got) == _spec_view(want)
-    prog = got.program
+    prog = got.program.prog
     assert len(prog.starts) == got.n_fields + 1
+    # need-first operand order: a program of n op rows needs at most
+    # floor(log2(n + 1)) stack slots
+    sizes = np.diff(prog.starts)
+    assert prog.need <= int(np.log2(sizes.max() + 1))
     if world == "telemetry":
         assert (got.n_fields, len(got.specs)) == (60, 8)
     if world == "leaves":
         ops = {int(o) for o in prog.ops[:, 0]}
         assert ops == set(range(len(field_ops.OP_NAMES))), \
             sorted(field_ops.OP_NAMES[o] for o in ops)
-        assert got.n_fields % 32 and len(prog.leaves) >= 6
+        assert got.n_fields % 32 and prog.need == 2
 
 
 def _batches(ref, world: str, n: int | None = None):
@@ -463,8 +468,8 @@ def _port_program(text: str):
     lay = pt_layout.build_layout(PT_MANIFEST, dk, bs, extern_sources=ex)
     interner = pt_layout.InternTable()
     node, _ = pt_te.compile_field(ast, PT_FINDER, lay, interner)
-    prog = field_ops.FieldProgram.of(
-        [node], [field_program(ast, PT_FINDER, lay, interner)])
+    prog = field_ops.FieldProgram(
+        fns=[node], prog=lower_programs([ast], lay, interner, PT_FINDER))
     batch = pt_layout.Tensorizer(lay, interner).tensorize(
         [DictBag(d) for d in INPUTS])
     return prog, batch
