@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's served Check(), Report() and Quota() paths, Pilot's route
-selection and discovery service, and their kernels on one NVIDIA H100.
+selection and discovery service, sequence-parallel DFA matching and mesh
+serving on virtual devices, and their kernels on one NVIDIA H100.
 
     python3 chip_smoke.py            (from the root of a checkout)
 
@@ -122,12 +123,34 @@ Phases, each fatal on failure:
   11. Pilot's discovery service at bench.py's fleet (10,000 sidecars,
      2,500 route rules): a DiscoveryService on the card against one on
      the CPU, every sidecar's RDS byte-equal cold and warm, CDS / LDS /
-     SDS for one node per namespace, the same node groups, 8 rounds of
+     SDS for one node in every fourth namespace, the same node groups,
+     8 rounds of
      one-namespace churn with every RDS equal after each and the scope
      program carried while its digest holds; one rule_match launch per
      batched generation; cold / warm poll rates and the route_eval
      stage;
-  12. print the kernels JSON line, the card line, and last the device
+  12. sequence-parallel DFA matching (B13) on 8 virtual devices of card
+     0, each its own stream: long subjects (2,048 rows of 8 KiB as 64
+     chunks of 128 bytes; 256 rows at Envoy's 60 KiB header limit as 480
+     chunks; 2,048 rows as 16 chunks, two per device) under
+     tests/test_parallel.py's three patterns and the full-match regexes
+     of make_route_world(10_000); sharded_dfa_match equal to dfa_scan
+     (K2) over the unchunked rows and to Python re on 64 rows, with 8
+     chunk_map and 8 + 1 (or 1) compose_maps launches per match; K12
+     equal to its plain version on every launch of the drive, its
+     launches in one headline match timed with their bound;
+  13. mesh serving (B14) on the same 8 virtual devices:
+     make_store(10_000) under ServerArgs(mesh_shape=(4, 2), buckets=(64,
+     256, 2048)) against a mesh-less server on the card, at B ∈ {64,
+     256, 2048} of the headline and hit traffic: every response field,
+     the packed pull byte for byte and the rule counts equal; per step 8
+     rule_match and one mesh_fold launch, no verdict_fold; walls beside
+     the mesh-less server's; mesh_stage_probe; K13 against its plain
+     version on the B=2048 trip (timed). Then (13b) make_rbac_store(1000)
+     at (2, 4) (RBAC allow rows across mp slices), the headline world at
+     (8, 1) and (1, 1), and shard_engine_check on make_engine(10_000,
+     with_quota=True) with small quotas, counters carried;
+  14. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
 is not beside this script.
@@ -3315,9 +3338,13 @@ def compact_select(tbl, batch):
 
 
 def route_entry_counts() -> dict:
+    """rule_match calls and the entry points of the route path's
+    sources (route_select, field_eval)."""
     from istio_tpu_torch import kernels
+    e = kernels.launches.entries
     return {"rule_match": kernels.launches["rule_match"],
-            **kernels.launches.entries}
+            **{k: e[k] for src in ("route_select", "field_eval")
+               for k in kernels.ENTRY_POINTS[src]}}
 
 
 def route_edge_checks() -> int:
@@ -3664,6 +3691,549 @@ def discovery_phase(int_rate: float) -> dict:
             "scope_reused": reused}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: sequence-parallel DFA matching (K12 seq_match, B13)
+# ---------------------------------------------------------------------------
+
+N_VIRTUAL = 8                  # virtual devices over card 0 (phases 12-13)
+# (rows, chunks, chunk bytes): 8 KiB rows as 64 chunks of the layout's
+# default max_str_len, Envoy's default request-header limit (60 KiB,
+# max_request_headers_kb) as 480 chunks, and 16 chunks over the 8-way
+# axis (two per device)
+SEQ_LAYOUTS = ((2048, 64, 128), (256, 480, 128), (2048, 16, 512))
+SEQ_RE_ROWS = 64               # rows held against Python `re`
+SEQ_ITERS = 20
+
+
+def route_regexes(n_routes: int) -> list[str]:
+    """The full-match URI regexes of make_route_world(n_routes)."""
+    from istio_tpu_torch.testing import workloads
+    _, rules = workloads.make_route_world(n_routes)
+    out = set()
+    for cfgs in rules.values():
+        for cfg in cfgs:
+            uri = cfg.spec.get("match", {}).get("request", {}) \
+                .get("headers", {}).get("uri", {})
+            if "regex" in uri:
+                out.add(uri["regex"])
+    return sorted(out)
+
+
+def route_subjects(b: int, total: int, seed: int):
+    """Long URI paths for the route regexes: every third row a full
+    match of `^/items/[0-9]+/r<k>$` whose digits run across chunk seams,
+    every third one the same with a trailing byte (the `$` fails), the
+    rest random lowercase bytes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    data = rng.integers(97, 123, (b, total), dtype=np.uint8)
+    lens = np.full(b, total, np.int32)
+    for i in range(0, b, 3):
+        for j, tail in ((i, b""), (i + 1, b"x")):
+            if j >= b:
+                continue
+            n_dig = int(rng.integers(1, total // 2))
+            digits = rng.integers(48, 58, n_dig, dtype=np.uint8).tobytes()
+            path = b"/items/" + digits + f"/r{j % 11}".encode() + tail
+            data[j, :len(path)] = np.frombuffer(path, np.uint8)
+            lens[j] = len(path)
+    return data, lens
+
+
+def seq_work(launches: list) -> tuple[float, float]:
+    """(bytes, ops) of K12's launches in one sharded match on this run's
+    data: chunk_map reads each chunk's walked bytes, the lens and the
+    table once and writes its [C, B, S] maps, doing 1 int op per (entry
+    state, byte walked): the next-state index state * 256 + byte, one
+    IMAD (the table read is a load, not an ALU op; the byte is shared by
+    the S walks; the loop's position check is overhead of the walk, not
+    the function's work: a full chunk needs none per byte); compose_maps
+    reads its maps and writes [B, S] (or [B] bools), one gather per
+    (chunk, row, entry state)."""
+    import torch
+    b = ops = 0.0
+    for name, inputs in launches:
+        kind, *args = inputs
+        if kind == "chunk_map":
+            data, lens, tr, c0 = args
+            nb, nc, lc = data.shape
+            s = int(tr.shape[0])
+            starts = (torch.arange(nc, device=data.device) + c0) * lc
+            walked = (lens.long()[:, None] - starts[None, :]).clamp(0, lc)
+            steps = float(walked.sum())
+            b += steps + nbytes(lens, tr) + nc * nb * s * 4
+            ops += steps * s
+        else:
+            maps, accept, entry = args
+            nc, nb, s = maps.shape
+            b += nbytes(maps) + (nb if accept is not None else nb * s * 4)
+            if accept is not None:
+                b += nbytes(accept)
+            ops += float(nc) * nb * (1 if accept is not None else s)
+    return b, ops
+
+
+def seq_fns(kind: str):
+    """(kernel wrapper, plain version) of K12's entry point `kind`; both
+    take the captured inputs after the kind."""
+    from istio_tpu_torch.parallel import seq_match as sm
+    if kind == "chunk_map":
+        return sm.chunk_maps, sm.chunk_maps_plain
+    return sm.compose, sm.compose_maps_plain
+
+
+def seq_phase(int_rate: float) -> dict:
+    """Phase 12: sequence-parallel DFA matching (B13) on N_VIRTUAL
+    virtual devices of card 0 (each its own stream), the launch counters
+    zeroed just before the drive and read just after. At each layout of
+    SEQ_LAYOUTS and each pattern (tests/test_parallel.py's three over
+    make_long_subjects' rows, the full-match regexes of
+    make_route_world(10_000) over route-shaped paths):
+    sharded_dfa_match equal to dfa_scan (K2) over the unchunked rows
+    and to Python `re` on SEQ_RE_ROWS rows, with exactly N chunk_map and
+    N (or 1 with one chunk per device) + 1 compose_maps launches per
+    match; every captured K12 launch equal to its plain version; the
+    launches of one headline match (2048 rows x 8 KiB, the needle)
+    timed with their bound; the sharded match beside one dfa_scan over
+    the same rows."""
+    import re
+    import numpy as np
+    import torch
+    from istio_tpu_torch import kernels, platform
+    from istio_tpu_torch.ops import bytes_ops
+    from istio_tpu_torch.ops.regex_dfa import compile_regex, pack_dfas_classes
+    from istio_tpu_torch.parallel.mesh import Mesh
+    from istio_tpu_torch.parallel import seq_match as sm
+    from istio_tpu_torch.testing import workloads
+
+    rx = route_regexes(ROUTE_RULES)
+    pats = [(p, "long") for p in workloads.LONG_PATTERNS] + \
+        [(p, "route") for p in rx]
+    dfas = {p: compile_regex(p) for p, _ in pats}
+    s_route = max(dfas[p].transitions.shape[0] for p in rx)
+    log(f"[12] {len(pats)} patterns: {len(workloads.LONG_PATTERNS)} of "
+        f"tests/test_parallel.py and the {len(rx)} full-match regexes of "
+        f"make_route_world({ROUTE_RULES}); states S "
+        + ", ".join(f"{p!r} {dfas[p].transitions.shape[0]}"
+                    for p, _ in pats[:4])
+        + f", route max {s_route} ({s_route} KB of table: shared memory)")
+    rng = np.random.default_rng(1213)
+    worlds = {}
+    for b, c, lc in SEQ_LAYOUTS:
+        total = c * lc
+        if (b, total) not in worlds:
+            worlds[(b, total)] = {
+                "long": workloads.make_long_subjects(b, c, lc, seed=b),
+                "route": route_subjects(b, total, seed=b + 1)}
+    # the oracles first: dfa_scan (K2) over the unchunked rows and re
+    oracle = {}
+    for b, c, lc in SEQ_LAYOUTS:
+        for p, kind in pats:
+            key = (b, c * lc, p)
+            if key in oracle:
+                continue
+            data, lens = worlds[(b, c * lc)][kind]
+            bank = bytes_ops.DfaBank.of(pack_dfas_classes([dfas[p]]))
+            scan = bytes_ops.dfa_scan(torch.from_numpy(data).cuda(),
+                                      torch.from_numpy(lens).cuda(),
+                                      bank)[:, 0].cpu()
+            want = [re.search(p, data[i, :lens[i]].tobytes()
+                              .decode("latin1")) is not None
+                    for i in range(min(b, SEQ_RE_ROWS))]
+            if scan[:len(want)].tolist() != want:
+                raise AssertionError(f"dfa_scan {p!r} differs from re")
+            oracle[key] = scan
+    steps, caps, captured = 0, [], None
+    with platform.force_virtual_devices(N_VIRTUAL, "cuda:0") as devs:
+        mesh = Mesh(np.array(devs, dtype=object), ("sp",))
+        kernels.launches.reset()
+        for b, c, lc in SEQ_LAYOUTS:
+            total = c * lc
+            per = c // N_VIRTUAL
+            hits = 0
+            for p, kind in pats:
+                data, lens = worlds[(b, total)][kind]
+                dfa = dfas[p]
+                e0 = dict(kernels.launches.entries)
+                with kernels.launches.capture() as cap:
+                    got = sm.sharded_dfa_match(
+                        mesh, "sp", data.reshape(b, c, lc), lens,
+                        dfa.transitions, dfa.accept)
+                    torch.cuda.synchronize()
+                steps += 1
+                d_cm = kernels.launches.entries["chunk_map"] - e0["chunk_map"]
+                d_co = kernels.launches.entries["compose_maps"] - \
+                    e0["compose_maps"]
+                want_co = (N_VIRTUAL if per > 1 else 0) + 1
+                if (d_cm, d_co) != (N_VIRTUAL, want_co):
+                    raise AssertionError(
+                        f"{p!r} {b}x{c}x{lc}: {d_cm} chunk_map / {d_co} "
+                        f"compose_maps launches, want {N_VIRTUAL} / "
+                        f"{want_co}")
+                if (b, c, lc) == SEQ_LAYOUTS[0] and p == pats[0][0]:
+                    captured = list(cap)
+                caps.append((p, list(cap)))
+                assert_equal(f"sharded {p!r} vs dfa_scan {b}x{total}",
+                             got.cpu(), oracle[(b, total, p)])
+                hits += int(got.sum())
+            log(f"[12] B={b} x {total:,} bytes as {c} chunks of {lc} "
+                f"({per} per device): {len(pats)} patterns sharded equal to "
+                f"dfa_scan (K2) over the unchunked rows and to re on "
+                f"{SEQ_RE_ROWS} rows; {hits} matches")
+        out = path_counts("[12] sequence-parallel path", ("seq_match",),
+                          steps)
+        out["entries"] = {e: kernels.launches.entries[e]
+                          for e in kernels.ENTRY_POINTS["seq_match"]}
+        n = 0
+        for p, cap in caps:
+            for _, (kind, *args) in cap:
+                kern, plain = seq_fns(kind)
+                assert_equal(f"seq_match.{kind} {p!r}", kern(*args),
+                             plain(*args))
+                n += 1
+        log(f"[12] K12 equal to its plain version on all {n} launches of "
+            "the drive")
+        # ---- K12 timed on the headline match's own launches
+        b, c, lc = SEQ_LAYOUTS[0]
+        p = pats[0][0]
+        data, lens = worlds[(b, c * lc)]["long"]
+        dfa = dfas[p]
+        parts = {}
+        for kind in ("chunk_map", "compose_maps"):
+            ls = [x for x in captured if x[1][0] == kind]
+            kern, plain_fn = seq_fns(kind)
+            ms, call, how = timed(
+                lambda: [kern(*x[1][1:]) for x in ls], SEQ_ITERS)
+            plain, _, _ = timed(
+                lambda: [plain_fn(*x[1][1:]) for x in ls], 3)
+            bb, ops = seq_work(ls)
+            bms, by = bound(bb, ops, int_rate)
+            parts[kind] = {"ms": ms, "call_ms": call, "ms_source": how,
+                           "plain_ms": plain, "bound_ms": bms,
+                           "bound_by": by, "bytes": bb, "ops": ops,
+                           "launches_per_match": len(ls),
+                           "library_ms": None}
+            log(f"  seq_match.{kind:<13} {len(ls)} launches: kernel "
+                f"{ms:9.5f} ms (per call incl. launch {call:8.5f})   plain "
+                f"{plain:9.5f} ms   bound {bms:8.5f} ms ({by}; {bb:.0f} B, "
+                f"{ops:.0f} ops)   equal: yes   [{how}]")
+        flat = torch.from_numpy(data.reshape(b, c, lc)).cuda()
+        ln = torch.from_numpy(lens).cuda()
+        bank = bytes_ops.DfaBank.of(pack_dfas_classes([dfa]))
+        whole = time_ms(lambda: sm.sharded_dfa_match(
+            mesh, "sp", flat, ln, dfa.transitions, dfa.accept), SEQ_ITERS)
+        one = time_ms(lambda: bytes_ops.dfa_scan(
+            flat.reshape(b, c * lc), ln, bank), SEQ_ITERS)
+        log(f"[12] headline match ({b} rows x {c * lc:,} bytes, {p!r}, S "
+            f"{dfa.transitions.shape[0]}): sharded_dfa_match {whole:.5f} ms "
+            f"per call on {N_VIRTUAL} streams (CUDA events, host launch "
+            f"cost included) against one dfa_scan over the unchunked rows "
+            f"{one:.5f} ms")
+    bb = sum(x["bytes"] for x in parts.values())
+    ops = sum(x["ops"] for x in parts.values())
+    bms, by = bound(bb, ops, int_rate)
+    row = {"name": "seq_match", "route": "cuda",
+           "source": "istio_tpu_torch/csrc/seq_match.cu",
+           "replaces": "istio_tpu/parallel/seq_match.py:34",
+           "launches": 0, "max_abs_err": 0,
+           "ms": sum(x["ms"] for x in parts.values()),
+           "call_ms": sum(x["call_ms"] for x in parts.values()),
+           "plain_ms": sum(x["plain_ms"] for x in parts.values()),
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "library_call": None,
+           "calls_per_step": sum(x["launches_per_match"]
+                                 for x in parts.values()),
+           "grid_launches": 0, "ms_source": parts["chunk_map"]["ms_source"],
+           "bytes": bb, "ops": ops, "entries": parts,
+           "sharded_match_ms": whole, "dfa_scan_ms": one,
+           "route_max_states": s_route}
+    return {**out, "rows": [row]}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: mesh serving (K13 mesh_fold, B14)
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (4, 2)
+MESH_ITERS = 10                # timed check_many calls per batch size
+MESH_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "mesh_fold",
+                "check_pack", "rule_stats")
+
+
+def mesh_server(store, shape, buckets, manifest=None, device="cuda"):
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    kw = dict(buckets=buckets, rulestats_drain_s=0)
+    if manifest is not None:
+        kw["default_manifest"] = manifest
+    if shape is not None:
+        kw["mesh_shape"] = shape
+    return RuntimeServer(store, ServerArgs(**kw), device=device)
+
+
+def pull_of(srv, bags):
+    """The plan's packed pull of `bags` (the served trip's one D2H)."""
+    d = srv.controller.dispatcher
+    return d.fused.packed_check(d.snapshot.tensorizer.tensorize(bags),
+                                d._request_ns_ids(bags), observe=False)
+
+
+def mesh_fold_check(tag: str, inputs, int_rate: float | None) -> dict:
+    """K13 against its plain version on one captured launch's inputs
+    (from its quota state), and with int_rate timed with its bound."""
+    import torch
+    from istio_tpu_torch.compiler.layout import AttributeBatch
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    parts, params, before, c, lk, dev = inputs
+    q0 = before if before is not None else torch.zeros(1, 1, dtype=torch.int32,
+                                                       device=dev)
+    qk, qp = q0.clone(), q0.clone()
+    got = mf.mesh_fold(parts, params, qk, c, lk, dev)
+    want = mf.mesh_fold_plain(parts, params, qp, c, lk, dev)
+    for part, g, w in zip(("status", "dur", "uses", "deny_rule",
+                           "referenced", "err_count"), got, want):
+        assert_equal(f"{tag}.{part}", g, w)
+    assert_equal(f"{tag}.quota_counts", qk, qp)
+    if int_rate is None:
+        return {}
+    scratch = q0.clone()
+    ms, call, how = timed(lambda: mf.mesh_fold(parts, params, scratch, c, lk,
+                                               dev), 50)
+    plain, _, _ = timed(lambda: mf.mesh_fold_plain(parts, params, scratch, c,
+                                                   lk, dev), 10)
+    matched = mf.gather_plane(parts, "matched", dev)
+    req = torch.cat([row[0].req_ns for row in parts])
+    batch = AttributeBatch.cat([row[0].batch for row in parts], dev)
+    lstate = mf.gather_lstate(parts, dev)
+    b, ops = fold_work(matched, req, batch, params, c, q0, qk, got, lstate,
+                       lk if lstate is not None else None)
+    # the partial records cross shards: written once, read once
+    dp, mp = len(parts), len(parts[0])
+    n_flags = int(parts[0][0].params["pe_rb_rule"].numel()) * c.has_rbac
+    b += 2.0 * matched.shape[0] * mp * (mf.REC_ROWS * 4 + n_flags)
+    bms, by = bound(b, ops, int_rate)
+    log(f"  {tag:<16} kernel {ms:9.5f} ms (per call incl. launch "
+        f"{call:8.5f})   plain {plain:9.5f} ms   bound {bms:8.5f} ms ({by}; "
+        f"{b:.0f} B, {ops:.0f} ops)   equal: yes   [{how}]")
+    return {"ms": ms, "call_ms": call, "ms_source": how, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "bytes": b, "ops": ops,
+            "mesh": f"{dp}x{mp}"}
+
+
+def mesh_phase(int_rate: float) -> dict:
+    """Phase 13: mesh serving (B14) on N_VIRTUAL virtual devices of card
+    0. The headline world, make_store(10_000) under MESH_MANIFEST, served
+    by ServerArgs(mesh_shape=(4, 2), buckets=(64, 256, 2048)) against a
+    mesh-less RuntimeServer on the card: at B ∈ E2E_BATCHES of the
+    headline and the hit traffic every response field, the packed pull
+    byte for byte and the drained rule counts equal; the launch counters
+    zeroed just before the mesh server's drive and read just after (per
+    step: rule_match, dfa_scan and byte_pred once per shard, mesh_fold
+    once, verdict_fold never); walls beside the mesh-less server's;
+    mesh_stage_probe at B=2048; one device-to-host copy per trip; K13
+    against its plain version on the B=2048 trip's inputs (timed: the
+    kernels row). Then (13b) the authz
+    world make_rbac_store(1000) at (2, 4), whose RBAC allow rows span
+    two mp slices; the headline world at (8, 1) and (1, 1) at B=256; and
+    shard_engine_check on make_engine(10_000, with_quota=True, quota
+    max 2) at (4, 2), three batches with the counters carried, equal to
+    the unsharded engine, verdict and counters, some rows exhausted."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch import kernels, platform
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.parallel.mesh import (MeshSpec, mesh_stage_probe,
+                                               rule_slices,
+                                               shard_engine_check)
+    from istio_tpu_torch.testing import workloads
+
+    man = workloads.MESH_MANIFEST
+    with platform.force_virtual_devices(N_VIRTUAL, "cuda:0"):
+        t0 = time.perf_counter()
+        msrv = mesh_server(workloads.make_store(HEADLINE_RULES), MESH_SHAPE,
+                           E2E_BATCHES, man)
+        build_s = time.perf_counter() - t0
+        psrv = mesh_server(workloads.make_store(HEADLINE_RULES), None,
+                           E2E_BATCHES, man)
+        plan = msrv.controller.dispatcher.fused
+        if getattr(plan.engine._step, "mesh", None) is None:
+            raise AssertionError("the mesh server's engine is not sharded")
+        n_rows = int(plan.engine.ruleset.rule_ns.shape[0])
+        log(f"[13] headline world on a {MESH_SHAPE[0]}x{MESH_SHAPE[1]} mesh "
+            f"of virtual devices: snapshot + plan + warm of "
+            f"{len(plan._warmed_shapes)} shapes in {build_s:.2f} s; "
+            f"{n_rows} rule rows in slices "
+            f"{rule_slices(n_rows, MESH_SHAPE[1])}")
+        traffic = {(t, b): served_traffic(t, HEADLINE_RULES, b, seed=b + 3)
+                   for t in ("headline", "hit") for b in E2E_BATCHES}
+        want, want_pull, want_counts = {}, {}, {}
+        for key, bags in traffic.items():
+            before = rule_counts(psrv)
+            want[key] = psrv.check_many(bags)
+            want_counts[key] = counts_since(psrv, before)
+            want_pull[key] = pull_of(psrv, bags)
+        kernels.launches.reset()
+        steps, got, got_pull, got_counts = 0, {}, {}, {}
+        for key, bags in traffic.items():
+            before = rule_counts(msrv)
+            if key == ("headline", HEADLINE_B):
+                with kernels.launches.capture() as captured:
+                    got[key] = msrv.check_many(bags)
+                torch.cuda.synchronize()
+            else:
+                got[key] = msrv.check_many(bags)
+            got_counts[key] = counts_since(msrv, before)
+            got_pull[key] = pull_of(msrv, bags)
+            steps += 2
+        results = {}
+        for b in E2E_BATCHES:
+            bags = traffic[("headline", b)]
+            walls = []
+            for _ in range(MESH_ITERS):
+                t = time.perf_counter()
+                msrv.check_many(bags)
+                walls.append((time.perf_counter() - t) * 1e3)
+            steps += MESH_ITERS
+            results[b] = {"p50_ms": float(np.percentile(walls, 50)),
+                          "p99_ms": float(np.percentile(walls, 99))}
+        counts = path_counts("[13] mesh path", MESH_KERNELS, steps)
+        per = counts["per_step"]
+        shards = MESH_SHAPE[0] * MESH_SHAPE[1]
+        if counts["counts"]["verdict_fold"] or per["mesh_fold"] != 1 or \
+                per["rule_match"] != shards:
+            raise AssertionError(f"mesh path launches per step {per}")
+        for key in traffic:
+            compare_responses(f"mesh {key}", got[key], want[key])
+            compare_counts(f"mesh {key}", got_counts[key], want_counts[key])
+            if got_pull[key].tobytes() != want_pull[key].tobytes():
+                raise AssertionError(f"mesh {key}: packed pull differs")
+        for b in E2E_BATCHES:
+            bags = traffic[("headline", b)]
+            walls = []
+            for _ in range(MESH_ITERS):
+                t = time.perf_counter()
+                psrv.check_many(bags)
+                walls.append((time.perf_counter() - t) * 1e3)
+            results[b]["plain_p50_ms"] = float(np.percentile(walls, 50))
+        log(f"[13] mesh {MESH_SHAPE}: B in {E2E_BATCHES}, headline and hit "
+            "traffic: every response field, the packed pull byte for byte "
+            "and the rule counts equal to the mesh-less server on the "
+            "card; per step rule_match / dfa_scan / byte_pred "
+            f"{per['rule_match']:.0f} / {per['dfa_scan']:.0f} / "
+            f"{per['byte_pred']:.0f}, mesh_fold {per['mesh_fold']:.0f} "
+            f"({counts['grids']['mesh_fold'] / counts['counts']['mesh_fold']:.0f}"
+            " grids), verdict_fold 0; walls " + ", ".join(
+                f"B={b} p50 {r['p50_ms']:.2f} ms (mesh-less "
+                f"{r['plain_p50_ms']:.2f})" for b, r in results.items()))
+        eng = plan.engine
+        big = traffic[("headline", HEADLINE_B)]
+        d = msrv.controller.dispatcher
+        batch = d.snapshot.tensorizer.tensorize(big)
+        probe = mesh_stage_probe(plan.engine._step.mesh, eng, batch,
+                                 np.asarray(d._request_ns_ids(big),
+                                            np.int32))
+        log(f"[13] mesh_stage_probe B={HEADLINE_B}: {json.dumps(probe)}")
+        n_d2h = dtoh_copies(lambda: pull_of(msrv, big))
+        if n_d2h not in (1, None):
+            raise AssertionError(f"a mesh trip made {n_d2h} device-to-host "
+                                 "copies, want one pull")
+        log(f"[13] a B={HEADLINE_B} mesh trip: {n_d2h} device-to-host copy")
+        folds = [x for x in captured if x[0] == "mesh_fold"]
+        if len(folds) != 1:
+            raise AssertionError(f"{len(folds)} mesh_fold launches in one "
+                                 "served trip")
+        log(f"[13] K13 on the B={HEADLINE_B} served trip's own inputs "
+            "(timed):")
+        k13 = mesh_fold_check("mesh_fold", folds[0][1], int_rate)
+        for s in (msrv, psrv):
+            s.close()
+
+        # ---- 13b: the authz world at (2, 4)
+        az_store = workloads.make_rbac_store(AUTHZ_ROLE_RULES)
+        az = mesh_server(az_store, (2, 4), (256, HEADLINE_B), man)
+        az_plain = mesh_server(workloads.make_rbac_store(AUTHZ_ROLE_RULES),
+                               None, (256, HEADLINE_B), man)
+        aeng = az.controller.dispatcher.fused.engine
+        n_rows = int(aeng.ruleset.rule_ns.shape[0])
+        sl = rule_slices(n_rows, 4)
+        allow = aeng.params["pe_rb_allow"].cpu().numpy()
+        spans = [{m for m, (r0, r1) in enumerate(sl)
+                  if ((row >= r0) & (row < r1)).any()} for row in allow]
+        if max(len(s) for s in spans) < 2:
+            raise AssertionError(f"authz: no RBAC spec spans two mp slices "
+                                 f"({spans})")
+        for b in (256, HEADLINE_B):
+            bags = [bag_from_mapping(x) for x in
+                    workloads.make_rbac_request_dicts(b, seed=b)]
+            compare_responses(f"authz mesh (2, 4) B={b}", az.check_many(bags),
+                              az_plain.check_many(bags))
+            if pull_of(az, bags).tobytes() != \
+                    pull_of(az_plain, bags).tobytes():
+                raise AssertionError(f"authz mesh B={b}: pull differs")
+        with kernels.launches.capture() as cap:
+            az.check_many(bags)
+        torch.cuda.synchronize()
+        k13_az = mesh_fold_check(
+            "mesh_fold.authz", [x for x in cap if x[0] == "mesh_fold"][0][1],
+            int_rate)
+        log(f"[13b] authz world (2, 4): {n_rows} rule rows in slices {sl}; "
+            f"RBAC allow rows span mp slices {sorted(spans[0])}; responses "
+            f"and pulls equal to the mesh-less server at B = 256, {HEADLINE_B}")
+        for s in (az, az_plain):
+            s.close()
+
+        # ---- 13b: the headline world at (8, 1) and (1, 1)
+        bags = traffic[("hit", 256)]
+        for shape in ((8, 1), (1, 1)):
+            s = mesh_server(workloads.make_store(HEADLINE_RULES), shape,
+                            (256,), man)
+            compare_responses(f"mesh {shape} B=256", s.check_many(bags),
+                              want[("hit", 256)])
+            if pull_of(s, bags).tobytes() != \
+                    want_pull[("hit", 256)].tobytes():
+                raise AssertionError(f"mesh {shape}: pull differs")
+            s.close()
+        log("[13b] headline world at (8, 1) and (1, 1), B=256 hit traffic: "
+            "responses and pulls equal to the mesh-less server")
+
+        # ---- 13b: shard_engine_check with quotas, counts carried
+        a = workloads.make_engine(HEADLINE_RULES, with_quota=True,
+                                  device="cuda", quota_max=2)
+        m = workloads.make_engine(HEADLINE_RULES, with_quota=True,
+                                  device="cuda", quota_max=2)
+        step = shard_engine_check(MeshSpec(*MESH_SHAPE).build(), m)
+        exhausted = 0
+        for s in range(N_STEPS):
+            bags, req = hit_batch(a, HEADLINE_RULES, 256, seed=7000 + s)
+            batch = a.tensorizer.tensorize(bags)
+            va, _ = a.raw_step(a.params, batch, req, a.quota_counts)
+            with kernels.launches.capture() as cap:
+                vm, _ = step(m.params, batch, req, m.quota_counts)
+            torch.cuda.synchronize()
+            for f in FIELDS:
+                assert_equal(f"shard_engine_check step {s} {f}",
+                             getattr(vm, f), getattr(va, f))
+            assert_equal(f"shard_engine_check step {s} quota_counts",
+                         m.quota_counts, a.quota_counts)
+            exhausted += int((vm.status == RESOURCE_EXHAUSTED).sum())
+            mesh_fold_check(f"mesh_fold.quota#{s}",
+                            [x for x in cap if x[0] == "mesh_fold"][0][1],
+                            None)
+        if not exhausted:
+            raise AssertionError("sharded quota never ran out")
+        log(f"[13b] shard_engine_check on make_engine({HEADLINE_RULES}, "
+            f"with_quota=True) at {MESH_SHAPE}: {N_STEPS} batches of 256 "
+            f"with the counters carried equal to the unsharded engine "
+            f"(every verdict field, the counters); {exhausted} "
+            "RESOURCE_EXHAUSTED; K13 (with its quota launches) equal to its "
+            "plain version on each")
+    row = {"name": "mesh_fold", "route": "cuda",
+           "source": "istio_tpu_torch/csrc/verdict_fold.cu",
+           "replaces": "istio_tpu/parallel/mesh.py:146", "launches": 0,
+           "max_abs_err": 0, "library_ms": None, "library_call": None,
+           "calls_per_step": 1, **k13, "authz": k13_az}
+    return {**counts, "rows": [row], "results": results, "probe": probe}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3832,20 +4402,30 @@ def main() -> int:
     dc = discovery_phase(int_rate)
 
     log(f"[t] phase 12 starts at {time.perf_counter() - t_start:.1f} s")
-    # ---- phase 12: result lines. K1-K6 keep the headline served path's
+    # ---- phase 12: sequence-parallel DFA, counters zeroed just before
+    sq = seq_phase(int_rate)
+    log(f"[t] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 13: mesh serving, counters zeroed just before
+    mh = mesh_phase(int_rate)
+
+    log(f"[t] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 14: result lines. K1-K6 keep the headline served path's
     # row; list_banks reports the list path's, field_eval the report
     # path's, quota_alloc the quota path's (its in-step trip, with every
     # mode's row under "modes") and route_select the route path's (its
     # winner, with both entry points under "entries"). Each row carries
     # its kernel's rows on the other paths under "paths".
     paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
-             "quota": qt, "routes": rt, "discovery": dc}
+             "quota": qt, "routes": rt, "discovery": dc, "seq": sq,
+             "mesh": mh}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
                             ("atom_eval", "authz", az),
                             ("field_eval", "report", rp),
                             ("quota_alloc", "quota", qt),
-                            ("route_select", "routes", rt)):
+                            ("route_select", "routes", rt),
+                            ("seq_match", "seq", sq),
+                            ("mesh_fold", "mesh", mh)):
         by_name[name] = next(r for r in res["rows"] if r["name"] == name)
         by_name[name]["path"] = path
     table = [by_name[k] for k in kernels.KERNELS]
@@ -3863,7 +4443,7 @@ def main() -> int:
             p: r["counts"][name] for p, r in paths.items()}}
         row["paths"] = {p: {k: x[k] for k in keep}
                         for p in ("authz", "lists", "report", "quota",
-                                  "routes", "discovery")
+                                  "routes", "discovery", "seq", "mesh")
                         for x in paths[p]["rows"] if x["name"] == name
                         and p != row["path"]}
     log("kernels (launches by path): " + "; ".join(
@@ -3904,6 +4484,16 @@ def main() -> int:
         f"{dc['stages'].get('route_eval')}; rule_match "
         f"{dc['counts']['rule_match']} launches for "
         f"{dc['admits']['program']} batched generations")
+    log(f"seq (sharded_dfa_match on {N_VIRTUAL} virtual devices, "
+        f"{SEQ_LAYOUTS[0][0]} rows x {SEQ_LAYOUTS[0][1] * SEQ_LAYOUTS[0][2]:,}"
+        f" bytes): {sq['rows'][0]['sharded_match_ms']:.4f} ms per match, "
+        f"one dfa_scan {sq['rows'][0]['dfa_scan_ms']:.4f} ms; launches "
+        f"{sq['entries']}")
+    log(f"mesh (check_many, make_store(10_000), mesh {MESH_SHAPE}): "
+        + ", ".join(f"B={b} p50 {r['p50_ms']:.4f} ms (mesh-less "
+                    f"{r['plain_p50_ms']:.4f})"
+                    for b, r in mh["results"].items())
+        + f"; stage probe {json.dumps(mh['probe'])}")
     log("e2e (engine step): " + ", ".join(
         f"B={b} {ms:.4f} ms {b / ms * 1e3:.0f} checks/s"
         for b, ms in e2e.items()))

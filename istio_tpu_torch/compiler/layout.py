@@ -360,6 +360,24 @@ class AttributeBatch:
             **{f: move(getattr(self, f)) for f in _FIELDS},
             ephemeral_values=self.ephemeral_values)
 
+    def rows(self, start: int, stop: int) -> "AttributeBatch":
+        """Rows [start, stop) of every plane (views; the ephemeral side
+        table is shared, ids index it batch-wide)."""
+        return AttributeBatch(
+            **{f: getattr(self, f)[start:stop] for f in _FIELDS},
+            ephemeral_values=self.ephemeral_values)
+
+    @staticmethod
+    def cat(parts: "list[AttributeBatch]",
+            device: str | torch.device) -> "AttributeBatch":
+        """The row concatenation of `parts` (row slices of one batch, in
+        order) on `device`."""
+        dev = torch.device(device)
+        return AttributeBatch(
+            **{f: torch.cat([getattr(p, f).to(dev) for p in parts])
+               for f in _FIELDS},
+            ephemeral_values=parts[0].ephemeral_values)
+
 
 class Tensorizer:
     """Host-side bag-batch → AttributeBatch conversion.

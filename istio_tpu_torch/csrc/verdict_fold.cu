@@ -1,13 +1,21 @@
 // verdict_fold — the policy verdict of every request from its rule-match
 // planes: namespace mask, deny fold, list fold, RBAC any-allow fold,
 // quota rank / grant / commit, referenced attributes and the batch error
-// count.
+// count; unsharded (verdict_fold) and over a dp x mp mesh (mesh_partial,
+// mesh_combine, mesh_quota). Both share one row-fold body over a window
+// [r0, r0 + Rm) of the global rule axis, one RBAC decision, one
+// lowest-index resolution and one quota rank / commit pair; the
+// unsharded fold is the window [0, R) of one shard, in one launch.
 //
 // Replaces the JAX package's istio_tpu/models/policy_engine.py:379-654,
 // PolicyEngine.__init__.<locals>.step, after the byte-level list banks
-// (the list_banks kernel computes the REGEX and CIDR memberships). Three
-// launches, one chain on the caller's stream:
+// (the list_banks kernel computes the REGEX and CIDR memberships), and
+// the verdict-fold half of istio_tpu/parallel/mesh.py shard_engine_check
+// (:146), where jax.jit partitions raw_step with batch rows over "dp"
+// and the rule axis over "mp" (param_shardings, :63) and XLA inserts one
+// reduction over "mp" where the fold contracts the rule axis.
 //
+// verdict_fold: three launches, one chain on the caller's stream.
 //   1. row_fold      one block per request row b. Threads stride over the
 //      R rules: active = matched & (rule_ns == default | rule_ns ==
 //      req_ns); the deny fold keeps the LOWEST active deny rule (its
@@ -43,23 +51,56 @@
 //      into quota_counts [Q, NB] (in place), and RESOURCE_EXHAUSTED with
 //      deny_rule = the lowest over-limit quota rule where any was over.
 //
+// The mesh (a shard holds matched and err [B/dp, R/mp]), each entry point
+// launched on the stream of the virtual device it runs for:
+//   mesh_partial  per (dp, mp) shard, one block per row: the row fold on
+//      the shard's rule slice (rule_ns, deny, list and quota tables are
+//      indexed globally). It writes one partial record per row: the
+//      lowest active deny rule, min TTL and min use count over its deny
+//      rules and evaluated lists, its error count, its list winner (rule,
+//      list, status), and one flag byte per RBAC spec (bit 0: an allow row
+//      in the slice matched, bit 1: the guard row is in the slice and
+//      matched, or is the TRUE sentinel; bit 2: the spec's rule is in the
+//      slice and active) and per quota (the quota's rule is in the slice
+//      and active). One spec's allow rows, its guard row and its own rule
+//      may lie on different shards; each bit is an OR, so the combine
+//      sees the unsharded values.
+//   mesh_combine  per dp shard, on that shard's device, one block per row:
+//      min / sum / lowest (rule, list) over the mp records, the flag bytes
+//      OR'd over mp and decided as in row_fold, the same resolution
+//      (LOWEST INDEX wins, ties deny -> list -> RBAC -> quota, never the
+//      highest status, so no per-shard max can stand in for it), quota
+//      keys into the shard's ckey [Q, B/dp] and the referenced rows.
+//   mesh_quota    per dp replica, after the [Q, B/dp] keys of every dp
+//      shard are gathered into [Q, B]: a quota rank spans the WHOLE batch,
+//      so no dp shard can rank alone. Each replica runs quota_rank and
+//      quota_commit on every row, commits every grant into ITS copy of the
+//      counters (the counters stay replicated and equal to the unsharded
+//      step's), and sets RESOURCE_EXHAUSTED only on its own rows [row0,
+//      row0 + Bd).
+// Padding rows of the rule axis carry namespace -7 and are never active,
+// so they never win on any shard.
+//
 // What bounds it on an H100: memory. The fold reads the matched and err
-// planes once (2·B·R bytes, 41 MB at B=2048, R=10,000) plus the R-long
-// rule tables, and does a handful of compares per byte read; the quota
-// rank is O(B²·Q) compares but from shared memory, on a few columns.
-// The design reads each plane row by one block with consecutive threads
-// on consecutive rules (coalesced), keeps the per-rule tables in L1/L2,
-// and never materialises the [B, R] active plane. The RBAC fold re-reads
-// only its specs' allow-row columns of the matched row, which the rule
-// pass has just brought into L1: one spec of ~1,000 rows at the authz
-// world is four loads per thread and one block OR, where a thread per
-// spec would walk all of them alone.
+// planes once (2·B·R bytes, 41 MB at B=2048, R=10,000, over all shards)
+// plus the R-long rule tables, and does a handful of compares per byte
+// read; the quota rank is O(B²·Q) compares but from shared memory, on a
+// few columns. The design reads each plane row by one block with
+// consecutive threads on consecutive rules (coalesced), keeps the
+// per-rule tables in L1/L2, and never materialises the [B, R] active
+// plane. The RBAC fold re-reads only its specs' allow-row columns of the
+// matched row, which the rule pass has just brought into L1: one spec of
+// ~1,000 rows at the authz world is four loads per thread and one block
+// OR, where a thread per spec would walk all of them alone. Under a mesh
+// the per-row [R] work stays where the rules are and only the small
+// records cross shards.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCombineThreads = 128;
 constexpr int kTile = 4096;
 constexpr int32_t kIntMax = 2147483647;
 constexpr float kBig = 3.4e38f;
@@ -68,38 +109,65 @@ constexpr int32_t kOK = 0, kPermissionDenied = 7, kInternal = 13,
 constexpr uint8_t kListMember = 1, kListUnd = 2, kListBad = 4;
 constexpr float kDefaultDur = 5.0f;
 constexpr int32_t kDefaultUses = 10000;
+// the mesh's partial record rows
+constexpr int kRecDeny = 0, kRecDur = 1, kRecUses = 2, kRecErr = 3,
+              kRecLRule = 4, kRecLArg = 5, kRecLStatus = 6, kRecRows = 7;
+constexpr uint8_t kRbAllow = 1, kRbGuard = 2, kRbActive = 4;
 
 __device__ __forceinline__ int32_t floor_mod(int32_t k, int32_t m) {
   int32_t r = k % m;
   return (r != 0 && ((r < 0) != (m < 0))) ? r + m : r;
 }
 
-__global__ void row_fold_kernel(
-    const uint8_t* __restrict__ matched, const uint8_t* __restrict__ err,
-    const int32_t* __restrict__ req_ns, int B, int R,
-    const int32_t* __restrict__ rule_ns, int default_ns,
-    const uint8_t* __restrict__ deny_mask,
-    const int32_t* __restrict__ deny_status,
-    const float* __restrict__ deny_dur, const int32_t* __restrict__ deny_uses,
-    const uint8_t* __restrict__ err_rule_mask, int NL, int E,
-    const int32_t* __restrict__ list_ids,
-    const int32_t* __restrict__ list_rule,
-    const int32_t* __restrict__ list_slot,
-    const uint8_t* __restrict__ list_black,
-    const int32_t* __restrict__ list_code,
-    const float* __restrict__ list_dur, const int32_t* __restrict__ list_uses,
-    const uint8_t* __restrict__ list_kind, const uint8_t* __restrict__ lstate,
-    int NRB, int KA, const int32_t* __restrict__ rb_rule,
-    const float* __restrict__ rb_dur, const int32_t* __restrict__ rb_guard,
-    const int32_t* __restrict__ rb_allow,
-    const int32_t* __restrict__ ids, const uint8_t* __restrict__ present,
-    const int32_t* __restrict__ hash_ids, int C, int Q, int NB,
-    const int32_t* __restrict__ q_rule, const int32_t* __restrict__ q_slot,
-    const int32_t* __restrict__ q_nb, const uint8_t* __restrict__ table,
-    int T_rows, int T_cols, int n_attr, int32_t* __restrict__ status,
-    float* __restrict__ dur, int32_t* __restrict__ uses,
-    int32_t* __restrict__ deny_rule, uint8_t* __restrict__ referenced,
-    int32_t* __restrict__ err_count, int32_t* __restrict__ ckey) {
+// A rule of the window [r0, r1) of a row whose window columns are m_row:
+// matched and in the request's namespace (or the default one).
+struct Window {
+  const uint8_t* m_row;
+  int r0, r1, R;
+  const int32_t* rule_ns;
+  int default_ns;
+  int32_t rns;
+
+  __device__ bool holds(int32_t r) const { return r >= r0 && r < r1; }
+  __device__ bool ns_ok(int32_t r) const {
+    const int32_t ns = rule_ns[r];
+    return ns == default_ns || ns == rns;
+  }
+  __device__ bool active(int32_t r) const {
+    return holds(r) && m_row[r - r0] && ns_ok(r);
+  }
+  // a column of matched, or the FALSE (R) / TRUE (R + 1) sentinel
+  __device__ bool column(int32_t c) const {
+    return holds(c) ? m_row[c - r0] != 0 : c == R + 1;
+  }
+};
+
+struct ListTables {
+  int NL, E;
+  const int32_t *ids, *rule, *slot, *code, *uses;
+  const uint8_t *black, *kind;
+  const float* dur;
+};
+
+// The block's fold of one row over its window, valid in thread 0.
+struct RowPart {
+  int32_t deny, uses, errs;
+  float dur;
+  unsigned long long lkey;  // (rule << 32 | list) of the list winner
+};
+
+// The rule and list passes of one row over the window: the lowest active
+// deny rule, min TTL and use count over its active deny rules and
+// evaluated lists (INTERNAL lists min in the CheckResult defaults), the
+// error count and the lowest (rule, list) hit. Every thread of the block
+// calls it; the result is valid in thread 0.
+__device__ RowPart fold_window(const Window& w, const uint8_t* e_row,
+                               const uint8_t* deny_mask,
+                               const float* deny_dur,
+                               const int32_t* deny_uses,
+                               const uint8_t* err_rule_mask,
+                               const ListTables& L, const uint8_t* ls_row,
+                               const int32_t* id_row, const uint8_t* pr_row) {
   __shared__ int32_t s_rule[kThreads];
   __shared__ float s_dur[kThreads];
   __shared__ int32_t s_uses[kThreads];
@@ -108,40 +176,28 @@ __global__ void row_fold_kernel(
   __shared__ float s_ldur[kThreads];
   __shared__ int32_t s_luses[kThreads];
   __shared__ int32_t s_lint[kThreads];
-  __shared__ int32_t s_status;
-
-  const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int32_t rns = req_ns[b];
-  const uint8_t* m_row = matched + (long long)b * R;
-  const uint8_t* e_row = err + (long long)b * R;
-  const int32_t* id_row = ids + (long long)b * C;
-  const uint8_t* pr_row = present + (long long)b * C;
 
   int32_t best = kIntMax, best_uses = kIntMax, errs = 0;
   float best_dur = kBig;
-  for (int r = tid; r < R; r += blockDim.x) {
-    const int32_t ns = rule_ns[r];
-    const bool ns_ok = ns == default_ns || ns == rns;
-    if (!ns_ok) continue;
-    if (e_row[r] && (err_rule_mask == nullptr || err_rule_mask[r])) ++errs;
-    if (m_row[r] && deny_mask[r]) {
-      best = min(best, r);
-      best_dur = fminf(best_dur, deny_dur[r]);
-      best_uses = min(best_uses, deny_uses[r]);
+  for (int r = tid; r < w.r1 - w.r0; r += blockDim.x) {
+    const int g = w.r0 + r;
+    if (!w.ns_ok(g)) continue;
+    if (e_row[r] && (err_rule_mask == nullptr || err_rule_mask[g])) ++errs;
+    if (w.m_row[r] && deny_mask[g]) {
+      best = min(best, g);
+      best_dur = fminf(best_dur, deny_dur[g]);
+      best_uses = min(best_uses, deny_uses[g]);
     }
   }
   unsigned long long lkey = ~0ull;  // (rule << 32 | list), lowest wins
   float ldur = kBig;
   int32_t luses = kIntMax, lint = 0;
-  const uint8_t* ls_row =
-      lstate != nullptr ? lstate + (long long)b * NL : nullptr;
-  for (int l = tid; l < NL; l += blockDim.x) {
-    const int32_t rule = list_rule[l];
-    const int32_t ns = rule_ns[rule];
-    if (!(m_row[rule] && (ns == default_ns || ns == rns))) continue;
-    const int slot = list_slot[l];
-    const bool byte = lstate != nullptr && list_kind[l];
+  for (int l = tid; l < L.NL; l += blockDim.x) {
+    const int32_t rule = L.rule[l];
+    if (!w.active(rule)) continue;  // inactive, or another shard's list
+    const int slot = L.slot[l];
+    const bool byte = ls_row != nullptr && L.kind[l];
     const uint8_t st = byte ? ls_row[l] : 0;
     bool hit;
     if (!pr_row[slot] || (st & kListBad)) {
@@ -155,12 +211,12 @@ __global__ void row_fold_kernel(
         member = st & kListMember;
       } else {
         const int32_t sym = id_row[slot];
-        for (int e = 0; e < E && !member; ++e)
-          member = list_ids[(long long)l * E + e] == sym;
+        for (int e = 0; e < L.E && !member; ++e)
+          member = L.ids[(long long)l * L.E + e] == sym;
       }
-      hit = member == (list_black[l] != 0);
-      ldur = fminf(ldur, list_dur[l]);
-      luses = min(luses, list_uses[l]);
+      hit = member == (L.black[l] != 0);
+      ldur = fminf(ldur, L.dur[l]);
+      luses = min(luses, L.uses[l]);
     }
     if (hit) {
       const unsigned long long k =
@@ -191,90 +247,302 @@ __global__ void row_fold_kernel(
     }
     __syncthreads();
   }
-  // RBAC: allow = OR over the spec's allow rows (a block OR per spec)
-  unsigned long long rbkey = ~0ull;  // (rule << 32 | spec), lowest wins
-  bool rb_deny = false;
-  float rbdur = kBig;
-  for (int i = 0; i < NRB; ++i) {
-    const int32_t* row = rb_allow + (long long)i * KA;
-    bool any = false;
-    for (int k = tid; k < KA && !any; k += blockDim.x) {
-      const int32_t col = row[k];
-      any = col < R ? m_row[col] != 0 : col == R + 1;
-    }
-    const bool allow = __syncthreads_or(any);
-    if (tid == 0) {
-      const int32_t rule = rb_rule[i];
-      const int32_t ns = rule_ns[rule];
-      const bool act = m_row[rule] && (ns == default_ns || ns == rns);
-      const int32_t g = rb_guard[i];
-      const bool guard_ok = g < R ? m_row[g] != 0 : g == R + 1;
-      const bool deny = act && guard_ok && !allow;
-      if (deny || (act && !guard_ok)) {
-        const unsigned long long k =
-            ((unsigned long long)(uint32_t)rule << 32) | (uint32_t)i;
-        if (k < rbkey) {
-          rbkey = k;
-          rb_deny = deny;
-        }
-      }
-      if (act && guard_ok) rbdur = fminf(rbdur, rb_dur[i]);
-    }
+  RowPart p;
+  p.deny = s_rule[0];
+  p.errs = s_errs[0];
+  p.lkey = s_lkey[0];
+  p.dur = fminf(s_dur[0], s_ldur[0]);
+  p.uses = min(s_uses[0], s_luses[0]);
+  if (s_lint[0]) {  // INTERNAL carries the CheckResult defaults
+    p.dur = fminf(p.dur, kDefaultDur);
+    p.uses = min(p.uses, kDefaultUses);
   }
-  if (tid == 0) {
-    int32_t cand_rule = s_rule[0];
-    int32_t cand_status = cand_rule < kIntMax ? deny_status[cand_rule] : kOK;
-    float d = s_dur[0];
-    int32_t u = s_uses[0];
-    if (NL > 0) {
-      if (s_lkey[0] != ~0ull) {
-        const int32_t l_rule = (int32_t)(s_lkey[0] >> 32);
-        const int l_arg = (int)(s_lkey[0] & 0xffffffffull);
-        if (l_rule < cand_rule) {  // strict: deny wins ties
-          const bool bad = lstate != nullptr && list_kind[l_arg] &&
-                           (ls_row[l_arg] & kListBad);
-          cand_status = pr_row[list_slot[l_arg]] && !bad ? list_code[l_arg]
-                                                         : kInternal;
-          cand_rule = l_rule;
-        }
-      }
-      d = fminf(d, s_ldur[0]);
-      u = min(u, s_luses[0]);
-      if (s_lint[0]) {  // INTERNAL carries the CheckResult defaults
-        d = fminf(d, kDefaultDur);
-        u = min(u, kDefaultUses);
+  return p;
+}
+
+// The status of list l's win on this row: its code, or INTERNAL where the
+// value is absent or unusable.
+__device__ int32_t list_status(int l, const ListTables& L,
+                               const uint8_t* ls_row, const uint8_t* pr_row) {
+  const bool bad = ls_row != nullptr && L.kind[l] && (ls_row[l] & kListBad);
+  return pr_row[L.slot[l]] && !bad ? L.code[l] : kInternal;
+}
+
+// RBAC spec i's flag bits over the window. Every thread of the block
+// calls it (it ends in a block OR); every thread gets the bits.
+__device__ uint8_t rbac_bits(const Window& w, int i, int KA,
+                             const int32_t* rb_rule, const int32_t* rb_guard,
+                             const int32_t* rb_allow) {
+  const int32_t* row = rb_allow + (long long)i * KA;
+  bool any = false;
+  for (int k = threadIdx.x; k < KA && !any; k += blockDim.x)
+    any = w.column(row[k]);
+  const bool allow = __syncthreads_or(any);
+  return (allow ? kRbAllow : 0) | (w.column(rb_guard[i]) ? kRbGuard : 0) |
+         (w.active(rb_rule[i]) ? kRbActive : 0);
+}
+
+// Spec i decided from its (unsharded) flag bits: INTERNAL where active
+// and the guard fails, PERMISSION_DENIED where active, guarded and no
+// allow row matched; the lowest (rule, spec) of those is kept, and the
+// spec's TTL mins in where it is active and guarded.
+struct RbacWin {
+  unsigned long long key = ~0ull;  // (rule << 32 | spec), lowest wins
+  bool deny = false;
+  float dur = kBig;
+
+  __device__ void take(uint8_t f, int i, const int32_t* rb_rule,
+                       const float* rb_dur) {
+    const bool allow = f & kRbAllow, guard_ok = f & kRbGuard,
+               act = f & kRbActive;
+    const bool d = act && guard_ok && !allow;
+    if (d || (act && !guard_ok)) {
+      const unsigned long long k =
+          ((unsigned long long)(uint32_t)rb_rule[i] << 32) | (uint32_t)i;
+      if (k < key) {
+        key = k;
+        deny = d;
       }
     }
-    if (rbkey != ~0ull) {
-      const int32_t rb_rule_min = (int32_t)(rbkey >> 32);
-      if (rb_rule_min < cand_rule) {  // strict: deny and list win ties
-        cand_status = rb_deny ? kPermissionDenied : kInternal;
-        cand_rule = rb_rule_min;
-      }
-    }
-    d = fminf(d, rbdur);  // caching TTL; RBAC never touches uses
-    const int32_t st = cand_rule < kIntMax ? cand_status : kOK;
-    status[b] = st;
-    dur[b] = d;
-    uses[b] = u;
-    deny_rule[b] = st == kOK ? kIntMax : cand_rule;
-    s_status = st;
-    if (s_errs[0]) atomicAdd(err_count, s_errs[0]);
+    if (act && guard_ok) dur = fminf(dur, rb_dur[i]);
   }
-  __syncthreads();
-  for (int q = tid; q < Q; q += blockDim.x) {
-    const int32_t rule = q_rule[q];
-    const int32_t ns = rule_ns[rule];
+};
+
+// The row's status and deny rule: the lowest deny rule, beaten by the
+// list winner, then the RBAC winner, each only with a strictly lower rule
+// index (the lowest index wins; ties go deny -> list -> RBAC).
+__device__ int32_t resolve(int32_t deny, const int32_t* deny_status,
+                           unsigned long long lkey, int32_t l_status,
+                           const RbacWin& rb, int32_t* deny_rule) {
+  int32_t cand_rule = deny;
+  int32_t cand_status = deny < kIntMax ? deny_status[deny] : kOK;
+  if (lkey != ~0ull && (int32_t)(lkey >> 32) < cand_rule) {
+    cand_status = l_status;
+    cand_rule = (int32_t)(lkey >> 32);
+  }
+  if (rb.key != ~0ull && (int32_t)(rb.key >> 32) < cand_rule) {
+    cand_status = rb.deny ? kPermissionDenied : kInternal;
+    cand_rule = (int32_t)(rb.key >> 32);
+  }
+  const int32_t st = cand_rule < kIntMax ? cand_status : kOK;
+  *deny_rule = st == kOK ? kIntMax : cand_rule;
+  return st;
+}
+
+// The block's quota keys of row b (ckey [Q, ld]) and its referenced row.
+// act(q) says whether quota q's rule is active on the row; a key is
+// written only where the row's status is OK and the quota's slot present.
+template <typename Act>
+__device__ void row_tail(int b, int ld, int32_t status, Act act, int Q,
+                         int NB, const int32_t* q_slot, const int32_t* q_nb,
+                         const uint8_t* pr_row, const int32_t* hash_row,
+                         int32_t* ckey, int32_t rns, const uint8_t* table,
+                         int T_rows, int T_cols, int n_attr,
+                         uint8_t* referenced) {
+  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
     const int slot = q_slot[q];
-    const bool act = s_status == kOK && m_row[rule] &&
-                     (ns == default_ns || ns == rns) && pr_row[slot];
-    ckey[(long long)q * B + b] =
-        act ? q * NB + floor_mod(hash_ids[(long long)b * C + slot], q_nb[q])
-            : -1;
+    const bool a = status == kOK && act(q) && pr_row[slot];
+    ckey[(long long)q * ld + b] =
+        a ? q * NB + floor_mod(hash_row[slot], q_nb[q]) : -1;
   }
   const int t_row = (rns >= 0 && rns < T_rows - 1) ? rns + 1 : 0;
-  for (int c = tid; c < n_attr; c += blockDim.x)
+  for (int c = threadIdx.x; c < n_attr; c += blockDim.x)
     referenced[(long long)b * n_attr + c] = table[(long long)t_row * T_cols + c];
+}
+
+// The row-fold kernels and the combine keep to 32 registers a thread
+// (__launch_bounds__), so that 2,048 threads fit on an SM: a shard's Bd =
+// 1,024 row blocks of the authz world at (2, 4) then run in one wave of
+// 132 SMs (at 36 registers an SM holds 7 blocks of 256, and they need
+// two).
+__global__ void __launch_bounds__(kThreads, 8) row_fold_kernel(
+    const uint8_t* __restrict__ matched, const uint8_t* __restrict__ err,
+    const int32_t* __restrict__ req_ns, int B, int R,
+    const int32_t* __restrict__ rule_ns, int default_ns,
+    const uint8_t* __restrict__ deny_mask,
+    const int32_t* __restrict__ deny_status,
+    const float* __restrict__ deny_dur, const int32_t* __restrict__ deny_uses,
+    const uint8_t* __restrict__ err_rule_mask, ListTables L,
+    const uint8_t* __restrict__ lstate, int NRB, int KA,
+    const int32_t* __restrict__ rb_rule, const float* __restrict__ rb_dur,
+    const int32_t* __restrict__ rb_guard,
+    const int32_t* __restrict__ rb_allow,
+    const int32_t* __restrict__ ids, const uint8_t* __restrict__ present,
+    const int32_t* __restrict__ hash_ids, int C, int Q, int NB,
+    const int32_t* __restrict__ q_rule, const int32_t* __restrict__ q_slot,
+    const int32_t* __restrict__ q_nb, const uint8_t* __restrict__ table,
+    int T_rows, int T_cols, int n_attr, int32_t* __restrict__ status,
+    float* __restrict__ dur, int32_t* __restrict__ uses,
+    int32_t* __restrict__ deny_rule, uint8_t* __restrict__ referenced,
+    int32_t* __restrict__ err_count, int32_t* __restrict__ ckey) {
+  __shared__ int32_t s_status;
+  const int b = blockIdx.x;
+  const Window w{matched + (long long)b * R, 0, R, R, rule_ns, default_ns,
+                 req_ns[b]};
+  const uint8_t* ls_row = lstate != nullptr ? lstate + (long long)b * L.NL
+                                            : nullptr;
+  const uint8_t* pr_row = present + (long long)b * C;
+  const RowPart p = fold_window(w, err + (long long)b * R, deny_mask,
+                                deny_dur, deny_uses, err_rule_mask, L, ls_row,
+                                ids + (long long)b * C, pr_row);
+  RbacWin rb;
+  for (int i = 0; i < NRB; ++i) {
+    const uint8_t f = rbac_bits(w, i, KA, rb_rule, rb_guard, rb_allow);
+    if (threadIdx.x == 0) rb.take(f, i, rb_rule, rb_dur);
+  }
+  if (threadIdx.x == 0) {
+    const int32_t l_status =
+        p.lkey != ~0ull ? list_status((int)(p.lkey & 0xffffffffull), L,
+                                      ls_row, pr_row)
+                        : kOK;
+    const int32_t st =
+        resolve(p.deny, deny_status, p.lkey, l_status, rb, deny_rule + b);
+    status[b] = st;
+    dur[b] = fminf(p.dur, rb.dur);  // caching TTL; RBAC never touches uses
+    uses[b] = p.uses;
+    s_status = st;
+    if (p.errs) atomicAdd(err_count, p.errs);
+  }
+  __syncthreads();
+  row_tail(b, B, s_status, [&](int q) { return w.active(q_rule[q]); }, Q, NB,
+           q_slot, q_nb, pr_row, hash_ids + (long long)b * C, ckey, w.rns,
+           table, T_rows, T_cols, n_attr, referenced);
+}
+
+__global__ void __launch_bounds__(kThreads, 8) partial_kernel(
+    const uint8_t* __restrict__ matched, const uint8_t* __restrict__ err,
+    const int32_t* __restrict__ req_ns, int Bd, int Rm, int r0, int R,
+    const int32_t* __restrict__ rule_ns, int default_ns,
+    const uint8_t* __restrict__ deny_mask, const float* __restrict__ deny_dur,
+    const int32_t* __restrict__ deny_uses,
+    const uint8_t* __restrict__ err_rule_mask, ListTables L,
+    const uint8_t* __restrict__ lstate, int NRB, int KA,
+    const int32_t* __restrict__ rb_rule,
+    const int32_t* __restrict__ rb_guard,
+    const int32_t* __restrict__ rb_allow, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ present, int C, int Q,
+    const int32_t* __restrict__ q_rule, int32_t* __restrict__ rec,
+    uint8_t* __restrict__ flags) {
+  const int b = blockIdx.x;
+  const Window w{matched + (long long)b * Rm, r0, r0 + Rm, R, rule_ns,
+                 default_ns, req_ns[b]};
+  const uint8_t* ls_row = lstate != nullptr ? lstate + (long long)b * L.NL
+                                            : nullptr;
+  const uint8_t* pr_row = present + (long long)b * C;
+  const RowPart p = fold_window(w, err + (long long)b * Rm, deny_mask,
+                                deny_dur, deny_uses, err_rule_mask, L, ls_row,
+                                ids + (long long)b * C, pr_row);
+  if (threadIdx.x == 0) {  // before the RBAC loop: p dies here
+    int32_t l_rule = kIntMax, l_arg = 0, l_status = kOK;
+    if (p.lkey != ~0ull) {
+      l_rule = (int32_t)(p.lkey >> 32);
+      l_arg = (int32_t)(p.lkey & 0xffffffffull);
+      l_status = list_status(l_arg, L, ls_row, pr_row);
+    }
+    rec[kRecDeny * Bd + b] = p.deny;
+    rec[kRecDur * Bd + b] = __float_as_int(p.dur);
+    rec[kRecUses * Bd + b] = p.uses;
+    rec[kRecErr * Bd + b] = p.errs;
+    rec[kRecLRule * Bd + b] = l_rule;
+    rec[kRecLArg * Bd + b] = l_arg;
+    rec[kRecLStatus * Bd + b] = l_status;
+  }
+  uint8_t* f_row = flags + (long long)b * (NRB + Q);
+  for (int i = 0; i < NRB; ++i) {
+    const uint8_t f = rbac_bits(w, i, KA, rb_rule, rb_guard, rb_allow);
+    if (threadIdx.x == 0) f_row[i] = f;
+  }
+  for (int q = threadIdx.x; q < Q; q += blockDim.x)
+    f_row[NRB + q] = w.active(q_rule[q]) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kCombineThreads, 16) combine_kernel(
+    int MP, const int32_t* __restrict__ rec, const uint8_t* __restrict__ flags,
+    int Bd, const int32_t* __restrict__ req_ns,
+    const int32_t* __restrict__ deny_status, int NRB,
+    const int32_t* __restrict__ rb_rule, const float* __restrict__ rb_dur,
+    const uint8_t* __restrict__ present,
+    const int32_t* __restrict__ hash_ids, int C, int Q, int NB,
+    const int32_t* __restrict__ q_slot, const int32_t* __restrict__ q_nb,
+    const uint8_t* __restrict__ table, int T_rows, int T_cols, int n_attr,
+    int32_t* __restrict__ status, float* __restrict__ dur,
+    int32_t* __restrict__ uses, int32_t* __restrict__ deny_rule,
+    uint8_t* __restrict__ referenced, int32_t* __restrict__ err_count,
+    int32_t* __restrict__ ckey) {
+  __shared__ unsigned long long s_key[kCombineThreads];
+  __shared__ int32_t s_deny[kCombineThreads];
+  __shared__ float s_dur[kCombineThreads];
+  __shared__ int32_t s_status;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int NF = NRB + Q;
+  auto flag = [&](int m, int k) {
+    return flags[((long long)m * Bd + b) * NF + k];
+  };
+  // RBAC specs: each spec's flag bytes OR'd over the mp records
+  RbacWin rb;
+  for (int i = tid; i < NRB; i += blockDim.x) {
+    uint8_t f = 0;
+    for (int m = 0; m < MP; ++m) f |= flag(m, i);
+    rb.take(f, i, rb_rule, rb_dur);
+  }
+  s_key[tid] = rb.key;
+  s_deny[tid] = rb.deny;
+  s_dur[tid] = rb.dur;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      if (s_key[tid + s] < s_key[tid]) {
+        s_key[tid] = s_key[tid + s];
+        s_deny[tid] = s_deny[tid + s];
+      }
+      s_dur[tid] = fminf(s_dur[tid], s_dur[tid + s]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    RbacWin all;
+    all.key = s_key[0];
+    all.deny = s_deny[0];
+    int32_t deny = kIntMax, u = kIntMax, errs = 0, l_status = kOK;
+    float d = kBig;
+    unsigned long long lkey = ~0ull;
+    const long long stride = (long long)kRecRows * Bd;
+    for (int m = 0; m < MP; ++m) {
+      const int32_t* r = rec + m * stride;
+      deny = min(deny, r[kRecDeny * Bd + b]);
+      d = fminf(d, __int_as_float(r[kRecDur * Bd + b]));
+      u = min(u, r[kRecUses * Bd + b]);
+      errs += r[kRecErr * Bd + b];
+      const int32_t l_rule = r[kRecLRule * Bd + b];
+      if (l_rule != kIntMax) {
+        const unsigned long long k =
+            ((unsigned long long)(uint32_t)l_rule << 32) |
+            (uint32_t)r[kRecLArg * Bd + b];
+        if (k < lkey) {
+          lkey = k;
+          l_status = r[kRecLStatus * Bd + b];
+        }
+      }
+    }
+    const int32_t st =
+        resolve(deny, deny_status, lkey, l_status, all, deny_rule + b);
+    status[b] = st;
+    dur[b] = fminf(d, s_dur[0]);  // caching TTL; RBAC never touches uses
+    uses[b] = u;
+    s_status = st;
+    if (errs) atomicAdd(err_count, errs);
+  }
+  __syncthreads();
+  auto act = [&](int q) {
+    for (int m = 0; m < MP; ++m)
+      if (flag(m, NRB + q)) return true;
+    return false;
+  };
+  row_tail(b, Bd, s_status, act, Q, NB, q_slot, q_nb,
+           present + (long long)b * C, hash_ids + (long long)b * C, ckey,
+           req_ns[b], table, T_rows, T_cols, n_attr, referenced);
 }
 
 __global__ void quota_rank_kernel(const int32_t* __restrict__ ckey, int B,
@@ -305,9 +573,12 @@ __global__ void quota_rank_kernel(const int32_t* __restrict__ ckey, int B,
   }
 }
 
+// Every grant of the B rows is committed; status / deny_rule are the Bd
+// rows from row0 (the whole batch unsharded, a dp replica's own rows).
 __global__ void quota_commit_kernel(const int32_t* __restrict__ ckey,
                                     const uint8_t* __restrict__ qstate, int B,
-                                    int Q, const int32_t* __restrict__ q_rule,
+                                    int Q, int row0, int Bd,
+                                    const int32_t* __restrict__ q_rule,
                                     int32_t* __restrict__ counts,
                                     int32_t* __restrict__ status,
                                     int32_t* __restrict__ deny_rule) {
@@ -325,10 +596,28 @@ __global__ void quota_commit_kernel(const int32_t* __restrict__ ckey,
       over_rule = min(over_rule, q_rule[q]);
     }
   }
-  if (any_over) {  // quota ran only where status was OK
-    status[b] = kResourceExhausted;
-    deny_rule[b] = over_rule;
+  if (any_over && b >= row0 && b < row0 + Bd) {  // quota ran only where OK
+    status[b - row0] = kResourceExhausted;
+    deny_rule[b - row0] = over_rule;
   }
+}
+
+// quota_rank then quota_commit over ckey [Q, B]; → launches.
+int launch_quota(const int32_t* ckey, int B, int Q, int row0, int Bd,
+                 const int32_t* q_max, const int32_t* q_rule, int32_t* counts,
+                 uint8_t* qstate, int32_t* status, int32_t* deny_rule,
+                 cudaStream_t s) {
+  const unsigned row_blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  quota_rank_kernel<<<dim3(row_blocks, (unsigned)Q), kThreads, 0, s>>>(
+      ckey, B, q_max, counts, qstate);
+  quota_commit_kernel<<<row_blocks, kThreads, 0, s>>>(
+      ckey, qstate, B, Q, row0, Bd, q_rule, counts, status, deny_rule);
+  return 2;
+}
+
+int launched(int n) {
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // namespace
@@ -354,20 +643,79 @@ extern "C" int verdict_fold(
     int32_t* ckey, uint8_t* qstate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
+  const ListTables L{NL,        E,         list_ids,  list_rule, list_slot,
+                     list_code, list_uses, list_black, list_kind, list_dur};
   row_fold_kernel<<<B, kThreads, 0, s>>>(
       matched, err, req_ns, B, R, rule_ns, default_ns, deny_mask, deny_status,
-      deny_dur, deny_uses, err_rule_mask, NL, E, list_ids, list_rule,
-      list_slot, list_black, list_code, list_dur, list_uses, list_kind,
-      lstate, NRB, KA, rb_rule, rb_dur, rb_guard, rb_allow, ids, present,
-      hash_ids, C, Q, NB, q_rule, q_slot, q_nb, table, T_rows, T_cols, n_attr,
-      status, dur, uses, deny_rule, referenced, err_count, ckey);
-  if (Q > 0) {
-    const unsigned row_blocks = (unsigned)((B + kThreads - 1) / kThreads);
-    quota_rank_kernel<<<dim3(row_blocks, (unsigned)Q), kThreads, 0, s>>>(
-        ckey, B, q_max, quota_counts, qstate);
-    quota_commit_kernel<<<row_blocks, kThreads, 0, s>>>(
-        ckey, qstate, B, Q, q_rule, quota_counts, status, deny_rule);
-  }
-  const cudaError_t e = cudaGetLastError();
-  return e == cudaSuccess ? (Q > 0 ? 3 : 1) : -(int)e;
+      deny_dur, deny_uses, err_rule_mask, L, lstate, NRB, KA, rb_rule, rb_dur,
+      rb_guard, rb_allow, ids, present, hash_ids, C, Q, NB, q_rule, q_slot,
+      q_nb, table, T_rows, T_cols, n_attr, status, dur, uses, deny_rule,
+      referenced, err_count, ckey);
+  int n = 1;
+  if (Q > 0)
+    n += launch_quota(ckey, B, Q, 0, B, q_max, q_rule, quota_counts, qstate,
+                      status, deny_rule, s);
+  return launched(n);
+}
+
+// The partial record of one (dp, mp) shard: rec int32 [7, Bd], flags
+// uint8 [Bd, NRB + Q]. Returns the number of kernels launched, or
+// -cudaError_t on failure.
+extern "C" int mesh_partial(
+    const uint8_t* matched, const uint8_t* err, const int32_t* req_ns, int Bd,
+    int Rm, int r0, int R, const int32_t* rule_ns, int default_ns,
+    const uint8_t* deny_mask, const float* deny_dur, const int32_t* deny_uses,
+    const uint8_t* err_rule_mask, int NL, int E, const int32_t* list_ids,
+    const int32_t* list_rule, const int32_t* list_slot,
+    const uint8_t* list_black, const int32_t* list_code,
+    const float* list_dur, const int32_t* list_uses,
+    const uint8_t* list_kind, const uint8_t* lstate, int NRB, int KA,
+    const int32_t* rb_rule, const int32_t* rb_guard, const int32_t* rb_allow,
+    const int32_t* ids, const uint8_t* present, int C, int Q,
+    const int32_t* q_rule, int32_t* rec, uint8_t* flags, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Bd == 0) return 0;
+  const ListTables L{NL,        E,         list_ids,  list_rule, list_slot,
+                     list_code, list_uses, list_black, list_kind, list_dur};
+  partial_kernel<<<Bd, kThreads, 0, s>>>(
+      matched, err, req_ns, Bd, Rm, r0, R, rule_ns, default_ns, deny_mask,
+      deny_dur, deny_uses, err_rule_mask, L, lstate, NRB, KA, rb_rule,
+      rb_guard, rb_allow, ids, present, C, Q, q_rule, rec, flags);
+  return launched(1);
+}
+
+// The combine of one dp shard over its MP records rec int32 [MP, 7, Bd]
+// and flags uint8 [MP, Bd, NRB + Q]. Returns the number of kernels
+// launched, or -cudaError_t on failure.
+extern "C" int mesh_combine(
+    int MP, const int32_t* rec, const uint8_t* flags, int Bd,
+    const int32_t* req_ns, const int32_t* deny_status, int NRB,
+    const int32_t* rb_rule, const float* rb_dur, const uint8_t* present,
+    const int32_t* hash_ids, int C, int Q, int NB, const int32_t* q_slot,
+    const int32_t* q_nb, const uint8_t* table, int T_rows, int T_cols,
+    int n_attr, int32_t* status, float* dur, int32_t* uses,
+    int32_t* deny_rule, uint8_t* referenced, int32_t* err_count,
+    int32_t* ckey, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Bd == 0) return 0;
+  combine_kernel<<<Bd, kCombineThreads, 0, s>>>(
+      MP, rec, flags, Bd, req_ns, deny_status, NRB, rb_rule, rb_dur, present,
+      hash_ids, C, Q, NB, q_slot, q_nb, table, T_rows, T_cols, n_attr, status,
+      dur, uses, deny_rule, referenced, err_count, ckey);
+  return launched(1);
+}
+
+// One dp replica's quota rank and commit over the gathered keys ckey int32
+// [Q, B] (qstate uint8 [Q, B] scratch); status / deny_rule are the
+// replica's own Bd rows, from global row row0. Returns the number of
+// kernels launched, or -cudaError_t on failure.
+extern "C" int mesh_quota(const int32_t* ckey, int B, int Q, int row0,
+                          int Bd, const int32_t* q_max,
+                          const int32_t* q_rule, int32_t* counts,
+                          uint8_t* qstate, int32_t* status,
+                          int32_t* deny_rule, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Q == 0) return 0;
+  return launched(launch_quota(ckey, B, Q, row0, Bd, q_max, q_rule, counts,
+                               qstate, status, deny_rule, s));
 }

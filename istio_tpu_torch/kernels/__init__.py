@@ -31,13 +31,19 @@ import torch
 
 KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
            "check_pack", "rule_stats", "list_banks", "field_eval",
-           "quota_alloc", "route_select", "atom_eval")
-# the C entry points of each source that has more than one
+           "quota_alloc", "route_select", "atom_eval", "seq_match",
+           "mesh_fold")
+# the C entry points of each source that has more than one (counted per
+# wrapper call in `launches.entries`; mesh_fold's three entry points run
+# inside one wrapper call and are counted in its grids)
 ENTRY_POINTS = {"route_select": ("route_winner", "route_densify"),
-                "field_eval": ("field_eval", "atom_eval")}
-# kernels built from another kernel's source (one interpreter, two
-# entry points: csrc/field_eval.cu)
-SOURCE_OF = {"atom_eval": "field_eval"}
+                "field_eval": ("field_eval", "atom_eval"),
+                "seq_match": ("chunk_map", "compose_maps")}
+# kernels built from another kernel's source: one interpreter with two
+# entry points (csrc/field_eval.cu), and the sharded verdict fold's entry
+# points beside the unsharded one, on one row-fold body
+# (csrc/verdict_fold.cu)
+SOURCE_OF = {"atom_eval": "field_eval", "mesh_fold": "verdict_fold"}
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"

@@ -530,6 +530,8 @@ class PolicyEngine:
         self._dfa_banks, self._rx_lists = self._build_regex_banks(lists)
         self._cidr_lists = self._build_cidr_bank(lists)
         self._list_kind = torch.from_numpy(list_kind).to(dev)
+        self._list_rule = list_rule[:n_lists]
+        self._shard_list_cache: dict[tuple[int, int], tuple] = {}
 
         # --- rbac tensors ---
         n_rbac = len(rbacs)
@@ -614,6 +616,9 @@ class PolicyEngine:
         # argument dict every step takes (interop.params_from_reference
         # builds the same dict from the JAX package's engine)
         self.params = {**self.ruleset.params, **pe_params}
+        # the step check() runs: this one, or a mesh's sharded step
+        # (parallel/mesh.shard_engine_check, set by runtime/fused.py)
+        self._step = self.step
 
     def step(self, params: Mapping[str, torch.Tensor], batch: AttributeBatch,
              req_ns: Any, quota_counts: torch.Tensor
@@ -638,30 +643,67 @@ class PolicyEngine:
 
     raw_step = step
 
-    def list_states(self, batch: AttributeBatch, err: torch.Tensor
+    def list_states(self, batch: AttributeBatch, err: torch.Tensor,
+                    rules: tuple[int, int] | None = None
                     ) -> torch.Tensor | None:
         """State bytes of the REGEX and IP_ADDRESSES lists, uint8 [B, NL]
         (bytes_ops.LIST_*; zero for STRINGS lists), or None when there
         are none: one dfa_scan per regex bank, then the list_banks
         kernels. The regex banks OR their undecidable rows into `err`
-        in place (the reference's err plane after its list fold)."""
+        in place (the reference's err plane after its list fold).
+        `rules` (r0, r1): a mesh shard's rule slice — only the lists of
+        rules in [r0, r1) are evaluated (the others' bytes stay zero),
+        and `err` is that slice's plane [B, r1 - r0]."""
         if self._rx_lists is None and self._cidr_lists is None:
             return None
+        rx, cidr = (self._rx_lists, self._cidr_lists) if rules is None \
+            else self._shard_lists(*rules)
         b = int(batch.ids.shape[0])
         n_lists = int(self._list_kind.shape[0])
         lstate = torch.zeros((b, n_lists), dtype=torch.uint8,
-                             device=self.device)
-        if self._rx_lists is not None:
+                             device=batch.ids.device)
+        if rx is not None:
             accs = [bytes_ops.dfa_scan(batch.str_bytes[:, bslot],
                                        batch.str_lens[:, bslot], bank)
                     for bslot, bank in self._dfa_banks]
             acc = accs[0] if len(accs) == 1 else torch.cat(accs, dim=1)
             bytes_ops.regex_list(acc, batch.str_lens, self._max_len,
-                                 self._rx_lists, lstate, err)
-        if self._cidr_lists is not None:
-            bytes_ops.cidr_list(batch.str_bytes, batch.str_lens,
-                                self._cidr_lists, lstate)
+                                 rx, lstate, err)
+        if cidr is not None:
+            bytes_ops.cidr_list(batch.str_bytes, batch.str_lens, cidr,
+                                lstate)
         return lstate
+
+    def _shard_lists(self, r0: int, r1: int) -> tuple:
+        """(RegexLists, CidrLists) of the lists whose rule lies in [r0,
+        r1), rules renumbered into the slice (None where none lies
+        there); list positions and acceptance columns stay global."""
+        hit = self._shard_list_cache.get((r0, r1))
+        if hit is not None:
+            return hit
+        rx, cidr = self._rx_lists, self._cidr_lists
+        rx_s = cidr_s = None
+        if rx is not None:
+            keep = [j for j in range(rx.n) if r0 <= int(rx.rule[j]) < r1]
+            if keep:
+                pats = [rx.pat[rx.ptr[j]:rx.ptr[j + 1]] for j in keep]
+                rx_s = bytes_ops.RegexLists(
+                    pos=rx.pos[keep], rule=rx.rule[keep] - r0,
+                    bslot=rx.bslot[keep],
+                    ptr=np.cumsum([0] + [len(x) for x in pats],
+                                  dtype=np.int64).astype(np.int32),
+                    pat=np.concatenate(pats + [np.zeros(
+                        0 if any(len(x) for x in pats) else 1)])
+                    .astype(np.int32),
+                    pdef=rx.pdef)
+        if cidr is not None:
+            keep = [k for k in range(int(cidr.pos.shape[0]))
+                    if r0 <= int(self._list_rule[cidr.pos[k]]) < r1]
+            if keep:
+                cidr_s = bytes_ops.CidrLists(
+                    **{f: getattr(cidr, f)[keep] for f in cidr._fields})
+        self._shard_list_cache[(r0, r1)] = (rx_s, cidr_s)
+        return rx_s, cidr_s
 
     def _slot_for(self, attr: Any) -> int:
         lay = self.ruleset.layout
@@ -750,7 +792,8 @@ class PolicyEngine:
     def check(self, batch: AttributeBatch, req_ns: Any) -> CheckVerdict:
         """With device quotas this is a read-modify-write on
         quota_counts and must not run concurrently."""
-        verdict, _ = self.step(self.params, batch, req_ns, self.quota_counts)
+        verdict, _ = self._step(self.params, batch, req_ns,
+                                 self.quota_counts)
         return verdict
 
     def reset_quota(self) -> None:

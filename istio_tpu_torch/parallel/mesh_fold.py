@@ -1,0 +1,293 @@
+"""K13: the verdict fold of a dp × mp sharded check step (the mesh entry
+points of csrc/verdict_fold.cu, on the unsharded fold's row-fold body).
+
+Under a mesh each (dp, mp) shard holds matched / err [B/dp, R/mp]: its
+rows' slice of the rule axis. `mesh_fold` reduces over that axis with
+the mesh_fold kernel's three entry points, each on the stream of the
+virtual device it runs for:
+
+  mesh_partial  per (dp, mp) shard: the row fold on the shard's rule
+                slice → a partial record per row
+  mesh_combine  per dp shard: the records over mp → status, TTLs,
+                deny_rule, referenced, the error count, quota keys
+  mesh_quota    per dp replica (only with quotas): the keys of every dp
+                shard gathered, the whole batch ranked, every grant
+                committed into the replica's counters
+
+The records of a dp shard's mp partials are written straight into one
+buffer on that shard's device when they share its physical device, and
+copied there otherwise. `mesh_fold_plain` gathers matched, err and the
+list states over the mesh and runs the unsharded plain fold
+(models/policy_engine.verdict_fold_plain) on the whole batch; the CPU
+runs it, a card never does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+
+from istio_tpu_torch import kernels
+from istio_tpu_torch.compiler.layout import AttributeBatch
+from istio_tpu_torch.models.policy_engine import FoldConsts, verdict_fold_plain
+from istio_tpu_torch.platform import VirtualDevice, fork, handed_over
+
+REC_ROWS = 7        # deny rule, TTL bits, uses, errors, list rule / arg / status
+
+
+@dataclasses.dataclass
+class FoldPart:
+    """One (dp, mp) shard's input to the fold, on its virtual device."""
+    vdev: VirtualDevice
+    r0: int                       # global index of the slice's first rule
+    matched: torch.Tensor         # bool [B/dp, Rm]
+    err: torch.Tensor             # bool [B/dp, Rm]
+    lstate: torch.Tensor | None   # uint8 [B/dp, NL]: this slice's lists
+    req_ns: torch.Tensor          # int32 [B/dp]
+    batch: AttributeBatch         # the dp shard's rows
+    params: Mapping[str, torch.Tensor]   # on vdev.device
+    list_kind: torch.Tensor | None = None   # uint8 [NL], with lstate
+
+
+def gather_plane(parts: list[list[FoldPart]], field: str,
+                 device: torch.device) -> torch.Tensor:
+    """The [B, R] plane `field` (matched or err) of the whole mesh on
+    `device`, rows in dp order, rule columns in mp order."""
+    rows = [torch.cat([getattr(p, field).to(device) for p in row], dim=1)
+            if len(row) > 1 else getattr(row[0], field).to(device)
+            for row in parts]
+    return torch.cat(rows) if len(rows) > 1 else rows[0]
+
+
+def gather_lstate(parts: list[list[FoldPart]], device: torch.device
+                  ) -> torch.Tensor | None:
+    """The [B, NL] list states of the whole mesh: each list's byte comes
+    from the one mp shard that holds its rule (zero on the others)."""
+    if parts[0][0].lstate is None:
+        return None
+    rows = []
+    for row in parts:
+        acc = row[0].lstate.to(device)
+        for p in row[1:]:
+            acc = acc | p.lstate.to(device)
+        rows.append(acc)
+    return torch.cat(rows)
+
+
+def mesh_fold_plain(parts: list[list[FoldPart]],
+                    params: Mapping[str, torch.Tensor],
+                    quota_counts: torch.Tensor, c: FoldConsts,
+                    list_kind: torch.Tensor | None,
+                    device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Plain version of the mesh_fold kernel: matched, err and the list
+    states gathered over the mesh onto `device`, then the unsharded
+    plain fold on the whole batch (quota_counts updated in place) →
+    (status, dur, uses, deny_rule, referenced, err_count)."""
+    matched = gather_plane(parts, "matched", device)
+    err = gather_plane(parts, "err", device)
+    lstate = gather_lstate(parts, device)
+    req = torch.cat([row[0].req_ns.to(device) for row in parts])
+    batch = AttributeBatch.cat([row[0].batch for row in parts], device)
+    return verdict_fold_plain(matched, err, req, batch, params, quota_counts,
+                              c, lstate,
+                              list_kind if lstate is not None else None)
+
+
+_K = kernels
+_PARTIAL_ARGS = ([_K.VP, _K.VP, _K.VP] + [_K.I32] * 4       # planes, geometry
+                 + [_K.VP, _K.I32] + [_K.VP] * 4            # ns, deny, mask
+                 + [_K.I32, _K.I32] + [_K.VP] * 9           # lists
+                 + [_K.I32, _K.I32] + [_K.VP] * 3           # rbac
+                 + [_K.VP, _K.VP, _K.I32]                   # batch planes
+                 + [_K.I32, _K.VP] + [_K.VP, _K.VP, _K.VP])  # quota, outs
+_COMBINE_ARGS = ([_K.I32, _K.VP, _K.VP, _K.I32, _K.VP, _K.VP]
+                 + [_K.I32, _K.VP, _K.VP]                   # rbac
+                 + [_K.VP, _K.VP, _K.I32, _K.I32, _K.I32, _K.VP, _K.VP]
+                 + [_K.VP, _K.I32, _K.I32, _K.I32]          # ref table
+                 + [_K.VP] * 7 + [_K.VP])                   # outs, stream
+_QUOTA_ARGS = ([_K.VP] + [_K.I32] * 4 + [_K.VP] * 7)
+
+
+def _same_phys(a: VirtualDevice, b: VirtualDevice) -> bool:
+    return a.device == b.device
+
+
+def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
+              quota_counts: torch.Tensor, c: FoldConsts,
+              list_kind: torch.Tensor | None,
+              device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The verdict fold of a sharded step: parts[d][m] is shard (d, m);
+    `params` / `quota_counts` / `list_kind` on `device` (the mesh's home,
+    where the outputs land, the caller's current stream there ordering
+    them). → (status [B], dur, uses, deny_rule, referenced [B, n_attr],
+    err_count []) on `device`; quota_counts updated in place (every dp
+    replica commits every grant of the batch into its own copy; replica
+    0's is written back). CPU tensors run mesh_fold_plain."""
+    types = {p.matched.device.type for row in parts for p in row}
+    if types == {"cpu"}:
+        return mesh_fold_plain(parts, params, quota_counts, c, list_kind,
+                               device)
+    if types != {"cuda"} or device.type != "cuda":
+        raise ValueError(f"mesh_fold: shards on {sorted(types)}, home "
+                         f"{device}")
+    dp, mp = len(parts), len(parts[0])
+    bd = int(parts[0][0].matched.shape[0])
+    b = bd * dp
+    n_rows = int(params["pe_rule_ns"].shape[0])
+    n_lists = int(params["pe_list_rule"].shape[0]) if c.has_lists else 0
+    n_q = int(quota_counts.shape[0]) if c.has_quota else 0
+    n_rbac = int(params["pe_rb_rule"].shape[0]) if c.has_rbac else 0
+    n_flags = n_rbac + n_q
+    width = 0
+    for row in parts:
+        for p in row:
+            rm = int(p.matched.shape[1])
+            if tuple(p.matched.shape) != (bd, rm) or \
+                    tuple(p.err.shape) != (bd, rm) or \
+                    p.matched.dtype != torch.bool or \
+                    p.err.dtype != torch.bool or \
+                    not p.matched.is_contiguous() or \
+                    not p.err.is_contiguous():
+                raise ValueError("mesh_fold: each shard's matched / err must "
+                                 f"be contiguous bool [{bd}, Rm]")
+            if p.lstate is not None and (tuple(p.lstate.shape) !=
+                                         (bd, n_lists)):
+                raise ValueError("mesh_fold: lstate does not fit the lists")
+            width += rm
+    if width != n_rows * dp:
+        raise ValueError(f"mesh_fold: rule slices cover {width // dp} of "
+                         f"{n_rows} rules")
+    captured = kernels.launches.captured is not None
+    before = quota_counts.clone() if captured else None
+    cur, ev0 = fork(device)
+    p_ = kernels.ptr
+    null = kernels.VP(0)
+    mask = params.get("pe_err_rule_mask")
+    grids = 0
+    recs, flags, ev_part = [], [], []
+    # ---- partials: one launch per (dp, mp) shard on its own stream
+    partial = kernels.function("mesh_fold", "mesh_partial", _PARTIAL_ARGS)
+    for row in parts:
+        home = row[0].vdev
+        with home.scope():
+            rec = torch.empty((mp, REC_ROWS, bd), dtype=torch.int32,
+                              device=home.device)
+            flg = torch.empty((mp, bd, max(n_flags, 1)), dtype=torch.uint8,
+                              device=home.device)
+        recs.append(rec)
+        flags.append(flg)
+        evs = []
+        for m, p in enumerate(row):
+            vd = p.vdev
+            vd.wait(ev0)
+            with vd.scope():
+                local = _same_phys(vd, home)
+                out_r = handed_over(rec[m], vd.stream) if local else \
+                    torch.empty((REC_ROWS, bd), dtype=torch.int32,
+                                device=vd.device)
+                out_f = handed_over(flg[m], vd.stream) if local else \
+                    torch.empty((bd, max(n_flags, 1)), dtype=torch.uint8,
+                                device=vd.device)
+                pm = p.params
+                pmask = None if mask is None else pm["pe_err_rule_mask"]
+                lk = p.list_kind if p.lstate is not None else None
+                rc = partial(
+                    p_(p.matched), p_(p.err), p_(p.req_ns), bd,
+                    int(p.matched.shape[1]), p.r0, n_rows,
+                    p_(pm["pe_rule_ns"]), c.default_ns,
+                    p_(pm["pe_deny_mask"]), p_(pm["pe_deny_dur"]),
+                    p_(pm["pe_deny_uses"]),
+                    null if pmask is None else p_(pmask),
+                    n_lists, int(pm["pe_list_ids"].shape[1]),
+                    p_(pm["pe_list_ids"]), p_(pm["pe_list_rule"]),
+                    p_(pm["pe_list_slot"]), p_(pm["pe_list_black"]),
+                    p_(pm["pe_list_code"]), p_(pm["pe_list_dur"]),
+                    p_(pm["pe_list_uses"]),
+                    null if lk is None else p_(lk),
+                    null if p.lstate is None else p_(p.lstate),
+                    n_rbac, int(pm["pe_rb_allow"].shape[1]),
+                    p_(pm["pe_rb_rule"]), p_(pm["pe_rb_guard"]),
+                    p_(pm["pe_rb_allow"]),
+                    p_(p.batch.ids), p_(p.batch.present),
+                    int(p.batch.ids.shape[1]), n_q, p_(pm["pe_q_rule"]),
+                    p_(out_r), p_(out_f), kernels.VP(kernels.stream_ptr()))
+                grids += kernels.check(rc, "mesh_fold")
+                if not local:      # the transport: a copy onto dp's device
+                    rec[m].copy_(out_r, non_blocking=True)
+                    flg[m].copy_(out_f, non_blocking=True)
+                evs.append(vd.record())
+        ev_part.append(evs)
+    # ---- combine: one launch per dp shard on its first device's stream
+    combine = kernels.function("mesh_fold", "mesh_combine", _COMBINE_ARGS)
+    outs, ckeys, ev_comb = [], [], []
+    for d, row in enumerate(parts):
+        home, p = row[0].vdev, row[0]
+        for ev in ev_part[d]:
+            home.wait(ev)
+        with home.scope():
+            pm = p.params
+            table = pm["pe_ref_table"]
+            o = (torch.empty(bd, dtype=torch.int32, device=home.device),
+                 torch.empty(bd, dtype=torch.float32, device=home.device),
+                 torch.empty(bd, dtype=torch.int32, device=home.device),
+                 torch.empty(bd, dtype=torch.int32, device=home.device),
+                 torch.empty((bd, c.n_attr_cols), dtype=torch.bool,
+                             device=home.device),
+                 torch.zeros((), dtype=torch.int32, device=home.device))
+            ckey = torch.empty((max(n_q, 1), bd), dtype=torch.int32,
+                               device=home.device)
+            rc = combine(
+                mp, p_(recs[d]), p_(flags[d]), bd, p_(p.req_ns),
+                p_(pm["pe_deny_status"]), n_rbac, p_(pm["pe_rb_rule"]),
+                p_(pm["pe_rb_dur"]), p_(p.batch.present),
+                p_(p.batch.hash_ids), int(p.batch.ids.shape[1]), n_q,
+                int(quota_counts.shape[1]), p_(pm["pe_q_slot"]),
+                p_(pm["pe_q_nb"]), p_(table), int(table.shape[0]),
+                int(table.shape[1]), c.n_attr_cols, *(p_(t) for t in o),
+                p_(ckey), kernels.VP(kernels.stream_ptr()))
+            grids += kernels.check(rc, "mesh_fold")
+            ev_comb.append(home.record())
+        outs.append(o)
+        ckeys.append(ckey)
+    finals = ev_comb
+    replica0 = None
+    # ---- quota: every dp replica ranks the whole batch
+    if n_q:
+        quota = kernels.function("mesh_fold", "mesh_quota", _QUOTA_ARGS)
+        finals = []
+        for d, row in enumerate(parts):
+            home, pm = row[0].vdev, row[0].params
+            home.wait(ev0)
+            for ev in ev_comb:
+                home.wait(ev)
+            with home.scope():
+                keys = torch.cat([handed_over(k, home.stream).to(home.device)
+                                  for k in ckeys], dim=1)
+                counts = quota_counts.to(home.device, copy=True)
+                qstate = torch.empty((n_q, b), dtype=torch.uint8,
+                                     device=home.device)
+                status, deny_rule = outs[d][0], outs[d][3]
+                rc = quota(p_(keys), b, n_q, d * bd, bd, p_(pm["pe_q_max"]),
+                           p_(pm["pe_q_rule"]), p_(counts), p_(qstate),
+                           p_(status), p_(deny_rule),
+                           kernels.VP(kernels.stream_ptr()))
+                grids += kernels.check(rc, "mesh_fold")
+                finals.append(home.record())
+            if d == 0:
+                replica0 = counts
+    # ---- join on the caller's stream and gather the dp outputs
+    for ev in finals:
+        if ev is not None:
+            cur.wait_event(ev)
+    gathered = []
+    for i in range(5):
+        ts = [handed_over(o[i], cur).to(device) for o in outs]
+        gathered.append(torch.cat(ts) if len(ts) > 1 else ts[0])
+    err_count = torch.stack([handed_over(o[5], cur).to(device)
+                             for o in outs]).sum(dtype=torch.int32)
+    if replica0 is not None:
+        quota_counts.copy_(handed_over(replica0, cur))
+    kernels.launched("mesh_fold", grids, parts, params, before, c, list_kind,
+                     device)
+    return (*gathered, err_count)

@@ -21,8 +21,10 @@ orphans after the drain delay. `prewarm_hook(plan, pools)` runs after a
 new plan's warm, with the new generation's pools, before the publish
 (the server warms its in-step quota trip there).
 
-Not carried (each raises NotPorted when asked for): the config canary,
-mesh serving, the adapter executor and check-cache grants.
+`mesh` (parallel/mesh.Mesh, dp × mp) makes every plan's engine step the
+sharded one (runtime/fused.build_fused_plan). Not carried (each raises
+NotPorted when asked for): the config canary, the adapter executor and
+check-cache grants.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ class Controller:
                  grants=None,
                  overlap_h2d: bool = False,
                  device: str | torch.device = "cuda"):
-        for name, value in (("mesh", mesh), ("canary", canary),
+        for name, value in (("canary", canary),
                             ("on_canary_reject", on_canary_reject),
                             ("executor", executor), ("grants", grants)):
             if value is not None:
@@ -81,6 +83,7 @@ class Controller:
         self.on_publish = on_publish
         self.fused_enabled = fused
         self.rule_telemetry = rule_telemetry
+        self.mesh = mesh    # parallel/mesh.Mesh for mesh serving
         self.prewarm_buckets = tuple(prewarm_buckets)
         self.prewarm_hook = prewarm_hook
         # False skips the first build's warm; config-swap warms are
@@ -142,7 +145,7 @@ class Controller:
         plan = None
         if self.fused_enabled:
             from istio_tpu_torch.runtime.fused import build_fused_plan
-            plan = build_fused_plan(snapshot,
+            plan = build_fused_plan(snapshot, mesh=self.mesh,
                                     rule_telemetry=self.rule_telemetry)
         quota_orphans: list = []
         if self._quota_table is not None:

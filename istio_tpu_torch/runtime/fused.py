@@ -19,9 +19,13 @@ check rows, then the report field rows the field_eval kernel
 (csrc/field_eval.cu, K8) writes into the same buffer, and one pull.
 `packed_check_instep` carries an in-step quota allocation on the check
 trip: the quota_alloc kernel (csrc/quota_alloc.cu, K9, B8) writes its
-granted and gate rows after check_pack's, and one pull. Not carried,
-each raising NotPorted where asked for: the C++ wire tensorizer
-(`native` stays None) and mesh serving.
+granted and gate rows after check_pack's, and one pull. Under a mesh
+(`build_fused_plan(mesh=...)`) the engine's step is the dp × mp sharded
+one (parallel/mesh.shard_engine_check): all three entries go through
+`engine.check`, so they run sharded, and the packer, the rule-telemetry
+fold and the quota gate read the verdict's matched / err planes
+gathered onto the engine's device; a trip still ends in one pull. Not
+carried: the C++ wire tensorizer (`native` stays None).
 """
 from __future__ import annotations
 
@@ -34,7 +38,6 @@ import torch
 
 from istio_tpu_torch import kernels
 from istio_tpu_torch.compiler.layout import AttributeBatch
-from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.models.policy_engine import (DenySpec, INTERNAL,
                                                   ListEntrySpec, PolicyEngine,
                                                   PERMISSION_DENIED, RbacSpec)
@@ -572,9 +575,8 @@ def build_fused_plan(snapshot: Snapshot,
     """Extract fusable CHECK actions and build the snapshot's engine on
     the ruleset's device. `rule_telemetry` wires per-rule hit/deny/err
     accumulators (runtime/rulestats.RuleTelemetry) into packed_check.
-    `mesh` (multi-device serving) is not ported."""
-    if mesh is not None:
-        raise NotPorted("mesh serving (dp x mp sharded step, B14)")
+    `mesh` (parallel/mesh.Mesh, dp × mp) makes the engine's step the
+    sharded one (parallel/mesh.shard_engine_check)."""
     rs = snapshot.ruleset
     if rs.n_rules == 0:
         return None
@@ -688,6 +690,9 @@ def build_fused_plan(snapshot: Snapshot,
                           deny=list(deny_by_rule.values()), lists=lists,
                           quotas=(), rbacs=rbacs, count_rules=n_real,
                           device=rs.device)
+    if mesh is not None:
+        from istio_tpu_torch.parallel.mesh import shard_engine_check
+        engine._step = shard_engine_check(mesh, engine)
     log.info("fused plan: %d deny rules, %d lists, %d rbac actions "
              "(%d pseudo-rules), %d host-overlay rules", len(deny_by_rule),
              len(lists), len(rbacs), rs.n_rules - n_real, len(host_actions))

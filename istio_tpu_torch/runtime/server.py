@@ -17,8 +17,11 @@ the host path through the adapter. It takes one argument the reference
 lacks, `device` ("cuda" by default; tests pass "cpu", where every kernel
 wrapper runs its plain version).
 
+`mesh_shape=(dp, mp)` serves every batch through the dp × mp sharded
+engine step (parallel/mesh.py) over `platform.devices()`: the physical
+cards, or the virtual devices `platform.force_virtual_devices` made.
 `ServerArgs` keeps the reference's field names and defaults. The fields
-this slice does not carry (sharding and replicas, mesh serving, the
+this slice does not carry (sharding and replicas, the
 adapter executor, the resilience breaker,
 grants, the flight recorder, the canary, the audit plane, mTLS) are
 accepted at their defaults, where the planes
@@ -147,7 +150,7 @@ CARRIED_ARGS = frozenset({
     "pipeline", "hold_at", "buckets", "initial_prewarm", "max_str_len",
     "preprocess", "fused", "check_queue_cap", "rule_telemetry",
     "rulestats_drain_s", "host_executor", "report_batching",
-    "report_queue_cap", "quota_in_step"})
+    "report_queue_cap", "quota_in_step", "mesh_shape"})
 
 
 def _check_carried(args: ServerArgs) -> None:
@@ -170,6 +173,17 @@ class RuntimeServer:
         buckets = tuple(sorted(self.args.buckets)) if self.args.buckets \
             else default_buckets(self.args.max_batch)
         self._buckets = buckets
+        mesh = None
+        if self.args.mesh_shape is not None:
+            if not self.args.fused:
+                raise ValueError("mesh serving requires fused=True")
+            from istio_tpu_torch.parallel.mesh import MeshSpec
+            dp, mp = self.args.mesh_shape
+            bad = [b for b in buckets if b % dp]
+            if bad:
+                raise ValueError(
+                    f"serving buckets {bad} not divisible by dp={dp}")
+            mesh = MeshSpec(dp=dp, mp=mp).build()
         # rule-level telemetry: the aggregator follows every publish
         # (draining the outgoing plan first); the drainer empties the
         # device accumulators on an interval so they never wrap
@@ -181,6 +195,7 @@ class RuntimeServer:
             on_publish=self._on_config_publish,
             fused=self.args.fused,
             prewarm_buckets=buckets,
+            mesh=mesh,
             rule_telemetry=self.args.rule_telemetry,
             initial_prewarm=self.args.initial_prewarm,
             prewarm_hook=self._prewarm_instep_for,

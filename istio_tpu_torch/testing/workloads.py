@@ -628,3 +628,49 @@ def make_route_requests(batch: int, n_services: int | None = None,
                               ".default.svc.cluster.local",
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# long subjects for sequence-parallel DFA matching (parallel/seq_match.py)
+# ---------------------------------------------------------------------------
+
+LONG_NEEDLE = b"needle-42"
+# the patterns tests/test_parallel.py matches over long subjects: a needle
+# anywhere, an anchored first byte, an anchored tail
+LONG_PATTERNS = ("needle-[0-9]+", "^[a-z]", "xyzzy$")
+
+
+def make_long_subjects(n_rows: int, n_chunks: int, chunk: int,
+                       seed: int = 7) -> tuple[np.ndarray, np.ndarray]:
+    """Long lowercase subjects for a chunked DFA match → (data uint8
+    [n_rows, n_chunks * chunk], lens int32 [n_rows]); reshape data to
+    [n_rows, n_chunks, chunk] for a sharded match. Rows cycle through
+    the cases of tests/test_parallel.py:56-69: the needle inside one
+    chunk, across a chunk seam, absent, at the very end, and at the end
+    of a row whose length stops 40 bytes short (a short tail that cuts
+    the needle off). Lengths are the full row except for the short
+    tails."""
+    rng = np.random.default_rng(seed)
+    total = n_chunks * chunk
+    n = len(LONG_NEEDLE)
+    if total < n + 40:
+        raise ValueError(f"rows of {total} bytes are too short")
+    data = rng.integers(97, 123, (n_rows, total), dtype=np.uint8)
+    lens = np.full(n_rows, total, np.int32)
+    needle = np.frombuffer(LONG_NEEDLE, np.uint8)
+    for i in range(n_rows):
+        kind = i % 5
+        if kind == 0:                         # inside one chunk
+            c = int(rng.integers(n_chunks))
+            at = c * chunk + int(rng.integers(max(chunk - n, 0) + 1))
+            at = min(at, total - n)
+        elif kind == 1 and n_chunks > 1:      # straddles a chunk seam
+            at = int(rng.integers(1, n_chunks)) * chunk - n // 2
+        elif kind in (3, 4):                  # at the very end
+            at = total - n
+        else:                                 # absent
+            continue
+        data[i, at:at + n] = needle
+        if kind == 4:
+            lens[i] = total - 40
+    return data, lens

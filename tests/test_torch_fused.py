@@ -24,7 +24,6 @@ from istio_tpu.testing import workloads as ref_workloads
 from istio_tpu_torch import interop
 from istio_tpu_torch.attribute.bag import bag_from_mapping
 from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
-from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.runtime import fused
 from istio_tpu_torch.runtime.config import SnapshotBuilder
 from istio_tpu_torch.runtime.dispatcher import Dispatcher
@@ -180,7 +179,8 @@ def test_pack_bool_rows_matches_reference_with_bit_31():
 def test_fusable_regex_and_cidr_lists_raise(entry_type, overrides, value):
     """(Named from when these lists raised NotPorted.) A REGEX or CIDR
     list fuses into the plan exactly where the reference's does, and
-    the packed pull is byte-identical; mesh serving still raises."""
+    the packed pull is byte-identical, also from a plan whose engine
+    step is sharded over a (2, 2) mesh of virtual CPU devices."""
     s = MemStore()
     try:
         s.set(("handler", "istio-system", "lst"), {
@@ -212,8 +212,15 @@ def test_fusable_regex_and_cidr_lists_raise(entry_type, overrides, value):
             [bag_from_mapping(d) for d in dicts]), ns, observe=False)
         assert h.tobytes() == a.tobytes()
         assert len(set(a[0].tolist())) > 1
-        with pytest.raises(NotPorted):
-            fused.build_fused_plan(snap, mesh=object())
+        from istio_tpu_torch import platform
+        from istio_tpu_torch.parallel.mesh import MeshSpec
+        with platform.force_virtual_devices(4, "cpu"):
+            mesh = MeshSpec(2, 2).build()
+        sharded = fused.build_fused_plan(snap, mesh=mesh,
+                                         rule_telemetry=False)
+        m = sharded.packed_check(snap.tensorizer.tensorize(
+            [bag_from_mapping(d) for d in dicts]), ns, observe=False)
+        assert m.tobytes() == a.tobytes()
     finally:
         s.close()
 

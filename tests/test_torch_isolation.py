@@ -55,7 +55,7 @@ def test_every_module_imports_without_jax_and_istio_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 68
+    assert len(names) >= 73
     assert {"istio_tpu_torch.compiler.rbac_lower",
             "istio_tpu_torch.adapters.rbac",
             "istio_tpu_torch.ops.route_ops",
@@ -63,7 +63,12 @@ def test_every_module_imports_without_jax_and_istio_tpu():
             "istio_tpu_torch.pilot.discovery",
             "istio_tpu_torch.sharding.planner",
             "istio_tpu_torch.compiler.op_lower",
-            "istio_tpu_torch.testing.corpus"} <= set(names)
+            "istio_tpu_torch.testing.corpus",
+            "istio_tpu_torch.platform",
+            "istio_tpu_torch.parallel",
+            "istio_tpu_torch.parallel.mesh",
+            "istio_tpu_torch.parallel.mesh_fold",
+            "istio_tpu_torch.parallel.seq_match"} <= set(names)
 
 
 def test_the_refusing_hook_would_catch_a_leak():
@@ -113,6 +118,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         DiscoveryService(registry, pstore)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_snapshot(registry, pstore, version=1)
+    from istio_tpu_torch import platform
+    from istio_tpu_torch.parallel.mesh import MeshSpec
+    with pytest.raises(RuntimeError, match="CUDA"):
+        platform.force_virtual_devices(8, "cuda:0")
+    with pytest.raises(ValueError, match="need 1 devices, have 0"):
+        MeshSpec(1, 1).build()
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
