@@ -44,7 +44,10 @@ Phases, each fatal on failure:
      against its plain version on the served path's own inputs at
      B=2048 (timed, with its bound: the kernels table), and check_pack /
      rule_stats on edge inputs (W > 1, C > 32, bit 31, padding rows,
-     unknown namespaces, a served host-overlay world);
+     unknown namespaces, a served host-overlay world), and rule_stats
+     on its own edge shapes (K6_EDGE: a ragged rule axis, planes off an
+     8-byte boundary, S = 1 and 80, one, alternating and unknown
+     namespaces, an all-padding batch, B = 333);
   6. the authz world (BASELINE config 2): make_rbac_store(1000) — one
      authorization rule whose rbac policy lowers to ~1,000 pseudo-rule
      rows — served on the card under MESH_MANIFEST against a
@@ -99,15 +102,21 @@ Phases, each fatal on failure:
      reads back the grants of each key's window and no key gets more
      than 5,000 in one; quota_alloc against its plain version on a
      captured trip of every mode and the scan on a captured seg batch
-     (timed), then (9b) on edge inputs; walls of both paths, busy and
-     idle share, quota_alloc per mode at 512 and 2048 rows; then (9c)
-     the multi-block quota_alloc above the one-block path's 8,192 rows:
-     against its plain version at 8,193 and 32,768 rows in unit, seg,
-     scan and gated seg on zipf keys (the hottest key's run spans
-     several scan tiles), timed with its grids and bound, and an
-     in-step trip of 16,384 rows on a ServerArgs(max_batch=16384)
-     server warmed at a 16,384 bucket, equal to a CPU server result by
-     result, with conservation on the card's plane;
+     (timed), then (9b) on edge inputs, and on K9's launch paths: unit,
+     seg and gated seg at 8,192 / 8,193 / 16,384 / 16,385 / 65,536 /
+     65,537 zipf rows, one hot bucket whose run spans every block of the
+     cluster, all-distinct buckets and K = 1, with its grids per call
+     (one up to the cluster's 65,536 rows); walls of both paths, busy
+     and idle share, quota_alloc per mode at 512 and 2048 rows; then
+     (9c) quota_alloc above 8,192 rows (one cluster launch; the scan
+     oracle on the multi-launch path) against its plain version at
+     8,193 and 32,768 rows in unit, seg, scan and gated seg on zipf keys
+     (the hottest key's run spans several scan tiles and a block seam),
+     timed with its grids, bound, argsort yardstick and stage stamps
+     (the probe build), and an in-step trip of 16,384 rows (one cluster
+     launch) on a ServerArgs(max_batch=16384) server warmed at a 16,384
+     bucket, equal to a CPU server result by result, with conservation
+     on the card's plane;
   10. Pilot's route selection (BASELINE config 3): make_route_world
      (10_000) — 1,000 services, 10,000 route rules — in a RouteTable on
      the card against one on the CPU at B in {64, 256, 2048, 8192} of
@@ -1407,6 +1416,72 @@ def served_edge_checks() -> int:
     for x in (gpu, cpu, gs, cs):
         x.close()
     return n + 1
+
+# rule_stats's edge shapes (phase 5b): (B, R, S, kind). R not a multiple
+# of the 8-column run (1001, 300, 13: ragged last runs and rows that start
+# off an 8-byte boundary), one slot, more than 64, every row one
+# namespace, rows alternating namespaces, an all-padding batch, unknown
+# namespaces only (slot S - 1), B not a multiple of a row chunk
+K6_EDGE = ((2048, 1001, 6, "random"), (2048, 30, 4, "random"),
+           (77, 1001, 6, "random"), (333, 10008, 80, "random"),
+           (64, 96, 1, "random"), (130, 200, 6, "one"),
+           (130, 200, 6, "alternate"), (50, 64, 6, "padding"),
+           (90, 64, 6, "unknown"), (5, 13, 3, "random"))
+
+
+def rule_stats_edge_checks() -> int:
+    """Phase 5b: rule_stats against its plain version on K6_EDGE, each on
+    planes that start on an 8-byte boundary and on planes that start 3
+    bytes past one (views into a larger buffer), folded into non-zero
+    state. → cases."""
+    import torch
+    from istio_tpu_torch.runtime import rulestats
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 0
+    for b, r, s, kind in K6_EDGE:
+        def rnd(*shape):
+            return torch.rand(*shape, device="cuda", generator=g)
+
+        def ints(lo, hi, size):
+            return torch.randint(lo, hi, size, dtype=torch.int32,
+                                 device="cuda", generator=g)
+
+        matched, err = rnd(b, r) < 0.3, rnd(b, r) < 0.1
+        status, deny_rule = ints(0, 3, (b,)), ints(-1, r + 1, (b,))
+        req = ints(-1, s + 2, (b,))
+        if kind == "one":
+            req[:] = min(2, s - 1)
+        elif kind == "alternate":
+            req = torch.where(torch.arange(b, device="cuda") % 2 == 0, 1,
+                              3).to(torch.int32)
+        elif kind == "unknown":
+            req[::2], req[1::2] = -1, s + 5
+        real = rnd(b) < 0.9
+        if kind == "padding":
+            real[:] = False
+        rule_ns = ints(0, max(s - 1, 1), (r,))
+        rule_ns[::7] = 0
+        err_rows = rnd(r) < 0.9
+        for off in (0, 3):
+            planes = [torch.zeros(b * r + off, dtype=torch.bool,
+                                  device="cuda") for _ in range(2)]
+            planes[0][off:] = matched.view(-1)
+            planes[1][off:] = err.view(-1)
+            m, e = (x[off:].view(b, r) for x in planes)
+            sin = (m, e, status, deny_rule, req, real, rule_ns, 0, s,
+                   err_rows)
+            accs = [rulestats_zeros(sin) for _ in range(2)]
+            for acc in accs:
+                acc[0].fill_(3)
+            rulestats.rule_stats(*sin, *accs[0])
+            rulestats.rule_stats_plain(*sin, *accs[1])
+            for part, x, y in zip(("hit", "deny", "err"), *accs):
+                assert_equal(f"rule_stats edge B={b} R={r} S={s} {kind} "
+                             f"offset {off}.{part}", x, y)
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
 
 def authz_phase(int_rate: float) -> dict:
     """Phase 6: the authz world (BASELINE config 2): make_rbac_store(1000)
@@ -3047,11 +3122,13 @@ def quota_phase(int_rate: float) -> dict:
     mode_rows = quota_mode_times(pool, rng, int_rate)
     n_edge = quota_edge_checks(pool.counts.device.type)
     log(f"[9b] {n_edge} edge cases: quota_alloc equal to its plain version")
+    quota_cluster_checks(rng)
     results = quota_walls(srv, rng)
     for x in (srv, cpu, store, cpu_store):
         x.close()
-    log("[9c] quota_alloc above 8,192 rows (the multi-block path) against "
-        "its plain version, zipf keys over the 100,000-key pool (timed; "
+    log("[9c] quota_alloc above 8,192 rows (one cluster launch; scan on "
+        "the multi-launch path) against its plain version, zipf keys over "
+        "the 100,000-key pool (timed; "
         f"{time.perf_counter() - t0:.1f} s into phase 9):")
     mode_rows.update(quota_big_checks(int_rate, rng))
     big = quota_instep_big(rng)
@@ -3067,22 +3144,30 @@ def quota_phase(int_rate: float) -> dict:
             "instep_16384": big}
 
 
-QUOTA_BIG_BATCHES = (8193, 32768)   # the multi-block K9 path
+QUOTA_BIG_BATCHES = (8193, 32768)   # timed above 8,192 rows
+# held against the plain version, with K9's grids per call: both sides of
+# the one-block scan's limit, of a block seam and of the cluster's
+# capacity (csrc/quota_alloc.cu kClusterRows = 65,536)
+QUOTA_SEAM_BATCHES = (8192, 8193, 16384, 16385, 65536, 65537)
 QUOTA_INSTEP_BIG = 16384            # ServerArgs(max_batch=16384) trip
 QUOTA_INSTEP_BIG_TRIPS = 1
 K9_SCAN_TILE = 4096                 # csrc/quota_alloc.cu kScanTile
+K9_CLUSTER_ROWS = 65536             # csrc/quota_alloc.cu kClusterRows
 
 
-def quota_big_rows(rng, b: int, mode: str, device: str):
-    """One contended batch of `b` rows: zipf(QUOTA_ZIPF) keys over the
-    QUOTA_KEYS pool (per-key max / tick / last / rolling), amounts 1
-    (unit) or -1..5, a random [QUOTA_KEYS, 10] plane, and for "gate"
-    the in-step gate inputs → (plane, rows, gate, the hot key's run)."""
+def quota_big_rows(rng, b: int, mode: str, device: str, keys=None,
+                   k: int = 10):
+    """One contended batch of `b` rows: zipf(QUOTA_ZIPF) keys (or `keys`)
+    over the QUOTA_KEYS pool (per-key max / tick / last / rolling),
+    amounts 1 (unit) or -1..5, a random [QUOTA_KEYS, k] plane, and for
+    "gate" the in-step gate inputs → (plane, rows, gate, the hot key's
+    run)."""
     import numpy as np
     import torch
     from istio_tpu_torch.models import quota_alloc as qa
-    nb, k = QUOTA_KEYS, 10
-    keys = zipf_users(rng, b).astype(np.int64)
+    nb = QUOTA_KEYS
+    keys = zipf_users(rng, b).astype(np.int64) if keys is None else \
+        np.asarray(keys, np.int64)
     amounts = np.ones(b) if mode == "unit" else rng.integers(-1, 6, b)
     per_key = [rng.integers(40, 400, nb), rng.integers(0, 3 * k, nb),
                rng.integers(0, 3 * k, nb), rng.random(nb) < 0.7]
@@ -3110,15 +3195,131 @@ def quota_big_rows(rng, b: int, mode: str, device: str):
     return plane, rows, gate, hot
 
 
-def quota_big_checks(int_rate: float, rng) -> dict:
-    """Phase 9 (the K9 repair): quota_alloc above the one-block path's
-    8,192 rows, against its plain version in unit, seg, scan and gated
-    seg at QUOTA_BIG_BATCHES rows, each timed with its grids and bound.
-    At 32,768 rows the hottest key's run is longer than a scan tile, so
-    its sums and running maxima cross block seams."""
+K9_PROBE_SLOTS = 32                 # csrc/quota_alloc.cu kProbeSlots
+# the cluster kernel's stamp slots (each stamped at the end of its stage)
+K9_STAGES = {1: "prep", 10: "run flags + scan 1", 11: "used",
+             12: "grants (unit) / all-or-nothing (seg)", 13: "scan 2",
+             14: "commits", 15: "pass 1 rank", 16: "pass 1 counter scan",
+             17: "pass 1 local order", 18: "pass 1 cluster offsets",
+             **{2 + p: f"radix pass {p + 1}" for p in range(8)}}
+
+
+def k9_stage_split(mode: str, plane, rows, gate) -> list[dict]:
+    """Where one K9 call spends its time: the call run from the probe
+    build of quota_alloc.cu (kernels.probing), whose kernels stamp
+    (%globaltimer, clock64) from thread 0 of each block at every stage
+    boundary (the multi-launch path: a one-thread stamp kernel between
+    its launches). Run twice (the first call warms), on a copy of the
+    plane. → per stamped slot: {"slot", "us" (globaltimer since slot 0
+    of block 0), "cycles" (clock64 since slot 0, block 0), "last_us"
+    (the latest block's stamp)}."""
     import torch
     from istio_tpu_torch import kernels
     from istio_tpu_torch.models import quota_alloc as qa
+    b = int(rows[0].shape[0])
+    buf = torch.zeros(64 * K9_PROBE_SLOTS * 2, dtype=torch.int64,
+                      device=plane.device)
+    gate_k = None if gate is None else torch.zeros(
+        b, dtype=torch.int32, device=plane.device)
+    with kernels.probing("quota_alloc") as lib:
+        setp = lib.quota_alloc_probe
+        setp.argtypes, setp.restype = [kernels.VP], int
+        for _ in range(2):
+            buf.zero_()
+            torch.cuda.synchronize()
+            if kernels.check(setp(kernels.ptr(buf)), "quota_alloc_probe"):
+                raise AssertionError("quota_alloc_probe")
+            qa.quota_alloc(mode, plane.clone(), *rows, gate=gate,
+                           gate_out=gate_k)
+            torch.cuda.synchronize()
+        setp(None)
+    st = buf.view(64, K9_PROBE_SLOTS, 2).cpu()
+    if int(st[0, 0, 0]) == 0:
+        raise AssertionError("k9 stage split: no stamp in slot 0")
+    t0, c0 = int(st[0, 0, 0]), int(st[0, 0, 1])
+    out = []
+    for i in range(K9_PROBE_SLOTS):
+        ns = st[:, i, 0]
+        if int(ns[0]) == 0:
+            continue
+        out.append({"slot": i, "us": (int(ns[0]) - t0) / 1e3,
+                    "cycles": int(st[0, i, 1]) - c0,
+                    "last_us": (int(ns.max()) - t0) / 1e3})
+    return out
+
+
+def k9_grids(mode: str, b: int) -> int:
+    """`__global__` launches one K9 call of `mode` at `b` rows must make:
+    one up to the cluster's capacity (scan: the one-block limit), more
+    above it."""
+    from istio_tpu_torch.models import quota_alloc as qa
+    limit = qa.SCAN_BLOCK_ROWS if mode == "scan" else qa.CLUSTER_ROWS
+    return 1 if mode == "fast" or b <= limit else 2
+
+
+def quota_call_grids(mode: str, plane, rows, gate) -> int:
+    """One K9 call on a copy of the plane → its `__global__` launches."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.models import quota_alloc as qa
+    b = int(rows[0].shape[0])
+    g0 = kernels.launches.grids["quota_alloc"]
+    gate_k = None if gate is None else torch.zeros(
+        b, dtype=torch.int32, device=plane.device)
+    qa.quota_alloc(mode, plane.clone(), *rows, gate=gate, gate_out=gate_k)
+    return kernels.launches.grids["quota_alloc"] - g0
+
+
+def quota_cluster_checks(rng) -> int:
+    """Phase 9b on K9's launch paths: unit, seg and gated seg at
+    QUOTA_SEAM_BATCHES zipf rows, then at 16,384 and 65,536 rows one hot
+    bucket (90 % of the rows, a run across every block of the cluster)
+    and all-distinct buckets, and K = 1 fixed counters at 16,385 rows:
+    each equal to the plain version, with K9's `__global__` grids per
+    call printed (one up to the cluster's capacity). → cases."""
+    import numpy as np
+    n = 0
+    cases = [(b, mode, "zipf", 10) for b in QUOTA_SEAM_BATCHES
+             for mode in ("unit", "seg", "gate")]
+    cases += [(b, mode, kind, 10) for b in (16384, K9_CLUSTER_ROWS)
+              for kind in ("hot", "distinct") for mode in ("unit", "seg",
+                                                           "gate")]
+    cases += [(16385, mode, "zipf", 1) for mode in ("unit", "seg")]
+    grids_at: dict = {}
+    for b, mode, kind, k in cases:
+        keys = None
+        if kind == "hot":
+            keys = zipf_users(rng, b)
+            keys[rng.random(b) < 0.9] = 4242
+        elif kind == "distinct":
+            keys = rng.permutation(QUOTA_KEYS)[:b]
+        plane, rows, gate, hot = quota_big_rows(rng, b, mode, "cuda", keys,
+                                                k)
+        if k == 1:
+            rows[7].zero_()           # make_alloc_step: no row rolls
+        kmode = "seg" if mode == "gate" else mode
+        quota_alloc_check(f"cluster {kind} {mode} B={b} K={k}", kmode,
+                          plane, rows, gate)
+        grids = quota_call_grids(kmode, plane, rows, gate)
+        want = k9_grids(kmode, b)
+        if (want == 1) != (grids == 1):
+            raise AssertionError(f"K9 {mode} B={b}: {grids} grids per call")
+        grids_at.setdefault(b, set()).add(grids)
+        n += 1
+    log("[9b] " + f"{n} cluster-path cases equal to the plain version "
+        "(zipf, one hot bucket, all-distinct, K = 1); K9 grids per call: "
+        + ", ".join(f"B={b}: {'/'.join(map(str, sorted(g)))}"
+                    for b, g in sorted(grids_at.items())))
+    return n
+
+
+def quota_big_checks(int_rate: float, rng) -> dict:
+    """Phase 9c: quota_alloc above the one-block scan's 8,192 rows,
+    against its plain version in unit, seg, scan and gated seg at
+    QUOTA_BIG_BATCHES rows, each timed with its grids, bound, the stable
+    argsort of its keys and its stage split (k9_stage_split). At 32,768
+    rows the hottest key's run is longer than a scan tile, so the scan's
+    sums and running maxima cross tile and block seams."""
     out = {}
     for b in QUOTA_BIG_BATCHES:
         for mode in ("unit", "seg", "scan", "gate"):
@@ -3128,15 +3329,10 @@ def quota_big_checks(int_rate: float, rng) -> dict:
                                      "rows, no run spans several tiles")
             kmode = "seg" if mode == "gate" else mode
             quota_alloc_check(f"big {mode} B={b}", kmode, plane, rows, gate)
-            g0 = kernels.launches.grids["quota_alloc"]
-            gate_k = None if gate is None else torch.zeros(
-                b, dtype=torch.int32, device="cuda")
-            qa.quota_alloc(kmode, plane.clone(), *rows, gate=gate,
-                           gate_out=gate_k)
-            grids = kernels.launches.grids["quota_alloc"] - g0
-            if grids < 2:
-                raise AssertionError(f"B={b} {mode}: {grids} grid(s), the "
-                                     "multi-block path did not run")
+            grids = quota_call_grids(kmode, plane, rows, gate)
+            if (k9_grids(kmode, b) == 1) != (grids == 1):
+                raise AssertionError(f"B={b} {mode}: {grids} grid(s) per "
+                                     "call")
             ms, call, how, plain, n_bytes, ops, lib, _ = quota_alloc_times(
                 kmode, plane, rows, gate)
             bms, by = bound(n_bytes, ops, int_rate)
@@ -3145,11 +3341,15 @@ def quota_big_checks(int_rate: float, rng) -> dict:
                 f"{plain:9.5f} ms   bound {bms:9.7f} ms ({by})   equal: yes"
                 f"   hottest key {hot} rows   [{how}]   argsort "
                 f"{lib:9.5f} ms")
-            out[f"{mode}@{b}"] = {"ms": ms, "plain_ms": plain,
-                                  "bound_ms": bms, "bound_by": by,
-                                  "library_ms": lib, "bytes": n_bytes,
-                                  "ops": ops, "grids": grids,
-                                  "hot_rows": hot}
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                   "bound_by": by, "library_ms": lib, "bytes": n_bytes,
+                   "ops": ops, "grids": grids, "hot_rows": hot}
+            if mode != "scan":
+                row["stages"] = k9_stage_split(kmode, plane, rows, gate)
+                log("    stage stamps (us since the start, block 0): "
+                    + ", ".join(f"{K9_STAGES.get(st['slot'], st['slot'])}"
+                                f" {st['us']:.2f}" for st in row["stages"]))
+            out[f"{mode}@{b}"] = row
     return out
 
 
@@ -3158,8 +3358,8 @@ def quota_instep_big(rng) -> dict:
     server at ServerArgs(max_batch=16384, quota_in_step=True) with a
     16,384 bucket (its constructor warms it) against a device="cpu"
     server: every CheckResponse and QuotaResult equal, one quota_alloc
-    launch on the multi-block path, and conservation on the card's
-    plane."""
+    call of one `__global__` launch (the cluster path), and conservation
+    on the card's plane."""
     import numpy as np
     from istio_tpu_torch import kernels
     from istio_tpu_torch.adapters.sdk import QuotaArgs
@@ -3190,9 +3390,9 @@ def quota_instep_big(rng) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
         if kernels.launches["quota_alloc"] != n0 + 1 or \
                 kernels.launches.grids["quota_alloc"] - \
-                g0["quota_alloc"] < 2:
-            raise AssertionError(f"in-step B={b}: not one multi-block "
-                                 "quota_alloc launch")
+                g0["quota_alloc"] != 1:
+            raise AssertionError(f"in-step B={b}: not one quota_alloc "
+                                 "call of one cluster launch")
         t0 = time.perf_counter()
         cresp, want = cpu.check_batch_quota_instep(
             cbags, qrows, cpu.instep_quota_target())
@@ -3212,7 +3412,7 @@ def quota_instep_big(rng) -> dict:
     log(f"[9] in-step B={b} (ServerArgs(max_batch={b}), bucket {b}; both "
         f"servers built in {build_s:.1f} s): {len(walls)} trip(s), every "
         f"CheckResponse and QuotaResult equal to the CPU server's, one "
-        f"multi-block quota_alloc launch each; card walls "
+        f"quota_alloc cluster launch each; card walls "
         + " / ".join(f"{w:.1f}" for w in walls) + " ms, CPU "
         + " / ".join(f"{w:.1f}" for w in cpu_walls) + f" ms; {n_ex} "
         f"RESOURCE_EXHAUSTED; conservation: {cons['buckets']:,} buckets "
@@ -4374,6 +4574,10 @@ def main() -> int:
     log(f"[5b] {served_edge_checks()} edge cases: check_pack and "
         "rule_stats equal to their plain versions; a served host-overlay "
         "world on padded batches equal to the CPU server")
+    log(f"[5b] {rule_stats_edge_checks()} rule_stats edge shapes equal to "
+        "the plain version (ragged rule axis, rows off an 8-byte boundary, "
+        "S = 1 and 80, one / alternating / unknown namespaces, all "
+        "padding, B = 333)")
 
     log(f"[t] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 6: the authz world, counters zeroed just before
@@ -4465,7 +4669,8 @@ def main() -> int:
         "ms" for b, r in qt["results"].items())
         + f"; {qt['flushes']} flushes and {qt['trips']} in-step trips, one "
         "quota_alloc launch each")
-    log("quota (K9 above 8,192 rows): " + ", ".join(
+    log("quota (K9 above 8,192 rows; one cluster launch up to 65,536, "
+        "scan on the multi-launch path): " + ", ".join(
         f"{m} {r['ms']:.4f} ms ({r['grids']} grids)"
         for m, r in qt["rows"][0]["modes"].items() if "grids" in r)
         + f"; in-step B={QUOTA_INSTEP_BIG} walls "

@@ -13,6 +13,11 @@ launches those calls made (rule_match and verdict_fold chain up to
 three each). Inside `launches.capture()` each call also records the
 wrapper's inputs, so a check can replay the kernel and its plain
 version on exactly what the main path gave it.
+
+A probe build (`build(names, probe=True)`, `-DKERNEL_PROBE`) is a second
+library of the same source whose kernels write timestamps at their stage
+boundaries. Only measurement code loads it, inside `probing(name)`; the
+served path never does.
 """
 from __future__ import annotations
 
@@ -97,8 +102,9 @@ def launched(name: str, grids: int, *inputs, entry: str | None = None
 
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
-_funcs: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_libs: dict[tuple[str, bool], ctypes.CDLL] = {}
+_funcs: dict[tuple[str, str, bool], ctypes._CFuncPtr] = {}
+_probing: set[str] = set()
 
 
 def _nvcc() -> str:
@@ -117,30 +123,33 @@ def source_of(name: str) -> str:
     return SOURCE_OF.get(name, name)
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, probe: bool = False) -> Path:
     name = source_of(name)
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    kind = "-probe" if probe else ""
+    return BUILD_DIR / f"lib{name}{kind}-{digest}.so"
 
 
-def build(names: Sequence[str] = KERNELS) -> dict[str, dict]:
+def build(names: Sequence[str] = KERNELS, probe: bool = False
+          ) -> dict[str, dict]:
     """Compile the source of every named kernel that has no up-to-date
-    library yet, one nvcc per source, all started together. → {source:
-    {"seconds", "log", "cached"}}; raises with nvcc's output if any
-    build fails."""
+    library yet, one nvcc per source, all started together (`probe`:
+    the probe builds, with -DKERNEL_PROBE). → {source: {"seconds",
+    "log", "cached"}}; raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     out: dict[str, dict] = {}
     t0 = time.perf_counter()
     for name in dict.fromkeys(source_of(n) for n in names):
-        dst = _lib_path(name)
+        dst = _lib_path(name, probe)
         if dst.exists():
             out[name] = {"seconds": 0.0, "log": "", "cached": True}
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               *(["-DKERNEL_PROBE"] if probe else []),
                "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -160,31 +169,46 @@ def build(names: Sequence[str] = KERNELS) -> dict[str, dict]:
     return out
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+def library(name: str, probe: bool = False) -> ctypes.CDLL:
+    """The loaded library of kernel `name` (its probe build with
+    `probe`), built first if needed."""
     name = source_of(name)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, probe))
         if lib is None:
-            if not _lib_path(name).exists():
-                build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            _libs[name] = lib
+            if not _lib_path(name, probe).exists():
+                build([name], probe)
+            lib = ctypes.CDLL(str(_lib_path(name, probe)))
+            _libs[(name, probe)] = lib
         return lib
 
 
 def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """C entry point `symbol` of kernel `name`, typed: every pointer and
-    the stream as c_void_p (a bare int would be cut to 32 bits), and an
-    int return: the number of kernels launched, or -cudaError_t."""
-    key = (name, symbol)
+    """C entry point `symbol` of kernel `name` (of its probe build inside
+    `probing(name)`), typed: every pointer and the stream as c_void_p (a
+    bare int would be cut to 32 bits), and an int return: the number of
+    kernels launched, or -cudaError_t."""
+    probe = source_of(name) in _probing
+    key = (name, symbol, probe)
     fn = _funcs.get(key)
     if fn is None:
-        fn = getattr(library(name), symbol)
+        fn = getattr(library(name, probe), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _funcs[key] = fn
     return fn
+
+
+@contextmanager
+def probing(name: str):
+    """Inside the block every wrapper of kernel `name`'s source launches
+    from its probe build (`build(..., probe=True)`). → that library."""
+    lib = library(name, probe=True)
+    _probing.add(source_of(name))
+    try:
+        yield lib
+    finally:
+        _probing.discard(source_of(name))
 
 
 def check(rc: int, name: str) -> int:

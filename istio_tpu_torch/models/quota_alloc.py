@@ -35,6 +35,11 @@ from istio_tpu_torch import kernels
 # best-effort rows cap here.
 DOMAIN_MAX = 1 << 21
 MODES = {"scan": 0, "fast": 1, "unit": 2, "seg": 3}
+# the kernel's one-launch limits (csrc/quota_alloc.cu kClusterRows = 16
+# blocks x 4,096 rows, kMaxRows): above them a contended batch runs on
+# the multi-launch path over a scratch buffer
+CLUSTER_ROWS = 16 * 4096
+SCAN_BLOCK_ROWS = 8192
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
 
@@ -255,9 +260,11 @@ def quota_alloc(mode: str, slots: torch.Tensor, buckets, amounts, best_effort,
     With `gate`, the in-step gate is applied and written as int32 0/1
     into `gate_out` (required then). Modes: "fast" (unique active
     buckets), "unit" (every active amount 1), "seg" (contended mixed
-    amounts), "scan" (the sequential oracle). A contended batch of up to
-    8,192 rows runs in one block, a larger one on many blocks over a
-    scratch buffer allocated here. CPU tensors run quota_alloc_plain."""
+    amounts), "scan" (the sequential oracle). A unit or seg batch of up
+    to CLUSTER_ROWS rows runs in one launch of a thread-block cluster and
+    a scan batch of up to SCAN_BLOCK_ROWS in one block, with no scratch;
+    a larger one runs on many blocks over a scratch buffer allocated
+    here. CPU tensors run quota_alloc_plain."""
     if mode not in MODES:
         raise ValueError(f"quota_alloc: unknown mode {mode!r}")
     dev = slots.device
@@ -316,10 +323,13 @@ def quota_alloc(mode: str, slots: torch.Tensor, buckets, amounts, best_effort,
     # replay the kernel and its plain version on the same state
     before = slots.clone() if kernels.launches.captured is not None else None
     p = kernels.ptr
-    n_scratch = kernels.function("quota_alloc", "quota_alloc_scratch_bytes",
-                                 [_K.I32, _K.I32])(b, MODES[mode])
-    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
-        if n_scratch > 0 else None
+    scratch = None
+    if b > (SCAN_BLOCK_ROWS if mode == "scan" else CLUSTER_ROWS) and \
+            mode != "fast":
+        n_scratch = kernels.function(
+            "quota_alloc", "quota_alloc_scratch_bytes",
+            [_K.I32, _K.I32])(b, MODES[mode])
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     fn = kernels.function("quota_alloc", "quota_alloc", _ALLOC_ARGS)
     st, mt, ri, rn, rq, dns = gate_args
     rc = fn(p(slots), int(slots.shape[0]), int(slots.shape[1]),

@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
 """Time the H100 port's kernels in two or more checkouts on one card.
 
-    python3 scripts/torch_phase_ab.py [--out FILE] DIR [DIR ...]
+    python3 scripts/torch_phase_ab.py [--out FILE] [--phases P,...]
+                                      DIR [DIR ...]
 
 Each DIR is the root of a checkout (the same one may be named twice, as
 in `parent change change parent`). For each, in the order given and in
 a process of its own started from that directory, the checkout's
-`chip_smoke.py` is imported, its kernels are built, and three of its
-phases run: the headline engine step at B=2048 with every kernel held
-against its plain version (phase 3's headline traffic), the
-sequence-parallel DFA phase (`seq_phase`) and the mesh serving phase
-(`mesh_phase`). Each phase fails as it does in chip_smoke. Per run, the
-device time, plain time and bound of every kernel row (and the
-registers ptxas gave each `__global__` function) is printed, and the
-rows are written as JSON lines to FILE (default
-chiprun_out/phase_ab.jsonl), beside the card's name and power limit.
+`chip_smoke.py` is imported, its kernels are built, and the chosen
+phases run (default: all five):
+
+  engine  the headline engine step at B=2048, every kernel held against
+          its plain version (phase 3's headline traffic);
+  seq     the sequence-parallel DFA phase (`seq_phase`);
+  mesh    the mesh serving phase (`mesh_phase`);
+  k6      rule_stats on phase 5's served launch (make_store(10_000),
+          bench.py's headline traffic, B=2048), against its plain
+          version, with its library yardstick and the rate at which it
+          reads the two dense planes;
+  k9      quota_alloc in unit, seg and gated seg at 512, 2,048, 8,193
+          and 32,768 zipf rows (phase 9c's `quota_big_rows`, one seed),
+          against its plain version, with its `__global__` grids per
+          call, the stable argsort of its keys, and, where the checkout
+          has `k9_stage_split`, the stage stamps of its probe build.
+
+Each phase fails as it does in chip_smoke. Per run, the device time,
+plain time and bound of every kernel row (and the registers ptxas gave
+each `__global__` function) is printed, and the rows are written as JSON
+lines to FILE (default chiprun_out/phase_ab.jsonl), beside the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -32,24 +46,28 @@ import chip_smoke as cs
 from istio_tpu_torch import kernels
 from istio_tpu_torch.testing import workloads
 
+phases = sys.argv[1].split(",")
 for src, info in kernels.build().items():
     for line in info["log"].splitlines():
         if "registers" in line:
             print(f"BUILD {src}: {line.strip()}")
 rate, _ = cs.int_ops_per_s()
 rows = []
-eng = workloads.make_engine(cs.HEADLINE_RULES, with_quota=True,
-                            device="cuda")
-bags, req = cs.headline_batch(eng, cs.HEADLINE_B)
-batch = eng.tensorizer.tensorize(bags).to("cuda")
-eng.check(batch, req)
-before = eng.quota_counts.clone()
-with kernels.launches.capture() as cap:
+if "engine" in phases:
+    eng = workloads.make_engine(cs.HEADLINE_RULES, with_quota=True,
+                                device="cuda")
+    bags, req = cs.headline_batch(eng, cs.HEADLINE_B)
+    batch = eng.tensorizer.tensorize(bags).to("cuda")
     eng.check(batch, req)
-torch.cuda.synchronize()
-for r in cs.check_kernels(cap, before, rate):
-    rows.append({"phase": "engine", **r})
+    before = eng.quota_counts.clone()
+    with kernels.launches.capture() as cap:
+        eng.check(batch, req)
+    torch.cuda.synchronize()
+    for r in cs.check_kernels(cap, before, rate):
+        rows.append({"phase": "engine", **r})
 for phase in (cs.seq_phase, cs.mesh_phase):
+    if phase.__name__.split("_")[0] not in phases:
+        continue
     for r in phase(rate)["rows"]:
         rows.append({"phase": phase.__name__, **r})
         subs = {**r.get("entries", {}),
@@ -57,10 +75,56 @@ for phase in (cs.seq_phase, cs.mesh_phase):
         for k, sub in subs.items():
             rows.append({"phase": phase.__name__,
                          **sub, "name": f"{r['name']}.{k}"})
+if "k6" in phases:
+    srv, store = cs.served(cs.HEADLINE_RULES, "cuda",
+                           dict(buckets=(cs.HEADLINE_B,),
+                                rulestats_drain_s=0))
+    big = cs.served_traffic("headline", cs.HEADLINE_RULES, cs.HEADLINE_B,
+                            seed=1)
+    srv.check_many(big)
+    with kernels.launches.capture() as cap:
+        srv.check_many(big)
+    torch.cuda.synchronize()
+    stats = [c for c in cap if c[0] == "rule_stats"]
+    for r in cs.check_kernels(stats, None, rate):
+        planes = 2 * stats[0][1][0].numel()
+        rows.append({"phase": "k6", **r, "plane_bytes": planes,
+                     "plane_gb_s": planes / (r["ms"] * 1e-3) / 1e9})
+    srv.close()
+    store.close()
+if "k9" in phases:
+    import numpy as np
+    from istio_tpu_torch.models import quota_alloc as qa
+    rng = np.random.default_rng(9)
+    for b in (512, 2048, 8193, 32768):
+        for mode in ("unit", "seg", "gate"):
+            plane, qrows, gate, hot = cs.quota_big_rows(rng, b, mode, "cuda")
+            kmode = "seg" if mode == "gate" else mode
+            cs.quota_alloc_check(f"k9 {mode} B={b}", kmode, plane, qrows,
+                                 gate)
+            g0 = kernels.launches.grids["quota_alloc"]
+            gate_k = None if gate is None else torch.zeros(
+                b, dtype=torch.int32, device="cuda")
+            qa.quota_alloc(kmode, plane.clone(), *qrows, gate=gate,
+                           gate_out=gate_k)
+            grids = kernels.launches.grids["quota_alloc"] - g0
+            ms, call, how, plain, n_bytes, ops, lib, _ = \
+                cs.quota_alloc_times(kmode, plane, qrows, gate)
+            bms, by = cs.bound(n_bytes, ops, rate)
+            row = {"phase": "k9", "name": f"quota_alloc.{mode}@{b}",
+                   "ms": ms, "call_ms": call, "plain_ms": plain,
+                   "bound_ms": bms, "bound_by": by, "ms_source": how,
+                   "library_ms": lib, "grids": grids, "hot_rows": hot}
+            if hasattr(cs, "k9_stage_split"):
+                row["stages"] = cs.k9_stage_split(kmode, plane, qrows, gate)
+            rows.append(row)
 keep = ("phase", "name", "ms", "call_ms", "plain_ms", "bound_ms",
-        "bound_by", "ms_source")
+        "bound_by", "ms_source", "library_ms", "grids", "hot_rows",
+        "plane_gb_s", "stages")
 print("ROWS " + json.dumps([{k: r.get(k) for k in keep} for r in rows]))
 """
+
+PHASES = ("engine", "seq", "mesh", "k6", "k9")
 
 
 def smi() -> str:
@@ -77,15 +141,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
     ap.add_argument("--out", default="chiprun_out/phase_ab.jsonl")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args()
+    if not set(args.phases.split(",")) <= set(PHASES):
+        ap.error(f"--phases: choose from {','.join(PHASES)}")
     card = smi()
     print(card, flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     rc = 0
     with open(args.out, "a") as out:
         for i, d in enumerate(args.dirs):
-            p = subprocess.run([sys.executable, "-c", _CHILD], cwd=d,
-                               capture_output=True, text=True)
+            p = subprocess.run([sys.executable, "-c", _CHILD, args.phases],
+                               cwd=d, capture_output=True, text=True)
             rows = [json.loads(line[5:]) for line in p.stdout.splitlines()
                     if line.startswith("ROWS ")]
             if p.returncode != 0 or not rows:
@@ -97,10 +165,20 @@ def main() -> int:
                 if line.startswith("BUILD "):
                     print(f"run {i} {d}: {line[6:]}", flush=True)
             for r in rows[0]:
-                print(f"run {i} {d}: {r['phase']:10s} {r['name']:18s} "
+                extra = "".join(
+                    f"  {k} {r[k]:.5f}" if isinstance(r[k], float) else
+                    f"  {k} {r[k]}" for k in ("library_ms", "grids",
+                                              "plane_gb_s")
+                    if r.get(k) is not None)
+                print(f"run {i} {d}: {r['phase']:10s} {r['name']:22s} "
                       f"{r['ms']:.5f} ms [{r['ms_source']}]  plain "
-                      f"{r['plain_ms']:.5f}  bound {r['bound_ms']:.5f} "
-                      f"({r['bound_by']})", flush=True)
+                      f"{r['plain_ms']:.5f}  bound {r['bound_ms']:.6f} "
+                      f"({r['bound_by']}){extra}", flush=True)
+                for st in r.get("stages") or ():
+                    print(f"run {i} {d}:   stage slot {st['slot']:2d}  "
+                          f"{st['us']:9.3f} us  {st['cycles']:8d} cycles  "
+                          f"(latest block {st['last_us']:9.3f} us)",
+                          flush=True)
             out.write(json.dumps({"run": i, "dir": d, "card": card,
                                   "rows": rows[0]}) + "\n")
     return rc

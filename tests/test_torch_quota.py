@@ -7,8 +7,10 @@ plain version of the quota_alloc kernel, K9):
     amounts, a shrunken limit, same-amount ties at the budget boundary,
     rolling and exact rows mixed, ticks - last of 0, 1, K and more, K = 1
     — and on 32,768 zipf(1.3) rows over a 100,000-key pool, the batch
-    the kernel's multi-block path takes on the card — grants and the
-    whole counter plane equal;
+    the kernel's multi-block path took on the card before its cluster
+    path, and on 8,193 and 16,384 zipf rows whose hottest run crosses
+    every seam of the cluster path, in unit, seg and gated seg — grants
+    and the whole counter plane equal;
   * DeviceQuotaPool against the reference pool under an injected clock
     (contention, burst, dedup replay within and across windows, rolling
     reclaim, full expiry, keyspace exhaustion, alloc after close);
@@ -197,6 +199,73 @@ def test_rolling_mode_matches_reference(name, seed, mode):
     np.testing.assert_array_equal(np.asarray(args[0]), _scenario(
         name, seed)[2][0])
     assert g.dtype == torch.int32 and kernels.launches["quota_alloc"] == 0
+
+
+def _seam_batch(b: int, seed: int, mode: str):
+    """A contended batch of b zipf(1.3) rows over a 100,000-key pool whose
+    hottest key is renamed to sit mid-order, so that in (bucket, row)
+    order its run crosses every seam of the kernel's cluster path
+    (positions j * ceil(b / c), c = ceil(b / 8192) blocks)."""
+    rng = np.random.default_rng(seed)
+    n, k = 100_000, 10
+    amounts = np.ones(b) if mode == "unit" else rng.integers(-1, 6, b)
+    a = _rolling_batch(rng, n, k, b, amounts)
+    keys = ((rng.zipf(1.3, b) - 1) % n).astype(np.int64)
+    hot = np.bincount(keys).argmax()
+    others = np.sort(keys[keys != hot])
+    count = int((keys == hot).sum())
+    keys[keys == hot] = others[max(b // 2 - count // 2, 0)]
+    a[1] = keys.astype(np.int32)
+    a[4] = np.take(rng.integers(40, 400, n), a[1]).astype(np.int32)
+    for j in (6, 7):
+        a[j] = np.take(rng.integers(0, 3 * k, n), a[1]).astype(np.int32)
+    a[8] = np.take(rng.random(n) < 0.7, a[1])
+    live = np.where(a[5], a[1], INT32_MAX)
+    order = np.sort(live, kind="stable")
+    c = -(-b // 8192)
+    for seam in range(-(-b // c), b, -(-b // c)):
+        assert order[seam - 1] == order[seam], "no run crosses a seam"
+    return n, k, a, rng
+
+
+SEAM_CASES = list(itertools.product((8193, 16384), ("unit", "seg", "gate")))
+
+
+@pytest.mark.parametrize("b,mode", SEAM_CASES)
+def test_contended_batches_across_cluster_seams_match_reference(b, mode):
+    import jax.numpy as jnp
+    n, k, args, rng = _seam_batch(b, 20 + b % 7, mode)
+    i = ("scan", "fast", "unit", "seg").index("seg" if mode == "gate"
+                                              else mode)
+    ref = ref_qa.make_rolling_alloc_step(n, k, jit=False)[i]
+    t = [torch.from_numpy(np.asarray(x)) for x in args]
+    ref_args = list(args)
+    gate = None
+    if mode == "gate":
+        # runtime/fused.py:471-488 (packq): amounts gated on the verdict
+        n_rules = 5
+        status = np.where(rng.random(b) < 0.2, 7, 0).astype(np.int32)
+        matched = rng.random((b, n_rules)) < 0.7
+        rule_idx = rng.integers(-1, n_rules + 1, b).astype(np.int32)
+        rule_ns = rng.integers(0, 3, n_rules).astype(np.int32)
+        req_ns = rng.integers(-1, 3, b).astype(np.int32)
+        safe = jnp.clip(rule_idx, 0, n_rules - 1)
+        rn = jnp.asarray(rule_ns)[safe]
+        want_gate = jnp.asarray(args[5]) & (rule_idx >= 0) & \
+            ((rn == 0) | (rn == req_ns)) & (status == 0) & \
+            jnp.asarray(matched)[jnp.arange(b), safe]
+        ref_args[2] = np.asarray(jnp.where(want_gate, args[2], 0))
+        gate = qa.QuotaGate(*(torch.from_numpy(x) for x in (
+            status, matched, rule_idx, rule_ns, req_ns)), default_ns=0)
+    g_ref, s_ref = ref(*ref_args)
+    plane = t[0].clone()
+    g, gated = qa.quota_alloc_plain("seg" if mode == "gate" else mode,
+                                    plane, *t[1:], gate)
+    np.testing.assert_array_equal(g.numpy(), np.asarray(g_ref))
+    np.testing.assert_array_equal(plane.numpy(), np.asarray(s_ref))
+    if gate is not None:
+        np.testing.assert_array_equal(gated.numpy(), np.asarray(want_gate))
+    assert int(np.asarray(g_ref).sum()) > 0
 
 
 @pytest.mark.parametrize("seed,mode", list(itertools.product(range(3),

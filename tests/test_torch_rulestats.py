@@ -144,6 +144,58 @@ def test_plain_fold_matches_reference_delta():
         np.testing.assert_array_equal(h.numpy(), 2 * w)
 
 
+# rule_stats's edge shapes (chip_smoke phase 5b holds the kernel on the
+# same kinds): R not a multiple of a column run, one slot, more than 64,
+# one namespace, alternating namespaces, an all-padding batch, unknown
+# namespaces only, and B not a multiple of a row chunk
+EDGE_FOLDS = {
+    "ragged_rule_axis": dict(b=77, r=1001, s=6),
+    "one_slot": dict(b=64, r=96, s=1),
+    "many_slots": dict(b=300, r=120, s=80),
+    "one_namespace": dict(b=130, r=200, s=6, ns="one"),
+    "alternating_namespaces": dict(b=130, r=200, s=6, ns="alternate"),
+    "all_padding": dict(b=50, r=64, s=6, real="none"),
+    "unknown_namespaces": dict(b=90, r=64, s=6, ns="unknown"),
+    "ragged_batch": dict(b=333, r=10008, s=24),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_FOLDS))
+def test_plain_fold_edge_shapes_match_reference(case):
+    kw = EDGE_FOLDS[case]
+    b, r, s = kw["b"], kw["r"], kw["s"]
+    rng = np.random.default_rng(len(case))
+    rule_ns = rng.integers(0, max(s - 1, 1), size=r).astype(np.int32)
+    rule_ns[::7] = 0                                # the default namespace
+    rule_ns[-3:] = -7
+    matched = rng.random((b, r)) < 0.3
+    err = rng.random((b, r)) < 0.1
+    status = rng.choice([0, 0, 7, 13], size=b).astype(np.int32)
+    deny_rule = rng.integers(-1, r + 1, size=b).astype(np.int32)
+    req = rng.integers(-1, s + 2, size=b).astype(np.int32)
+    if kw.get("ns") == "one":
+        req[:] = min(2, s - 1)
+    elif kw.get("ns") == "alternate":
+        req = np.where(np.arange(b) % 2 == 0, 1, 3).astype(np.int32)
+    elif kw.get("ns") == "unknown":
+        req = rng.choice([-1, -7, s + 5], size=b).astype(np.int32)
+    real = np.zeros(b, bool) if kw.get("real") == "none" else \
+        rng.random(b) < 0.9
+    err_rows = rng.random(r) < 0.9
+    delta = ref_rulestats.RuleTelemetry._make_delta(rule_ns, 0, s, err_rows)
+    want = [np.asarray(x) for x in delta(matched, err, status, deny_rule,
+                                         req, real)]
+    acc = [torch.full((s, r), 3, dtype=torch.int32),
+           torch.zeros((s, r), dtype=torch.int32),
+           torch.zeros(r, dtype=torch.int32)]
+    t = torch.from_numpy
+    rule_stats_plain(t(matched), t(err), t(status), t(deny_rule), t(req),
+                     t(real), t(rule_ns), 0, s, t(err_rows), *acc)
+    want[0] = want[0] + 3                           # folded into state
+    for w, h in zip(want, acc):
+        np.testing.assert_array_equal(h.numpy(), w)
+
+
 def test_accumulators_are_separate_buffers(dispatchers):
     _, got = dispatchers
     hit, deny, err = got.fused.telemetry.state()
