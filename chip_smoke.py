@@ -17,7 +17,14 @@ Phases, each fatal on failure:
      on the headline traffic also time both (profiler device time and
      CUDA events) and compute each kernel's bound; then (3b) hold every
      kernel against its plain version on edge-case inputs neither
-     traffic produces;
+     traffic produces, and (3c) rule_match on atom-less, empty, all-EQ,
+     host-fallback and rule_pad snapshots at B=2048 and B in K1_EDGE_B.
+     Every rule_match launch replayed (rule_match_check) is held against
+     rule_match_plain and rule_match_words_plain (the bit-sliced
+     formulation over the kernel's own tables) with the planes its caller
+     asked for and the full triple; a timed launch also with every plane
+     subset and its first K1_EDGE_B rows. rule_match makes at most two
+     `__global__` launches per call wherever a phase counts grids;
   4. end to end at B ∈ {64, 256, 2048}: three consecutive batches of
      each traffic with quota carried, every verdict field and the quota
      counters equal to the plain path (the same engine on the CPU) run
@@ -136,8 +143,9 @@ Phases, each fatal on failure:
      8 rounds of
      one-namespace churn with every RDS equal after each and the scope
      program carried while its digest holds; one rule_match launch per
-     batched generation; cold / warm poll rates and the route_eval
-     stage;
+     batched generation, every one of them held against its plain
+     versions and the largest timed; cold / warm poll rates and the
+     route_eval stage;
   12. sequence-parallel DFA matching (B13) on 8 virtual devices of card
      0, each its own stream: long subjects (2,048 rows of 8 KiB as 64
      chunks of 128 bytes; 256 rows at Envoy's 60 KiB header limit as 480
@@ -153,7 +161,8 @@ Phases, each fatal on failure:
      256, 2048)) against a mesh-less server on the card, at B ∈ {64,
      256, 2048} of the headline and hit traffic: every response field,
      the packed pull byte for byte and the rule counts equal; per step 8
-     rule_match and one mesh_fold launch, no verdict_fold; walls beside
+     rule_match (matched and err only, each held against its plain
+     versions) and one mesh_fold launch, no verdict_fold; walls beside
      the mesh-less server's; mesh_stage_probe; K13 against its plain
      version on the B=2048 trip (timed). Then (13b) make_rbac_store(1000)
      at (2, 4) (RBAC allow rows across mp slices), the headline world at
@@ -532,6 +541,106 @@ def list_work(inputs, lstate, err) -> tuple[float, float]:
     return float(b), float(nb * k * 16 + 32 * compared)
 
 
+K1_EDGE_B = (0, 1, 31, 32, 33, 97)   # rule_match edge request counts
+
+
+def k1_work(ids, present, em, en, params, c, planes) -> tuple[float, float]:
+    """(bytes, ops) a rule_match call must move and do on these inputs:
+    the ids and present columns its literals read and the ext planes,
+    once each; the word tables (the literals, the conjunctions, and the
+    rule OR's index rows of the planes asked for); each plane asked for
+    written once. Operations: one compare per distinct literal per
+    request, then per 32 requests one AND per conjunction literal, one OR
+    per rule-OR index that is not the CONJ_FALSE pad, and two per err
+    word."""
+    import torch
+    from istio_tpu_torch.compiler import ruleset
+    want = [p in planes for p in ruleset.PLANES]
+    need_n = want[1] or want[2]
+    nb, n_rows = ids.shape[0], params["conj_m_idx"].shape[0]
+    cols = torch.unique(torch.cat([c.lit_a, c.lit_b[c.n_cmp:]]))
+    lit_true = 2 * c.n_lits + 1
+    ands = float((c.conj_lit != lit_true).sum())
+    idx = [params["conj_m_idx"]] + ([params["conj_n_idx"]] if need_n
+                                    else [])
+    ors = float(sum(int((t != c.n_sat).sum()) for t in idx))
+    words = -(-nb // 32)
+    b = (nb * int(cols.numel()) * 5 + nbytes(em, en, c.lit_a, c.lit_b,
+                                             c.conj_lit, *idx)
+         + nb * n_rows * sum(want))
+    ops = float(nb) * (c.n_cmp + c.n_ss) + words * (
+        ands + ors + (2.0 * n_rows if want[2] else 0.0))
+    return float(b), ops
+
+
+def k1_old_work(ids, present, em, en, params, c) -> tuple[float, float]:
+    """(bytes, ops) of the K1 bound as PRs 1-9 stated it: every input
+    and the reference's index tables once, all three planes written,
+    and every request row charged the per-row walk of the fused table,
+    lit_idx and both rule-OR tables."""
+    tabs = [params[k] for k in ("eqc_col", "eqc_cid", "eqc_xor", "eqc_pad",
+                                "lit_idx", "conj_m_idx", "conj_n_idx")]
+    nb, n_rows = ids.shape[0], params["conj_m_idx"].shape[0]
+    b = nbytes(ids, present, em, en, *tabs, c.eq_cols, c.eq_cids,
+               c.eq_neg, c.ss_a, c.ss_b, c.ss_neg) + 3 * nb * n_rows
+    ops = float(nb) * (params["eqc_col"].numel() * 3 +
+                       params["lit_idx"].numel() +
+                       2 * params["conj_m_idx"].numel() + 3 * n_rows)
+    return float(b), ops
+
+
+def k1_library_ms(ids, present, em, en, params, c) -> tuple[float, str]:
+    """One PyTorch call for the rule-OR gather of K1: index_select of the
+    reference's byte sat plane [B, n_sat + 2] by the flattened
+    conj_m_idx (the plane itself is built outside the timing)."""
+    import torch
+    from istio_tpu_torch.compiler import ruleset
+    sat = ruleset.sat_plane_plain(ids, present, em, en, params, c)
+    idx = params["conj_m_idx"].reshape(-1)
+    return time_ms(lambda: torch.index_select(sat, 1, idx), 50), \
+        "torch.index_select(sat_ext, 1, conj_m_idx.flatten()) " \
+        "(the rule-OR gather only)"
+
+
+def rule_match_check(tag: str, inputs, edges: bool = False) -> int:
+    """One captured rule_match launch replayed: the planes it asked for
+    equal rule_match_plain's (the others None), the full triple too, and
+    the word formulation's plain version equal to the reference's; with
+    `edges`, every plane subset and the first K1_EDGE_B request rows of
+    the same inputs as well. → cases checked."""
+    import itertools
+    from istio_tpu_torch.compiler import ruleset
+    ids, present, em, en, params, c, *rest = inputs
+    planes = rest[0] if rest else ruleset.PLANES
+    want = ruleset.rule_match_plain(ids, present, em, en, params, c)
+    words = ruleset.rule_match_words_plain(ids, present, em, en, params, c)
+    subsets = [planes, ruleset.PLANES]
+    if edges:
+        subsets += [s for k in (1, 2) for s in
+                    itertools.combinations(ruleset.PLANES, k)]
+    n = 0
+    for sub in subsets:
+        got = ruleset.rule_match(ids, present, em, en, params, c, sub)
+        for part, g, w, x in zip(ruleset.PLANES, got, want, words):
+            assert_equal(f"{tag}.{part} (word plain)", x, w)
+            if part not in sub:
+                if g is not None:
+                    raise AssertionError(f"{tag}.{part}: stored though "
+                                         f"only {sub} were asked for")
+                continue
+            assert_equal(f"{tag}.{part} {'+'.join(sub)}", g, w)
+        n += 1
+    for b in (K1_EDGE_B if edges else ()):
+        args = (ids[:b], present[:b], em[:b], en[:b], params, c)
+        want = ruleset.rule_match_plain(*args)
+        for part, g, w, x in zip(ruleset.PLANES, ruleset.rule_match(*args),
+                                 want, ruleset.rule_match_words_plain(*args)):
+            assert_equal(f"{tag}.{part} B={b}", g, w)
+            assert_equal(f"{tag}.{part} B={b} (word plain)", x, w)
+        n += 1
+    return n
+
+
 def check_kernels(captured: list, quota0, int_rate: float | None = None
                   ) -> list[dict]:
     """Phase 3: every captured launch, kernel vs plain (exact equality).
@@ -587,30 +696,27 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             src, rep = "byte_pred.cu", "istio_tpu/ops/bytes_ops.py:26"
             err = int((got != want).sum())
         elif name == "rule_match":
-            ids, present, em, en, params, c = inputs
-            got = ruleset.rule_match(ids, present, em, en, params, c)
-            want = ruleset.rule_match_plain(ids, present, em, en, params, c)
-            for part, g, w in zip(("matched", "not_matched", "err"), got,
-                                  want):
-                assert_equal(f"{tag}.{part}", g, w)
+            ids, present, em, en, params, c, *rest = inputs
+            planes = rest[0] if rest else ruleset.PLANES
+            cases = rule_match_check(tag, inputs, int_rate is not None)
             if int_rate is None:
                 continue
+            log(f"  {tag:<16} {cases} cases equal to rule_match_plain and "
+                "rule_match_words_plain (the captured planes "
+                f"{'+'.join(planes)}, every subset, B = "
+                f"{', '.join(map(str, K1_EDGE_B))})")
             ms, call, how = timed(lambda: ruleset.rule_match(
-                ids, present, em, en, params, c), 50)
+                ids, present, em, en, params, c, planes), 50)
             plain, _, _ = timed(lambda: ruleset.rule_match_plain(
-                ids, present, em, en, params, c), 10)
-            tabs = [params[k] for k in ("eqc_col", "eqc_cid", "eqc_xor",
-                                        "eqc_pad", "lit_idx", "conj_m_idx",
-                                        "conj_n_idx")]
-            b = nbytes(ids, present, em, en, *tabs, c.eq_cols, c.eq_cids,
-                       c.eq_neg, c.ss_a, c.ss_b, c.ss_neg, *got)
-            nb = ids.shape[0]
-            ops = float(nb) * (params["eqc_col"].numel() * 3 +
-                               params["lit_idx"].numel() +
-                               2 * params["conj_m_idx"].numel() +
-                               3 * params["conj_m_idx"].shape[0])
+                ids, present, em, en, params, c, planes), 10)
+            b, ops = k1_work(ids, present, em, en, params, c, planes)
+            ob, oops = k1_old_work(ids, present, em, en, params, c)
+            extra["bound_old_ms"], extra["bound_old_by"] = bound(
+                ob, oops, int_rate)
+            extra["planes"] = list(planes)
+            lib, lib_call = k1_library_ms(ids, present, em, en, params, c)
             src, rep = "rule_match.cu", "istio_tpu/compiler/ruleset.py:798"
-            err = int(sum(int((g != w).sum()) for g, w in zip(got, want)))
+            err = 0
         elif name == "verdict_fold":
             matched, errp, req, batch, params, _, c, lstate, kind = inputs
             qk, qp = quota0.clone(), quota0.clone()
@@ -931,6 +1037,52 @@ EDGE_RULES = [
 ]
 
 
+def rule_match_edge_worlds() -> int:
+    """Phase 3c: rule_match on snapshots the headline world is not, at
+    B = HEADLINE_B and K1_EDGE_B rows, every plane subset against the
+    reference's triple: atom-less (an empty match and `false`: the empty
+    literal block), an empty ruleset, all-EQ with no legacy stage,
+    host-fallback rules (an empty M) beside device ones, and rule_pad
+    rows (61 rules padded to 64) over every atom tier. → cases."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.compiler import ruleset
+    from istio_tpu_torch.compiler.layout import Tensorizer
+    from istio_tpu_torch.testing import workloads
+    rule = ruleset.Rule
+    worlds = {
+        "atom-less": ([rule("t", ""), rule("f", "false")], 1),
+        "empty": ([], 1),
+        "all-EQ": ([rule("eq", 'source.name == "a"'),
+                    rule("neq", 'source.name != "b"', "ns1")], 1),
+        "fallback": ([rule(*r) for r in EDGE_RULES]
+                     + [rule("host", 'request.headers[source.name] == "v"'),
+                        rule("host-ns", 'request.headers[request.method] '
+                             '== "x" || source.name == "a"', "ns1")], 1),
+        "rule_pad": ([rule(r.name, r.match, r.namespace) for r in
+                      workloads.make_rules(61, with_regex=True)], 8),
+    }
+    n = 0
+    for w, (name, (rules, pad)) in enumerate(worlds.items()):
+        prog = ruleset.compile_ruleset(rules, workloads.MESH_FINDER,
+                                       rule_pad=pad, device="cuda")
+        if name == "fallback" and len(prog.host_fallback) < 2:
+            raise AssertionError("the fallback world compiled "
+                                 f"{len(prog.host_fallback)} host rules")
+        dicts, _ = edge_bags(HEADLINE_B, seed=300 + w)
+        batch = Tensorizer(prog.layout, prog.interner).tensorize(
+            [bag_from_mapping(d) for d in dicts]).to("cuda")
+        with kernels.launches.capture() as cap:
+            prog(batch)
+        torch.cuda.synchronize()
+        k1 = [args for kname, args in cap if kname == "rule_match"]
+        if len(k1) != 1:
+            raise AssertionError(f"{name}: {len(k1)} rule_match launches")
+        n += rule_match_check(f"rule_match {name}", k1[0], edges=True)
+    return n
+
+
 def edge_bags(n: int, seed: int) -> tuple[list[dict], list[str]]:
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -1239,6 +1391,13 @@ def time_check_many(srv, cpu, bags, label: str) -> tuple[dict, int]:
             "stages_ms": stages}, 2 + SERVED_ITERS + 6
 
 
+def k1_grids_per_call(label: str, counts: dict, grids: dict) -> None:
+    """rule_match makes at most two `__global__` launches per call."""
+    if grids["rule_match"] > 2 * counts["rule_match"]:
+        raise AssertionError(f"{label}: {grids['rule_match']} rule_match "
+                             f"grids for {counts['rule_match']} calls")
+
+
 def path_counts(label: str, required: tuple, steps: int) -> dict:
     """Read the launch counters after a path's run (zeroed just before
     it); every kernel of the path must have launched."""
@@ -1249,6 +1408,7 @@ def path_counts(label: str, required: tuple, steps: int) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on {label}: "
                              f"{missing}")
+    k1_grids_per_call(label, counts, grids)
     per_step = {k: counts[k] / steps for k in kernels.KERNELS}
     per_call = {k: grids[k] / counts[k] for k in kernels.KERNELS
                 if counts[k]}
@@ -3879,10 +4039,15 @@ def discovery_phase(int_rate: float) -> dict:
         f"the program), rule_match launches {out['counts']['rule_match']} "
         f"= one per batched generation; the card's cold poll: route_eval "
         f"{route_eval}, generate {lat.get('generate', {})}")
-    log("[11] rule_match of one captured admit_rows trip against its plain "
-        "version (timed):")
-    rows = check_kernels([c for c in cap if c[0] == "rule_match"][:1], None,
-                         int_rate)
+    k1 = [c for c in cap if c[0] == "rule_match"]
+    check_kernels(k1, None)
+    big = max(k1, key=lambda c: c[1][0].shape[0] *
+              c[1][4]["conj_m_idx"].shape[0])
+    log(f"[11] every captured admit_rows trip's rule_match ({len(k1)}) "
+        "equal to its plain versions; the largest ([sources, R] = "
+        f"[{big[1][0].shape[0]}, {big[1][4]['conj_m_idx'].shape[0]}]) "
+        "timed:")
+    rows = check_kernels([big], None, int_rate)
     for d in (ds, cpu):
         d.stop()
     return {**out, "rows": rows, "cold_s": cold_s, "warm_s": warm_s,
@@ -4337,6 +4502,14 @@ def mesh_phase(int_rate: float) -> dict:
             raise AssertionError(f"a mesh trip made {n_d2h} device-to-host "
                                  "copies, want one pull")
         log(f"[13] a B={HEADLINE_B} mesh trip: {n_d2h} device-to-host copy")
+        shard_k1 = [x for x in captured if x[0] == "rule_match"]
+        if not shard_k1 or len(shard_k1) % shards:
+            raise AssertionError(f"{len(shard_k1)} rule_match launches in "
+                                 f"served trips of {shards} shards")
+        check_kernels(shard_k1, None)
+        log(f"[13] the B={HEADLINE_B} trip's {len(shard_k1)} shard "
+            "rule_match launches (matched and err only) equal to their "
+            "plain versions")
         folds = [x for x in captured if x[0] == "mesh_fold"]
         if len(folds) != 1:
             raise AssertionError(f"{len(folds)} mesh_fold launches in one "
@@ -4500,6 +4673,10 @@ def main() -> int:
         eng.quota_counts.copy_(quota_before)
     log(f"[3b] {edge_checks()} edge cases: every kernel equal to its "
         "plain version")
+    log(f"[3c] {rule_match_edge_worlds()} rule_match cases (atom-less, "
+        "empty, all-EQ, host-fallback and rule_pad snapshots at B="
+        f"{HEADLINE_B} and {', '.join(map(str, K1_EDGE_B))}, every plane "
+        "subset) equal to rule_match_plain and rule_match_words_plain")
 
     log(f"[t] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 4: end to end, counters zeroed just before
@@ -4561,6 +4738,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the engine "
                              f"path: {missing}")
+    k1_grids_per_call("[4] engine path", counts, grids)
     log(f"[4] wrapper calls on the engine path ({steps} steps): {counts}; "
         f"__global__ launches: {grids}")
 

@@ -4,7 +4,10 @@ Port of istio_tpu/compiler/ruleset.py. The host compile is the
 reference's, step for step, so the emitted index tensors (lit_idx,
 conj_m_idx, conj_n_idx, eqc_*) are array_equal to the JAX package's.
 The device program runs through the rule_match kernel
-(csrc/rule_match.cu); constant regex atoms through dfa_scan and constant
+(csrc/rule_match.cu), bit-sliced over requests (32 a word) on its own
+tables (word_tables: each distinct literal once, every conjunction an
+AND over literal words; rule_match_words_plain is their plain version);
+constant regex atoms through dfa_scan and constant
 byte predicates through byte_pred (ops/bytes_ops.py), and every other
 generic-tier atom as an op program of the atom_eval kernel
 (csrc/field_eval.cu, ops/field_ops.py), one launch per step.
@@ -267,6 +270,10 @@ def _const_id(e: Expression, interner: InternTable) -> int | None:
     return interner.intern(folded)
 
 
+# the three verdict planes of a rule match, in the order it returns them
+PLANES = ("matched", "not_matched", "err")
+
+
 @dataclasses.dataclass
 class RuleSetProgram:
     """The compiled snapshot. `fn(batch)` → (matched, not_matched, err)
@@ -302,8 +309,11 @@ class RuleSetProgram:
     def n_rules(self) -> int:
         return len(self.rules)
 
-    def __call__(self, batch: AttributeBatch) -> tuple[Any, Any, Any]:
-        return self.fn(self.params, batch.to(self.device))
+    def __call__(self, batch: AttributeBatch,
+                 planes: Sequence[str] = PLANES) -> tuple[Any, Any, Any]:
+        """(matched, not_matched, err); a plane not named in `planes` is
+        None (rule_match never stores it)."""
+        return self.fn(self.params, batch.to(self.device), planes)
 
     def namespace_id(self, ns: str) -> int:
         """Id for a request namespace; unknown namespaces match only
@@ -332,11 +342,18 @@ class RuleSetProgram:
 # K1: rule match (csrc/rule_match.cu)
 # ---------------------------------------------------------------------------
 
+# request words (32 requests each) per group of the kernel's literal-word
+# scratch: csrc/rule_match.cu kWords
+_GROUP_WORDS = 2
+
+
 @dataclasses.dataclass
 class RuleMatchConsts:
     """The compile-time structure of one snapshot's rule-match program
     that rides beside its params: legacy EQ / slot-EQ literal columns
-    (closure constants in the reference too) and the block widths."""
+    (closure constants in the reference too), the block widths, and the
+    kernel's own word tables (`word_tables`): every distinct literal
+    once, and every conjunction as an AND over literal words."""
     n_fused: int          # fused all-EQ conjunctions (sat columns first)
     use_legacy: bool      # the literal-plane stage exists
     n_live: int           # width of each m / n literal block
@@ -347,22 +364,177 @@ class RuleMatchConsts:
     ss_a: torch.Tensor     # int32 [S]
     ss_b: torch.Tensor     # int32 [S]
     ss_neg: torch.Tensor   # bool [S]
+    # word tables: literal q < n_cmp is the compare ids[:, lit_a[q]] ==
+    # lit_b[q], q < n_cmp + n_ss the slot compare of columns lit_a[q],
+    # lit_b[q], then the n_ext ext columns; literal q's m word is 2q, its
+    # n word 2q + 1; word 2Q is FALSE and 2Q + 1 TRUE (Q literals)
+    n_cmp: int
+    n_ss: int
+    n_ext: int
+    lit_a: torch.Tensor    # int32 [n_cmp + n_ss]
+    lit_b: torch.Tensor    # int32 [n_cmp + n_ss]
+    conj_lit: torch.Tensor  # int32 [n_sat + 2, L], ascending, TRUE-padded
+    # the compares by key: the columns they read, and an open-addressing
+    # table of (col, cid, q, 0) rows (q -1: empty; 16 bytes, one load)
+    # probed from cmp_slot(col, value) for at most cmp_probe slots
+    # (cmp_lookup)
+    cmp_cols: torch.Tensor  # int32 [distinct compare columns]
+    cmp_hash: torch.Tensor  # int32 [H, 4], H a power of two
+    cmp_probe: int
 
     @classmethod
     def of(cls, *, device: torch.device, **kw) -> "RuleMatchConsts":
-        for k in ("eq_cols", "eq_cids", "eq_neg", "ss_a", "ss_b", "ss_neg"):
+        for k in ("eq_cols", "eq_cids", "eq_neg", "ss_a", "ss_b", "ss_neg",
+                  "lit_a", "lit_b", "conj_lit", "cmp_cols", "cmp_hash"):
             kw[k] = torch.from_numpy(np.ascontiguousarray(kw[k])).to(device)
         return cls(**kw)
 
+    @property
+    def n_lits(self) -> int:
+        return self.n_cmp + self.n_ss + self.n_ext
 
-def rule_match_plain(ids: torch.Tensor, present: torch.Tensor,
-                     ext_m: torch.Tensor, ext_n: torch.Tensor,
-                     params: Mapping[str, torch.Tensor],
-                     c: RuleMatchConsts) -> tuple[Any, Any, Any]:
-    """Plain version of the rule_match kernel: the reference's
-    `compile_ruleset.<locals>.run` (istio_tpu/compiler/ruleset.py:798).
-    ext_m / ext_n bool [B, X] are the DFA-group and generic-atom literal
-    columns in the reference's order (eq-live, slot-EQ, DFA, gen)."""
+
+def cmp_slot(col: np.ndarray, value: np.ndarray, size: int) -> np.ndarray:
+    """Home slot of (col, value) in a compare table of `size` slots: a
+    32-bit mix of both (csrc/rule_match.cu cmp_slot computes the same)."""
+    m32 = np.uint64(0xFFFFFFFF)
+    x = ((value.astype(np.int64).astype(np.uint64) & m32)
+         * np.uint64(2654435761)) & m32
+    x ^= ((col.astype(np.int64).astype(np.uint64) & m32)
+          * np.uint64(40503)) & m32
+    x ^= x >> np.uint64(15)
+    x = (x * np.uint64(2246822519)) & m32
+    x ^= x >> np.uint64(13)
+    return (x & np.uint64(size - 1)).astype(np.int64)
+
+
+def _cmp_hash(keys: np.ndarray) -> tuple[np.ndarray, int]:
+    """Open-addressing table of the compare keys (col, cid) → (int32
+    [H, 4] rows (col, cid, q, 0), the longest probe), at most half
+    full."""
+    size = 1 << max(1, (2 * len(keys) - 1).bit_length())
+    tab = np.zeros((size, 4), np.int32)
+    tab[:, 2] = -1
+    probe = 1
+    for q, s in enumerate(cmp_slot(keys[:, 0], keys[:, 1], size)):
+        d = 1
+        while tab[s, 2] >= 0:
+            s = (s + 1) & (size - 1)
+            d += 1
+        tab[s, :3] = (keys[q, 0], keys[q, 1], q)
+        probe = max(probe, d)
+    return tab, probe
+
+
+def cmp_lookup(c: "RuleMatchConsts", col: torch.Tensor,
+               value: torch.Tensor) -> torch.Tensor:
+    """The compare literal of each (col, value) pair (same shapes), or
+    -1: the kernel's probe of cmp_hash, with torch ops."""
+    tab = c.cmp_hash.long()
+    size = tab.shape[0]
+    slot = torch.from_numpy(cmp_slot(col.cpu().numpy(), value.cpu().numpy(),
+                                     size)).to(col.device)
+    found = torch.full(col.shape, -1, dtype=torch.long, device=col.device)
+    for _ in range(c.cmp_probe):
+        row = tab[slot]
+        hit = (found < 0) & (row[..., 2] >= 0) & (row[..., 0] == col) \
+            & (row[..., 1] == value)
+        found = torch.where(hit, row[..., 2], found)
+        slot = (slot + 1) & (size - 1)
+    return found
+
+
+def word_tables(*, eqc_col: np.ndarray, eqc_cid: np.ndarray,
+                eqc_xor: np.ndarray, eqc_pad: np.ndarray, n_fused: int,
+                use_legacy: bool, lit_idx: np.ndarray, n_live: int,
+                eq_cols: np.ndarray, eq_cids: np.ndarray, eq_neg: np.ndarray,
+                ss_a: np.ndarray, ss_b: np.ndarray, ss_neg: np.ndarray,
+                n_ext: int, n_sat: int) -> dict:
+    """The bit-sliced kernel's tables, from the reference's: one literal
+    per distinct EQ compare (col, cid) — fused slots and legacy EQ atoms
+    alike, numbered in order of first use by the conjunctions — one per
+    distinct slot pair, one per ext column; every conjunction (fused
+    first, then legacy, in sat order) as its literal words, then the
+    CONJ_FALSE and CONJ_TRUE rows; and the compares' lookup table. A
+    fused slot with xor 0 (a legacy literal with neg 0 and kind m) reads
+    the compare's m word, the other the n word; pads read TRUE."""
+    fc, fi = eqc_col[:n_fused], eqc_cid[:n_fused]
+    fx, fp = eqc_xor[:n_fused], eqc_pad[:n_fused]
+    keys = np.concatenate([np.stack([fc[~fp], fi[~fp]], 1),
+                           np.stack([eq_cols, eq_cids], 1)]).astype(np.int64)
+    cmp_keys, cmp_of = np.unique(keys.reshape(-1, 2), axis=0,
+                                 return_inverse=True)
+    cmp_of = cmp_of.reshape(-1)
+    ss_keys, ss_of = np.unique(
+        np.stack([ss_a, ss_b], 1).astype(np.int64).reshape(-1, 2), axis=0,
+        return_inverse=True)
+    ss_of = ss_of.reshape(-1)
+    n_cmp, n_ss = len(cmp_keys), len(ss_keys)
+    q = n_cmp + n_ss + n_ext
+    w_false, w_true = 2 * q, 2 * q + 1
+    rows = []
+    if n_fused:
+        fw = np.full(fc.shape, w_true, np.int64)
+        n_fp = int((~fp).sum())
+        fw[~fp] = 2 * cmp_of[:n_fp] + fx[~fp]
+        rows.append(fw)
+    if use_legacy:
+        e, s = len(eq_cols), len(ss_a)
+        m_of_pos = np.full(n_live, w_false, np.int64)
+        m_of_pos[:e] = 2 * cmp_of[len(cmp_of) - e:] + eq_neg
+        m_of_pos[e:e + s] = 2 * (n_cmp + ss_of) + ss_neg
+        m_of_pos[e + s:e + s + n_ext] = 2 * (n_cmp + n_ss + np.arange(n_ext))
+        # the n literal of a position is its m literal's pair word
+        n_of_pos = np.where(m_of_pos == w_false, w_false, m_of_pos ^ 1)
+        of_lit = np.concatenate([m_of_pos, n_of_pos, [w_true]])
+        rows.append(of_lit[lit_idx])
+    width = max([r.shape[1] for r in rows] + [1])
+    conj = np.full((n_sat + 2, width), w_true, np.int64)
+    at = 0
+    for r in rows:
+        conj[at:at + len(r), :r.shape[1]] = r
+        at += len(r)
+    assert at == n_sat, (at, n_sat)
+    conj[n_sat, 0] = w_false          # CONJ_FALSE: the OR identity
+    # number the compares in order of first use by the conjunctions
+    # (which follow the rules), so that neighbouring rules read
+    # neighbouring literal words
+    used = conj[conj < 2 * n_cmp] // 2
+    first = np.unique(used, return_index=True)[1]
+    order = np.concatenate([used[np.sort(first)],
+                            np.setdiff1d(np.arange(n_cmp), used)])
+    new_of = np.arange(2 * q + 2)
+    new_of[2 * order] = 2 * np.arange(n_cmp)
+    new_of[2 * order + 1] = 2 * np.arange(n_cmp) + 1
+    conj = new_of[conj]
+    cmp_keys = cmp_keys[order].reshape(-1, 2)
+    conj.sort(axis=1)                 # TRUE (the largest word) trails
+    lit_a = np.concatenate([cmp_keys[:, 0], ss_keys[:, 0]]).astype(np.int32)
+    lit_b = np.concatenate([cmp_keys[:, 1], ss_keys[:, 1]]).astype(np.int32)
+    cmp_hash, cmp_probe = _cmp_hash(cmp_keys)
+    return {"n_cmp": n_cmp, "n_ss": n_ss, "n_ext": n_ext, "lit_a": lit_a,
+            "lit_b": lit_b, "conj_lit": conj.astype(np.int32),
+            "cmp_cols": np.unique(cmp_keys[:, 0]).astype(np.int32),
+            "cmp_hash": cmp_hash, "cmp_probe": cmp_probe}
+
+
+def _want(planes: Sequence[str]) -> tuple[bool, bool, bool]:
+    bad = set(planes) - set(PLANES)
+    if bad or not planes:
+        raise ValueError(f"rule_match: planes {tuple(planes)} not a "
+                         f"non-empty subset of {PLANES}")
+    return tuple(p in planes for p in PLANES)
+
+
+def sat_plane_plain(ids: torch.Tensor, present: torch.Tensor,
+                    ext_m: torch.Tensor, ext_n: torch.Tensor,
+                    params: Mapping[str, torch.Tensor],
+                    c: RuleMatchConsts) -> torch.Tensor:
+    """The reference's conjunction plane sat_ext, bool [B, n_sat + 2]:
+    every conjunction's truth per request, then the CONJ_FALSE and
+    CONJ_TRUE columns. ext_m / ext_n bool [B, X] are the DFA-group and
+    generic-atom literal columns in the reference's order (eq-live,
+    slot-EQ, DFA, gen)."""
     b = ids.shape[0]
     dev = ids.device
     sat_parts = []
@@ -401,26 +573,115 @@ def rule_match_plain(ids: torch.Tensor, present: torch.Tensor,
     sat = torch.cat(sat_parts, dim=1)                     # [B, n_sat]
     # sat[:, CONJ_FALSE] is the OR-identity sentinel, sat[:, CONJ_TRUE]
     # the always-true column rule-axis padding points its N gather at
-    sat_ext = torch.cat([sat, torch.zeros((b, 1), dtype=torch.bool,
-                                          device=dev),
-                         torch.ones((b, 1), dtype=torch.bool, device=dev)],
-                        dim=1)
+    return torch.cat([sat, torch.zeros((b, 1), dtype=torch.bool, device=dev),
+                      torch.ones((b, 1), dtype=torch.bool, device=dev)],
+                     dim=1)
+
+
+def rule_match_plain(ids: torch.Tensor, present: torch.Tensor,
+                     ext_m: torch.Tensor, ext_n: torch.Tensor,
+                     params: Mapping[str, torch.Tensor],
+                     c: RuleMatchConsts, planes: Sequence[str] = PLANES
+                     ) -> tuple[Any, Any, Any]:
+    """Plain version of the rule_match kernel: the reference's
+    `compile_ruleset.<locals>.run` (istio_tpu/compiler/ruleset.py:798),
+    the sat plane (sat_plane_plain) gathered by the rule OR. A plane not
+    named in `planes` comes back as None."""
+    want = _want(planes)
+    sat_ext = sat_plane_plain(ids, present, ext_m, ext_n, params, c)
     matched = sat_ext[:, params["conj_m_idx"].long()].any(dim=2)
     not_matched = sat_ext[:, params["conj_n_idx"].long()].any(dim=2)
     err = ~matched & ~not_matched
-    return matched, not_matched, err
+    return tuple(p if w else None
+                 for p, w in zip((matched, not_matched, err), want))
+
+
+def _pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """bool [B, N] → int32 [ceil(B / 32), N]: bit i of word w is request
+    32 w + i (requests past B read 0)."""
+    b, n = bits.shape
+    w = -(-b // 32)
+    pad = torch.zeros((w * 32, n), dtype=torch.int32, device=bits.device)
+    pad[:b] = bits.to(torch.int32)
+    per_bit = pad.view(w, 32, n)
+    words = torch.zeros((w, n), dtype=torch.int32, device=bits.device)
+    for i in range(32):
+        words |= per_bit[:, i] << i     # bit 31 wraps to the sign bit
+    return words
+
+
+def _unpack_words(words: torch.Tensor, b: int) -> torch.Tensor:
+    """int32 [W, N] → bool [b, N], the inverse of _pack_words."""
+    shift = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[:, None, :] >> shift[None, :, None]) & 1
+    return bits.reshape(-1, words.shape[1])[:b].bool()
+
+
+def rule_match_words_plain(ids: torch.Tensor, present: torch.Tensor,
+                           ext_m: torch.Tensor, ext_n: torch.Tensor,
+                           params: Mapping[str, torch.Tensor],
+                           c: RuleMatchConsts,
+                           planes: Sequence[str] = PLANES
+                           ) -> tuple[Any, Any, Any]:
+    """Plain version of the kernel's own formulation, over its word
+    tables: 32 requests per int32 word, every distinct literal's m / n
+    words once (a compare's m bits set by looking each request's
+    (column, value) up in cmp_hash), each conjunction an AND over
+    literal words, each rule's m / n an OR over conjunction words
+    (conj_m_idx / conj_n_idx), err = ~m & ~n, unpacked to bool [B, R].
+    Equal to rule_match_plain on every input the compiler emits."""
+    want = _want(planes)
+    b = ids.shape[0]
+    if ext_m.shape[1] != c.n_ext:
+        raise ValueError(f"rule_match: {ext_m.shape[1]} ext columns, the "
+                         f"tables hold {c.n_ext}")
+    col = c.lit_a.long()
+    # compares by lookup: each (column, value) of a request names at
+    # most one compare literal, whose m bit it sets (m = value == cid and
+    # present); n = present and not m
+    cols = c.cmp_cols.long()
+    q_of = cmp_lookup(c, cols[None, :].expand(b, -1), ids[:, cols].long())
+    q_of = torch.where(present[:, cols], q_of, -1)
+    cmp = torch.zeros((b, c.n_cmp + 1), dtype=torch.bool, device=ids.device)
+    cmp.scatter_(1, torch.where(q_of < 0, c.n_cmp, q_of), True)
+    cmp = cmp[:, :c.n_cmp]
+    pc = present[:, col[:c.n_cmp]]
+    sa, sb = col[c.n_cmp:], c.lit_b[c.n_cmp:].long()
+    ss = ids[:, sa] == ids[:, sb]
+    ps = present[:, sa] & present[:, sb]
+    m = torch.cat([cmp & pc, ss & ps, ext_m], dim=1)      # [B, Q]
+    n = torch.cat([~cmp & pc, ~ss & ps, ext_n], dim=1)
+    lits = torch.stack([m, n], dim=2).reshape(b, 2 * m.shape[1])  # 2q, 2q+1
+    lits = torch.cat([lits, torch.zeros((b, 1), dtype=torch.bool,
+                                        device=ids.device),
+                      torch.ones((b, 1), dtype=torch.bool,
+                                 device=ids.device)], dim=1)
+    words = _pack_words(lits)                             # [W, 2Q + 2]
+    conj = torch.full((words.shape[0], c.conj_lit.shape[0]), -1,
+                      dtype=torch.int32, device=ids.device)
+    for lcol in c.conj_lit.long().T:
+        conj &= words[:, lcol]
+    out = []
+    for key in ("conj_m_idx", "conj_n_idx"):
+        acc = torch.zeros((words.shape[0], params[key].shape[0]),
+                          dtype=torch.int32, device=ids.device)
+        for kcol in params[key].long().T:
+            acc |= conj[:, kcol]
+        out.append(acc)
+    mw, nw = out
+    got = (mw, nw, ~mw & ~nw)
+    return tuple(_unpack_words(g, b) if w else None
+                 for g, w in zip(got, want))
 
 
 _K = kernels
 _RULE_MATCH_ARGS = ([_K.VP, _K.VP, _K.I32, _K.I32]              # ids..C
-                    + [_K.I32, _K.I32] + [_K.VP] * 4             # fused
-                    + [_K.I32, _K.I32] + [_K.VP] * 3             # legacy EQ
-                    + [_K.I32] + [_K.VP] * 3                     # slot-EQ
-                    + [_K.I32, _K.VP, _K.VP, _K.I32]             # ext, n_live
-                    + [_K.I32, _K.I32, _K.VP, _K.VP]             # lit_idx, lit
-                    + [_K.I32, _K.VP]                            # n_sat, sat
+                    + [_K.VP, _K.VP, _K.I32]                     # ext, X
+                    + [_K.I32, _K.I32, _K.VP, _K.VP]             # literals
+                    + [_K.I32, _K.VP, _K.I32, _K.VP, _K.I32]     # cmp table
+                    + [_K.I32, _K.I32, _K.VP]                    # conj_lit
                     + [_K.I32, _K.I32, _K.VP, _K.VP]             # conj idx
-                    + [_K.VP] * 3 + [_K.VP])                     # outs, stream
+                    + [_K.VP] * 4 + [_K.VP])                     # outs, stream
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -438,64 +699,67 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
 def rule_match(ids: torch.Tensor, present: torch.Tensor,
                ext_m: torch.Tensor, ext_n: torch.Tensor,
                params: Mapping[str, torch.Tensor],
-               c: RuleMatchConsts) -> tuple[Any, Any, Any]:
+               c: RuleMatchConsts, planes: Sequence[str] = PLANES
+               ) -> tuple[Any, Any, Any]:
     """matched / not_matched / err, each bool [B, R], of every rule for
-    every request: the fused all-EQ gather-compare, the legacy literal
-    plane (EQ, slot-EQ, then ext columns), the literal AND over lit_idx
-    and the rule OR over conj_m_idx / conj_n_idx, in one chain of
-    launches. CPU tensors run rule_match_plain."""
+    every request, in two launches: every distinct literal's words (32
+    requests a word), then each rule's conjunction ANDs and OR, unpacked
+    into the planes named in `planes` (the others come back as None and
+    are never stored). CPU tensors run rule_match_plain."""
+    want = _want(planes)
     if ids.device.type == "cpu":
-        return rule_match_plain(ids, present, ext_m, ext_n, params, c)
+        return rule_match_plain(ids, present, ext_m, ext_n, params, c,
+                                planes)
     if ids.device.type != "cuda":
         raise ValueError(f"rule_match: unsupported device {ids.device}")
     b, n_cols = ids.shape
     _check(ids, "ids", torch.int32)
     _check(present, "present", torch.bool, (b, n_cols))
     x = int(ext_m.shape[1])
+    if x != c.n_ext:
+        raise ValueError(f"rule_match: {x} ext columns, the tables hold "
+                         f"{c.n_ext}")
     ext_m = _check(ext_m.contiguous(), "ext_m", torch.bool, (b, x))
     ext_n = _check(ext_n.contiguous(), "ext_n", torch.bool, (b, x))
-    eqc = [_check(params[k], k, dt) for k, dt in (
-        ("eqc_col", torch.int32), ("eqc_cid", torch.int32),
-        ("eqc_xor", torch.bool), ("eqc_pad", torch.bool))]
-    lit_idx = _check(params["lit_idx"], "lit_idx", torch.int32)
+    lit_a = _check(c.lit_a, "lit_a", torch.int32)
+    lit_b = _check(c.lit_b, "lit_b", torch.int32, tuple(lit_a.shape))
+    conj_lit = _check(c.conj_lit, "conj_lit", torch.int32)
+    cmp_cols = _check(c.cmp_cols, "cmp_cols", torch.int32)
+    cmp_hash = _check(c.cmp_hash, "cmp_hash", torch.int32)
     cm = _check(params["conj_m_idx"], "conj_m_idx", torch.int32)
     cn = _check(params["conj_n_idx"], "conj_n_idx", torch.int32,
                 tuple(cm.shape))
-    for t in (*eqc, lit_idx, cm, cn, ext_m, present):
+    if conj_lit.shape[0] != c.n_sat + 2:
+        raise ValueError("rule_match: conj_lit rows != n_sat + 2")
+    for t in (lit_a, lit_b, conj_lit, cmp_cols, cmp_hash, cm, cn, ext_m,
+              present):
         if t.device != ids.device:
             raise ValueError("rule_match: tensors on different devices")
     n_rows, k_max = cm.shape
-    n_eq = int(c.eq_cols.numel())
-    n_ss = int(c.ss_a.numel())
-    if c.use_legacy and max(n_eq + n_ss + x, 1) != c.n_live:
-        raise ValueError("rule_match: literal columns do not add up to "
-                         "n_live")
     dev = ids.device
-    lit_w = 2 * c.n_live + 1
-    lit = torch.empty((b, lit_w if c.use_legacy else 0), dtype=torch.bool,
-                      device=dev)
-    sat = torch.empty((b, c.n_sat + 2), dtype=torch.bool, device=dev)
-    matched = torch.empty((b, n_rows), dtype=torch.bool, device=dev)
-    not_matched = torch.empty_like(matched)
-    err = torch.empty_like(matched)
+    outs = [torch.empty((b, n_rows), dtype=torch.bool, device=dev)
+            if w else None for w in want]
     if b == 0:
-        return matched, not_matched, err
+        return tuple(outs)
+    # literal-word scratch: per group of _GROUP_WORDS request words, the
+    # 2Q + 2 literal words (m, n of each literal; FALSE, TRUE)
+    groups = -(-b // (32 * _GROUP_WORDS))
+    words = torch.empty(groups * 2 * (c.n_lits + 1) * _GROUP_WORDS,
+                        dtype=torch.int32, device=dev)
     p = kernels.ptr
     fn = kernels.function("rule_match", "rule_match", _RULE_MATCH_ARGS)
     rc = fn(p(ids), p(present), b, n_cols,
-            c.n_fused, int(eqc[0].shape[1]), *(p(t) for t in eqc),
-            int(c.use_legacy), n_eq, p(c.eq_cols), p(c.eq_cids),
-            p(c.eq_neg),
-            n_ss, p(c.ss_a), p(c.ss_b), p(c.ss_neg),
-            x, p(ext_m), p(ext_n), c.n_live,
-            int(lit_idx.shape[0]), int(lit_idx.shape[1]), p(lit_idx), p(lit),
-            c.n_sat, p(sat),
+            p(ext_m), p(ext_n), x,
+            c.n_cmp, c.n_ss, p(lit_a), p(lit_b),
+            int(cmp_cols.shape[0]), p(cmp_cols), int(cmp_hash.shape[0]),
+            p(cmp_hash), c.cmp_probe,
+            int(conj_lit.shape[0]), int(conj_lit.shape[1]), p(conj_lit),
             n_rows, k_max, p(cm), p(cn),
-            p(matched), p(not_matched), p(err),
+            p(words), *(None if o is None else p(o) for o in outs),
             kernels.VP(kernels.stream_ptr()))
     kernels.launched("rule_match", kernels.check(rc, "rule_match"), ids,
-                     present, ext_m, ext_n, params, c)
-    return matched, not_matched, err
+                     present, ext_m, ext_n, params, c, tuple(planes))
+    return tuple(outs)
 
 
 class SnapshotOracle:
@@ -888,11 +1152,6 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         ("lit_idx", lit_idx), ("conj_m_idx", conj_m_idx),
         ("conj_n_idx", conj_n_idx), ("eqc_col", eqc_col),
         ("eqc_cid", eqc_cid), ("eqc_xor", eqc_xor), ("eqc_pad", eqc_pad))}
-    consts = RuleMatchConsts.of(
-        n_fused=n_fused, use_legacy=use_legacy, n_live=n_live,
-        n_sat=CONJ_FALSE, eq_cols=eq_cols_a, eq_cids=eq_cids_a,
-        eq_neg=eq_neg_a, ss_a=ss_a_a, ss_b=ss_b_a, ss_neg=ss_neg_a,
-        device=dev)
 
     # The ext literal planes [B, n_ext] hold the DFA-group atoms, then
     # the generic tier in the reference's gen-atom order. Constant
@@ -927,9 +1186,20 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
                                      layout, interner, finder),
         cols=np.asarray([c for _, _, c in prog_atoms], np.int32))
     n_ext = n_dfa + len(gen_atom_idx)
+    consts = RuleMatchConsts.of(
+        n_fused=n_fused, use_legacy=use_legacy, n_live=n_live,
+        n_sat=CONJ_FALSE, eq_cols=eq_cols_a, eq_cids=eq_cids_a,
+        eq_neg=eq_neg_a, ss_a=ss_a_a, ss_b=ss_b_a, ss_neg=ss_neg_a,
+        device=dev, **word_tables(
+            eqc_col=eqc_col, eqc_cid=eqc_cid, eqc_xor=eqc_xor,
+            eqc_pad=eqc_pad, n_fused=n_fused, use_legacy=use_legacy,
+            lit_idx=lit_idx, n_live=n_live, eq_cols=eq_cols_a,
+            eq_cids=eq_cids_a, eq_neg=eq_neg_a, ss_a=ss_a_a, ss_b=ss_b_a,
+            ss_neg=ss_neg_a, n_ext=n_ext if use_legacy else 0,
+            n_sat=CONJ_FALSE))
 
-    def run(params: Mapping[str, Any],
-            batch: AttributeBatch) -> tuple[Any, Any, Any]:
+    def run(params: Mapping[str, Any], batch: AttributeBatch,
+            planes: Sequence[str] = PLANES) -> tuple[Any, Any, Any]:
         b = batch.ids.shape[0]
         dev_b = batch.ids.device
         width = n_ext if use_legacy else 0
@@ -946,7 +1216,8 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
                 em[:, cols] = gval
                 en[:, cols] = ~gval & ~gee
             fo.atom_eval(batch, atom_prog, em, en)
-        return rule_match(batch.ids, batch.present, em, en, params, consts)
+        return rule_match(batch.ids, batch.present, em, en, params, consts,
+                          planes)
 
     # ---- per-rule attribute bitmaps (compile-time ReferencedAttributes) ----
     attr_mask = np.zeros((n_rows, max(layout.n_columns, 1)), bool)

@@ -629,7 +629,7 @@ class PolicyEngine:
         req = torch.as_tensor(np.asarray(req_ns, np.int32)) \
             if not isinstance(req_ns, torch.Tensor) else req_ns
         req = req.to(device=self.device, dtype=torch.int32).contiguous()
-        matched, _not_matched, err = self.ruleset.fn(params, batch)
+        matched, _, err = self.ruleset.fn(params, batch, ("matched", "err"))
         lstate = self.list_states(batch, err)
         status, dur, uses, deny_rule, referenced, err_count = verdict_fold(
             matched, err, req, batch, params, quota_counts,

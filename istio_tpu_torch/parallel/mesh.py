@@ -194,7 +194,8 @@ def _match_shards(mesh: Mesh, engine, spec: dict, params, batch, req,
                 bt = rows.to(vd.device)
                 rq = req[d * bd:(d + 1) * bd].to(vd.device).contiguous()
                 pm = _place_params(params, spec, vd.device, r0, r1)
-                matched, _, err = engine.ruleset.fn(pm, bt)
+                matched, _, err = engine.ruleset.fn(pm, bt,
+                                                    ("matched", "err"))
                 lstate = engine.list_states(bt, err, (r0, r1))
                 lk = engine._list_kind.to(vd.device) \
                     if lstate is not None else None

@@ -189,7 +189,7 @@ class RouteTable:
             # per batch at 10k routes behind a high-RTT transport)
             return self._select_on_device(batch).cpu().numpy().astype(
                 np.int64)
-        matched, _, _ = self.program(batch)
+        matched = self.program(batch, ("matched",))[0]
         matched = matched.cpu().numpy().copy()
         for ridx in self.program.host_fallback:
             for b, bag in enumerate(bags):
@@ -238,7 +238,7 @@ class RouteTable:
     def _select_on_device(self, batch: AttributeBatch) -> torch.Tensor:
         """rule_match over the batch, then route_winner → int32 [B] on
         the device."""
-        matched, _, _ = self.program(batch)
+        matched = self.program(batch, ("matched",))[0]
         return route_winner(matched, self._weight_dev, self.default_index)
 
     def _select_on_device_compact(self, ids, pres_packed, map_present,
@@ -258,7 +258,7 @@ class RouteTable:
             ids=ids, present=present, map_present=on(map_present),
             str_bytes=str_bytes, str_lens=str_lens,
             hash_ids=torch.zeros_like(ids))   # routes never hash
-        matched, _, _ = self.program(batch)
+        matched = self.program(batch, ("matched",))[0]
         return route_winner(matched, self._weight_dev, self.default_index)
 
     # -- host oracle --
@@ -394,7 +394,7 @@ class RouteScopeProgram:
         padded = [s or "" for s in sources] + [""] * (cap - n)
         bags = [bag_from_mapping({"source.service": s}) for s in padded]
         batch = tensorizer.tensorize(bags)
-        matched, _, _ = program(batch)
+        matched = program(batch, ("matched",))[0]
         m = matched.cpu().numpy().copy()   # the one admission-plane pull per batched generation
         for ridx in program.host_fallback:   # defensive: EQ never falls back
             for b in range(n):

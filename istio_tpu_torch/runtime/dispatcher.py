@@ -232,7 +232,7 @@ class Dispatcher:
                 monitor.observe_stage("tensorize", t1 - t0)
                 from istio_tpu_torch.runtime.resilience import CHAOS
                 CHAOS.device_step()
-            matched, _, err = snap.ruleset(batch)
+            matched, _, err = snap.ruleset(batch, ("matched", "err"))
             matched = matched.cpu().numpy()
             err = err.cpu().numpy()
             if observe:

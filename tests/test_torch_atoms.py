@@ -445,9 +445,9 @@ def _port_ext_planes(rs, batch, monkeypatch) -> list:
     seen = {}
     real = pt_rs.rule_match
 
-    def spy(ids, present, em, en, params, c):
+    def spy(ids, present, em, en, params, c, *planes):
         seen["planes"] = (em.clone(), en.clone())
-        return real(ids, present, em, en, params, c)
+        return real(ids, present, em, en, params, c, *planes)
     monkeypatch.setattr(pt_rs, "rule_match", spy)
     rs(batch)
     em, en = seen["planes"]

@@ -7,7 +7,9 @@ payload bytes of every node and endpoint, the cache accounting (hits,
 misses, carried entries, invalidations), the publish audit, the
 node-group and pending-group sets, the scope plan and its stability,
 watch results, and the HTTP front. The port's RDS admission runs the
-route scope program (the plain versions here, device="cpu").
+route scope program (the plain versions here, device="cpu"); the
+rule_match kernel's word formulation over that program's tables equals
+the reference program's run.
 
 Every payload is bytes and every count an int: the tolerance is exact
 equality."""
@@ -15,6 +17,8 @@ import json
 import threading
 import time
 import urllib.request
+
+import numpy as np
 
 import pytest
 
@@ -113,6 +117,37 @@ def pair():
     p = Pair(*ref_workloads.make_discovery_world(**WORLD))
     yield p
     p.close()
+
+
+def test_scope_program_words_match_reference(pair):
+    """The discovery snapshot's scope program (one rule per constrained
+    source identity): rule_match's word formulation over the port's
+    tables equals the reference program's run on an admission batch of
+    every source, unknown and empty ones among them."""
+    from istio_tpu.attribute.bag import bag_from_mapping as ref_bag
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.compiler import ruleset as pt_rs
+    (ref_prog, ref_tz) = pair.ref.snapshot.scope._program
+    (prog, tz) = pair.port.snapshot.scope._program
+    rows = [{"source.service": s} for s in
+            list(pair.port.snapshot.scope._sources) + ["ghost", ""]]
+    want = [np.asarray(a) for a in ref_prog(ref_tz.tensorize(
+        [ref_bag(r) for r in rows]))]
+    seen = {}
+    real = pt_rs.rule_match
+
+    def spy(*args):
+        seen["args"] = args[:6]
+        return real(*args)
+    pt_rs.rule_match = spy
+    try:
+        prog(tz.tensorize([bag_from_mapping(r) for r in rows]))
+    finally:
+        pt_rs.rule_match = real
+    got = pt_rs.rule_match_words_plain(*seen["args"])
+    for name, w, h in zip(pt_rs.PLANES, want, got):
+        np.testing.assert_array_equal(h.numpy(), w, err_msg=name)
+    assert want[0].any() and not want[0].all()
 
 
 def test_discovery_worlds_built_by_both_packages_agree():

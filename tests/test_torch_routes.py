@@ -14,6 +14,10 @@ istio_tpu.pilot.route_nfa and istio_tpu_torch.pilot.route_nfa.
     the reference's _winner, route_densify_plain against the reference's
     re-densify formula, on random and edge inputs;
   * RouteScopeProgram.admit_rows and digest against the reference's;
+  * the rule_match kernel's word formulation (rule_match_words_plain,
+    the planes the selects ask for and all three) against the
+    reference program's run, on every route world and on the scope
+    programs' admission batches;
   * select_wire and native raise NotPorted.
 
 Every value is an int or a bool: the tolerance is exact equality."""
@@ -34,6 +38,7 @@ from istio_tpu.testing import workloads as ref_workloads
 
 from istio_tpu_torch import interop, kernels
 from istio_tpu_torch.attribute.bag import bag_from_mapping
+from istio_tpu_torch.compiler import ruleset as pt_rs
 from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.ops import route_ops
 from istio_tpu_torch.pilot import route_nfa
@@ -397,3 +402,63 @@ def test_select_wire_and_native_raise_not_ported():
         port.select_wire([b""])
     with pytest.raises(NotPorted):
         port.native
+
+
+# ------------------------------------- rule_match's word formulation (K1)
+
+def _k1_inputs(program, batch):
+    """The arguments the port program's run hands rule_match."""
+    seen = {}
+    real = pt_rs.rule_match
+
+    def spy(*args):
+        seen["args"] = args[:6]
+        return real(*args)
+    pt_rs.rule_match = spy
+    try:
+        program(batch)
+    finally:
+        pt_rs.rule_match = real
+    return seen["args"]
+
+
+def _assert_words_equal(ref_program, ref_batch, program, batch):
+    want = [np.asarray(a) for a in ref_program(ref_batch)]
+    args = _k1_inputs(program, batch)
+    for planes in (pt_rs.PLANES, ("matched",)):
+        got = pt_rs.rule_match_words_plain(*args, planes)
+        for name, w, h in zip(pt_rs.PLANES, want, got):
+            if name in planes:
+                np.testing.assert_array_equal(h.numpy(), w, err_msg=name)
+            else:
+                assert h is None
+    return want
+
+
+@pytest.mark.parametrize("name", WORLDS + ["host_fallback"])
+def test_rule_words_match_reference_on_route_worlds(name):
+    ref, port, reqs = _tables_of(name)
+    want = _assert_words_equal(
+        ref.program, ref.tensorizer.tensorize([ref_bag(r) for r in reqs]),
+        port.program,
+        port.tensorizer.tensorize([bag_from_mapping(r) for r in reqs]))
+    assert want[0].any()
+
+
+@pytest.mark.parametrize("seed", [0, 11, 29])
+def test_rule_words_match_reference_on_admission_batches(seed):
+    scope_mod = _load("test_route_scope")
+    services, rules = scope_mod._make_corpus(seed)
+    ref = ref_nfa.RouteScopeProgram(rules)
+    _, p_rules = interop.pilot_world_from_reference(services, rules)
+    port = route_nfa.RouteScopeProgram(p_rules, device="cpu")
+    sources = [s.hostname for s in services] + \
+        ["ghost.default.svc.cluster.local", ""]
+    (ref_prog, ref_tz), (prog, tz) = ref._program, port._program
+    for n in (1, 33, 97):
+        rows = [{"source.service": sources[i % len(sources)]}
+                for i in range(n)]
+        want = _assert_words_equal(
+            ref_prog, ref_tz.tensorize([ref_bag(r) for r in rows]), prog,
+            tz.tensorize([bag_from_mapping(r) for r in rows]))
+        assert want[0].shape == (n, prog.rule_ns.shape[0])
