@@ -24,7 +24,18 @@ Phases, each fatal on failure:
      formulation over the kernel's own tables) with the planes its caller
      asked for and the full triple; a timed launch also with every plane
      subset and its first K1_EDGE_B rows. rule_match makes at most two
-     `__global__` launches per call wherever a phase counts grids;
+     `__global__` launches per call wherever a phase counts grids. Every
+     verdict_fold launch replayed is held against verdict_fold_plain and
+     verdict_fold_words_plain (the formulation over the kernel's
+     rule-word tables), every check_pack launch against check_pack_plain
+     and check_pack_words_plain, and their rows print the dense-plane
+     floor beside the bound. Then (3d) verdict_fold, mesh_partial and
+     check_pack on edge inputs (FOLD_EDGE_*): rule axes of 0, 8 and odd
+     length mod 16 with quotas (three grids a fold), B from 0 to 2,048
+     either side of a warp, request namespaces -1, -7, the default, the
+     largest id and one past it and the int32 extremes, windows of the
+     rule axis off a 32-rule word whose kernel records combine into the
+     unsharded fold, and 3 and 11 instance words;
   4. end to end at B ∈ {64, 256, 2048}: three consecutive batches of
      each traffic with quota carried, every verdict field and the quota
      counters equal to the plain path (the same engine on the CPU) run
@@ -164,7 +175,8 @@ Phases, each fatal on failure:
      rule_match (matched and err only, each held against its plain
      versions) and one mesh_fold launch, no verdict_fold; walls beside
      the mesh-less server's; mesh_stage_probe; K13 against its plain
-     version on the B=2048 trip (timed). Then (13b) make_rbac_store(1000)
+     version on the B=2048 trip (timed), every shard's mesh_partial
+     record against verdict_fold_words_plain over its window. Then (13b) make_rbac_store(1000)
      at (2, 4) (RBAC allow rows across mp slices), the headline world at
      (8, 1) and (1, 1), and shard_engine_check on make_engine(10_000,
      with_quota=True) with small quotas, counters carried;
@@ -403,6 +415,46 @@ def pack_work(inputs, got) -> tuple[float, float]:
     b += int(t.rule_ns.numel()) * words * 4 + nb * t.n_cols
     ops = cells * (2 + words) + nb * (n_ov + t.n_words * 32)
     return b, ops
+
+
+def plane_floor_ms(*planes) -> float:
+    """The dense-plane floor of a fold or pack launch: every byte of its
+    [B, R] planes read once at HBM_BYTES_PER_S. One visible rule in 23,
+    interleaved (the headline world), puts a visible byte in every
+    32-byte sector, so a byte-plane kernel can reach no less."""
+    return nbytes(*planes) / HBM_BYTES_PER_S * 1e3
+
+
+def pack_library_ms(inputs) -> tuple[float | None, str]:
+    """check_pack's instance OR as one library call: torch._int_mm of the
+    int8 active plane (matched and namespace-visible) [B, R] by the int8
+    instance mask [R, n_items], the product the reference computes
+    (istio_tpu/runtime/fused.py:345-349)."""
+    import torch
+    from istio_tpu_torch.ops.bytes_ops import unpack_bits
+    _, _, _, _, _, _, matched, req, t = inputs
+    if not t.n_items:
+        return None, "no instance items"
+    ns_ok = (t.rule_ns[None, :] == t.default_ns) | \
+        (t.rule_ns[None, :] == req[:, None])
+    ms, how = int_mm_ms(matched & ns_ok, unpack_bits(t.inst_bits,
+                                                     t.n_items))
+    return ms, how + " (the instance OR's product)"
+
+
+def fold_words_check(tag: str, inputs, quota0, got, quota_got) -> None:
+    """A verdict_fold launch's outputs (got, and the counters it left,
+    quota_got) equal verdict_fold_words_plain's on the same inputs from
+    the same counters quota0."""
+    from istio_tpu_torch.models import policy_engine as pe
+    matched, errp, req, batch, params, _, c, lstate, kind = inputs
+    qw = quota0.clone()
+    want = pe.verdict_fold_words_plain(matched, errp, req, batch, params, qw,
+                                       c, lstate, kind)
+    for part, g, w in zip(("status", "dur", "uses", "deny_rule",
+                           "referenced", "err_count"), got, want):
+        assert_equal(f"{tag}.{part} (word plain)", g, w)
+    assert_equal(f"{tag}.quota_counts (word plain)", quota_got, qw)
 
 
 def rulestats_zeros(inputs):
@@ -724,6 +776,7 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
                                   lstate, kind)
             want = pe.verdict_fold_plain(matched, errp, req, batch, params,
                                          qp, c, lstate, kind)
+            fold_words_check(tag, inputs, quota0, got, qk)
             for part, g, w in zip(("status", "dur", "uses", "deny_rule",
                                    "referenced", "err_count"), got, want):
                 assert_equal(f"{tag}.{part}", g, w)
@@ -739,6 +792,7 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
                 kind), 10)
             b, ops = fold_work(matched, req, batch, params, c, quota0, qk,
                                got, lstate, kind)
+            extra["floor_ms"] = plane_floor_ms(matched, errp)
             if c.has_rbac:
                 lib, lib_call = rbac_library_ms(matched, params)
             src, rep = ("verdict_fold.cu",
@@ -749,11 +803,15 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             got = fused.check_pack(*inputs)
             want = fused.check_pack_plain(*inputs)
             assert_equal(tag, got, want)
+            assert_equal(f"{tag} (word plain)", got,
+                         fused.check_pack_words_plain(*inputs))
             if int_rate is None:
                 continue
             ms, call, how = timed(lambda: fused.check_pack(*inputs), 200)
             plain, _, _ = timed(lambda: fused.check_pack_plain(*inputs), 20)
             b, ops = pack_work(inputs, got)
+            extra["floor_ms"] = plane_floor_ms(inputs[6])
+            lib, lib_call = pack_library_ms(inputs)
             src, rep = "check_pack.cu", "istio_tpu/runtime/fused.py:315"
             err = int((got != want).sum())
         elif name == "rule_stats":
@@ -924,6 +982,8 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
         log(f"  {tag:<16} kernel {ms:9.5f} ms (per call incl. launch "
             f"{call:8.5f})   plain {plain:9.5f} ms   bound {bms:8.5f} ms "
             f"({by}; {b:.0f} B, {ops:.0f} ops)   equal: yes   [{how}]"
+            + ("" if "floor_ms" not in extra else
+               f"   dense-plane floor {extra['floor_ms']:.5f} ms")
             + ("" if lib is None else
                f"   library {lib:9.5f} ms ({lib_call})"))
         row = rows.setdefault(name, {
@@ -950,6 +1010,148 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
         if row["library_ms"] is None and lib is not None:
             row["library_ms"], row["library_call"] = lib, lib_call
     return list(rows.values())
+
+
+# verdict_fold / mesh_partial / check_pack edge inputs (phase 3d): request
+# counts either side of a warp and a block; engines whose rule axis is 0
+# mod 16 (make_engine(10_000)), 8 mod 16 (1,000) and odd (1,001), each with
+# quotas (the in-step rank / commit: three grids a call); windows of the
+# rule axis that start off a 32-rule word and have odd widths; request
+# namespaces: unknown, the pad namespace, the default, the largest id and
+# one past it, and the int32 extremes (FOLD_EDGE_NS, the ids filled in per
+# world)
+FOLD_EDGE_B = (0, 1, 7, 8, 9, 31, 32, 33, 97, 2048)
+FOLD_EDGE_RULES = (10_000, 1000, 1001)
+FOLD_EDGE_NS = (-1, -7, 0, "max", "max+1", -2 ** 31, 2 ** 31 - 1)
+
+
+def edge_namespaces(req, max_id: int):
+    """req with every other row's namespace one of FOLD_EDGE_NS."""
+    import torch
+    vals = [max_id if v == "max" else max_id + 1 if v == "max+1" else v
+            for v in FOLD_EDGE_NS]
+    out = req.clone()
+    n = out.shape[0]
+    pick = torch.tensor([vals[i % len(vals)] for i in range(0, n, 2)],
+                        dtype=torch.int32)
+    out[0::2] = pick.to(out.device)
+    return out
+
+
+def fold_edge_checks(worlds: dict) -> int:
+    """Phase 3d: verdict_fold, mesh_partial and check_pack against their
+    plain versions (and the fold against verdict_fold_words_plain) on
+    edge inputs: for each engine of `worlds` (rules → a cuda engine), a
+    captured B = 2,048 step's planes cut to every FOLD_EDGE_B and given
+    FOLD_EDGE_NS namespaces, from the same quota counters (three grids a
+    call where B > 0); mesh_partial over windows of the rule axis that
+    start off a word boundary, whose kernel records combine into the
+    unsharded fold; check_pack on random instance and predicate masks of
+    3 and 11 instance words (registers alone, and the warp's shared
+    words) over the world's namespaces. → cases."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.models import policy_engine as pe
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    from istio_tpu_torch.runtime import fused
+    n = 0
+    rng = np.random.default_rng(31)
+    for n_rules, eng in worlds.items():
+        bags, req = hit_batch(eng, n_rules, HEADLINE_B, seed=700 + n_rules)
+        batch = eng.tensorizer.tensorize(bags).to("cuda")
+        req = torch.as_tensor(req).to("cuda")
+        with kernels.launches.capture() as cap:
+            eng.check(batch, req)
+        torch.cuda.synchronize()
+        ((_, ins),) = [x for x in cap if x[0] == "verdict_fold"]
+        matched, errp, _, _, params, _, c, lstate, kind = ins
+        r = matched.shape[1]
+        max_id = max(eng.ruleset.ns_ids.values())
+        q0 = eng.quota_counts.clone()
+        for b in FOLD_EDGE_B:
+            rq = edge_namespaces(req[:b], max_id)
+            bt = batch.rows(0, b)
+            args = (matched[:b], errp[:b], rq, bt, params)
+            ls = None if lstate is None else lstate[:b]
+            qk, qp, qw = q0.clone(), q0.clone(), q0.clone()
+            g0 = kernels.launches.grids["verdict_fold"]
+            got = pe.verdict_fold(*args, qk, c, ls, kind)
+            grids = kernels.launches.grids["verdict_fold"] - g0
+            want = pe.verdict_fold_plain(*args, qp, c, ls, kind)
+            words = pe.verdict_fold_words_plain(*args, qw, c, ls, kind)
+            tag = f"fold edge R={r} B={b}"
+            for part, g, w, x in zip(("status", "dur", "uses", "deny_rule",
+                                      "referenced", "err_count"), got, want,
+                                     words):
+                assert_equal(f"{tag}.{part}", g, w)
+                assert_equal(f"{tag}.{part} (word plain)", x, w)
+            assert_equal(f"{tag}.quota_counts", qk, qp)
+            assert_equal(f"{tag}.quota_counts (word plain)", qw, qp)
+            if grids != (3 if b else 0):
+                raise AssertionError(f"{tag}: {grids} grids, want "
+                                     f"{3 if b else 0}")
+            n += 1
+        # mesh_partial over windows off a word boundary, odd widths
+        cuts = [0, 37, 101, r // 2 + 3, r - 5, r]
+        rq = edge_namespaces(req, max_id)
+        n_q = int(q0.shape[0]) if c.has_quota else 0
+        recs, flags = [], []
+        for r0, r1 in zip(cuts, cuts[1:]):
+            part = mf.FoldPart(None, r0, matched[:, r0:r1].contiguous(),
+                               errp[:, r0:r1].contiguous(), lstate, rq,
+                               batch, params, kind)
+            rec, flg, _ = mf.partial_record(part, r, c, n_q)
+            want_r, want_f = pe.verdict_fold_words_plain(
+                part.matched, part.err, rq, batch, params, None, c, lstate,
+                kind, window=(r0, r1))
+            nf = want_f.shape[1]
+            tag = f"mesh_partial edge R={r} [{r0}, {r1})"
+            assert_equal(f"{tag}.rec", rec, want_r)
+            assert_equal(f"{tag}.flags", flg[:, :nf].contiguous(), want_f)
+            recs.append(rec)
+            flags.append(flg[:, :nf])
+            n += 1
+        qc, qp = q0.clone(), q0.clone()
+        combined = pe.combine_fold_records(recs, flags, rq, batch, params,
+                                           qc, c)
+        want = pe.verdict_fold_plain(matched, errp, rq, batch, params, qp, c,
+                                     lstate, kind)
+        for part, g, w in zip(("status", "dur", "uses", "deny_rule",
+                               "referenced", "err_count"), combined, want):
+            assert_equal(f"mesh_partial edge R={r} combined.{part}", g, w)
+        assert_equal(f"mesh_partial edge R={r} combined.quota_counts", qc,
+                     qp)
+        # check_pack over the world's namespaces, 3 and 11 instance words
+        for n_cols, n_maps, n_ov in ((26, 40, 70), (300, 37, 5)):
+            n_items = n_cols + n_maps
+            inst = rng.random((r, n_items)) < 0.02
+            inst[::5, 31] = True
+            t = fused.PackTables.of(
+                eng.ruleset.rule_ns, 0, inst, rng.random((r, n_maps)) < 0.05,
+                rng.choice(r, size=n_ov, replace=False), n_cols, n_items,
+                "cuda")
+            g = torch.Generator(device="cuda").manual_seed(n_items)
+            for b in FOLD_EDGE_B:
+                rq = edge_namespaces(req[:b], max_id)
+                ins = (torch.randint(0, 14, (b,), dtype=torch.int32,
+                                     device="cuda", generator=g),
+                       torch.rand(b, device="cuda", generator=g),
+                       torch.randint(0, 1 << 30, (b,), dtype=torch.int32,
+                                     device="cuda", generator=g),
+                       torch.randint(-1, r + 1, (b,), dtype=torch.int32,
+                                     device="cuda", generator=g),
+                       torch.tensor(5, dtype=torch.int32, device="cuda"),
+                       torch.rand(b, n_cols, device="cuda",
+                                  generator=g) < 0.5,
+                       matched[:b], rq, t)
+                got = fused.check_pack(*ins)
+                tag = f"check_pack edge R={r} B={b} items={n_items}"
+                assert_equal(tag, got, fused.check_pack_plain(*ins))
+                assert_equal(f"{tag} (word plain)", got,
+                             fused.check_pack_words_plain(*ins))
+                n += 1
+    return n
 
 
 def headline_batch(engine, b: int):
@@ -1495,7 +1697,6 @@ def served_edge_checks() -> int:
     on the CPU, with padded batches. → cases."""
     import numpy as np
     import torch
-    from istio_tpu_torch.ops.bytes_ops import pack_bits
     from istio_tpu_torch.runtime import fused, rulestats
     from istio_tpu_torch.runtime.batcher import pad_to_bucket
 
@@ -1503,6 +1704,7 @@ def served_edge_checks() -> int:
     n = 0
     for b, r, n_cols, n_maps, c in ((77, 300, 50, 20, 70),
                                     (33, 64, 31, 2, 40), (5, 40, 0, 0, 0),
+                                    (97, 1001, 300, 40, 33),
                                     (2048, 10008, 26, 3, 2)):
         n_items = n_cols + n_maps
         rule_ns = torch.from_numpy(
@@ -1512,15 +1714,9 @@ def served_edge_checks() -> int:
         if n_items > 31:
             inst[::3, 31] = True
         pred = rng.random((r, n_maps)) < 0.1
-        t = fused.PackTables(
-            rule_ns=rule_ns.cuda(),
-            inst_bits=torch.from_numpy(
-                pack_bits(inst).view(np.int32).copy()).cuda(),
-            pred_bits=torch.from_numpy(
-                pack_bits(pred).view(np.int32).copy()).cuda(),
-            cols=torch.from_numpy(rng.choice(r, size=c, replace=False)
-                                  .astype(np.int32)).cuda(),
-            default_ns=0, n_cols=n_cols, n_items=n_items, n_maps=n_maps)
+        t = fused.PackTables.of(rule_ns.numpy(), 0, inst, pred,
+                                rng.choice(r, size=c, replace=False),
+                                n_cols, n_items, "cuda")
         g = torch.Generator(device="cuda").manual_seed(b)
         status = torch.randint(0, 14, (b,), dtype=torch.int32,
                                device="cuda", generator=g)
@@ -1541,6 +1737,8 @@ def served_edge_checks() -> int:
         got = fused.check_pack(*ins)
         assert_equal(f"check_pack edge B={b} R={r} items={n_items} C={c}",
                      got, fused.check_pack_plain(*ins))
+        assert_equal(f"check_pack edge B={b} R={r} items={n_items} C={c} "
+                     "(word plain)", got, fused.check_pack_words_plain(*ins))
         if n_items > 31 and not bool((got[5:5 + t.n_words] < 0).any()):
             raise AssertionError("check_pack edge: no word with bit 31 set")
         s = 6
@@ -4342,6 +4540,30 @@ def pull_of(srv, bags):
                                 d._request_ns_ids(bags), observe=False)
 
 
+def mesh_partial_checks(tag: str, parts, c, n_q: int) -> int:
+    """Every shard's mesh_partial launch (its partial record, on its own
+    stream) equal to verdict_fold_words_plain over the shard's window.
+    → shards checked."""
+    import torch
+    from istio_tpu_torch.models import policy_engine as pe
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    for d, row in enumerate(parts):
+        for m, p in enumerate(row):
+            n_rules = int(p.params["pe_deny_dur"].shape[0])
+            with p.vdev.scope():
+                rec, flags, _ = mf.partial_record(p, n_rules, c, n_q)
+            torch.cuda.synchronize()
+            lk = p.list_kind if p.lstate is not None else None
+            want_r, want_f = pe.verdict_fold_words_plain(
+                p.matched, p.err, p.req_ns, p.batch, p.params, None, c,
+                p.lstate, lk, window=(p.r0, p.r0 + int(p.matched.shape[1])))
+            nf = want_f.shape[1]
+            assert_equal(f"{tag} mesh_partial ({d}, {m}).rec", rec, want_r)
+            assert_equal(f"{tag} mesh_partial ({d}, {m}).flags",
+                         flags[:, :nf].contiguous(), want_f)
+    return sum(len(row) for row in parts)
+
+
 def mesh_fold_check(tag: str, inputs, int_rate: float | None) -> dict:
     """K13 against its plain version on one captured launch's inputs
     (from its quota state), and with int_rate timed with its bound."""
@@ -4351,6 +4573,8 @@ def mesh_fold_check(tag: str, inputs, int_rate: float | None) -> dict:
     parts, params, before, c, lk, dev = inputs
     q0 = before if before is not None else torch.zeros(1, 1, dtype=torch.int32,
                                                        device=dev)
+    mesh_partial_checks(tag, parts, c, int(q0.shape[0]) if c.has_quota
+                        else 0)
     qk, qp = q0.clone(), q0.clone()
     got = mf.mesh_fold(parts, params, qk, c, lk, dev)
     want = mf.mesh_fold_plain(parts, params, qp, c, lk, dev)
@@ -4677,6 +4901,17 @@ def main() -> int:
         "empty, all-EQ, host-fallback and rule_pad snapshots at B="
         f"{HEADLINE_B} and {', '.join(map(str, K1_EDGE_B))}, every plane "
         "subset) equal to rule_match_plain and rule_match_words_plain")
+    edge_worlds = {HEADLINE_RULES: eng, **{
+        n: workloads.make_engine(n, with_quota=True, device="cuda")
+        for n in FOLD_EDGE_RULES if n != HEADLINE_RULES}}
+    log(f"[3d] {fold_edge_checks(edge_worlds)} verdict_fold, mesh_partial "
+        "and check_pack cases (R = "
+        f"{', '.join(map(str, FOLD_EDGE_RULES))}, B = "
+        f"{', '.join(map(str, FOLD_EDGE_B))}, namespaces -1, -7, default, "
+        "largest id and one past it, int32 min and max; windows off a word "
+        "boundary; 3 and 11 instance words) equal to their plain versions "
+        "and the word plain versions; three grids a quota fold")
+    eng.quota_counts.copy_(quota_before)
 
     log(f"[t] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 4: end to end, counters zeroed just before

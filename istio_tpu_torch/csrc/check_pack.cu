@@ -18,30 +18,46 @@
 //   rows 5+W ..     overlay word c (Cw = ceil(C/32), absent when C == 0):
 //                   bit k is the raw, ns-UNmasked matched[b, cols[32c+k]].
 //
-// ns-visible: rule_ns[r] == default_ns or rule_ns[r] == req_ns[b]; the
-// rule-axis pad rows carry namespace -7 and are never visible.
+// ns-visible: the rule's bit in the request namespace's row of vis_words
+// (runtime/fused.PackTables, the verdict fold's table; rule_words.cuh),
+// the row looked up from vis_ns once per request row.
 //
 // The reference computes the two item ORs as int8 matmuls ([B,R]x[R,n])
-// followed by > 0. Here they are an OR-reduction of the rules' 32-bit
-// mask words, which is exact and needs no tensor cores.
+// followed by > 0. The predicate-map OR depends on the namespace alone:
+// it is the row's pred_ns words, computed at plan build. The instance OR
+// is an OR of the active rules' 32-bit mask words, which is exact and
+// needs no tensor cores.
 //
-// What bounds it on an H100: memory. It must read the [B, R] matched
-// plane (20.5 MB at B=2048, R=10,008) plus the R-long mask words and
-// namespaces; it does a few integer ops per byte. The design: one block
-// per request row; threads stride over the rules with consecutive
-// threads on consecutive rules (coalesced bytes of the matched row,
-// coalesced mask words), OR-accumulate up to kChunk words in registers,
-// reduce across the warp with __reduce_or_sync and across warps through
-// shared memory; the referenced and overlay bits are packed 32 at a time
-// with __ballot_sync.
+// What bounds it on an H100: memory. It reads the [B, R] matched plane
+// (20.5 MB at B=2048, R=10,008) once, plus the word tables; it does a few
+// integer ops per 16 rules. The design: one warp per request row,
+// kPackWarps rows a block; the lanes walk the row in 16-byte words (every
+// word: gating a load on the table words, to skip words with no visible
+// rule that carries an instance bit, was slower on the card, PERF.md §6),
+// so one pass serves every instance word; the active rules are
+// matched & vis & inst_any, and each ORs its IW instance words into
+// registers (the first kRegWords) or the warp's words in shared memory
+// (the rest, by shared atomics), reduced across the warp with
+// __reduce_or_sync; the referenced and overlay bits are packed 32 at a
+// time with __ballot_sync. No block barrier.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rule_words.cuh"
+
+// Request rows (warps) per block; chosen by A/B on the card (PERF.md).
+#ifndef PACK_WARPS
+#define PACK_WARPS 4
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;  // mask words accumulated per pass over a row
+using rule_words::kFull;
+using rule_words::kUnroll;
+
+constexpr int kPackWarps = PACK_WARPS;
+constexpr int kPackThreads = 32 * kPackWarps;
+constexpr int kRegWords = 8;  // instance words a lane keeps in registers
 
 // 32 bits of the pred-map bitstring P (PW words) starting at bit `base`
 // (which may be negative: the bits below 0 read 0).
@@ -55,24 +71,26 @@ __device__ __forceinline__ uint32_t bits_at(const uint32_t* P, int PW,
   return v;
 }
 
-__global__ void check_pack_kernel(
+__global__ void __launch_bounds__(kPackThreads) check_pack_kernel(
     const int32_t* __restrict__ status, const float* __restrict__ dur,
     const int32_t* __restrict__ uses, const int32_t* __restrict__ deny_rule,
     const int32_t* __restrict__ err_count,
     const uint8_t* __restrict__ referenced, int ref_stride, int n_cols,
     const uint8_t* __restrict__ matched, int B, int R,
-    const int32_t* __restrict__ req_ns, const int32_t* __restrict__ rule_ns,
-    int default_ns, const uint32_t* __restrict__ inst_bits, int IW,
-    const uint32_t* __restrict__ pred_bits, int PW, int W,
+    const int32_t* __restrict__ req_ns, const int32_t* __restrict__ vis_ns,
+    int V, const uint32_t* __restrict__ vis_words,
+    const uint32_t* __restrict__ inst_any,
+    const uint32_t* __restrict__ inst_bits, int IW,
+    const uint32_t* __restrict__ pred_ns, int PW, int W,
     const int32_t* __restrict__ cols, int C, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t s_words[];  // [IW + PW] reduced mask words
-  __shared__ uint32_t s_part[kWarps][kChunk];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ uint32_t s_inst[];  // [kPackWarps][IW - kRegWords]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kPackWarps + warp;
+  if (b >= B) return;  // the whole warp
   const uint8_t* mrow = matched + (long long)b * R;
-  const int ns = req_ns[b];
+  const int row = rule_words::vis_row(vis_ns, V, req_ns[b]);
 
-  if (tid == 0) {
+  if (lane == 0) {
     out[0LL * B + b] = status[b];
     out[1LL * B + b] = __float_as_int(dur[b]);
     out[2LL * B + b] = uses[b];
@@ -80,63 +98,78 @@ __global__ void check_pack_kernel(
     out[4LL * B + b] = err_count[0];
   }
 
-  const int NW = IW + PW;  // inst words, then pred words
-  for (int w0 = 0; w0 < NW; w0 += kChunk) {
-    const int nw = min(kChunk, NW - w0);
-    uint32_t acc[kChunk];
+  // the OR of the instance words of the row's active rules
+  const int XW = max(IW - kRegWords, 0);
+  uint32_t* xs = s_inst + warp * XW;
+  for (int k = lane; k < XW; k += 32) xs[k] = 0u;
+  __syncwarp();
+  uint32_t acc[kRegWords];
 #pragma unroll
-    for (int k = 0; k < kChunk; ++k) acc[k] = 0u;
-    for (int r = tid; r < R; r += kThreads) {
-      const int rn = rule_ns[r];
-      const bool ns_ok = rn == default_ns || rn == ns;
-      if (!ns_ok) continue;
-      const bool act = mrow[r] != 0;
+  for (int k = 0; k < kRegWords; ++k) acc[k] = 0u;
+  auto take = [&](int g, uint32_t act) {  // act: active rules from g
+    for (; act; act &= act - 1) {
+      const uint32_t* iw = inst_bits + (long long)(g + __ffs(act) - 1) * IW;
 #pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const int wi = w0 + k;
-        if (k < nw) {
-          if (wi < IW) {
-            if (act) acc[k] |= inst_bits[(long long)r * IW + wi];
-          } else {
-            acc[k] |= pred_bits[(long long)r * PW + (wi - IW)];
-          }
+      for (int k = 0; k < kRegWords; ++k)
+        if (k < IW) acc[k] |= iw[k];
+      for (int k = kRegWords; k < IW; ++k) atomicOr(xs + k - kRegWords, iw[k]);
+    }
+  };
+  if (IW > 0) {
+    const uint32_t* vis = vis_words + (long long)row * ((R + 31) / 32);
+    const rule_words::RowSplit s(mrow, R);
+    const int j1 = s.single_byte(lane, R);
+    if (j1 >= 0 && mrow[j1])
+      take(j1, rule_words::table_bits(vis, j1, 1) &
+                   rule_words::table_bits(inst_any, j1, 1));
+    const uint4* m4 = reinterpret_cast<const uint4*>(mrow + s.head);
+    for (int c0 = lane; c0 < s.body; c0 += 32 * kUnroll) {
+      uint4 mq[kUnroll];
+      uint32_t a[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int c = c0 + 32 * u;
+        mq[u] = make_uint4(0u, 0u, 0u, 0u);
+        a[u] = 0u;
+        if (c < s.body) {
+          const int g = s.head + 16 * c;
+          a[u] = rule_words::table_bits(vis, g, 16) &
+                 rule_words::table_bits(inst_any, g, 16);
+          mq[u] = m4[c];  // not gated on a: see the header
         }
       }
-    }
 #pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const uint32_t v = __reduce_or_sync(0xffffffffu, acc[k]);
-      if (lane == 0) s_part[warp][k] = v;
+      for (int u = 0; u < kUnroll; ++u)
+        take(s.head + 16 * (c0 + 32 * u),
+             rule_words::nonzero16(mq[u]) & a[u]);
     }
-    __syncthreads();
-    if (tid < nw) {
-      uint32_t v = 0u;
-#pragma unroll
-      for (int wp = 0; wp < kWarps; ++wp) v |= s_part[wp][tid];
-      s_words[w0 + tid] = v;
-    }
-    __syncthreads();
   }
+#pragma unroll
+  for (int k = 0; k < kRegWords; ++k) acc[k] = __reduce_or_sync(kFull, acc[k]);
+  __syncwarp();  // the shared words are complete
 
-  // item words: warp 0, one word per pass; referenced bits by ballot
-  if (warp == 0) {
-    for (int w = 0; w < W; ++w) {
-      const int j = 32 * w + lane;
-      const bool rb = j < n_cols && referenced[(long long)b * ref_stride + j];
-      const uint32_t refw = __ballot_sync(0xffffffffu, rb);
-      if (lane == 0) {
-        uint32_t v = refw | bits_at(s_words + IW, PW, 32 * w - n_cols);
-        if (w < IW) v |= s_words[w];
-        out[(long long)(5 + w) * B + b] = (int32_t)v;
-      }
+  // item words, one per round: referenced bits by ballot, the
+  // namespace's pred words, the instance OR
+  const uint32_t* pred = pred_ns + (long long)row * PW;
+  for (int w = 0; w < W; ++w) {
+    const int j = 32 * w + lane;
+    const bool rb = j < n_cols && referenced[(long long)b * ref_stride + j];
+    const uint32_t refw = __ballot_sync(kFull, rb);
+    if (lane == 0) {
+      uint32_t v = refw | bits_at(pred, PW, 32 * w - n_cols);
+#pragma unroll
+      for (int k = 0; k < kRegWords; ++k)
+        if (k == w) v |= acc[k];
+      if (w >= kRegWords && w < IW) v |= xs[w - kRegWords];
+      out[(long long)(5 + w) * B + b] = (int32_t)v;
     }
   }
   // overlay words: raw matched bits of the overlay columns, by ballot
   const int Cw = (C + 31) / 32;
-  for (int c = warp; c < Cw; c += kWarps) {
+  for (int c = 0; c < Cw; ++c) {
     const int k = 32 * c + lane;
     const bool v = k < C && mrow[cols[k]] != 0;
-    const uint32_t word = __ballot_sync(0xffffffffu, v);
+    const uint32_t word = __ballot_sync(kFull, v);
     if (lane == 0) out[(long long)(5 + W + c) * B + b] = (int32_t)word;
   }
 }
@@ -144,18 +177,26 @@ __global__ void check_pack_kernel(
 }  // namespace
 
 // Returns the number of kernels launched, or -cudaError_t on failure.
+// vis_ns [V] and vis_words [V + 1, ceil(R / 32)]: the verdict fold's
+// namespace rows; inst_any [ceil(R / 32)]: the rules with any instance
+// bit; inst_bits [R, IW]; pred_ns [V + 1, PW]: each namespace row's
+// predicate-map words (runtime/fused.PackTables).
 extern "C" int check_pack(const int32_t* status, const float* dur,
                           const int32_t* uses, const int32_t* deny_rule,
                           const int32_t* err_count, const uint8_t* referenced,
                           int ref_stride, int n_cols, const uint8_t* matched,
                           int B, int R, const int32_t* req_ns,
-                          const int32_t* rule_ns, int default_ns,
+                          const int32_t* vis_ns, int V,
+                          const uint32_t* vis_words,
+                          const uint32_t* inst_any,
                           const uint32_t* inst_bits, int IW,
-                          const uint32_t* pred_bits, int PW, int W,
+                          const uint32_t* pred_ns, int PW, int W,
                           const int32_t* cols, int C, int32_t* out,
                           void* stream) {
   if (B == 0) return 0;
-  const size_t smem = (size_t)(IW + PW) * sizeof(uint32_t);
+  const size_t smem =
+      (size_t)kPackWarps * (size_t)(IW > kRegWords ? IW - kRegWords : 0) *
+      sizeof(uint32_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (smem > 48 * 1024) {
     const cudaError_t a = cudaFuncSetAttribute(
@@ -163,10 +204,11 @@ extern "C" int check_pack(const int32_t* status, const float* dur,
         (int)smem);
     if (a != cudaSuccess) return -(int)a;
   }
-  check_pack_kernel<<<B, kThreads, smem, s>>>(
+  const unsigned blocks = (unsigned)((B + kPackWarps - 1) / kPackWarps);
+  check_pack_kernel<<<blocks, kPackThreads, smem, s>>>(
       status, dur, uses, deny_rule, err_count, referenced, ref_stride,
-      n_cols, matched, B, R, req_ns, rule_ns, default_ns, inst_bits, IW,
-      pred_bits, PW, W, cols, C, out);
+      n_cols, matched, B, R, req_ns, vis_ns, V, vis_words, inst_any,
+      inst_bits, IW, pred_ns, PW, W, cols, C, out);
   const cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 1 : -(int)e;
 }

@@ -15,32 +15,42 @@
 // and the rule axis over "mp" (param_shardings, :63) and XLA inserts one
 // reduction over "mp" where the fold contracts the rule axis.
 //
+// The rule tables the row fold reads are bit words (rule_words.cuh;
+// models/policy_engine.fold_word_tables): vis_words, one row of the rules
+// each request namespace sees (its row looked up once per request row
+// from vis_ns), deny_words and err_words. No per-rule namespace, deny or
+// err-mask byte is read.
+//
 // verdict_fold: three launches, one chain on the caller's stream.
-//   1. row_fold      one block per request row b. Threads stride over the
-//      R rules: active = matched & (rule_ns == default | rule_ns ==
-//      req_ns); the deny fold keeps the LOWEST active deny rule (its
-//      status) and the min TTL / use count over all active deny rules;
-//      err & ns_ok (& the err-rule mask) is counted — the err plane the
-//      regex banks already OR'd their undecidable rows into. Threads
-//      then stride over the lists: membership is the id scan (any entry
-//      id == the slot's id), or for a REGEX / IP_ADDRESSES list its
-//      state byte from list_banks (member, und, bad); an absent value,
-//      or a bad one, on an active list rule is INTERNAL, and an und row
-//      is neither evaluated nor INTERNAL. The list winner is the lowest
-//      (rule, list) pair and beats the deny only with a strictly lower
-//      rule index. Then, per RBAC spec, the block's threads stride over
-//      its allow rows (columns of matched; R is the FALSE sentinel, R + 1
-//      the TRUE one) and a block OR gives allow; an active spec whose
-//      guard row is not matched is INTERNAL, one whose guard holds and
-//      that no allow row matched is PERMISSION_DENIED, and the lowest
-//      (rule, spec) of those beats deny and list only with a strictly
-//      lower rule; the spec's TTL mins into the row's wherever it is
-//      active with its guard holding. A block reduction combines them,
-//      the row's status / TTLs / deny_rule are written, every active quota
-//      writes its composite key q·NB + (hash mod nb, floor modulo) to
-//      ckey[q, b] (-1 if inactive), the referenced row is copied from
-//      the per-namespace table, and the block's error count is added to
-//      the batch scalar with one int32 atomicAdd.
+//   1. row_fold      one warp per request row b, kFoldWarps rows a block.
+//      The lanes walk the row's matched and err bytes in 16-byte words
+//      (16 rules a load, every word of both rows: gating a load on the
+//      table words, to skip words with no visible rule the fold reads,
+//      was slower on the card, PERF.md §6):
+//      errors += popc(e & vis & err_words); the candidates m & vis &
+//      deny_words give the LOWEST active deny rule (its status) and the
+//      min TTL / use count over all of them, one set bit at a time — the
+//      err plane is the one the regex banks already OR'd their
+//      undecidable rows into. The lanes then stride over the lists:
+//      membership is the id scan (any entry id == the slot's id), or for
+//      a REGEX / IP_ADDRESSES list its state byte from list_banks
+//      (member, und, bad); an absent value, or a bad one, on an active
+//      list rule is INTERNAL, and an und row is neither evaluated nor
+//      INTERNAL. The list winner is the lowest (rule, list) pair and
+//      beats the deny only with a strictly lower rule index. Then, per
+//      RBAC spec, the lanes stride over its allow rows (columns of
+//      matched; R is the FALSE sentinel, R + 1 the TRUE one) and a warp
+//      vote gives allow; an active spec whose guard row is not matched
+//      is INTERNAL, one whose guard holds and that no allow row matched
+//      is PERMISSION_DENIED, and the lowest (rule, spec) of those beats
+//      deny and list only with a strictly lower rule; the spec's TTL
+//      mins into the row's wherever it is active with its guard holding.
+//      Warp reductions (no shared memory, no block barrier) combine the
+//      lanes, the row's status / TTLs / deny_rule are written, every
+//      active quota writes its composite key q·NB + (hash mod nb, floor
+//      modulo) to ckey[q, b] (-1 if inactive), the referenced row is
+//      copied from the per-namespace table, and the warp's error count
+//      is added to the batch scalar with one int32 atomicAdd.
 //   2. quota_rank    one thread per (b, q): rank = #{j < b : ckey[j, q] ==
 //      ckey[b, q]} over shared-memory tiles of the key column — the
 //      definition both of the reference's tiers compute (pairwise for
@@ -53,18 +63,18 @@
 //
 // The mesh (a shard holds matched and err [B/dp, R/mp]), each entry point
 // launched on the stream of the virtual device it runs for:
-//   mesh_partial  per (dp, mp) shard, one block per row: the row fold on
-//      the shard's rule slice (rule_ns, deny, list and quota tables are
-//      indexed globally). It writes one partial record per row: the
-//      lowest active deny rule, min TTL and min use count over its deny
-//      rules and evaluated lists, its error count, its list winner (rule,
-//      list, status), and one flag byte per RBAC spec (bit 0: an allow row
-//      in the slice matched, bit 1: the guard row is in the slice and
-//      matched, or is the TRUE sentinel; bit 2: the spec's rule is in the
-//      slice and active) and per quota (the quota's rule is in the slice
-//      and active). One spec's allow rows, its guard row and its own rule
-//      may lie on different shards; each bit is an OR, so the combine
-//      sees the unsharded values.
+//   mesh_partial  per (dp, mp) shard, one warp per row: the row fold on
+//      the shard's rule slice (the word tables, list and quota tables are
+//      indexed globally; the slice may start at any rule). It writes one
+//      partial record per row: the lowest active deny rule, min TTL and
+//      min use count over its deny rules and evaluated lists, its error
+//      count, its list winner (rule, list, status), and one flag byte per
+//      RBAC spec (bit 0: an allow row in the slice matched, bit 1: the
+//      guard row is in the slice and matched, or is the TRUE sentinel;
+//      bit 2: the spec's rule is in the slice and active) and per quota
+//      (the quota's rule is in the slice and active). One spec's allow
+//      rows, its guard row and its own rule may lie on different shards;
+//      each bit is an OR, so the combine sees the unsharded values.
 //   mesh_combine  per dp shard, on that shard's device, one block per row:
 //      min / sum / lowest (rule, list) over the mp records, the flag bytes
 //      OR'd over mp and decided as in row_fold, the same resolution
@@ -78,27 +88,39 @@
 //      counters (the counters stay replicated and equal to the unsharded
 //      step's), and sets RESOURCE_EXHAUSTED only on its own rows [row0,
 //      row0 + Bd).
-// Padding rows of the rule axis carry namespace -7 and are never active,
-// so they never win on any shard.
+// Padding rows of the rule axis carry namespace -7: a request namespace
+// of -7 sees them (its own vis row), and they match nothing.
 //
 // What bounds it on an H100: memory. The fold reads the matched and err
-// planes once (2·B·R bytes, 41 MB at B=2048, R=10,000, over all shards)
-// plus the R-long rule tables, and does a handful of compares per byte
-// read; the quota rank is O(B²·Q) compares but from shared memory, on a
-// few columns. The design reads each plane row by one block with
-// consecutive threads on consecutive rules (coalesced), keeps the
-// per-rule tables in L1/L2, and never materialises the [B, R] active
-// plane. The RBAC fold re-reads only its specs' allow-row columns of the
-// matched row, which the rule pass has just brought into L1: one spec of
-// ~1,000 rows at the authz world is four loads per thread and one block
-// OR, where a thread per spec would walk all of them alone. Under a mesh
-// the per-row [R] work stays where the rules are and only the small
+// planes once (2·B·R bytes, 41 MB at B=2048, R=10,008, over all shards)
+// plus the word tables, which stay in L1 / L2, and does a few integer
+// ops per 16 rules. The design gives each row one warp, so the
+// 16-byte loads of a warp cover 512 contiguous bytes of a plane and each
+// lane keeps kUnroll words of both planes in flight; the namespace, deny
+// and err-mask tests are three AND-ed table words per 16 rules instead of
+// a table read per rule; the row's reductions are warp shuffles, with no
+// barrier. The RBAC fold re-reads only its specs' allow-row columns of
+// the matched row, which the walk has just brought into L1 / L2. Under a
+// mesh the per-row [R] work stays where the rules are and only the small
 // records cross shards.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rule_words.cuh"
+
+// Request rows (warps) per block of the row folds; chosen by A/B on the
+// card (PERF.md).
+#ifndef FOLD_WARPS
+#define FOLD_WARPS 4
+#endif
+
 namespace {
 
+using rule_words::kFull;
+using rule_words::kUnroll;
+
+constexpr int kFoldWarps = FOLD_WARPS;
+constexpr int kFoldThreads = 32 * kFoldWarps;
 constexpr int kThreads = 256;
 constexpr int kCombineThreads = 128;
 constexpr int kTile = 4096;
@@ -119,28 +141,63 @@ __device__ __forceinline__ int32_t floor_mod(int32_t k, int32_t m) {
   return (r != 0 && ((r < 0) != (m < 0))) ? r + m : r;
 }
 
+__device__ __forceinline__ float warp_fmin(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fminf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long warp_min64(
+    unsigned long long x) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long y = __shfl_xor_sync(kFull, x, o);
+    x = y < x ? y : x;
+  }
+  return x;
+}
+
+// The rule-word tables of the fold (rule_words.cuh).
+struct WordTables {
+  const int32_t* vis_ns;  // [V] namespace values with a row of their own
+  int V;
+  const uint32_t* vis_words;  // [V + 1, NW]
+  const uint32_t* deny_words;  // [NW]
+  const uint32_t* err_words;   // [NW]
+  int NW;
+  const float* deny_dur;
+  const int32_t* deny_uses;
+};
+
 // A rule of the window [r0, r1) of a row whose window columns are m_row:
-// matched and in the request's namespace (or the default one).
+// matched and visible to the request's namespace (vis: its row of
+// vis_words, global rule bits).
 struct Window {
   const uint8_t* m_row;
+  const uint32_t* vis;
   int r0, r1, R;
-  const int32_t* rule_ns;
-  int default_ns;
-  int32_t rns;
 
   __device__ bool holds(int32_t r) const { return r >= r0 && r < r1; }
-  __device__ bool ns_ok(int32_t r) const {
-    const int32_t ns = rule_ns[r];
-    return ns == default_ns || ns == rns;
+  __device__ bool visible(int32_t r) const {
+    return (vis[r >> 5] >> (r & 31)) & 1u;
   }
   __device__ bool active(int32_t r) const {
-    return holds(r) && m_row[r - r0] && ns_ok(r);
+    return holds(r) && visible(r) && m_row[r - r0];
   }
   // a column of matched, or the FALSE (R) / TRUE (R + 1) sentinel
   __device__ bool column(int32_t c) const {
     return holds(c) ? m_row[c - r0] != 0 : c == R + 1;
   }
 };
+
+// The window of request row b of planes whose rows are Rm bytes.
+__device__ __forceinline__ Window row_window(const uint8_t* matched, int b,
+                                             int Rm, int r0, int R,
+                                             const WordTables& T,
+                                             int32_t rns) {
+  const int row = rule_words::vis_row(T.vis_ns, T.V, rns);
+  return Window{matched + (long long)b * Rm,
+                T.vis_words + (long long)row * T.NW, r0, r0 + Rm, R};
+}
 
 struct ListTables {
   int NL, E;
@@ -149,7 +206,7 @@ struct ListTables {
   const float* dur;
 };
 
-// The block's fold of one row over its window, valid in thread 0.
+// The warp's fold of one row over its window, the same in every lane.
 struct RowPart {
   int32_t deny, uses, errs;
   float dur;
@@ -159,50 +216,74 @@ struct RowPart {
 // The rule and list passes of one row over the window: the lowest active
 // deny rule, min TTL and use count over its active deny rules and
 // evaluated lists (INTERNAL lists min in the CheckResult defaults), the
-// error count and the lowest (rule, list) hit. Every thread of the block
-// calls it; the result is valid in thread 0.
+// error count and the lowest (rule, list) hit. Every lane of the warp
+// calls it and gets the result.
 __device__ RowPart fold_window(const Window& w, const uint8_t* e_row,
-                               const uint8_t* deny_mask,
-                               const float* deny_dur,
-                               const int32_t* deny_uses,
-                               const uint8_t* err_rule_mask,
-                               const ListTables& L, const uint8_t* ls_row,
-                               const int32_t* id_row, const uint8_t* pr_row) {
-  __shared__ int32_t s_rule[kThreads];
-  __shared__ float s_dur[kThreads];
-  __shared__ int32_t s_uses[kThreads];
-  __shared__ int32_t s_errs[kThreads];
-  __shared__ unsigned long long s_lkey[kThreads];
-  __shared__ float s_ldur[kThreads];
-  __shared__ int32_t s_luses[kThreads];
-  __shared__ int32_t s_lint[kThreads];
-  const int tid = threadIdx.x;
-
+                               const WordTables& T, const ListTables& L,
+                               const uint8_t* ls_row, const int32_t* id_row,
+                               const uint8_t* pr_row) {
+  const int lane = threadIdx.x & 31;
+  const int n = w.r1 - w.r0;
   int32_t best = kIntMax, best_uses = kIntMax, errs = 0;
   float best_dur = kBig;
-  for (int r = tid; r < w.r1 - w.r0; r += blockDim.x) {
-    const int g = w.r0 + r;
-    if (!w.ns_ok(g)) continue;
-    if (e_row[r] && (err_rule_mask == nullptr || err_rule_mask[g])) ++errs;
-    if (w.m_row[r] && deny_mask[g]) {
-      best = min(best, g);
-      best_dur = fminf(best_dur, deny_dur[g]);
-      best_uses = min(best_uses, deny_uses[g]);
+  // rules g.. of the window: matched bits m, err bits e, and the table
+  // bits already AND-ed with vis (d: visible deny rules, ce: visible
+  // rules the count covers)
+  auto fold = [&](int g, uint32_t m, uint32_t e, uint32_t d, uint32_t ce) {
+    errs += __popc(e & ce);
+    for (uint32_t c = m & d; c; c &= c - 1) {
+      const int r = g + __ffs(c) - 1;
+      best = min(best, r);
+      best_dur = fminf(best_dur, T.deny_dur[r]);
+      best_uses = min(best_uses, T.deny_uses[r]);
     }
+  };
+  const rule_words::RowSplit s(w.m_row, n);
+  const int j1 = s.single_byte(lane, n);
+  if (j1 >= 0) {
+    const int g = w.r0 + j1;
+    const uint32_t v = rule_words::table_bits(w.vis, g, 1);
+    fold(g, w.m_row[j1] != 0, e_row[j1] != 0,
+         v & rule_words::table_bits(T.deny_words, g, 1),
+         v & rule_words::table_bits(T.err_words, g, 1));
+  }
+  const uint4* m4 = reinterpret_cast<const uint4*>(w.m_row + s.head);
+  const uint4* e4 = reinterpret_cast<const uint4*>(e_row + s.head);
+  const int g0 = w.r0 + s.head;
+  for (int c0 = lane; c0 < s.body; c0 += 32 * kUnroll) {
+    uint4 mq[kUnroll], eq[kUnroll];
+    uint32_t d[kUnroll], ce[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = c0 + 32 * u;
+      mq[u] = eq[u] = make_uint4(0u, 0u, 0u, 0u);
+      d[u] = ce[u] = 0u;
+      if (c < s.body) {
+        const int g = g0 + 16 * c;
+        const uint32_t v = rule_words::table_bits(w.vis, g, 16);
+        d[u] = v & rule_words::table_bits(T.deny_words, g, 16);
+        ce[u] = v & rule_words::table_bits(T.err_words, g, 16);
+        mq[u] = m4[c];  // not gated on d / ce: see the header
+        eq[u] = e4[c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      fold(g0 + 16 * (c0 + 32 * u), rule_words::nonzero16(mq[u]),
+           rule_words::nonzero16(eq[u]), d[u], ce[u]);
   }
   unsigned long long lkey = ~0ull;  // (rule << 32 | list), lowest wins
   float ldur = kBig;
-  int32_t luses = kIntMax, lint = 0;
-  for (int l = tid; l < L.NL; l += blockDim.x) {
-    const int32_t rule = L.rule[l];
-    if (!w.active(rule)) continue;  // inactive, or another shard's list
+  int32_t luses = kIntMax;
+  bool lint = false;
+  auto fold_list = [&](int l, int32_t rule) {  // an active list's rule
     const int slot = L.slot[l];
     const bool byte = ls_row != nullptr && L.kind[l];
     const uint8_t st = byte ? ls_row[l] : 0;
     bool hit;
     if (!pr_row[slot] || (st & kListBad)) {
       hit = true;  // absent or unusable value on an active rule → INTERNAL
-      lint = 1;
+      lint = true;
     } else if (st & kListUnd) {
       hit = false;  // undecidable: the rule errs instead (list_banks)
     } else {
@@ -223,37 +304,32 @@ __device__ RowPart fold_window(const Window& w, const uint8_t* e_row,
           ((unsigned long long)(uint32_t)rule << 32) | (uint32_t)l;
       lkey = k < lkey ? k : lkey;
     }
-  }
-  s_rule[tid] = best;
-  s_dur[tid] = best_dur;
-  s_uses[tid] = best_uses;
-  s_errs[tid] = errs;
-  s_lkey[tid] = lkey;
-  s_ldur[tid] = ldur;
-  s_luses[tid] = luses;
-  s_lint[tid] = lint;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      s_rule[tid] = min(s_rule[tid], s_rule[tid + s]);
-      s_dur[tid] = fminf(s_dur[tid], s_dur[tid + s]);
-      s_uses[tid] = min(s_uses[tid], s_uses[tid + s]);
-      s_errs[tid] += s_errs[tid + s];
-      s_lkey[tid] = s_lkey[tid] < s_lkey[tid + s] ? s_lkey[tid]
-                                                   : s_lkey[tid + s];
-      s_ldur[tid] = fminf(s_ldur[tid], s_ldur[tid + s]);
-      s_luses[tid] = min(s_luses[tid], s_luses[tid + s]);
-      s_lint[tid] |= s_lint[tid + s];
+  };
+  // kUnroll lists a lane at a time, so that their activity tests (rule,
+  // vis word, matched byte) are loads in flight together; an inactive
+  // list, or another shard's, is skipped
+  for (int l0 = lane; l0 < L.NL; l0 += 32 * kUnroll) {
+    int32_t rule[kUnroll];
+    bool act[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int l = l0 + 32 * u;
+      rule[u] = l < L.NL ? L.rule[l] : w.R;  // R: in no window
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) act[u] = w.active(rule[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (act[u]) fold_list(l0 + 32 * u, rule[u]);
   }
   RowPart p;
-  p.deny = s_rule[0];
-  p.errs = s_errs[0];
-  p.lkey = s_lkey[0];
-  p.dur = fminf(s_dur[0], s_ldur[0]);
-  p.uses = min(s_uses[0], s_luses[0]);
-  if (s_lint[0]) {  // INTERNAL carries the CheckResult defaults
+  p.deny = __reduce_min_sync(kFull, best);
+  p.errs = __reduce_add_sync(kFull, errs);
+  p.lkey = warp_min64(lkey);
+  p.dur = fminf(warp_fmin(best_dur), warp_fmin(ldur));
+  p.uses = min(__reduce_min_sync(kFull, best_uses),
+               __reduce_min_sync(kFull, luses));
+  if (__any_sync(kFull, lint)) {  // INTERNAL carries the CheckResult defaults
     p.dur = fminf(p.dur, kDefaultDur);
     p.uses = min(p.uses, kDefaultUses);
   }
@@ -268,16 +344,28 @@ __device__ int32_t list_status(int l, const ListTables& L,
   return pr_row[L.slot[l]] && !bad ? L.code[l] : kInternal;
 }
 
-// RBAC spec i's flag bits over the window. Every thread of the block
-// calls it (it ends in a block OR); every thread gets the bits.
+// RBAC spec i's flag bits over the window. Every lane of the warp calls
+// it (the allow OR is a warp vote, 32·kUnroll allow rows a round, each
+// lane's kUnroll column reads in flight together, ending at the first
+// round that finds one); every lane gets the bits.
 __device__ uint8_t rbac_bits(const Window& w, int i, int KA,
                              const int32_t* rb_rule, const int32_t* rb_guard,
                              const int32_t* rb_allow) {
   const int32_t* row = rb_allow + (long long)i * KA;
-  bool any = false;
-  for (int k = threadIdx.x; k < KA && !any; k += blockDim.x)
-    any = w.column(row[k]);
-  const bool allow = __syncthreads_or(any);
+  const int lane = threadIdx.x & 31;
+  bool allow = false;
+  for (int k0 = 0; k0 < KA && !allow; k0 += 32 * kUnroll) {
+    int32_t cols[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + 32 * u + lane;
+      cols[u] = k < KA ? row[k] : w.R;  // the FALSE sentinel
+    }
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) any |= w.column(cols[u]);
+    allow = __any_sync(kFull, any);
+  }
   return (allow ? kRbAllow : 0) | (w.column(rb_guard[i]) ? kRbGuard : 0) |
          (w.active(rb_rule[i]) ? kRbActive : 0);
 }
@@ -329,40 +417,32 @@ __device__ int32_t resolve(int32_t deny, const int32_t* deny_status,
   return st;
 }
 
-// The block's quota keys of row b (ckey [Q, ld]) and its referenced row.
+// The quota keys of row b (ckey [Q, ld]) and its referenced row, by the
+// threads t = t0, t0 + nt, ... (a warp's lanes, or a block's threads).
 // act(q) says whether quota q's rule is active on the row; a key is
 // written only where the row's status is OK and the quota's slot present.
 template <typename Act>
-__device__ void row_tail(int b, int ld, int32_t status, Act act, int Q,
-                         int NB, const int32_t* q_slot, const int32_t* q_nb,
-                         const uint8_t* pr_row, const int32_t* hash_row,
-                         int32_t* ckey, int32_t rns, const uint8_t* table,
-                         int T_rows, int T_cols, int n_attr,
-                         uint8_t* referenced) {
-  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
+__device__ void row_tail(int t0, int nt, int b, int ld, int32_t status,
+                         Act act, int Q, int NB, const int32_t* q_slot,
+                         const int32_t* q_nb, const uint8_t* pr_row,
+                         const int32_t* hash_row, int32_t* ckey, int32_t rns,
+                         const uint8_t* table, int T_rows, int T_cols,
+                         int n_attr, uint8_t* referenced) {
+  for (int q = t0; q < Q; q += nt) {
     const int slot = q_slot[q];
     const bool a = status == kOK && act(q) && pr_row[slot];
     ckey[(long long)q * ld + b] =
         a ? q * NB + floor_mod(hash_row[slot], q_nb[q]) : -1;
   }
   const int t_row = (rns >= 0 && rns < T_rows - 1) ? rns + 1 : 0;
-  for (int c = threadIdx.x; c < n_attr; c += blockDim.x)
+  for (int c = t0; c < n_attr; c += nt)
     referenced[(long long)b * n_attr + c] = table[(long long)t_row * T_cols + c];
 }
 
-// The row-fold kernels and the combine keep to 32 registers a thread
-// (__launch_bounds__), so that 2,048 threads fit on an SM: a shard's Bd =
-// 1,024 row blocks of the authz world at (2, 4) then run in one wave of
-// 132 SMs (at 36 registers an SM holds 7 blocks of 256, and they need
-// two).
-__global__ void __launch_bounds__(kThreads, 8) row_fold_kernel(
+__global__ void __launch_bounds__(kFoldThreads) row_fold_kernel(
     const uint8_t* __restrict__ matched, const uint8_t* __restrict__ err,
-    const int32_t* __restrict__ req_ns, int B, int R,
-    const int32_t* __restrict__ rule_ns, int default_ns,
-    const uint8_t* __restrict__ deny_mask,
-    const int32_t* __restrict__ deny_status,
-    const float* __restrict__ deny_dur, const int32_t* __restrict__ deny_uses,
-    const uint8_t* __restrict__ err_rule_mask, ListTables L,
+    const int32_t* __restrict__ req_ns, int B, int R, WordTables T,
+    const int32_t* __restrict__ deny_status, ListTables L,
     const uint8_t* __restrict__ lstate, int NRB, int KA,
     const int32_t* __restrict__ rb_rule, const float* __restrict__ rb_dur,
     const int32_t* __restrict__ rb_guard,
@@ -375,64 +455,59 @@ __global__ void __launch_bounds__(kThreads, 8) row_fold_kernel(
     float* __restrict__ dur, int32_t* __restrict__ uses,
     int32_t* __restrict__ deny_rule, uint8_t* __restrict__ referenced,
     int32_t* __restrict__ err_count, int32_t* __restrict__ ckey) {
-  __shared__ int32_t s_status;
-  const int b = blockIdx.x;
-  const Window w{matched + (long long)b * R, 0, R, R, rule_ns, default_ns,
-                 req_ns[b]};
+  const int b = blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int32_t rns = req_ns[b];
+  const Window w = row_window(matched, b, R, 0, R, T, rns);
   const uint8_t* ls_row = lstate != nullptr ? lstate + (long long)b * L.NL
                                             : nullptr;
   const uint8_t* pr_row = present + (long long)b * C;
-  const RowPart p = fold_window(w, err + (long long)b * R, deny_mask,
-                                deny_dur, deny_uses, err_rule_mask, L, ls_row,
+  const RowPart p = fold_window(w, err + (long long)b * R, T, L, ls_row,
                                 ids + (long long)b * C, pr_row);
   RbacWin rb;
-  for (int i = 0; i < NRB; ++i) {
-    const uint8_t f = rbac_bits(w, i, KA, rb_rule, rb_guard, rb_allow);
-    if (threadIdx.x == 0) rb.take(f, i, rb_rule, rb_dur);
-  }
-  if (threadIdx.x == 0) {
-    const int32_t l_status =
-        p.lkey != ~0ull ? list_status((int)(p.lkey & 0xffffffffull), L,
-                                      ls_row, pr_row)
-                        : kOK;
-    const int32_t st =
-        resolve(p.deny, deny_status, p.lkey, l_status, rb, deny_rule + b);
+  for (int i = 0; i < NRB; ++i)
+    rb.take(rbac_bits(w, i, KA, rb_rule, rb_guard, rb_allow), i, rb_rule,
+            rb_dur);
+  const int32_t l_status =
+      p.lkey != ~0ull
+          ? list_status((int)(p.lkey & 0xffffffffull), L, ls_row, pr_row)
+          : kOK;
+  int32_t drule;
+  const int32_t st = resolve(p.deny, deny_status, p.lkey, l_status, rb,
+                             &drule);
+  if (lane == 0) {
     status[b] = st;
     dur[b] = fminf(p.dur, rb.dur);  // caching TTL; RBAC never touches uses
     uses[b] = p.uses;
-    s_status = st;
+    deny_rule[b] = drule;
     if (p.errs) atomicAdd(err_count, p.errs);
   }
-  __syncthreads();
-  row_tail(b, B, s_status, [&](int q) { return w.active(q_rule[q]); }, Q, NB,
-           q_slot, q_nb, pr_row, hash_ids + (long long)b * C, ckey, w.rns,
+  row_tail(lane, 32, b, B, st, [&](int q) { return w.active(q_rule[q]); }, Q,
+           NB, q_slot, q_nb, pr_row, hash_ids + (long long)b * C, ckey, rns,
            table, T_rows, T_cols, n_attr, referenced);
 }
 
-__global__ void __launch_bounds__(kThreads, 8) partial_kernel(
+__global__ void __launch_bounds__(kFoldThreads) partial_kernel(
     const uint8_t* __restrict__ matched, const uint8_t* __restrict__ err,
     const int32_t* __restrict__ req_ns, int Bd, int Rm, int r0, int R,
-    const int32_t* __restrict__ rule_ns, int default_ns,
-    const uint8_t* __restrict__ deny_mask, const float* __restrict__ deny_dur,
-    const int32_t* __restrict__ deny_uses,
-    const uint8_t* __restrict__ err_rule_mask, ListTables L,
-    const uint8_t* __restrict__ lstate, int NRB, int KA,
-    const int32_t* __restrict__ rb_rule,
+    WordTables T, ListTables L, const uint8_t* __restrict__ lstate, int NRB,
+    int KA, const int32_t* __restrict__ rb_rule,
     const int32_t* __restrict__ rb_guard,
     const int32_t* __restrict__ rb_allow, const int32_t* __restrict__ ids,
     const uint8_t* __restrict__ present, int C, int Q,
     const int32_t* __restrict__ q_rule, int32_t* __restrict__ rec,
     uint8_t* __restrict__ flags) {
-  const int b = blockIdx.x;
-  const Window w{matched + (long long)b * Rm, r0, r0 + Rm, R, rule_ns,
-                 default_ns, req_ns[b]};
+  const int b = blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
+  if (b >= Bd) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const Window w = row_window(matched, b, Rm, r0, R, T, req_ns[b]);
   const uint8_t* ls_row = lstate != nullptr ? lstate + (long long)b * L.NL
                                             : nullptr;
   const uint8_t* pr_row = present + (long long)b * C;
-  const RowPart p = fold_window(w, err + (long long)b * Rm, deny_mask,
-                                deny_dur, deny_uses, err_rule_mask, L, ls_row,
+  const RowPart p = fold_window(w, err + (long long)b * Rm, T, L, ls_row,
                                 ids + (long long)b * C, pr_row);
-  if (threadIdx.x == 0) {  // before the RBAC loop: p dies here
+  if (lane == 0) {
     int32_t l_rule = kIntMax, l_arg = 0, l_status = kOK;
     if (p.lkey != ~0ull) {
       l_rule = (int32_t)(p.lkey >> 32);
@@ -450,9 +525,9 @@ __global__ void __launch_bounds__(kThreads, 8) partial_kernel(
   uint8_t* f_row = flags + (long long)b * (NRB + Q);
   for (int i = 0; i < NRB; ++i) {
     const uint8_t f = rbac_bits(w, i, KA, rb_rule, rb_guard, rb_allow);
-    if (threadIdx.x == 0) f_row[i] = f;
+    if (lane == 0) f_row[i] = f;
   }
-  for (int q = threadIdx.x; q < Q; q += blockDim.x)
+  for (int q = lane; q < Q; q += 32)
     f_row[NRB + q] = w.active(q_rule[q]) ? 1 : 0;
 }
 
@@ -540,7 +615,7 @@ __global__ void __launch_bounds__(kCombineThreads, 16) combine_kernel(
       if (flag(m, NRB + q)) return true;
     return false;
   };
-  row_tail(b, Bd, s_status, act, Q, NB, q_slot, q_nb,
+  row_tail(tid, blockDim.x, b, Bd, s_status, act, Q, NB, q_slot, q_nb,
            present + (long long)b * C, hash_ids + (long long)b * C, ckey,
            req_ns[b], table, T_rows, T_cols, n_attr, referenced);
 }
@@ -620,14 +695,37 @@ int launched(int n) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
+// The word tables of a fold over R rules (rule_words.cuh).
+WordTables word_tables(int R, const int32_t* vis_ns, int V,
+                       const int32_t* vis_words, const int32_t* deny_words,
+                       const int32_t* err_words, const float* deny_dur,
+                       const int32_t* deny_uses) {
+  return WordTables{vis_ns,
+                    V,
+                    reinterpret_cast<const uint32_t*>(vis_words),
+                    reinterpret_cast<const uint32_t*>(deny_words),
+                    reinterpret_cast<const uint32_t*>(err_words),
+                    (R + 31) / 32,
+                    deny_dur,
+                    deny_uses};
+}
+
+unsigned fold_blocks(int rows) {
+  return (unsigned)((rows + kFoldWarps - 1) / kFoldWarps);
+}
+
 }  // namespace
 
 // Returns the number of kernels launched, or -cudaError_t on failure.
+// vis_ns [V], vis_words [V + 1, ceil(R / 32)], deny_words and err_words
+// [ceil(R / 32)]: models/policy_engine.fold_word_tables. matched and err
+// start at addresses equal modulo 16.
 extern "C" int verdict_fold(
     const uint8_t* matched, const uint8_t* err, const int32_t* req_ns, int B,
-    int R, const int32_t* rule_ns, int default_ns, const uint8_t* deny_mask,
+    int R, const int32_t* vis_ns, int V, const int32_t* vis_words,
+    const int32_t* deny_words, const int32_t* err_words,
     const int32_t* deny_status, const float* deny_dur,
-    const int32_t* deny_uses, const uint8_t* err_rule_mask, int NL, int E,
+    const int32_t* deny_uses, int NL, int E,
     const int32_t* list_ids, const int32_t* list_rule,
     const int32_t* list_slot, const uint8_t* list_black,
     const int32_t* list_code, const float* list_dur,
@@ -645,12 +743,13 @@ extern "C" int verdict_fold(
   if (B == 0) return 0;
   const ListTables L{NL,        E,         list_ids,  list_rule, list_slot,
                      list_code, list_uses, list_black, list_kind, list_dur};
-  row_fold_kernel<<<B, kThreads, 0, s>>>(
-      matched, err, req_ns, B, R, rule_ns, default_ns, deny_mask, deny_status,
-      deny_dur, deny_uses, err_rule_mask, L, lstate, NRB, KA, rb_rule, rb_dur,
-      rb_guard, rb_allow, ids, present, hash_ids, C, Q, NB, q_rule, q_slot,
-      q_nb, table, T_rows, T_cols, n_attr, status, dur, uses, deny_rule,
-      referenced, err_count, ckey);
+  const WordTables T = word_tables(R, vis_ns, V, vis_words, deny_words,
+                                   err_words, deny_dur, deny_uses);
+  row_fold_kernel<<<fold_blocks(B), kFoldThreads, 0, s>>>(
+      matched, err, req_ns, B, R, T, deny_status, L, lstate, NRB, KA,
+      rb_rule, rb_dur, rb_guard, rb_allow, ids, present, hash_ids, C, Q, NB,
+      q_rule, q_slot, q_nb, table, T_rows, T_cols, n_attr, status, dur, uses,
+      deny_rule, referenced, err_count, ckey);
   int n = 1;
   if (Q > 0)
     n += launch_quota(ckey, B, Q, 0, B, q_max, q_rule, quota_counts, qstate,
@@ -658,14 +757,16 @@ extern "C" int verdict_fold(
   return launched(n);
 }
 
-// The partial record of one (dp, mp) shard: rec int32 [7, Bd], flags
-// uint8 [Bd, NRB + Q]. Returns the number of kernels launched, or
-// -cudaError_t on failure.
+// The partial record of one (dp, mp) shard over the rules [r0, r0 + Rm)
+// of R: rec int32 [7, Bd], flags uint8 [Bd, NRB + Q]; the word tables as
+// verdict_fold's, over all R rules. Returns the number of kernels
+// launched, or -cudaError_t on failure.
 extern "C" int mesh_partial(
     const uint8_t* matched, const uint8_t* err, const int32_t* req_ns, int Bd,
-    int Rm, int r0, int R, const int32_t* rule_ns, int default_ns,
-    const uint8_t* deny_mask, const float* deny_dur, const int32_t* deny_uses,
-    const uint8_t* err_rule_mask, int NL, int E, const int32_t* list_ids,
+    int Rm, int r0, int R, const int32_t* vis_ns, int V,
+    const int32_t* vis_words, const int32_t* deny_words,
+    const int32_t* err_words, const float* deny_dur, const int32_t* deny_uses,
+    int NL, int E, const int32_t* list_ids,
     const int32_t* list_rule, const int32_t* list_slot,
     const uint8_t* list_black, const int32_t* list_code,
     const float* list_dur, const int32_t* list_uses,
@@ -677,9 +778,10 @@ extern "C" int mesh_partial(
   if (Bd == 0) return 0;
   const ListTables L{NL,        E,         list_ids,  list_rule, list_slot,
                      list_code, list_uses, list_black, list_kind, list_dur};
-  partial_kernel<<<Bd, kThreads, 0, s>>>(
-      matched, err, req_ns, Bd, Rm, r0, R, rule_ns, default_ns, deny_mask,
-      deny_dur, deny_uses, err_rule_mask, L, lstate, NRB, KA, rb_rule,
+  const WordTables T = word_tables(R, vis_ns, V, vis_words, deny_words,
+                                   err_words, deny_dur, deny_uses);
+  partial_kernel<<<fold_blocks(Bd), kFoldThreads, 0, s>>>(
+      matched, err, req_ns, Bd, Rm, r0, R, T, L, lstate, NRB, KA, rb_rule,
       rb_guard, rb_allow, ids, present, C, Q, q_rule, rec, flags);
   return launched(1);
 }

@@ -37,8 +37,12 @@ def params_from_reference(params: Mapping[str, Any],
     pe_* banks) → the port's: same keys, int32 / bool / float32 tensors
     on `device`, plus what the port keeps in another form — the
     verdict_fold kernel's per-namespace referenced table, derived from
-    pe_attr_mask_bits and pe_rule_ns (models/policy_engine.ref_table)."""
-    from istio_tpu_torch.models.policy_engine import ref_table
+    pe_attr_mask_bits and pe_rule_ns (models/policy_engine.ref_table),
+    and its rule-word tables, derived from pe_rule_ns, pe_deny_mask and
+    pe_err_rule_mask (fold_word_tables; the default namespace's id is 0
+    in every compiled ruleset)."""
+    from istio_tpu_torch.models.policy_engine import (fold_word_tables,
+                                                      ref_table)
 
     dev = resolve_device(device)
     out: dict[str, torch.Tensor] = {}
@@ -57,6 +61,13 @@ def params_from_reference(params: Mapping[str, Any],
         table = ref_table(np.asarray(params["pe_attr_mask_bits"], np.uint32),
                           np.asarray(params["pe_rule_ns"], np.int32))
         out["pe_ref_table"] = torch.from_numpy(table).to(dev)
+    if "pe_deny_mask" in params:
+        mask = params.get("pe_err_rule_mask")
+        words = fold_word_tables(
+            np.asarray(params["pe_rule_ns"], np.int32), 0,
+            np.asarray(params["pe_deny_mask"], bool),
+            None if mask is None else np.asarray(mask, bool))
+        out.update({k: torch.from_numpy(v).to(dev) for k, v in words.items()})
     return out
 
 

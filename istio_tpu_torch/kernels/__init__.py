@@ -125,8 +125,11 @@ def source_of(name: str) -> str:
 
 def _lib_path(name: str, probe: bool = False) -> Path:
     name = source_of(name)
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    # the source and every header of csrc/ it may include
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for inc in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(inc.read_bytes())
+    digest = h.hexdigest()[:12]
     kind = "-probe" if probe else ""
     return BUILD_DIR / f"lib{name}{kind}-{digest}.so"
 

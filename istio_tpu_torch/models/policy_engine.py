@@ -157,6 +157,51 @@ def ref_table(attr_mask_bits: np.ndarray, rule_ns: np.ndarray,
     return out
 
 
+def vis_rows_of(rule_ns: np.ndarray, default_ns: int = 0
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The rules each request namespace sees, one row per namespace value
+    that can differ: → (vis_ns int32 [V], the distinct values of rule_ns
+    ascending, pad namespace -7 among them; vis bool [V + 1, R], row v
+    the rules whose namespace is default_ns or vis_ns[v], row V the
+    default rules alone — what every other int32 sees). `vis_rows`
+    looks a request's row up."""
+    rule_ns = np.asarray(rule_ns, np.int32)
+    vis_ns = np.unique(rule_ns).astype(np.int32)
+    dflt = rule_ns == default_ns
+    vis = np.stack([dflt | (rule_ns == v) for v in vis_ns] + [dflt])
+    return vis_ns, vis
+
+
+def vis_rows(req_ns: torch.Tensor, vis_ns: torch.Tensor) -> torch.Tensor:
+    """Each request's row of the vis tables: the index of its namespace
+    in vis_ns, or V where it is none of them (exact for every int32)."""
+    hit = req_ns[:, None] == vis_ns[None, :]
+    return torch.where(hit.any(dim=1), hit.to(torch.int32).argmax(dim=1),
+                       int(vis_ns.shape[0])).long()
+
+
+def fold_word_tables(rule_ns: np.ndarray, default_ns: int,
+                     deny_mask: np.ndarray,
+                     err_rule_mask: np.ndarray | None = None
+                     ) -> dict[str, np.ndarray]:
+    """The verdict_fold kernel's rule tables as 32-rule bit words, int32
+    lanes in pack_bits order (bit k of word w is rule 32w + k), ceil(R /
+    32) words a row; port-only and derived, like ref_table:
+
+      pe_vis_ns      int32 [V]       vis_rows_of's namespace values
+      pe_vis_words   [V + 1, NW]     vis_rows_of's rows
+      pe_deny_words  [NW]            deny_mask
+      pe_err_words   [NW]            err_rule_mask (every rule without)
+    """
+    vis_ns, vis = vis_rows_of(rule_ns, default_ns)
+    n_rows = int(np.asarray(rule_ns).shape[0])
+    errs = np.ones(n_rows, bool) if err_rule_mask is None else err_rule_mask
+    words = lambda a: pack_bits(a).view(np.int32)  # noqa: E731
+    return {"pe_vis_ns": vis_ns, "pe_vis_words": words(vis),
+            "pe_deny_words": words(np.asarray(deny_mask, bool)),
+            "pe_err_words": words(np.asarray(errs, bool))}
+
+
 @dataclasses.dataclass(frozen=True)
 class FoldConsts:
     """Shape-bearing structure of the verdict fold (closure constants in
@@ -318,9 +363,267 @@ def verdict_fold_plain(matched: torch.Tensor, err: torch.Tensor,
     return status, dur, uses, deny_rule, referenced, err_count
 
 
+# the row fold's record over a window of the rule axis (mesh_partial's rec
+# rows): lowest active deny rule, min TTL bits, min uses, errors, the list
+# winner's rule / list / status
+REC_DENY, REC_DUR, REC_USES, REC_ERR, REC_LRULE, REC_LARG, REC_LSTATUS = \
+    range(7)
+REC_ROWS = 7
+RB_ALLOW, RB_GUARD, RB_ACTIVE = 1, 2, 4     # an RBAC spec's flag bits
+
+
+def _fold_record_words(matched: torch.Tensor, err: torch.Tensor,
+                            req_ns: torch.Tensor, batch: AttributeBatch,
+                            params: Mapping[str, torch.Tensor],
+                            c: FoldConsts, r0: int,
+                            lstate: torch.Tensor | None = None,
+                            list_kind: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's row fold over the window [r0, r0 + Rm) of the rule
+    axis, from the rule-word tables (fold_word_tables): `matched` / `err`
+    are the window's columns [B, Rm]. → (rec int32 [REC_ROWS, B], flags
+    uint8 [B, NRB + Q]): per RBAC spec RB_ALLOW (an allow column in the
+    window matched), RB_GUARD (its guard column is in the window and
+    matched, or is the TRUE sentinel), RB_ACTIVE (its rule is in the
+    window and active); per quota 1 where its rule is in the window and
+    active. Every field is a min, sum or OR over the rule axis, so the
+    records of windows that tile it combine (combine_fold_records) into
+    the unsharded fold."""
+    dev = matched.device
+    b, rm = matched.shape
+    n_rules = int(params["pe_deny_dur"].shape[0])
+    r1 = r0 + rm
+    if rm <= 0 or r0 < 0 or r1 > n_rules:
+        raise ValueError(f"window [{r0}, {r1}) outside {n_rules} rules")
+    n_bits = int(params["pe_vis_words"].shape[1]) * 32
+    vis = unpack_bits(params["pe_vis_words"], n_bits)[
+        vis_rows(req_ns, params["pe_vis_ns"])]                 # [B, R+]
+    deny = unpack_bits(params["pe_deny_words"], n_bits)[r0:r1]
+    errw = unpack_bits(params["pe_err_words"], n_bits)[r0:r1]
+    m, e, v = matched != 0, err != 0, vis[:, r0:r1]
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    rule_idx = torch.arange(r0, r1, dtype=torch.int32, device=dev)
+    cand = m & v & deny[None, :]
+    d_rule = torch.where(cand, rule_idx[None, :], INT32_MAX).min(dim=1).values
+    dur = torch.where(cand, params["pe_deny_dur"][None, r0:r1], big) \
+        .min(dim=1).values
+    uses = torch.where(cand, params["pe_deny_uses"][None, r0:r1],
+                       INT32_MAX).min(dim=1).values
+    errs = (e & v & errw[None, :]).sum(dim=1, dtype=torch.int32)
+
+    def active(rules: torch.Tensor) -> torch.Tensor:   # [B, len(rules)]
+        inside = (rules >= r0) & (rules < r1)
+        loc = (rules - r0).clamp(0, rm - 1).long()
+        return inside[None, :] & vis[:, rules.long()] & m[:, loc]
+
+    l_rule = torch.full((b,), INT32_MAX, dtype=torch.int32, device=dev)
+    l_arg = torch.zeros(b, dtype=torch.int32, device=dev)
+    l_status = torch.zeros(b, dtype=torch.int32, device=dev)
+    if c.has_lists:
+        rules = params["pe_list_rule"]
+        n_lists = int(rules.shape[0])
+        slot = params["pe_list_slot"].long()
+        sym_ok = batch.present[:, slot]
+        member = (batch.ids[:, slot][:, :, None] ==
+                  params["pe_list_ids"][None]).any(dim=2)
+        bad = und = torch.zeros_like(sym_ok)
+        if lstate is not None:
+            byte = (list_kind != 0)[None, :]
+            member = torch.where(byte, (lstate & bytes_ops.LIST_MEMBER) != 0,
+                                 member)
+            bad = byte & ((lstate & bytes_ops.LIST_BAD) != 0)
+            und = byte & ((lstate & bytes_ops.LIST_UND) != 0)
+        act = active(rules)
+        internal = act & (~sym_ok | bad)
+        evald = act & ~internal & ~und
+        hit = internal | (evald & (member == params["pe_list_black"][None]))
+        key = rules.long()[None, :] * n_lists + \
+            torch.arange(n_lists, device=dev)[None, :]
+        k_min = torch.where(hit, key, 1 << 62).min(dim=1).values
+        won = k_min < (1 << 62)
+        arg = torch.where(won, k_min % n_lists, 0)
+        l_rule = torch.where(won, k_min // n_lists, INT32_MAX).to(torch.int32)
+        l_arg = arg.to(torch.int32)
+        w_int = torch.gather(internal, 1, arg[:, None])[:, 0]
+        l_status = torch.where(won, torch.where(
+            w_int, INTERNAL, params["pe_list_code"][arg]), OK) \
+            .to(torch.int32)
+        dur = torch.minimum(dur, torch.where(
+            evald, params["pe_list_dur"][None], big).min(dim=1).values)
+        uses = torch.minimum(uses, torch.where(
+            evald, params["pe_list_uses"][None], INT32_MAX).min(dim=1).values)
+        lint = internal.any(dim=1)
+        dur = torch.where(lint, torch.minimum(
+            dur, torch.tensor(DEFAULT_DUR, device=dev)), dur)
+        uses = torch.where(lint, torch.minimum(
+            uses, torch.tensor(DEFAULT_USES, device=dev)), uses)
+    flags = []
+    if c.has_rbac:
+        def column(cols: torch.Tensor) -> torch.Tensor:
+            inside = (cols >= r0) & (cols < r1)
+            loc = (cols - r0).clamp(0, rm - 1).long()
+            return torch.where(inside, m[:, loc], cols == n_rules + 1)
+        allow = column(params["pe_rb_allow"]).any(dim=2)
+        guard = column(params["pe_rb_guard"])
+        flags.append(allow.to(torch.uint8) * RB_ALLOW
+                     + guard.to(torch.uint8) * RB_GUARD
+                     + active(params["pe_rb_rule"]).to(torch.uint8)
+                     * RB_ACTIVE)
+    if c.has_quota:
+        flags.append(active(params["pe_q_rule"]).to(torch.uint8))
+    rec = torch.stack([d_rule.to(torch.int32), dur.view(torch.int32),
+                       uses.to(torch.int32), errs, l_rule, l_arg, l_status])
+    flag = torch.cat(flags, dim=1) if flags else \
+        torch.zeros((b, 0), dtype=torch.uint8, device=dev)
+    return rec, flag
+
+
+def combine_fold_records(recs: Sequence[torch.Tensor],
+                         flags: Sequence[torch.Tensor], req_ns: torch.Tensor,
+                         batch: AttributeBatch,
+                         params: Mapping[str, torch.Tensor],
+                         quota_counts: torch.Tensor, c: FoldConsts
+                         ) -> tuple[torch.Tensor, ...]:
+    """The verdict from the records of windows that tile the rule axis
+    (verdict_fold_words_plain with a window), as mesh_combine and mesh_quota compute it:
+    min / sum / lowest (rule, list) over the records, the flags OR'd and
+    the RBAC specs decided, the lowest index winning with ties deny →
+    list → RBAC → quota, then the quota rank / grant / commit
+    (quota_counts updated in place) and the referenced rows → (status,
+    dur, uses, deny_rule, referenced, err_count)."""
+    dev = req_ns.device
+    rec = torch.stack(list(recs))                          # [M, 7, B]
+    deny = rec[:, REC_DENY].min(dim=0).values
+    dur = rec[:, REC_DUR].view(torch.float32).min(dim=0).values
+    uses = rec[:, REC_USES].min(dim=0).values
+    errs = rec[:, REC_ERR].sum(dim=0, dtype=torch.int32)
+    l_key = rec[:, REC_LRULE].long() * (1 << 32) + rec[:, REC_LARG].long()
+    l_at = l_key.argmin(dim=0)
+    l_rule = torch.gather(rec[:, REC_LRULE], 0, l_at[None])[0]
+    l_status = torch.gather(rec[:, REC_LSTATUS], 0, l_at[None])[0]
+    flag = flags[0]
+    for f in flags[1:]:
+        flag = flag | f
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+
+    cand_rule = deny
+    cand_status = torch.where(
+        deny < INT32_MAX,
+        params["pe_deny_status"][deny.clamp(max=int(
+            params["pe_deny_status"].shape[0]) - 1).long()], OK)
+    take_l = l_rule < cand_rule
+    cand_status = torch.where(take_l, l_status, cand_status)
+    cand_rule = torch.minimum(cand_rule, l_rule)
+    n_rbac = int(params["pe_rb_rule"].shape[0]) if c.has_rbac else 0
+    if n_rbac:
+        f = flag[:, :n_rbac]
+        allow, guard, act = ((f & bit) != 0 for bit in
+                             (RB_ALLOW, RB_GUARD, RB_ACTIVE))
+        rb_rule = params["pe_rb_rule"]
+        r_deny = act & guard & ~allow
+        r_bad = r_deny | (act & ~guard)
+        key = torch.where(r_bad, rb_rule[None, :], INT32_MAX)
+        rb_arg = torch.argmin(key, dim=1)
+        rb_min = key.min(dim=1).values
+        rb_status = torch.where(torch.gather(r_deny, 1, rb_arg[:, None])[:, 0],
+                                PERMISSION_DENIED, INTERNAL)
+        take_rb = rb_min < cand_rule
+        cand_status = torch.where(take_rb, rb_status, cand_status)
+        cand_rule = torch.minimum(cand_rule, rb_min)
+        dur = torch.minimum(dur, torch.where(
+            act & guard, params["pe_rb_dur"][None, :], big).min(dim=1).values)
+    status = torch.where(cand_rule < INT32_MAX, cand_status, OK) \
+        .to(torch.int32)
+    if c.has_quota:
+        n_q, n_b = quota_counts.shape
+        q_slot = params["pe_q_slot"].long()
+        q_act = (flag[:, n_rbac:n_rbac + n_q] != 0) & \
+            batch.present[:, q_slot] & (status == OK)[:, None]
+        bucket = torch.remainder(batch.hash_ids[:, q_slot],
+                                 params["pe_q_nb"][None, :])
+        flat = bucket + torch.arange(n_q, dtype=torch.int32,
+                                     device=dev)[None, :] * n_b
+        ckey = torch.where(q_act, flat, INT32_MAX)
+        b = int(req_ns.shape[0])
+        rank = batch_rank(ckey.T.reshape(-1)).reshape(n_q, b).T
+        prior = quota_counts.reshape(-1)[flat.long()]
+        granted = q_act & (prior + rank < params["pe_q_max"][None, :])
+        over = q_act & ~granted
+        any_over = over.any(dim=1)
+        status = torch.where(any_over, RESOURCE_EXHAUSTED, status) \
+            .to(torch.int32)
+        cand_rule = torch.where(any_over, torch.where(
+            over, params["pe_q_rule"][None, :], INT32_MAX).min(dim=1).values,
+            cand_rule)
+        quota_counts.view(-1).index_add_(
+            0, flat.long().reshape(-1), granted.to(torch.int32).reshape(-1))
+    table = params["pe_ref_table"]
+    n_rows_t = table.shape[0]
+    row = torch.where((req_ns >= 0) & (req_ns < n_rows_t - 1),
+                      req_ns + 1, 0).long()
+    referenced = table[row][:, :c.n_attr_cols]
+    deny_rule = torch.where(status == OK, INT32_MAX, cand_rule) \
+        .to(torch.int32)
+    return status, dur, uses.to(torch.int32), deny_rule, referenced, \
+        errs.sum(dtype=torch.int32)
+
+
+def verdict_fold_words_plain(matched: torch.Tensor, err: torch.Tensor,
+                             req_ns: torch.Tensor, batch: AttributeBatch,
+                             params: Mapping[str, torch.Tensor],
+                             quota_counts: torch.Tensor | None,
+                             c: FoldConsts,
+                             lstate: torch.Tensor | None = None,
+                             list_kind: torch.Tensor | None = None,
+                             window: tuple[int, int] | None = None):
+    """Plain version of the verdict_fold kernel in its own formulation:
+    the row fold over the rule-word tables (no per-rule namespace, deny
+    or err-mask read), then the combine. With `window` (r0, r1) the
+    planes are that window's columns [B, r1 - r0] and the result is the
+    window's record → (rec, flags), as mesh_partial writes it
+    (quota_counts unused); without, the whole verdict as
+    verdict_fold_plain returns it, quota_counts updated in place."""
+    if window is not None:
+        if matched.shape[1] != window[1] - window[0]:
+            raise ValueError(f"planes of {matched.shape[1]} columns for "
+                             f"the window {window}")
+        return _fold_record_words(matched, err, req_ns, batch, params,
+                                       c, window[0], lstate, list_kind)
+    rec, flags = _fold_record_words(matched, err, req_ns, batch, params,
+                                         c, 0, lstate, list_kind)
+    return combine_fold_records([rec], [flags], req_ns, batch, params,
+                                quota_counts, c)
+
+
+def check_word_tables(name: str, params: Mapping[str, torch.Tensor],
+                      n_rules: int, dev: torch.device) -> None:
+    """Raise unless params hold fold_word_tables' tables for n_rules
+    rules on dev (the shapes the kernels index without a check)."""
+    nw = (n_rules + 31) // 32
+    v = int(params["pe_vis_ns"].shape[0])
+    for k, shape in (("pe_vis_ns", (v,)), ("pe_vis_words", (v + 1, nw)),
+                     ("pe_deny_words", (nw,)), ("pe_err_words", (nw,))):
+        t = params[k]
+        if t.device != dev or t.dtype != torch.int32 or \
+                not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {k} must be a contiguous int32 "
+                             f"{shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def check_plane_pair(name: str, matched: torch.Tensor,
+                     err: torch.Tensor) -> None:
+    """The row walk reads both planes in 16-byte words from one split of
+    each row: their addresses must agree modulo 16."""
+    if (matched.data_ptr() - err.data_ptr()) % 16:
+        raise ValueError(f"{name}: matched and err start at addresses "
+                         "that differ modulo 16")
+
+
 _K = kernels
 _FOLD_ARGS = ([_K.VP, _K.VP, _K.VP, _K.I32, _K.I32]           # matched..R
-              + [_K.VP, _K.I32] + [_K.VP] * 5                  # ns, deny, mask
+              + [_K.VP, _K.I32, _K.VP, _K.VP, _K.VP]           # word tables
+              + [_K.VP] * 3                                    # deny
               + [_K.I32, _K.I32] + [_K.VP] * 7                 # lists
               + [_K.VP, _K.VP]                                 # list states
               + [_K.I32, _K.I32] + [_K.VP] * 4                 # rbac
@@ -354,8 +657,7 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
             "err": (err, torch.bool, (b, n_rules)),
             "req_ns": (req_ns, torch.int32, (b,)),
             "quota_counts": (quota_counts, torch.int32, None)}
-    for k, dt in (("pe_rule_ns", torch.int32), ("pe_deny_mask", torch.bool),
-                  ("pe_deny_status", torch.int32),
+    for k, dt in (("pe_deny_status", torch.int32),
                   ("pe_deny_dur", torch.float32),
                   ("pe_deny_uses", torch.int32)):
         want[k] = (params[k], dt, (n_rules,))
@@ -381,7 +683,8 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
             raise ValueError(f"verdict_fold: {k} must be a contiguous {dt} "
                              f"{shape or ''} tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    mask = params.get("pe_err_rule_mask")
+    check_word_tables("verdict_fold", params, n_rules, dev)
+    check_plane_pair("verdict_fold", matched, err)
     n_lists = int(params["pe_list_rule"].shape[0]) if c.has_lists else 0
     n_q = int(quota_counts.shape[0]) if c.has_quota else 0
     n_rbac = int(params["pe_rb_rule"].shape[0]) if c.has_rbac else 0
@@ -406,9 +709,10 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
     null = kernels.VP(0)
     fn = kernels.function("verdict_fold", "verdict_fold", _FOLD_ARGS)
     rc = fn(p(matched), p(err), p(req_ns), b, n_rules,
-            p(params["pe_rule_ns"]), c.default_ns, p(params["pe_deny_mask"]),
-            p(params["pe_deny_status"]), p(params["pe_deny_dur"]),
-            p(params["pe_deny_uses"]), null if mask is None else p(mask),
+            p(params["pe_vis_ns"]), int(params["pe_vis_ns"].shape[0]),
+            p(params["pe_vis_words"]), p(params["pe_deny_words"]),
+            p(params["pe_err_words"]), p(params["pe_deny_status"]),
+            p(params["pe_deny_dur"]), p(params["pe_deny_uses"]),
             n_lists, int(params["pe_list_ids"].shape[1]),
             p(params["pe_list_ids"]), p(params["pe_list_rule"]),
             p(params["pe_list_slot"]), p(params["pe_list_black"]),
@@ -602,6 +906,9 @@ class PolicyEngine:
             # referenced table (derived, see ref_table)
             "pe_ref_table": ref_table(attr_mask_bits.view(np.uint32),
                                       self.ruleset.rule_ns, default_ns),
+            # port-only: its rule-word tables (fold_word_tables)
+            **fold_word_tables(self.ruleset.rule_ns, default_ns, deny_mask,
+                               err_rule_mask),
         }
         if err_rule_mask is not None:
             pe["pe_err_rule_mask"] = err_rule_mask

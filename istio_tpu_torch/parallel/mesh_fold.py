@@ -19,7 +19,9 @@ buffer on that shard's device when they share its physical device, and
 copied there otherwise. `mesh_fold_plain` gathers matched, err and the
 list states over the mesh and runs the unsharded plain fold
 (models/policy_engine.verdict_fold_plain) on the whole batch; the CPU
-runs it, a card never does.
+runs it, a card never does. `partial_record` is one shard's mesh_partial
+step alone, whose plain version is the word fold over the shard's
+window (models/policy_engine.verdict_fold_words_plain with `window`).
 """
 from __future__ import annotations
 
@@ -30,10 +32,12 @@ import torch
 
 from istio_tpu_torch import kernels
 from istio_tpu_torch.compiler.layout import AttributeBatch
-from istio_tpu_torch.models.policy_engine import FoldConsts, verdict_fold_plain
+from istio_tpu_torch.models.policy_engine import (REC_ROWS, FoldConsts,
+                                                  check_plane_pair,
+                                                  check_word_tables,
+                                                  verdict_fold_plain,
+                                                  verdict_fold_words_plain)
 from istio_tpu_torch.platform import VirtualDevice, fork, handed_over
-
-REC_ROWS = 7        # deny rule, TTL bits, uses, errors, list rule / arg / status
 
 
 @dataclasses.dataclass
@@ -96,7 +100,7 @@ def mesh_fold_plain(parts: list[list[FoldPart]],
 
 _K = kernels
 _PARTIAL_ARGS = ([_K.VP, _K.VP, _K.VP] + [_K.I32] * 4       # planes, geometry
-                 + [_K.VP, _K.I32] + [_K.VP] * 4            # ns, deny, mask
+                 + [_K.VP, _K.I32] + [_K.VP] * 5            # word tables, deny
                  + [_K.I32, _K.I32] + [_K.VP] * 9           # lists
                  + [_K.I32, _K.I32] + [_K.VP] * 3           # rbac
                  + [_K.VP, _K.VP, _K.I32]                   # batch planes
@@ -107,6 +111,61 @@ _COMBINE_ARGS = ([_K.I32, _K.VP, _K.VP, _K.I32, _K.VP, _K.VP]
                  + [_K.VP, _K.I32, _K.I32, _K.I32]          # ref table
                  + [_K.VP] * 7 + [_K.VP])                   # outs, stream
 _QUOTA_ARGS = ([_K.VP] + [_K.I32] * 4 + [_K.VP] * 7)
+
+
+def partial_record(p: FoldPart, n_rows: int, c: FoldConsts, n_q: int,
+                   rec: torch.Tensor | None = None,
+                   flags: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Shard p's partial record over its rule slice [p.r0, p.r0 + Rm) of
+    n_rows rules, the mesh_partial step of mesh_fold alone (mesh_fold
+    counts its launches; this counts none) → (rec int32 [REC_ROWS, Bd],
+    flags uint8 [Bd, max(NRB + Q, 1)], `__global__` launches), written
+    into rec / flags when given, on the current stream of p's device.
+    CPU tensors run verdict_fold_words_plain over the window (flags
+    [Bd, NRB + Q], no launch)."""
+    pm = p.params
+    lk = p.list_kind if p.lstate is not None else None
+    rm = int(p.matched.shape[1])
+    if p.matched.device.type == "cpu":
+        rec_p, flags_p = verdict_fold_words_plain(
+            p.matched, p.err, p.req_ns, p.batch, pm, None, c, p.lstate, lk,
+            window=(p.r0, p.r0 + rm))
+        return rec_p, flags_p, 0
+    bd = int(p.matched.shape[0])
+    n_lists = int(pm["pe_list_rule"].shape[0]) if c.has_lists else 0
+    n_rbac = int(pm["pe_rb_rule"].shape[0]) if c.has_rbac else 0
+    n_flags = max(n_rbac + n_q, 1)
+    check_word_tables("mesh_partial", pm, n_rows, p.matched.device)
+    check_plane_pair("mesh_partial", p.matched, p.err)
+    if rec is None:
+        rec = torch.empty((REC_ROWS, bd), dtype=torch.int32,
+                          device=p.matched.device)
+    if flags is None:
+        flags = torch.empty((bd, n_flags), dtype=torch.uint8,
+                            device=p.matched.device)
+    p_ = kernels.ptr
+    null = kernels.VP(0)
+    fn = kernels.function("mesh_fold", "mesh_partial", _PARTIAL_ARGS)
+    rc = fn(p_(p.matched), p_(p.err), p_(p.req_ns), bd, rm, p.r0, n_rows,
+            p_(pm["pe_vis_ns"]), int(pm["pe_vis_ns"].shape[0]),
+            p_(pm["pe_vis_words"]), p_(pm["pe_deny_words"]),
+            p_(pm["pe_err_words"]), p_(pm["pe_deny_dur"]),
+            p_(pm["pe_deny_uses"]),
+            n_lists, int(pm["pe_list_ids"].shape[1]),
+            p_(pm["pe_list_ids"]), p_(pm["pe_list_rule"]),
+            p_(pm["pe_list_slot"]), p_(pm["pe_list_black"]),
+            p_(pm["pe_list_code"]), p_(pm["pe_list_dur"]),
+            p_(pm["pe_list_uses"]),
+            null if lk is None else p_(lk),
+            null if p.lstate is None else p_(p.lstate),
+            n_rbac, int(pm["pe_rb_allow"].shape[1]),
+            p_(pm["pe_rb_rule"]), p_(pm["pe_rb_guard"]),
+            p_(pm["pe_rb_allow"]),
+            p_(p.batch.ids), p_(p.batch.present),
+            int(p.batch.ids.shape[1]), n_q, p_(pm["pe_q_rule"]),
+            p_(rec), p_(flags), kernels.VP(kernels.stream_ptr()))
+    return rec, flags, kernels.check(rc, "mesh_fold")
 
 
 def _same_phys(a: VirtualDevice, b: VirtualDevice) -> bool:
@@ -134,7 +193,7 @@ def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
     dp, mp = len(parts), len(parts[0])
     bd = int(parts[0][0].matched.shape[0])
     b = bd * dp
-    n_rows = int(params["pe_rule_ns"].shape[0])
+    n_rows = int(params["pe_deny_dur"].shape[0])
     n_lists = int(params["pe_list_rule"].shape[0]) if c.has_lists else 0
     n_q = int(quota_counts.shape[0]) if c.has_quota else 0
     n_rbac = int(params["pe_rb_rule"].shape[0]) if c.has_rbac else 0
@@ -162,12 +221,9 @@ def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
     before = quota_counts.clone() if captured else None
     cur, ev0 = fork(device)
     p_ = kernels.ptr
-    null = kernels.VP(0)
-    mask = params.get("pe_err_rule_mask")
     grids = 0
     recs, flags, ev_part = [], [], []
     # ---- partials: one launch per (dp, mp) shard on its own stream
-    partial = kernels.function("mesh_fold", "mesh_partial", _PARTIAL_ARGS)
     for row in parts:
         home = row[0].vdev
         with home.scope():
@@ -189,30 +245,8 @@ def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
                 out_f = handed_over(flg[m], vd.stream) if local else \
                     torch.empty((bd, max(n_flags, 1)), dtype=torch.uint8,
                                 device=vd.device)
-                pm = p.params
-                pmask = None if mask is None else pm["pe_err_rule_mask"]
-                lk = p.list_kind if p.lstate is not None else None
-                rc = partial(
-                    p_(p.matched), p_(p.err), p_(p.req_ns), bd,
-                    int(p.matched.shape[1]), p.r0, n_rows,
-                    p_(pm["pe_rule_ns"]), c.default_ns,
-                    p_(pm["pe_deny_mask"]), p_(pm["pe_deny_dur"]),
-                    p_(pm["pe_deny_uses"]),
-                    null if pmask is None else p_(pmask),
-                    n_lists, int(pm["pe_list_ids"].shape[1]),
-                    p_(pm["pe_list_ids"]), p_(pm["pe_list_rule"]),
-                    p_(pm["pe_list_slot"]), p_(pm["pe_list_black"]),
-                    p_(pm["pe_list_code"]), p_(pm["pe_list_dur"]),
-                    p_(pm["pe_list_uses"]),
-                    null if lk is None else p_(lk),
-                    null if p.lstate is None else p_(p.lstate),
-                    n_rbac, int(pm["pe_rb_allow"].shape[1]),
-                    p_(pm["pe_rb_rule"]), p_(pm["pe_rb_guard"]),
-                    p_(pm["pe_rb_allow"]),
-                    p_(p.batch.ids), p_(p.batch.present),
-                    int(p.batch.ids.shape[1]), n_q, p_(pm["pe_q_rule"]),
-                    p_(out_r), p_(out_f), kernels.VP(kernels.stream_ptr()))
-                grids += kernels.check(rc, "mesh_fold")
+                grids += partial_record(p, n_rows, c, n_q, out_r,
+                                        out_f)[2]
                 if not local:      # the transport: a copy onto dp's device
                     rec[m].copy_(out_r, non_blocking=True)
                     flg[m].copy_(out_f, non_blocking=True)

@@ -40,7 +40,8 @@ from istio_tpu_torch import kernels
 from istio_tpu_torch.compiler.layout import AttributeBatch
 from istio_tpu_torch.models.policy_engine import (DenySpec, INTERNAL,
                                                   ListEntrySpec, PolicyEngine,
-                                                  PERMISSION_DENIED, RbacSpec)
+                                                  PERMISSION_DENIED, RbacSpec,
+                                                  vis_rows, vis_rows_of)
 from istio_tpu_torch.ops.bytes_ops import (pack_bits, pack_bool_rows,
                                            unpack_bits)
 from istio_tpu_torch.ops.field_ops import field_eval
@@ -92,8 +93,11 @@ def unpack_word_rows(rows: np.ndarray, n_bits: int) -> np.ndarray:
 class PackTables:
     """The snapshot-resident inputs of the packer, on the engine's
     device: rule namespaces, the instance and predicate-map masks as
-    uint32 lanes in pack_bits layout (held as int32), and the overlay
-    columns."""
+    uint32 lanes in pack_bits layout (held as int32), the overlay
+    columns, and the kernel's word tables: the verdict fold's namespace
+    rows (models/policy_engine.fold_word_tables: vis_ns, vis_words), the
+    rules that carry any instance bit, and each namespace row's
+    predicate-map words (the reference's ns_ok ⊗ pred_map)."""
     rule_ns: torch.Tensor      # int32 [R]
     inst_bits: torch.Tensor    # int32 [R, ceil(n_items/32)]
     pred_bits: torch.Tensor    # int32 [R, ceil(n_maps/32)]
@@ -102,6 +106,35 @@ class PackTables:
     n_cols: int                # layout columns (predicate item bits)
     n_items: int               # n_cols + n_maps
     n_maps: int
+    vis_ns: torch.Tensor       # int32 [V]
+    vis_words: torch.Tensor    # int32 [V + 1, ceil(R/32)]
+    inst_any: torch.Tensor     # int32 [ceil(R/32)]
+    pred_ns: torch.Tensor      # int32 [V + 1, ceil(n_maps/32)]
+
+    @staticmethod
+    def of(rule_ns: np.ndarray, default_ns: int, inst_mask: np.ndarray,
+           pred_map_mask: np.ndarray, cols: np.ndarray, n_cols: int,
+           n_items: int, device) -> "PackTables":
+        """The tables of a plan's masks (int8 / bool [R, n_items] and
+        [R, n_maps]) on `device`."""
+        vis_ns, vis = vis_rows_of(rule_ns, default_ns)
+        pred_ns = (vis.astype(np.int32) @ np.asarray(pred_map_mask,
+                                                     np.int32)) > 0
+
+        def lanes(mask: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(
+                pack_bits(mask).view(np.int32))).to(device)
+        return PackTables(
+            rule_ns=torch.from_numpy(
+                np.ascontiguousarray(rule_ns, np.int32)).to(device),
+            inst_bits=lanes(inst_mask), pred_bits=lanes(pred_map_mask),
+            cols=torch.from_numpy(np.asarray(cols, np.int32)).to(device),
+            default_ns=default_ns, n_cols=n_cols, n_items=n_items,
+            n_maps=int(pred_map_mask.shape[1]),
+            vis_ns=torch.from_numpy(vis_ns).to(device),
+            vis_words=lanes(vis),
+            inst_any=lanes(np.asarray(inst_mask).any(axis=1)),
+            pred_ns=lanes(pred_ns))
 
     @property
     def n_words(self) -> int:
@@ -149,11 +182,49 @@ def check_pack_plain(status: torch.Tensor, dur: torch.Tensor,
     return torch.cat(parts, dim=0) if len(parts) > 1 else head
 
 
+def check_pack_words_plain(status: torch.Tensor, dur: torch.Tensor,
+                           uses: torch.Tensor, deny_rule: torch.Tensor,
+                           err_count: torch.Tensor, referenced: torch.Tensor,
+                           matched: torch.Tensor, req_ns: torch.Tensor,
+                           t: PackTables) -> torch.Tensor:
+    """Plain version of the check_pack kernel in its own formulation:
+    each request's namespace row (vis_rows) gives its visible rules from
+    vis_words and its predicate-map words from pred_ns (no walk of the
+    rules); the instance OR runs over the rules that are matched,
+    visible and carry an instance bit (inst_any), as a 0/1 float32
+    matmul (exact: every sum is an integer below 2^24) then > 0."""
+    b, n_rules = matched.shape
+    dev = status.device
+    head = torch.stack([status, dur.view(torch.int32), uses, deny_rule,
+                        err_count.to(torch.int32).expand(b)])
+    parts = [head]
+    if t.n_items:
+        row = vis_rows(req_ns, t.vis_ns)
+        vis = unpack_bits(t.vis_words, n_rules)[row]
+        act = matched & vis & unpack_bits(t.inst_any, n_rules)[None, :]
+        items = torch.zeros((b, t.n_words * 32), dtype=torch.bool,
+                            device=dev)
+        items[:, :t.n_cols] = referenced[:, :t.n_cols]
+        if t.n_maps:
+            items[:, t.n_cols:t.n_cols + t.n_maps] |= \
+                unpack_bits(t.pred_ns, t.n_maps)[row]
+        inst = unpack_bits(t.inst_bits, t.n_items).to(torch.float32)
+        items[:, :t.n_items] |= (act.to(torch.float32) @ inst) > 0
+        parts.append(pack_bool_rows(items, t.n_words))
+    n_ov = int(t.cols.numel())
+    if n_ov:
+        n_ov_words = (n_ov + 31) // 32
+        ov = torch.zeros((b, n_ov_words * 32), dtype=torch.bool, device=dev)
+        ov[:, :n_ov] = matched[:, t.cols.long()] != 0
+        parts.append(pack_bool_rows(ov, n_ov_words))
+    return torch.cat(parts, dim=0) if len(parts) > 1 else head
+
+
 _K = kernels
 _PACK_ARGS = ([_K.VP] * 6 + [_K.I32, _K.I32]          # verdict, referenced
               + [_K.VP, _K.I32, _K.I32]                 # matched
-              + [_K.VP, _K.VP, _K.I32]                  # namespaces
-              + [_K.VP, _K.I32, _K.VP, _K.I32, _K.I32]  # masks, W
+              + [_K.VP, _K.VP, _K.I32, _K.VP]           # namespace rows
+              + [_K.VP, _K.VP, _K.I32, _K.VP, _K.I32, _K.I32]  # masks, W
               + [_K.VP, _K.I32, _K.VP, _K.VP])          # cols, out, stream
 
 
@@ -187,9 +258,13 @@ def check_pack(status: torch.Tensor, dur: torch.Tensor, uses: torch.Tensor,
             "referenced": (referenced, torch.bool, None),
             "matched": (matched, torch.bool, None),
             "req_ns": (req_ns, torch.int32, (b,)),
-            "rule_ns": (t.rule_ns, torch.int32, (n_rules,)),
+            "vis_ns": (t.vis_ns, torch.int32, None),
+            "vis_words": (t.vis_words, torch.int32,
+                          (int(t.vis_ns.shape[0]) + 1, (n_rules + 31) // 32)),
+            "inst_any": (t.inst_any, torch.int32, ((n_rules + 31) // 32,)),
             "inst_bits": (t.inst_bits, torch.int32, None),
-            "pred_bits": (t.pred_bits, torch.int32, None),
+            "pred_ns": (t.pred_ns, torch.int32,
+                        (int(t.vis_ns.shape[0]) + 1, (t.n_maps + 31) // 32)),
             "cols": (t.cols, torch.int32, None)}
     for k, (x, dt, shape) in want.items():
         if x.device != dev or x.dtype != dt or not x.is_contiguous() or \
@@ -197,10 +272,9 @@ def check_pack(status: torch.Tensor, dur: torch.Tensor, uses: torch.Tensor,
             raise ValueError(f"check_pack: {k} must be a contiguous {dt} "
                              f"{shape or ''} tensor on {dev}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    iw, pw = int(t.inst_bits.shape[1]), int(t.pred_bits.shape[1])
+    iw, pw = int(t.inst_bits.shape[1]), int(t.pred_ns.shape[1])
     if referenced.shape[0] != b or referenced.shape[1] < t.n_cols or \
-            tuple(t.inst_bits.shape) != (n_rules, t.n_words) or \
-            tuple(t.pred_bits.shape) != (n_rules, (t.n_maps + 31) // 32):
+            tuple(t.inst_bits.shape) != (n_rules, t.n_words):
         raise ValueError("check_pack: mask or referenced shapes do not "
                          "match the plan")
     if out is None:
@@ -211,8 +285,9 @@ def check_pack(status: torch.Tensor, dur: torch.Tensor, uses: torch.Tensor,
     fn = kernels.function("check_pack", "check_pack", _PACK_ARGS)
     rc = fn(p(status), p(dur), p(uses), p(deny_rule), p(err_count),
             p(referenced), int(referenced.shape[1]), t.n_cols,
-            p(matched), b, n_rules, p(req_ns), p(t.rule_ns), t.default_ns,
-            p(t.inst_bits), iw, p(t.pred_bits), pw, t.n_words,
+            p(matched), b, n_rules, p(req_ns), p(t.vis_ns),
+            int(t.vis_ns.shape[0]), p(t.vis_words), p(t.inst_any),
+            p(t.inst_bits), iw, p(t.pred_ns), pw, t.n_words,
             p(t.cols), int(t.cols.numel()), p(out),
             kernels.VP(kernels.stream_ptr()))
     kernels.launched("check_pack", kernels.check(rc, "check_pack"),
@@ -309,21 +384,10 @@ class FusedPlan:
     def pack_tables(self) -> PackTables:
         if self._packer is None:
             rs = self.engine.ruleset
-            dev = self.engine.device
-
-            def lanes(mask: np.ndarray) -> torch.Tensor:
-                return torch.from_numpy(np.ascontiguousarray(
-                    pack_bits(mask).view(np.int32))).to(dev)
-            n_maps = int(self.pred_map_mask.shape[1])
-            self._packer = PackTables(
-                rule_ns=torch.from_numpy(
-                    np.ascontiguousarray(rs.rule_ns, np.int32)).to(dev),
-                inst_bits=lanes(self.inst_mask),
-                pred_bits=lanes(self.pred_map_mask),
-                cols=torch.from_numpy(np.asarray(
-                    self.overlay_cols, np.int32)).to(dev),
-                default_ns=rs.ns_ids[""], n_cols=rs.layout.n_columns,
-                n_items=len(self.item_names), n_maps=n_maps)
+            self._packer = PackTables.of(
+                rs.rule_ns, rs.ns_ids[""], self.inst_mask,
+                self.pred_map_mask, self.overlay_cols, rs.layout.n_columns,
+                len(self.item_names), self.engine.device)
         return self._packer
 
     def packed_check(self, batch: AttributeBatch, ns_ids,

@@ -8,7 +8,7 @@ Each DIR is the root of a checkout (the same one may be named twice, as
 in `parent change change parent`). For each, in the order given and in
 a process of its own started from that directory, the checkout's
 `chip_smoke.py` is imported, its kernels are built, and the chosen
-phases run (default: all six):
+phases run (default: all eight):
 
   engine  the headline engine step at B=2048, every kernel held against
           its plain version (phase 3's headline traffic);
@@ -32,6 +32,24 @@ phases run (default: all six):
           call, `__global__` grids per call, the planes the
           caller asked for, and (where the checkout's chip_smoke has
           `k1_work`) the bound and the index_select yardstick; and the
+          served check_many wall p50 at B = 64, 256 and 2,048;
+  k1d     rule_match on the discovery service's largest admit_rows
+          launch of a cold poll of bench.py's fleet (chip_smoke's
+          DISCOVERY_FLEET; the RDS of every node of namespace 0, whose
+          rules are source-constrained): the same columns as k1;
+  fold    verdict_fold and check_pack on captured B = 2,048 launches —
+          the served Check() path (make_store(10_000), headline
+          traffic), the authz world (make_rbac_store(1000)), the list
+          world (chip_smoke.list_world_store) and the in-step quota
+          trip (chip_smoke.quota_server, zipf users) — and K13's
+          mesh_fold call of one (4, 2) mesh step (make_store(10_000) on
+          8 virtual devices of card 0), each against its plain version:
+          the median of 7 profiler windows of 20 calls beside CUDA-event
+          time per call, each `__global__` function's device time per
+          call (mesh_partial's partial_kernel among them), grids per
+          call, the bound (chip_smoke's fold_work / pack_work), the
+          dense-plane floor (the launch's [B, R] planes read once at
+          3.35 TB/s), check_pack's torch._int_mm yardstick, and the
           served check_many wall p50 at B = 64, 256 and 2,048.
 
 Each phase fails as it does in chip_smoke. Per run, the device time,
@@ -60,10 +78,56 @@ phases = sys.argv[1].split(",")
 for src, info in kernels.build().items():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or (
-                src == "rule_match" and "Compiling entry" in line):
+                src in ("rule_match", "verdict_fold", "check_pack")
+                and "Compiling entry" in line):
             print(f"BUILD {src}: {line.strip()}")
 rate, _ = cs.int_ops_per_s()
 rows = []
+
+
+def walls_ms(fn, n=20):
+    fn()
+    fn()
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t) * 1e3)
+    return sorted(out)[n // 2]
+
+
+# A timing row of `call`: the median of 7 profiler windows of 20 calls,
+# CUDA-event ms per call, each __global__ function's device ms per call,
+# and the grids per call of kernel `kernel`.
+def profiled(call, kernel, **extra):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n0 = kernels.launches[kernel]
+    g0 = kernels.launches.grids[kernel]
+    call()
+    calls = kernels.launches[kernel] - n0
+    grids = (kernels.launches.grids[kernel] - g0) / calls if calls else None
+    call_ms = cs.time_ms(call, 100)
+    windows = [w for w in (cs.device_ms(call, 20) for _ in range(7))
+               if w is not None]
+    ms = sorted(windows)[len(windows) // 2] if windows else call_ms
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    grid_ms = {re.sub(r"^.*::|[<(].*$", "", e.key.split("(")[-2]
+                      if "(" in e.key else e.key):
+               e.self_device_time_total / 20 / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    return {"ms": ms, "call_ms": call_ms, "windows": windows,
+            "ms_source": f"median of {len(windows)} profiler windows"
+            if windows else "cuda_events", "grids": grids,
+            "grid_ms": grid_ms, **extra}
 if "engine" in phases:
     eng = workloads.make_engine(cs.HEADLINE_RULES, with_quota=True,
                                 device="cuda")
@@ -129,17 +193,40 @@ if "k9" in phases:
             if hasattr(cs, "k9_stage_split"):
                 row["stages"] = cs.k9_stage_split(kmode, plane, qrows, gate)
             rows.append(row)
-if "k1" in phases:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from istio_tpu_torch.attribute.bag import bag_from_mapping
+# every checkout's rule_match returns these planes (in a checkout whose
+# rule_match takes `planes`, None in place of one not asked for)
+K1_PLANES = ("matched", "not_matched", "err")
+
+
+# A captured rule_match launch held against its plain version and timed
+# (profiled), with the bound and index_select yardstick where the
+# checkout's chip_smoke has them.
+def k1_row(world, inputs, phase="k1"):
     from istio_tpu_torch.compiler import ruleset
+    ids, present, em, en, params, c, *planes = inputs
+    args = (ids, present, em, en, params, c, *planes)
+    call = lambda: ruleset.rule_match(*args)
+    want = ruleset.rule_match_plain(ids, present, em, en, params, c)
+    for g, w in zip(call(), want):
+        if g is not None:
+            cs.assert_equal(f"k1 {world}", g, w)
+    row = profiled(call, "rule_match", phase=phase,
+                   name=f"rule_match.{world}",
+                   planes=list(planes[0]) if planes else list(K1_PLANES),
+                   bound_ms=None, bound_by=None, library_ms=None)
+    row["plain_ms"] = cs.time_ms(lambda: ruleset.rule_match_plain(
+        ids, present, em, en, params, c), 5)
+    if hasattr(cs, "k1_work"):
+        work = cs.k1_work(*inputs[:6], row["planes"])
+        row["bound_ms"], row["bound_by"] = cs.bound(*work, rate)
+        row["library_ms"], _ = cs.k1_library_ms(*inputs[:6])
+    return row
+
+
+if "k1" in phases:
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
     from istio_tpu_torch.pilot.route_nfa import RouteTable
     from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
-
-    # every checkout's rule_match returns these planes (in a checkout
-    # whose rule_match takes `planes`, None in place of one not asked for)
-    K1_PLANES = ("matched", "not_matched", "err")
 
     def k1_launch(drive):
         with kernels.launches.capture() as cap:
@@ -147,61 +234,6 @@ if "k1" in phases:
         torch.cuda.synchronize()
         (inputs,) = [x for n, x in cap if n == "rule_match"]
         return inputs
-
-    def k1_row(world, inputs):
-        ids, present, em, en, params, c, *planes = inputs
-        args = (ids, present, em, en, params, c, *planes)
-        call = lambda: ruleset.rule_match(*args)
-        want = ruleset.rule_match_plain(ids, present, em, en, params, c)
-        for g, w in zip(call(), want):
-            if g is not None:
-                cs.assert_equal(f"k1 {world}", g, w)
-        n0 = kernels.launches["rule_match"]
-        g0 = kernels.launches.grids["rule_match"]
-        call()
-        grids = (kernels.launches.grids["rule_match"] - g0) / \
-            (kernels.launches["rule_match"] - n0)
-        call_ms = cs.time_ms(call, 100)
-        windows = [w for w in (cs.device_ms(call, 20) for _ in range(7))
-                   if w is not None]
-        ms = sorted(windows)[len(windows) // 2] if windows else call_ms
-        plain = cs.time_ms(lambda: ruleset.rule_match_plain(
-            ids, present, em, en, params, c), 5)
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                call()
-            torch.cuda.synchronize()
-        grid_ms = {re.sub(r"^.*::|[<(].*$", "", e.key.split("(")[-2]
-                          if "(" in e.key else e.key):
-                   e.self_device_time_total / 20 / 1e3
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0}
-        row = {"phase": "k1", "name": f"rule_match.{world}", "ms": ms,
-               "call_ms": call_ms, "plain_ms": plain, "windows": windows,
-               "ms_source": f"median of {len(windows)} profiler windows"
-               if windows else "cuda_events", "grids": grids,
-               "planes": list(planes[0]) if planes else list(K1_PLANES),
-               "grid_ms": grid_ms,
-               "bound_ms": None, "bound_by": None, "library_ms": None}
-        if hasattr(cs, "k1_work"):
-            work = cs.k1_work(*inputs[:6], row["planes"])
-            row["bound_ms"], row["bound_by"] = cs.bound(*work, rate)
-            row["library_ms"], _ = cs.k1_library_ms(*inputs[:6])
-        return row
-
-    def walls_ms(fn, n=20):
-        fn()
-        fn()
-        out = []
-        for _ in range(n):
-            t = time.perf_counter()
-            fn()
-            out.append((time.perf_counter() - t) * 1e3)
-        return sorted(out)[n // 2]
 
     srv, store = cs.served(cs.HEADLINE_RULES, "cuda",
                            dict(buckets=(64, 256, cs.HEADLINE_B),
@@ -232,14 +264,171 @@ if "k1" in phases:
         cs.HEADLINE_B, n_services=len(services), seed=cs.HEADLINE_B)]
     tbl.select(rt_bags)
     rows.append(k1_row("routes", k1_launch(lambda: tbl.select(rt_bags))))
+if "k1d" in phases:
+    from istio_tpu_torch.pilot.discovery import DiscoveryService
+    registry, dstore, nodes, meta = workloads.make_discovery_world(
+        **cs.DISCOVERY_FLEET)
+    ds = DiscoveryService(registry, dstore, device="cuda")
+    reps = cs.DISCOVERY_FLEET["replicas"]
+    with kernels.launches.capture() as cap:
+        for i, n in enumerate(nodes):
+            if meta["ns_of"][i // reps] == 0:   # source-constrained
+                ds.list_routes("8000", "c", n)
+    torch.cuda.synchronize()
+    k1 = [x for nm, x in cap if nm == "rule_match"]
+    ins = max(k1, key=lambda x: x[0].shape[0] * x[4]["conj_m_idx"].shape[0])
+    row = k1_row("discovery", ins, phase="k1d")
+    row["shape"] = [int(ins[0].shape[0]),
+                    int(ins[4]["conj_m_idx"].shape[0])]
+    row["launches"] = len(k1)
+    rows.append(row)
+    ds.stop()
+if "fold" in phases:
+    import numpy as np
+    from istio_tpu_torch import platform
+    from istio_tpu_torch.adapters.sdk import QuotaArgs
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.models import policy_engine as pe
+    from istio_tpu_torch.ops.bytes_ops import unpack_bits
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs, fused
+
+    def floor_ms(*planes):
+        return sum(t.numel() * t.element_size() for t in planes) \
+            / cs.HBM_BYTES_PER_S * 1e3
+
+    def fold_rows(world, cap, q0):
+        for name, ins in cap:
+            if name == "verdict_fold":
+                m, e, req, batch, params, _, c, ls, kind = ins
+                qk, qp = q0.clone(), q0.clone()
+                got = pe.verdict_fold(m, e, req, batch, params, qk, c, ls,
+                                      kind)
+                want = pe.verdict_fold_plain(m, e, req, batch, params, qp,
+                                             c, ls, kind)
+                for g, w in zip(got, want):
+                    cs.assert_equal(f"fold {world}", g, w)
+                cs.assert_equal(f"fold {world} quota", qk, qp)
+                scratch = q0.clone()
+                row = profiled(lambda: pe.verdict_fold(
+                    m, e, req, batch, params, scratch, c, ls, kind),
+                    "verdict_fold", phase="fold",
+                    name=f"verdict_fold.{world}", floor_ms=floor_ms(m, e))
+                row["plain_ms"] = cs.time_ms(lambda: pe.verdict_fold_plain(
+                    m, e, req, batch, params, scratch, c, ls, kind), 5)
+                work = cs.fold_work(m, req, batch, params, c, q0, qk, got,
+                                    ls, kind)
+                row["library_ms"] = cs.rbac_library_ms(m, params)[0] \
+                    if c.has_rbac else None
+            elif name == "check_pack":
+                cs.assert_equal(f"pack {world}", fused.check_pack(*ins),
+                                fused.check_pack_plain(*ins))
+                t = ins[8]
+                row = profiled(lambda: fused.check_pack(*ins), "check_pack",
+                               phase="fold", name=f"check_pack.{world}",
+                               floor_ms=floor_ms(ins[6]))
+                row["plain_ms"] = cs.time_ms(
+                    lambda: fused.check_pack_plain(*ins), 5)
+                work = cs.pack_work(ins, fused.check_pack(*ins))
+                ns_ok = (t.rule_ns[None, :] == t.default_ns) | \
+                    (t.rule_ns[None, :] == ins[7][:, None])
+                row["library_ms"] = cs.int_mm_ms(
+                    ins[6] & ns_ok, unpack_bits(t.inst_bits, t.n_items))[0] \
+                    if t.n_items else None
+            else:
+                continue
+            row["bound_ms"], row["bound_by"] = cs.bound(*work, rate)
+            rows.append(row)
+
+    def captured(drive):
+        drive()
+        with kernels.launches.capture() as cap:
+            drive()
+        torch.cuda.synchronize()
+        return cap
+
+    srv, store = cs.served(cs.HEADLINE_RULES, "cuda",
+                           dict(buckets=(64, 256, cs.HEADLINE_B),
+                                rulestats_drain_s=0))
+    big = cs.served_traffic("headline", cs.HEADLINE_RULES, cs.HEADLINE_B,
+                            seed=1)
+    eng = srv.controller.dispatcher.fused.engine
+    fold_rows("served", captured(lambda: srv.check_many(big)),
+              eng.quota_counts.clone())
+    served_row = next(r for r in rows if r["name"] == "verdict_fold.served")
+    served_row["walls_p50_ms"] = {b: walls_ms(lambda: srv.check_many(
+        cs.served_traffic("headline", cs.HEADLINE_RULES, b, seed=b)))
+        for b in (64, 256, cs.HEADLINE_B)}
+    srv.close()
+    store.close()
+    az_store = workloads.make_rbac_store(cs.AUTHZ_ROLE_RULES)
+    az = RuntimeServer(az_store, ServerArgs(
+        default_manifest=workloads.MESH_MANIFEST, buckets=(cs.HEADLINE_B,),
+        rulestats_drain_s=0), device="cuda")
+    az_bags = [bag_from_mapping(x) for x in workloads.make_rbac_request_dicts(
+        cs.HEADLINE_B, seed=cs.HEADLINE_B)]
+    fold_rows("authz", captured(lambda: az.check_many(az_bags)),
+              az.controller.dispatcher.fused.engine.quota_counts.clone())
+    az.close()
+    az_store.close()
+    l_store = cs.list_world_store()
+    lsrv = RuntimeServer(l_store, ServerArgs(buckets=(cs.HEADLINE_B,),
+                                             rulestats_drain_s=0),
+                         device="cuda")
+    dicts = cs.list_world_dicts()
+    l_bags = [bag_from_mapping(x) for x in
+              (dicts * (cs.HEADLINE_B // len(dicts) + 1))[:cs.HEADLINE_B]]
+    fold_rows("lists", captured(lambda: lsrv.check_many(l_bags)),
+              lsrv.controller.dispatcher.fused.engine.quota_counts.clone())
+    lsrv.close()
+    l_store.close()
+    qsrv, q_store, pool, clock = cs.quota_server(
+        "cuda", dict(buckets=(cs.HEADLINE_B,), rulestats_drain_s=0))
+    rng = np.random.default_rng(11)
+    q_bags, _ = cs.quota_bags(cs.zipf_users(rng, cs.HEADLINE_B), seed=11)
+    qrows = [(i, "rq", QuotaArgs(quota_amount=1))
+             for i in range(cs.HEADLINE_B)]
+
+    def instep():
+        clock.t += 0.01
+        qsrv.check_batch_quota_instep(q_bags, qrows,
+                                      qsrv.instep_quota_target())
+    fold_rows("instep", captured(instep),
+              qsrv.controller.dispatcher.fused.engine.quota_counts.clone())
+    qsrv.close()
+    q_store.close()
+    with platform.force_virtual_devices(cs.N_VIRTUAL, "cuda:0"):
+        msrv = cs.mesh_server(workloads.make_store(cs.HEADLINE_RULES),
+                              cs.MESH_SHAPE, (cs.HEADLINE_B,),
+                              workloads.MESH_MANIFEST)
+        m_bags = cs.served_traffic("headline", cs.HEADLINE_RULES,
+                                   cs.HEADLINE_B, seed=cs.HEADLINE_B + 3)
+        cap = captured(lambda: msrv.check_many(m_bags))
+        ((_, ins),) = [x for x in cap if x[0] == "mesh_fold"]
+        parts, params, before, c, lk, dev = ins
+        q0 = before if before is not None else torch.zeros(
+            1, 1, dtype=torch.int32, device=dev)
+        cs.mesh_fold_check("mesh_fold (4, 2)", ins, None)
+        scratch = q0.clone()
+        row = profiled(lambda: mf.mesh_fold(parts, params, scratch, c, lk,
+                                            dev), "mesh_fold", phase="fold",
+                       name="mesh_fold.4x2",
+                       floor_ms=floor_ms(*(getattr(p, f) for r in parts
+                                           for p in r
+                                           for f in ("matched", "err"))))
+        row["plain_ms"] = cs.time_ms(lambda: mf.mesh_fold_plain(
+            parts, params, scratch, c, lk, dev), 5)
+        row["bound_ms"] = row["bound_by"] = row["library_ms"] = None
+        rows.append(row)
+        msrv.close()
 keep = ("phase", "name", "ms", "call_ms", "plain_ms", "bound_ms",
         "bound_by", "ms_source", "library_ms", "grids", "hot_rows",
         "plane_gb_s", "stages", "windows", "planes", "walls_p50_ms",
-        "grid_ms")
+        "grid_ms", "floor_ms", "shape", "launches")
 print("ROWS " + json.dumps([{k: r.get(k) for k in keep} for r in rows]))
 """
 
-PHASES = ("engine", "seq", "mesh", "k6", "k9", "k1")
+PHASES = ("engine", "seq", "mesh", "k6", "k9", "k1", "k1d", "fold")
 
 
 def smi() -> str:
@@ -283,7 +472,7 @@ def main() -> int:
                 extra = "".join(
                     f"  {k} {r[k]:.5f}" if isinstance(r[k], float) else
                     f"  {k} {r[k]}" for k in ("library_ms", "grids",
-                                              "plane_gb_s")
+                                              "plane_gb_s", "floor_ms")
                     if r.get(k) is not None)
                 bnd = "not computed" if r["bound_ms"] is None else \
                     f"{r['bound_ms']:.6f} ({r['bound_by']})"
@@ -291,7 +480,8 @@ def main() -> int:
                       f"{r['ms']:.5f} ms [{r['ms_source']}]  call "
                       f"{r['call_ms']:.5f}  plain {r['plain_ms']:.5f}  "
                       f"bound {bnd}{extra}", flush=True)
-                for k in ("windows", "planes", "walls_p50_ms", "grid_ms"):
+                for k in ("windows", "planes", "walls_p50_ms", "grid_ms",
+                          "shape", "launches"):
                     if r.get(k) is not None:
                         print(f"run {i} {d}:   {k} {r[k]}", flush=True)
                 for st in r.get("stages") or ():

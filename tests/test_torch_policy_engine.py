@@ -129,13 +129,27 @@ def test_reference_params_through_the_port_step():
     ref_v, ref_counts = jax.jit(ref.raw_step)(ref.params, rb, req,
                                               counts.copy())
     params = interop.params_from_reference(ref.params, device="cpu")
-    np.testing.assert_array_equal(params["pe_ref_table"].numpy(),
-                                  got.params["pe_ref_table"].numpy())
+    for k in ("pe_ref_table", "pe_vis_ns", "pe_vis_words", "pe_deny_words",
+              "pe_err_words"):
+        np.testing.assert_array_equal(params[k].numpy(),
+                                      got.params[k].numpy(), err_msg=k)
     qc = interop.quota_counts_from_reference(counts, device="cpu")
-    got_v, got_counts = got.step(
-        params, interop.batch_from_reference(rb, device="cpu"), req, qc)
+    pb = interop.batch_from_reference(rb, device="cpu")
+    got_v, got_counts = got.step(params, pb, req, qc)
     _assert_verdicts_equal(ref_v, got_v)
     np.testing.assert_array_equal(got_counts.numpy(), np.asarray(ref_counts))
+    # the word formulation of the fold on the same params
+    qw = interop.quota_counts_from_reference(counts, device="cpu")
+    matched, _, err = got.ruleset.fn(params, pb, ("matched", "err"))
+    words = pe.verdict_fold_words_plain(
+        matched, err, torch.from_numpy(req), pb, params, qw,
+        got.fold_consts, got.list_states(pb, err))
+    for f, w in zip(("status", "valid_duration_s", "valid_use_count",
+                     "deny_rule", "referenced", "err_count"), words):
+        np.testing.assert_array_equal(w.numpy(),
+                                      np.asarray(getattr(ref_v, f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(qw.numpy(), np.asarray(ref_counts))
 
 
 # ---- the tests/test_policy_engine.py scenarios, against the reference
