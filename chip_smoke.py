@@ -73,14 +73,19 @@ Phases, each fatal on failure:
      make_rbac_request_dicts (responses and rule counts exact, the
      denied fraction printed), timed like phase 5; K1, K3, K4, K5, K6
      and atom_eval (the 306 check atoms as op programs) held against
-     their plain versions on its B=2048 inputs (timed); counters zeroed
-     before, every kernel of the path must launch, and atom_eval exactly
-     once per step; then (6b) atom_eval against its plain versions on
-     the atom world (every BOOL expression of the port's copy of the
-     conformance corpus that lowers on the device, over the corpus
-     inputs tiled to B=2048) and on edge atoms (runtime and constant
-     patterns, strings at the cap, NaN and malformed order keys, a
-     narrowed byte plane, operand swaps, a 40-deep LAND chain);
+     their plain versions on its B=2048 inputs (timed; atom_eval on ext
+     planes holding a seeded pattern, every column outside the atoms'
+     unchanged); counters zeroed before, every kernel of the path must
+     launch, and atom_eval exactly once per step; then (6b) atom_eval
+     against its plain versions on the atom world (every BOOL
+     expression of the port's copy of the conformance corpus that
+     lowers on the device, over the corpus inputs tiled to B=2048) and
+     on edge atoms (runtime and constant patterns, strings at the cap,
+     NaN and malformed order keys, a narrowed byte plane, operand swaps,
+     a 40-deep LAND chain), and at the launch plan's seams (SEAM_A atoms
+     x SEAM_B records, programs of stack need 1, 3, 4 and 5 so both
+     stack instantiations run, atoms at scattered columns, strided
+     planes);
   7. the list world (tests/test_fused_serving.py's store, rebuilt here
      with the port's MemStore): REGEX and CIDR lists fused beside STRINGS
      lists and deniers, served on the card against the CPU server on
@@ -105,7 +110,9 @@ Phases, each fatal on failure:
      against its plain versions on the B=2048 trip's inputs (timed: its
      kernels-table row), then (8b) on edge inputs (every opcode, F = 0 /
      1 / 22 / 33, empty rows, ephemeral ids, full and narrowed byte
-     planes);
+     planes) and at the launch plan's seams (SEAM_F fields x SEAM_B
+     records, both stack instantiations, rows of a larger buffer,
+     strided planes);
   9. the Quota() path (this slice's main path): the quota world —
      make_store(10_000) with its memquota limit set to the default quota
      of Istio's Bookinfo rate-limit sample (5,000 per 1 s window) — on
@@ -886,20 +893,13 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             plain, _, _ = timed(
                 lambda: field_ops.field_eval_plain(batch, prog), 20)
             b, ops = field_work(batch, prog, got)
+            lib, lib_call = program_library_ms(batch, prog.prog)
             src, rep = ("field_eval.cu",
                         "istio_tpu/runtime/report_lower.py:73")
             err = int((got != want).sum())
         elif name == "atom_eval":
             batch, atoms, em, en = inputs
-            got, want, ops_want = (
-                (torch.zeros_like(em), torch.zeros_like(en))
-                for _ in range(3))
-            field_ops.atom_eval(batch, atoms, *got)
-            field_ops.atom_eval_plain(batch, atoms, *want)
-            field_ops.atom_eval_ops_plain(batch, atoms, *ops_want)
-            for part, g, w, o in zip(("m", "n"), got, want, ops_want):
-                assert_equal(f"{tag}.{part}", g, w)
-                assert_equal(f"{tag}.{part} (op table)", g, o)
+            got, want = atom_eval_checked(tag, batch, atoms, em.shape[1])
             if int_rate is None:
                 continue
             scratch = (torch.zeros_like(em), torch.zeros_like(en))
@@ -908,10 +908,7 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             plain, _, _ = timed(lambda: field_ops.atom_eval_plain(
                 batch, atoms, *scratch), 10)
             b, ops = atom_work(batch, atoms)
-            extra["coalesced_store_ms"] = atom_store_probe(batch, atoms, got)
-            log(f"  {tag:<16} the same launch with its m / n stores "
-                "coalesced (a transposed [A, B] plane): "
-                f"{extra['coalesced_store_ms']:.5f} ms")
+            lib, lib_call = program_library_ms(batch, atoms.prog)
             src, rep = "field_eval.cu", "istio_tpu/compiler/tensor_expr.py:291"
             err = int(sum(int((g != w).sum()) for g, w in zip(got, want)))
         elif name == "quota_alloc":
@@ -1916,34 +1913,6 @@ def authz_phase(int_rate: float) -> dict:
             "pseudo_rows": len(g.allow_rows) + 1}
 
 
-def atom_store_probe(batch, atoms, want) -> float:
-    """atom_eval's device ms with its m / n stores coalesced, to weigh
-    the served layout's: the same C entry point over the same programs,
-    given x_stride 1 and column a at a * B, writes a transposed [A, B]
-    plane, so a warp's stores are consecutive bytes instead of bytes X
-    apart. Held equal to the served launch's columns `want` (m, n)."""
-    import torch
-    from istio_tpu_torch import kernels
-    from istio_tpu_torch.ops import field_ops as fo
-    b = int(batch.ids.shape[0])
-    args = fo._launch_args(batch, atoms.prog, "atom_eval")
-    dev = batch.ids.device
-    cols = torch.arange(atoms.n, dtype=torch.int32, device=dev) * b
-    tm = torch.empty((atoms.n, b), dtype=torch.bool, device=dev)
-    tn = torch.empty_like(tm)
-    fn = kernels.function("atom_eval", "atom_eval", fo._ATOM_EVAL_ARGS)
-    p = kernels.ptr
-
-    def run():
-        kernels.check(fn(*args, p(cols), p(tm), p(tn), 1,
-                         kernels.VP(kernels.stream_ptr())), "atom_eval")
-    run()
-    c = atoms.cols_on(dev).long()
-    assert_equal("atom_eval coalesced probe.m", tm.T, want[0][:, c])
-    assert_equal("atom_eval coalesced probe.n", tn.T, want[1][:, c])
-    return timed(run, 200)[0]
-
-
 def one_atom_launch_per_step(label: str, out: dict, ruleset) -> None:
     """Every rule_match launch of the path's drive came with exactly one
     atom_eval launch (one grid), where the ruleset has op-program atoms;
@@ -2101,17 +2070,8 @@ def atom_edge_checks(int_rate: float) -> list[dict]:
                 batch, str_bytes=batch.str_bytes[:, :, :width].contiguous())
         batch = batch.to("cuda")
         b = batch.ids.shape[0]
-        got, want, ops_want = (
-            (torch.zeros((b, atoms.n), dtype=torch.bool, device="cuda"),
-             torch.zeros((b, atoms.n), dtype=torch.bool, device="cuda"))
-            for _ in range(3))
-        fo.atom_eval(batch, atoms, *got)
-        torch.cuda.synchronize()
-        fo.atom_eval_plain(batch, atoms, *want)
-        fo.atom_eval_ops_plain(batch, atoms, *ops_want)
-        for part, g, w, o in zip(("m", "n"), got, want, ops_want):
-            assert_equal(f"atom_eval {tag}.{part}", g, w)
-            assert_equal(f"atom_eval {tag}.{part} (op table)", g, o)
+        got, want = atom_eval_checked(f"atom_eval {tag}", batch, atoms,
+                                      atoms.n)
         opcodes = {int(o) for o in atoms.prog.ops[:, 0]}
         ms, call, how = timed(lambda: fo.atom_eval(batch, atoms, *got), 100)
         plain, _, _ = timed(lambda: fo.atom_eval_plain(batch, atoms, *want),
@@ -2128,6 +2088,145 @@ def atom_edge_checks(int_rate: float) -> list[dict]:
                      "call_ms": call, "plain_ms": plain, "bound_ms": bms,
                      "bound_by": by})
     return rows
+
+
+# atom_eval / field_eval seams (phases 6b, 8b): record counts either side
+# of a tile of 32 and of 2,048; atom counts either side of a group of 32,
+# the route world's 13 and the authz world's 306; field counts either side
+# of a valid word; programs whose stacks need 1, 3, 4 (the register-stack
+# kernels) and 5 (the general one): balanced trees of EQ leaves
+SEAM_B = (1, 31, 32, 33, 2047, 2048)
+SEAM_A = (1, 13, 31, 32, 33, 306)
+SEAM_F = (0, 1, 31, 32, 33, 64, 65)
+SEAM_NEED_LEAVES = {3: 2, 4: 4, 5: 8}
+
+
+def balanced(leaves: list[str], ops=("&&", "||")) -> str:
+    """A balanced tree of `leaves`, alternating the two operators by
+    level: of 2^k EQ leaves, its program needs a stack of k + 2."""
+    level = 0
+    while len(leaves) > 1:
+        op = ops[level % len(ops)]
+        leaves = [f"({leaves[i]} {op} {leaves[i + 1]})"
+                  if i + 1 < len(leaves) else leaves[i]
+                  for i in range(0, len(leaves), 2)]
+        level += 1
+    return leaves[0]
+
+
+def stack_need(rows) -> int:
+    """The deepest stack the op rows of one program reach."""
+    from istio_tpu_torch.ops import field_ops as fo
+    depth = best = 0
+    for op in rows[:, 0]:
+        if int(op) in fo.TWO_OPERAND:
+            depth -= 1
+        elif int(op) not in (fo.OP_BPRED, fo.OP_DFA):
+            depth += 1
+        best = max(best, depth)
+    return best
+
+
+def sub_program(prog, picks):
+    """The OpProgram of programs `picks` (indices into prog, repeats
+    allowed) over prog's layout, constant rows and DFA bank."""
+    import numpy as np
+    from istio_tpu_torch.ops import field_ops as fo
+    rows = [prog.ops[prog.starts[i]:prog.starts[i + 1]] for i in picks]
+    starts = np.zeros(len(picks) + 1, np.int32)
+    starts[1:] = np.cumsum([len(r) for r in rows])
+    ops = np.concatenate(rows).astype(np.int32) if rows else \
+        np.zeros((0, fo.OP_WIDTH), np.int32)
+    return fo.OpProgram(ops=ops, starts=starts, consts=prog.consts,
+                        dfa=prog.dfa, max_len=prog.max_len,
+                        need=max([stack_need(r) for r in rows], default=1))
+
+
+def strided_planes(batch):
+    """The batch with ids, present and map_present as column views of
+    wider planes whose rows start off a 16-byte boundary, the columns
+    beside them filled with junk."""
+    import torch
+
+    def widen(t, junk):
+        w = torch.full((t.shape[0], t.shape[1] + 8), junk, dtype=t.dtype,
+                       device=t.device)
+        w[:, 3:3 + t.shape[1]] = t
+        return w[:, 3:3 + t.shape[1]]
+    return dataclasses.replace(batch, ids=widen(batch.ids, 12345),
+                               present=widen(batch.present, True),
+                               map_present=widen(batch.map_present, True))
+
+
+def planned(entry: str, batch, prog):
+    from istio_tpu_torch.ops import field_ops as fo
+    return fo.launch_plan(entry, int(batch.ids.shape[0]), prog)
+
+
+def atom_seam_checks() -> int:
+    """Phase 6b seams: atom_eval against both plain versions at every
+    SEAM_A atoms x SEAM_B records, each with a register-stack launch
+    (every program of need <= 4) and a general one (a need-5 program
+    among them), atoms at scattered columns of ext planes twice as wide
+    that hold a seeded pattern elsewhere; then, at (306, 2,047) and
+    (33, 33), the same launches with ids / present / map_present as
+    strided views, and the narrowed edge world (cap 32, byte plane 12
+    wide) on strided planes. → cases."""
+    import numpy as np
+    from istio_tpu_torch.attribute.types import ValueType
+    from istio_tpu_torch.ops import field_ops as fo
+    edge_man = {k: ValueType[v] for k, v in EDGE_ATOM_MANIFEST.items()}
+    need_texts = ["b"] + [balanced([f"{'nm'[i % 2]} == {i % 5}"
+                                    for i in range(k)])
+                          for k in SEAM_NEED_LEAVES.values()]
+    atoms, full = atom_world(list(EDGE_ATOMS) + need_texts, edge_man,
+                             edge_atom_dicts(max(SEAM_B), seed=62), 8)
+    full = full.to("cuda")
+    needs = [stack_need(atoms.prog.ops[atoms.prog.starts[i]:
+                                       atoms.prog.starts[i + 1]])
+             for i in range(atoms.n)]
+    if not {1, 3, 4, 5} <= set(needs):
+        raise AssertionError(f"atom seams: stack needs {sorted(set(needs))}")
+    shallow = [i for i, n in enumerate(needs) if n <= fo.SHALLOW]
+    deep = needs.index(5)
+    rng = np.random.default_rng(63)
+    cases = 0
+
+    def run(tag, batch, picks, cols, x):
+        prog = fo.AtomProgram(fns=[atoms.fns[i] for i in picks],
+                              prog=sub_program(atoms.prog, picks),
+                              cols=cols)
+        plan = planned("atom_eval", batch, prog.prog)
+        if plan.deep != (prog.prog.need > fo.SHALLOW):
+            raise AssertionError(f"{tag}: plan deep={plan.deep} for need "
+                                 f"{prog.prog.need}")
+        atom_eval_checked(tag, batch, prog, x, seed=len(picks))
+
+    for a in SEAM_A:
+        x = 2 * a + 7
+        cols = rng.permutation(x)[:a].astype(np.int32)
+        kinds = {"shallow": [shallow[i % len(shallow)] for i in range(a)]}
+        kinds["deep"] = kinds["shallow"][:-1] + [deep]
+        for b in SEAM_B:
+            batch = full.rows(0, b)
+            for kind, picks in kinds.items():
+                run(f"atom_eval seam A={a} B={b} {kind}", batch, picks, cols,
+                    x)
+                cases += 1
+            if (a, b) not in ((306, 2047), (33, 33)):
+                continue
+            for kind, picks in kinds.items():
+                run(f"atom_eval seam A={a} B={b} {kind} strided",
+                    strided_planes(batch), picks, cols, x)
+                cases += 1
+    edge = edge_atom_dicts(777, seed=61)
+    narrow, nbatch = atom_world(EDGE_ATOMS, edge_man, [d for d in edge if all(
+        len(v) <= 12 for v in d.values() if isinstance(v, str))], 32)
+    nbatch = dataclasses.replace(
+        nbatch, str_bytes=nbatch.str_bytes[:, :, :12].contiguous()).to("cuda")
+    atom_eval_checked("atom_eval seam narrowed", strided_planes(nbatch),
+                      narrow, narrow.n)
+    return cases + 1
 
 
 def list_world_store():
@@ -2557,6 +2656,61 @@ def atom_work(batch, atoms) -> tuple[float, float]:
     return b + 2.0 * batch.ids.shape[0] * atoms.n + atoms.cols.nbytes, ops
 
 
+def program_library_ms(batch, prog) -> tuple[float | None, str]:
+    """One PyTorch call for a part of an op-program launch: index_select
+    of the ids columns its programs read (VAR, DSLOT, EXTERN, MAPSEL),
+    the gather only, timed as K1's library rows are. None where the
+    programs read no column."""
+    import torch
+    from istio_tpu_torch.ops import field_ops as fo
+    cols = set()
+    for o in prog.ops:
+        if o[0] in (fo.OP_VAR, fo.OP_DSLOT, fo.OP_EXTERN):
+            cols.add(int(o[1]))
+        elif o[0] == fo.OP_MAPSEL:
+            cols |= {int(o[1]), int(o[2])}
+    if not cols:
+        return None, "none (the programs read no ids column)"
+    idx = torch.tensor(sorted(cols), dtype=torch.long,
+                       device=batch.ids.device)
+    return time_ms(lambda: torch.index_select(batch.ids, 1, idx), 50), \
+        f"torch.index_select(ids, 1, the {len(cols)} columns the " \
+        "programs read) (the gather only)"
+
+
+def seeded_planes(b: int, x: int, seed: int, device: str = "cuda"):
+    """Two bool [b, x] ext planes filled with a seeded random pattern
+    (the columns atom_eval must leave alone keep it)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.random((b, x)) < 0.5).to(device)
+                 for _ in range(2))
+
+
+def atom_eval_checked(tag: str, batch, atoms, x: int, seed: int = 5):
+    """atom_eval on ext planes [B, x] holding a seeded pattern, held
+    against atom_eval_plain and atom_eval_ops_plain on the same pattern
+    (every byte of both planes), and every column outside the atoms'
+    columns held unchanged. → (got, want) planes."""
+    import torch
+    from istio_tpu_torch.ops import field_ops as fo
+    b = int(batch.ids.shape[0])
+    base = seeded_planes(b, x, seed, str(batch.ids.device))
+    got, want, ops_want = (tuple(t.clone() for t in base) for _ in range(3))
+    fo.atom_eval(batch, atoms, *got)
+    fo.atom_eval_plain(batch, atoms, *want)
+    fo.atom_eval_ops_plain(batch, atoms, *ops_want)
+    keep = torch.ones(x, dtype=torch.bool, device=base[0].device)
+    keep[atoms.cols_on(keep.device).long()] = False
+    for part, g, w, o, b0 in zip(("m", "n"), got, want, ops_want, base):
+        assert_equal(f"{tag}.{part}", g, w)
+        assert_equal(f"{tag}.{part} (op table)", g, o)
+        assert_equal(f"{tag}.{part} (columns outside the atoms)",
+                     g[:, keep], b0[:, keep])
+    return got, want
+
+
 # report fields for field_eval's edge inputs: every op of the op programs
 # (CONST, VAR, DSLOT, MAPSEL, EXTERN, ERR, OR, EQ, NEQ, LAND, LOR, the byte
 # views BSLOT and BCONST, an ordered compare CMP, a runtime-pattern prefix
@@ -2678,6 +2832,102 @@ def field_edge_checks() -> int:
             if not bool((got[:len(pick)] < 0).any()):
                 raise AssertionError("field_eval edge: no ephemeral id")
     return cases
+
+
+def field_eval_checked(tag: str, batch, prog) -> None:
+    """field_eval written into rows of a larger buffer, held against
+    field_eval_plain and field_eval_ops_plain, the buffer's other rows
+    unchanged."""
+    import torch
+    from istio_tpu_torch.ops import field_ops as fo
+    b = int(batch.ids.shape[0])
+    n_rows = prog.n_fields + prog.n_words
+    buf = torch.full((n_rows + 3, b), -5, dtype=torch.int32,
+                     device=batch.ids.device)
+    fo.field_eval(batch, prog, out=buf[3:])
+    assert_equal(tag, buf[3:], fo.field_eval_plain(batch, prog))
+    assert_equal(f"{tag} (op table)", buf[3:],
+                 fo.field_eval_ops_plain(batch, prog))
+    assert_equal(f"{tag} (rows before out)", buf[:3],
+                 torch.full_like(buf[:3], -5))
+
+
+def field_seam_checks() -> int:
+    """Phase 8b seams: field_eval against both plain versions at every
+    SEAM_F fields x SEAM_B records (EDGE_FIELDS and balanced BOOL fields
+    over GLOBAL_MANIFEST), each with a register-stack launch and, from
+    F = 1, a general one (a need-5 field among them), written into rows
+    of a larger buffer; at (65, 2,047) and (33, 33) also with strided
+    ids / present / map_present, and on strided planes with a byte
+    plane narrowed to 32. → cases."""
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
+    from istio_tpu_torch.compiler import layout as lay_mod
+    from istio_tpu_torch.compiler import tensor_expr as te
+    from istio_tpu_torch.compiler.op_lower import lower_programs
+    from istio_tpu_torch.expr.checker import AttributeDescriptorFinder
+    from istio_tpu_torch.expr.parser import parse
+    from istio_tpu_torch.ops import field_ops as fo
+
+    finder = AttributeDescriptorFinder(GLOBAL_MANIFEST)
+    texts = list(EDGE_FIELDS) + [
+        balanced([f"{('request.size', 'response.code')[i % 2]} == {i}"
+                  for i in range(k)]) for k in SEAM_NEED_LEAVES.values()]
+    asts = [parse(t) for t in texts]
+    reqs = te.Requirements()
+    for a in asts:
+        te.collect_requirements(a, finder, reqs)
+    layout = lay_mod.build_layout(
+        GLOBAL_MANIFEST, sorted(reqs.derived_keys),
+        sorted(reqs.byte_sources, key=str),
+        extern_sources=[(n, k, a) for (n, k), a in
+                        sorted(reqs.extern_sources.items(),
+                               key=lambda kv: kv[0])])
+    interner = lay_mod.InternTable()
+    fns = [te.compile_field(a, finder, layout, interner)[0] for a in asts]
+    whole = lower_programs(asts, layout, interner, finder)
+    needs = [stack_need(whole.ops[whole.starts[i]:whole.starts[i + 1]])
+             for i in range(len(asts))]
+    if not {1, 3, 4, 5} <= set(needs):
+        raise AssertionError(f"field seams: stack needs {sorted(set(needs))}")
+    shallow = [i for i, n in enumerate(needs) if n <= fo.SHALLOW]
+    deep = needs.index(5)
+    dicts = edge_field_dicts(max(SEAM_B), seed=22)
+    tens = lay_mod.Tensorizer(layout, interner)
+    full = tens.tensorize([bag_from_mapping(d) for d in dicts]).to("cuda")
+    short = tens.tensorize([bag_from_mapping(d) for d in dicts if all(
+        len(v) <= 32 for v in d.values() if isinstance(v, str))])
+    short = dataclasses.replace(
+        short, str_bytes=short.str_bytes[:, :, :32].contiguous()).to("cuda")
+    cases = 0
+
+    def run(tag, batch, picks):
+        prog = fo.FieldProgram(fns=[fns[i] for i in picks],
+                               prog=sub_program(whole, picks))
+        plan = planned("field_eval", batch, prog.prog)
+        if plan.deep != (prog.prog.need > fo.SHALLOW):
+            raise AssertionError(f"{tag}: plan deep={plan.deep} for need "
+                                 f"{prog.prog.need}")
+        field_eval_checked(tag, batch, prog)
+
+    for f in SEAM_F:
+        kinds = {"shallow": [shallow[i % len(shallow)] for i in range(f)]}
+        if f:
+            kinds["deep"] = kinds["shallow"][:-1] + [deep]
+        for b in SEAM_B:
+            batch = full.rows(0, b)
+            for kind, picks in kinds.items():
+                run(f"field_eval seam F={f} B={b} {kind}", batch, picks)
+                cases += 1
+            if (f, b) not in ((65, 2047), (33, 33)):
+                continue
+            for kind, picks in kinds.items():
+                run(f"field_eval seam F={f} B={b} {kind} strided",
+                    strided_planes(batch), picks)
+                cases += 1
+    run("field_eval seam narrowed", strided_planes(short),
+        list(range(len(asts))))
+    return cases + 1
 
 
 REPORT_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
@@ -4998,6 +5248,11 @@ def main() -> int:
     az["atom_worlds"] = atom_edge_checks(int_rate)
     log(f"[6b] {len(az['atom_worlds'])} atom worlds: atom_eval equal to "
         "atom_eval_plain and to the op-table interpreter")
+    log(f"[6b] {atom_seam_checks()} seam cases (A = "
+        f"{', '.join(map(str, SEAM_A))} x B = {', '.join(map(str, SEAM_B))}, "
+        "register-stack and general kernels, strided planes, narrowed "
+        "bytes): atom_eval equal to both plain versions, "
+        "every column outside the atoms' unchanged")
     log(f"[t] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 7: the list world, counters zeroed just before
     ls = list_phase(int_rate)
@@ -5008,6 +5263,11 @@ def main() -> int:
     rp = report_phase(int_rate)
     log(f"[8b] {field_edge_checks()} edge cases: field_eval equal to "
         "field_eval_plain and to the op-table interpreter")
+    log(f"[8b] {field_seam_checks()} seam cases (F = "
+        f"{', '.join(map(str, SEAM_F))} x B = {', '.join(map(str, SEAM_B))}, "
+        "register-stack and general kernels, strided planes, narrowed "
+        "bytes): field_eval equal to both plain versions, "
+        "the buffer's other rows unchanged")
     log(f"[t] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 9: the quota path, counters zeroed just before
     qt = quota_phase(int_rate)

@@ -40,9 +40,18 @@ exactly as the reference does (each wrapper's CPU path), and
 plain versions (bytes_ops.byte_pred_plain, dfa_scan_plain, dyn_*,
 lex_cmp); the tests hold the lowering with it, the kernels run only on
 the card.
+
+`launch_plan` maps one launch onto the card: a block per tile of 32
+records (one per lane) and group of at most 32 programs (field_eval:
+the 32 fields of one valid word; atom_eval: ATOM_GROUP atoms, halved
+down to MIN_GROUP while the launch has under FILL_BLOCKS blocks),
+min(WARPS, group) warps a block, each warp one program at a time over
+the tile; and the stack class: programs of need <= SHALLOW take the
+register-stack instantiation, deeper ones the general one.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Any
 
@@ -76,6 +85,16 @@ OP_WIDTH = 5
 # The lowering emits the operand that needs more stack first, so a tree
 # of n nodes needs at most floor(log2(n + 1)) slots
 MAX_STACK = 32
+# the launch plan (csrc/field_eval.cu PlanField, in this order)
+PLAN_FIELDS = ("tiles", "groups", "group", "warps", "s_res", "deep", "smem")
+TILE = 32                  # records per block, one per lane (kLanes)
+SHALLOW = 4                # the register stack's depth (kShallow)
+FIELD_GROUP = 32           # fields per block: one valid word
+MAX_GRID_Y = 65535
+WARPS = 8                  # warps per block, at most (kMaxThreads / 32)
+ATOM_GROUP = 32            # atoms per block, at most
+FILL_BLOCKS = 256          # atom groups halve until a launch has this many
+MIN_GROUP = 8              # ... or down to this many atoms
 
 
 @dataclasses.dataclass(eq=False)
@@ -347,6 +366,72 @@ def field_eval_ops_plain(batch: AttributeBatch, prog: FieldProgram
                  batch.ids.shape[0], batch.ids.device)
 
 
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One field_eval / atom_eval launch on the card (PLAN_FIELDS).
+
+    Block (x, y) runs records [32x, 32x + 32) against programs
+    [y * group, y * group + group) (and again every MAX_GRID_Y groups)
+    with `warps` warps, warp w running the group's programs w,
+    w + warps, ... over the tile. Shared memory (`smem` bytes):
+    field_eval's 32 valid masks or atom_eval's [32, s_res] literal
+    tile. deep: the general (local-memory stack) instantiation."""
+    tiles: int
+    groups: int
+    group: int
+    warps: int
+    s_res: int
+    deep: int
+    smem: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.tiles, min(self.groups, MAX_GRID_Y)
+
+    def fields(self) -> tuple[int, ...]:
+        return tuple(getattr(self, f) for f in PLAN_FIELDS)
+
+
+def launch_plan(entry: str, b: int, prog: OpProgram, *, warps: int = WARPS,
+                atom_group: int = ATOM_GROUP, fill_blocks: int = FILL_BLOCKS,
+                min_group: int = MIN_GROUP) -> LaunchPlan:
+    """The plan of one `entry` ("field_eval" / "atom_eval") launch over
+    b records. The wrappers always take the defaults; the keywords let a
+    measurement script time other plans of the same kernels."""
+    if not 1 <= warps <= 8 or not 1 <= atom_group <= 32 or min_group < 1:
+        raise ValueError(f"{entry}: warps must be 1..8 (kMaxThreads 256), "
+                         f"atom_group 1..32 and min_group >= 1, got "
+                         f"{warps}, {atom_group}, {min_group}")
+    n = prog.n
+    tiles = -(-b // TILE)
+    if entry == "field_eval":
+        group = FIELD_GROUP
+    else:
+        # few atoms or records: smaller groups, more blocks, a program or
+        # two a warp; a group under MIN_GROUP leaves most lanes of its
+        # row-wise store loop idle
+        group = atom_group
+        while group > min_group and tiles * -(-n // group) < fill_blocks:
+            group //= 2
+    # an odd word stride: lanes writing one atom of 32 records hit 32 banks
+    s_res = 4 * (-(-group // 4) | 1)
+    return LaunchPlan(
+        tiles=tiles, groups=-(-n // group), group=group,
+        warps=min(warps, group), s_res=s_res, deep=int(prog.need > SHALLOW),
+        smem=4 * group if entry == "field_eval" else TILE * s_res)
+
+
+def _plan_arg(entry: str, b: int, prog: OpProgram):
+    """launch_plan of this launch as the C entry point takes it (an int
+    array); a few integer operations, so worked out at every launch."""
+    return (ctypes.c_int * len(PLAN_FIELDS))(
+        *launch_plan(entry, b, prog).fields())
+
+
 _PLANE_ARGS = ([kernels.VP, kernels.I64] * 3                  # ids, present, map
                + [kernels.VP, kernels.I64, kernels.I64, kernels.I32]  # bytes
                + [kernels.VP, kernels.I64, kernels.I64]      # str_lens
@@ -355,10 +440,11 @@ _PROGRAM_ARGS = ([kernels.VP, kernels.VP, kernels.I32]       # ops, starts, P
                  + [kernels.VP, kernels.I32]                 # consts, width
                  + [kernels.VP] * 4 + [kernels.I32, kernels.I32]  # dfa bank
                  + [kernels.I32])                            # max_len
-_FIELD_EVAL_ARGS = _PLANE_ARGS + _PROGRAM_ARGS + [kernels.VP, kernels.VP]
+_FIELD_EVAL_ARGS = (_PLANE_ARGS + _PROGRAM_ARGS
+                    + [kernels.VP, kernels.VP, kernels.VP])  # plan, out
 _ATOM_EVAL_ARGS = (_PLANE_ARGS + _PROGRAM_ARGS
-                   + [kernels.VP, kernels.VP, kernels.VP, kernels.I64]
-                   + [kernels.VP])
+                   + [kernels.VP, kernels.VP, kernels.VP, kernels.VP]
+                   + [kernels.I64, kernels.VP])   # plan, cols, m, n
 
 
 def _plane(t: torch.Tensor, dtype: torch.dtype, dims: int, name: str,
@@ -422,7 +508,8 @@ def field_eval(batch: AttributeBatch, prog: FieldProgram,
         return out
     args = _launch_args(batch, prog.prog, "field_eval")
     fn = kernels.function("field_eval", "field_eval", _FIELD_EVAL_ARGS)
-    rc = fn(*args, kernels.ptr(out), kernels.VP(kernels.stream_ptr()))
+    rc = fn(*args, _plan_arg("field_eval", b, prog.prog),
+            kernels.ptr(out), kernels.VP(kernels.stream_ptr()))
     kernels.launched("field_eval", kernels.check(rc, "field_eval"), batch,
                      prog, entry="field_eval")
     return out
@@ -486,7 +573,8 @@ def atom_eval(batch: AttributeBatch, atoms: AtomProgram,
     args = _launch_args(batch, atoms.prog, "atom_eval")
     p = kernels.ptr
     fn = kernels.function("atom_eval", "atom_eval", _ATOM_EVAL_ARGS)
-    rc = fn(*args, p(atoms.cols_on(ext_m.device)), p(ext_m), p(ext_n),
+    rc = fn(*args, _plan_arg("atom_eval", b, atoms.prog),
+            p(atoms.cols_on(ext_m.device)), p(ext_m), p(ext_n),
             ext_m.stride(0), kernels.VP(kernels.stream_ptr()))
     kernels.launched("atom_eval", kernels.check(rc, "atom_eval"), batch,
                      atoms, ext_m, ext_n, entry="atom_eval")

@@ -29,12 +29,17 @@ class JSONFormatter(logging.Formatter):
         return json.dumps(payload)
 
 
+# the port's own logger namespace; the JAX package's "istio_tpu" logger
+# is never touched (both packages share a process in the tests)
+ROOT = "istio_tpu_torch"
+
+
 def configure_logging(level: str = "info", as_json: bool = False,
                       output_paths: list[str] | None = None) -> None:
-    """Configure the root 'istio_tpu' logger (reference: log.Configure,
+    """Configure the port's root logger, ROOT (reference: log.Configure,
     pkg/log/config.go)."""
     global _configured
-    root = logging.getLogger("istio_tpu")
+    root = logging.getLogger(ROOT)
     root.handlers.clear()
     handlers: list[logging.Handler] = []
     for path in output_paths or ["stderr"]:
@@ -57,4 +62,4 @@ def scope(name: str) -> logging.Logger:
     """Return a named logging scope, e.g. scope('runtime')."""
     if not _configured:
         configure_logging()
-    return logging.getLogger(f"istio_tpu.{name}")
+    return logging.getLogger(f"{ROOT}.{name}")

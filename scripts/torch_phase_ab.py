@@ -8,7 +8,7 @@ Each DIR is the root of a checkout (the same one may be named twice, as
 in `parent change change parent`). For each, in the order given and in
 a process of its own started from that directory, the checkout's
 `chip_smoke.py` is imported, its kernels are built, and the chosen
-phases run (default: all eight):
+phases run (default: all nine):
 
   engine  the headline engine step at B=2048, every kernel held against
           its plain version (phase 3's headline traffic);
@@ -52,6 +52,25 @@ phases run (default: all eight):
           3.35 TB/s), check_pack's torch._int_mm yardstick, and the
           served check_many wall p50 at B = 64, 256 and 2,048.
 
+  fe      field_eval and atom_eval, each against its plain version:
+          field_eval on the telemetry world's captured report trips at
+          B = 64, 256 and 2,048 (chip_smoke.telemetry_server, 60
+          fields) and on the 8b edge inputs (EDGE_FIELDS over 777
+          records, F = 22 and 33); atom_eval on the captured launches of
+          the authz world (306 atoms) at B = 64, 256 and 2,048 and of
+          the route select (13 atoms, B = 2,048), and on the
+          6b worlds (the corpus atoms at B = 2,048, EDGE_ATOMS at cap 8
+          and on a byte plane narrowed to 12): the median of 7 profiler
+          windows of 20 calls beside CUDA-event time, each `__global__`
+          function's device time, grids per call, the bound
+          (chip_smoke's field_work / atom_work), the plain version's
+          time, the gather-only index_select yardstick (where the
+          checkout's chip_smoke has program_library_ms), [B, programs,
+          op rows, stack need], and the served report() and authz
+          check_many wall p50 at B = 64, 256 and 2,048. The build lines
+          name every instantiation with its registers, stack frame and
+          spills.
+
 Each phase fails as it does in chip_smoke. Per run, the device time,
 plain time and bound of every kernel row (and the registers ptxas gave
 each `__global__` function) is printed, and the rows are written as JSON
@@ -67,7 +86,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, re, sys, time
+import dataclasses, json, re, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
@@ -78,8 +97,8 @@ phases = sys.argv[1].split(",")
 for src, info in kernels.build().items():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or (
-                src in ("rule_match", "verdict_fold", "check_pack")
-                and "Compiling entry" in line):
+                src in ("rule_match", "verdict_fold", "check_pack",
+                        "field_eval") and "Compiling entry" in line):
             print(f"BUILD {src}: {line.strip()}")
 rate, _ = cs.int_ops_per_s()
 rows = []
@@ -421,6 +440,150 @@ if "fold" in phases:
         row["bound_ms"] = row["bound_by"] = row["library_ms"] = None
         rows.append(row)
         msrv.close()
+if "fe" in phases:
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
+    from istio_tpu_torch.attribute.types import ValueType
+    from istio_tpu_torch.compiler import layout as lay_mod
+    from istio_tpu_torch.compiler import tensor_expr as te
+    from istio_tpu_torch.compiler.op_lower import lower_programs
+    from istio_tpu_torch.expr.checker import AttributeDescriptorFinder
+    from istio_tpu_torch.expr.parser import parse
+    from istio_tpu_torch.ops import field_ops as fo
+    from istio_tpu_torch.pilot.route_nfa import RouteTable
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.testing import corpus
+
+    def fe_launch(drive, kernel):
+        drive()
+        with kernels.launches.capture() as cap:
+            drive()
+        torch.cuda.synchronize()
+        (ins,) = [x for n, x in cap if n == kernel]
+        return ins
+
+    # the gather-only yardstick, where the checkout's chip_smoke has it
+    def fe_library(batch, prog):
+        if not hasattr(cs, "program_library_ms"):
+            return None
+        return cs.program_library_ms(batch, prog)[0]
+
+    def field_row(world, batch, prog):
+        got = fo.field_eval(batch, prog)
+        cs.assert_equal(f"fe {world}", got, fo.field_eval_plain(batch, prog))
+        row = profiled(lambda: fo.field_eval(batch, prog), "field_eval",
+                       phase="fe", name=f"field_eval.{world}",
+                       library_ms=fe_library(batch, prog.prog),
+                       shape=[int(batch.ids.shape[0]), prog.n_fields,
+                              len(prog.prog.ops), int(prog.prog.need)])
+        row["plain_ms"] = cs.time_ms(lambda: fo.field_eval_plain(batch,
+                                                                 prog), 5)
+        row["bound_ms"], row["bound_by"] = cs.bound(
+            *cs.field_work(batch, prog, got), rate)
+        rows.append(row)
+        return row
+
+    def atom_row(world, batch, atoms, x):
+        b = int(batch.ids.shape[0])
+        got, want = ((torch.zeros((b, x), dtype=torch.bool, device="cuda"),
+                      torch.zeros((b, x), dtype=torch.bool, device="cuda"))
+                     for _ in range(2))
+        fo.atom_eval(batch, atoms, *got)
+        fo.atom_eval_plain(batch, atoms, *want)
+        for g, w in zip(got, want):
+            cs.assert_equal(f"fe {world}", g, w)
+        row = profiled(lambda: fo.atom_eval(batch, atoms, *got), "atom_eval",
+                       phase="fe", name=f"atom_eval.{world}",
+                       library_ms=fe_library(batch, atoms.prog),
+                       shape=[b, atoms.n, len(atoms.prog.ops),
+                              int(atoms.prog.need)])
+        row["plain_ms"] = cs.time_ms(lambda: fo.atom_eval_plain(
+            batch, atoms, *want), 3)
+        row["bound_ms"], row["bound_by"] = cs.bound(
+            *cs.atom_work(batch, atoms), rate)
+        rows.append(row)
+        return row
+
+    tsrv, tstore, _ = cs.telemetry_server("cuda", dict(
+        buckets=(64, 256, cs.HEADLINE_B), max_batch=cs.HEADLINE_B,
+        pipeline=1, rulestats_drain_s=0))
+    td = tsrv.controller.dispatcher
+    t_bags = [bag_from_mapping(x) for x in
+              cs.telemetry_dicts(cs.HEADLINE_B, seed=cs.HEADLINE_B)]
+    for b in (64, 256):
+        field_row(f"report{b}", *fe_launch(lambda: td.report(t_bags[:b]),
+                                           "field_eval")[:2])
+    row = field_row("report", *fe_launch(lambda: td.report(t_bags),
+                                         "field_eval")[:2])
+    row["walls_p50_ms"] = {b: walls_ms(lambda: tsrv.report(
+        [bag_from_mapping(x) for x in cs.telemetry_dicts(b, seed=b)]))
+        for b in (64, 256, cs.HEADLINE_B)}
+    tsrv.close()
+    tstore.close()
+    finder = AttributeDescriptorFinder(GLOBAL_MANIFEST)
+    asts = [parse(t) for t in cs.EDGE_FIELDS]
+    reqs = te.Requirements()
+    for a in asts:
+        te.collect_requirements(a, finder, reqs)
+    layout = lay_mod.build_layout(
+        GLOBAL_MANIFEST, sorted(reqs.derived_keys),
+        sorted(reqs.byte_sources, key=str),
+        extern_sources=[(n, k, a) for (n, k), a in
+                        sorted(reqs.extern_sources.items(),
+                               key=lambda kv: kv[0])])
+    interner = lay_mod.InternTable()
+    fns = [te.compile_field(a, finder, layout, interner)[0] for a in asts]
+    e_batch = lay_mod.Tensorizer(layout, interner).tensorize(
+        [bag_from_mapping(d) for d in cs.edge_field_dicts(777, seed=21)]
+    ).to("cuda")
+    for pick in (list(range(len(asts))),
+                 [i % len(asts) for i in range(33)]):
+        field_row(f"edge{len(pick)}", e_batch, fo.FieldProgram(
+            fns=[fns[i] for i in pick],
+            prog=lower_programs([asts[i] for i in pick], layout, interner,
+                                finder)))
+    az_store = workloads.make_rbac_store(cs.AUTHZ_ROLE_RULES)
+    az = RuntimeServer(az_store, ServerArgs(
+        default_manifest=workloads.MESH_MANIFEST,
+        buckets=(64, 256, cs.HEADLINE_B), rulestats_drain_s=0),
+        device="cuda")
+    az_bags = [bag_from_mapping(x) for x in workloads.make_rbac_request_dicts(
+        cs.HEADLINE_B, seed=cs.HEADLINE_B)]
+    for b in (64, 256):
+        batch, atoms, em, _ = fe_launch(
+            lambda: az.check_many(az_bags[:b]), "atom_eval")
+        atom_row(f"authz{b}", batch, atoms, int(em.shape[1]))
+    batch, atoms, em, _ = fe_launch(lambda: az.check_many(az_bags),
+                                    "atom_eval")
+    row = atom_row("authz", batch, atoms, int(em.shape[1]))
+    row["walls_p50_ms"] = {b: walls_ms(lambda: az.check_many(
+        [bag_from_mapping(x) for x in
+         workloads.make_rbac_request_dicts(b, seed=b)]))
+        for b in (64, 256, cs.HEADLINE_B)}
+    az.close()
+    az_store.close()
+    services, rules = workloads.make_route_world(cs.ROUTE_RULES)
+    tbl = RouteTable(services, rules, device="cuda")
+    rt_bags = [bag_from_mapping(r) for r in workloads.make_route_requests(
+        cs.HEADLINE_B, n_services=len(services), seed=cs.HEADLINE_B)]
+    batch, atoms, em, _ = fe_launch(lambda: tbl.select(rt_bags), "atom_eval")
+    atom_row("routes", batch, atoms, int(em.shape[1]))
+    inputs = [c.input for c in corpus.CORPUS if c.compile_err is None]
+    edge_man = {k: ValueType[v] for k, v in cs.EDGE_ATOM_MANIFEST.items()}
+    edge = cs.edge_atom_dicts(777, seed=61)
+    for world, texts, man, dicts, cap, width in (
+            ("corpus", [c.e for c in corpus.CORPUS], corpus.CORPUS_MANIFEST,
+             (inputs * (cs.HEADLINE_B // len(inputs) + 1))[:cs.HEADLINE_B],
+             128, None),
+            ("edge", cs.EDGE_ATOMS, edge_man, edge, 8, None),
+            ("edge_narrowed", cs.EDGE_ATOMS, edge_man, [d for d in edge if all(
+                len(v) <= 12 for v in d.values() if isinstance(v, str))],
+             32, 12)):
+        atoms, batch = cs.atom_world(texts, man, dicts, cap)
+        if width is not None:
+            batch = dataclasses.replace(
+                batch, str_bytes=batch.str_bytes[:, :, :width].contiguous())
+        atom_row(world, batch.to("cuda"), atoms, atoms.n)
 keep = ("phase", "name", "ms", "call_ms", "plain_ms", "bound_ms",
         "bound_by", "ms_source", "library_ms", "grids", "hot_rows",
         "plane_gb_s", "stages", "windows", "planes", "walls_p50_ms",
@@ -428,7 +591,8 @@ keep = ("phase", "name", "ms", "call_ms", "plain_ms", "bound_ms",
 print("ROWS " + json.dumps([{k: r.get(k) for k in keep} for r in rows]))
 """
 
-PHASES = ("engine", "seq", "mesh", "k6", "k9", "k1", "k1d", "fold")
+PHASES = ("engine", "seq", "mesh", "k6", "k9", "k1", "k1d", "fold",
+          "fe")
 
 
 def smi() -> str:
