@@ -194,7 +194,9 @@ is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -700,6 +702,155 @@ def rule_match_check(tag: str, inputs, edges: bool = False) -> int:
     return n
 
 
+def prefilled_planes(b: int, x: int, seed: int, device):
+    """bool [B, X] planes filled with a seeded pattern: what a subject
+    group does not write must survive its launch."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    fill = torch.rand((2, b, x), generator=g) < 0.5
+    return fill[0].to(device), fill[1].to(device)
+
+
+def subject_plain(name: str, kind: str, args, planes=None):
+    """The plain version of one K2 / K3 call (byte_pred_plain /
+    dfa_scan_plain for the plane entry points; byte_lits_plain /
+    dfa_lits_plain into `planes` for the literal ones)."""
+    from istio_tpu_torch.ops import bytes_ops
+    if kind == "plane":
+        data, lens, table = args
+        fn = bytes_ops.dfa_scan_plain if name == "dfa_scan" else \
+            bytes_ops.byte_pred_plain
+        return fn(data, lens, *table.on(data.device))
+    data, lens, ok, err, table, lits, max_len, _, _ = args
+    fn = bytes_ops.dfa_lits_plain if name == "dfa_scan" else \
+        bytes_ops.byte_lits_plain
+    fn(data, lens, ok, err, *table.on(data.device), *lits.on(data.device),
+       max_len, *planes)
+    return planes
+
+
+def subject_kernel(name: str, kind: str, args, planes=None):
+    """One K2 / K3 call through its wrapper (the kernel on the card)."""
+    from istio_tpu_torch.ops import bytes_ops
+    if kind == "plane":
+        fn = bytes_ops.dfa_scan if name == "dfa_scan" else bytes_ops.byte_pred
+        return fn(*args)
+    data, lens, ok, err, table, lits, max_len, _, _ = args
+    fn = bytes_ops.dfa_lits if name == "dfa_scan" else bytes_ops.byte_lits
+    fn(data, lens, ok, err, table, lits, max_len, *planes)
+    return planes
+
+
+def subject_check(name: str, kind: str, args, tag: str, seed: int = 3):
+    """A K2 / K3 call against its plain version, byte for byte: the
+    plane, or both ext planes pre-filled with a seeded pattern (the
+    group's columns written, every other column kept). → (got, want)
+    as lists of tensors."""
+    if kind == "plane":
+        got = [subject_kernel(name, kind, args)]
+        want = [subject_plain(name, kind, args)]
+    else:
+        em = args[7]
+        fill = prefilled_planes(em.shape[0], em.shape[1], seed, em.device)
+        got = list(subject_kernel(name, kind, args,
+                                  [t.clone() for t in fill]))
+        want = list(subject_plain(name, kind, args,
+                                  [t.clone() for t in fill]))
+    for part, g, w in zip(("m", "n") if kind == "lits" else ("plane",),
+                          got, want):
+        assert_equal(f"{tag}.{part}", g, w)
+    return got, want
+
+
+def subject_work(name: str, kind: str, args) -> tuple[float, float]:
+    """(bytes, ops) of one K2 / K3 call on this run's data: the row
+    bytes the function reads (each row's first min(len, L) bytes; every
+    L bytes where a byte group has an exact pattern; where every pattern
+    is a prefix, only those below the longest that fits,
+    min(len, 4·row_words(L))), the lengths, the presence and error rows
+    where the view has them, the tables, and the outputs (the [B, k]
+    plane, or the 2·B·k literal bytes); byte groups compare their
+    patterns' bytes on every row (B·Σk ops, 4 more a literal pair); a
+    DFA walk maps each byte of a row to its class once and takes one
+    transition a byte a pattern (steps·(N + 1) ops)."""
+    import torch
+    from istio_tpu_torch.ops import bytes_ops
+    data, lens, table = (args[0], args[1], args[2]) if kind == "plane" \
+        else (args[0], args[1], args[4])
+    b, l = data.shape
+    steps = int(torch.clamp(lens, 0, l).sum())
+    n = table.n
+    if name == "byte_pred":
+        p, pl, kd = table.on(data.device)
+        need = table.row_words(l)
+        if bool((kd == bytes_ops.EXACT).any()):
+            row_bytes = b * l
+        elif need < -(-l // 4):     # a prefix-only group
+            row_bytes = int(torch.clamp(lens, 0, min(4 * need, l)).sum())
+        else:
+            row_bytes = steps
+        ops = float(b) * float(pl.sum())
+        tabs = nbytes(table.words_on(data.device), pl, kd)
+    else:
+        row_bytes = steps
+        ops = float(steps) * (n + 1)
+        tabs = nbytes(*table.on(data.device))
+    moved = row_bytes + nbytes(lens) + tabs
+    if kind == "plane":
+        return moved + b * n, ops
+    ok, err, lits = args[2], args[3], args[5]
+    masks = sum(b for t in (ok, err) if t is not None)
+    return moved + masks + 2 * b * n + nbytes(*lits.on(data.device)), \
+        ops + 4.0 * b * n
+
+
+def subject_glue(name: str, args, planes) -> None:
+    """The parent's formulation of a literal call: the plane kernel,
+    then the literal pair in torch ops (write_lits_plain)."""
+    from istio_tpu_torch.ops import bytes_ops
+    data, lens, ok, err, table, lits, max_len, _, _ = args
+    plane = subject_kernel(name, "plane", (data, lens, table))
+    bytes_ops.write_lits_plain(plane, lens, ok, err, *lits.on(data.device),
+                               max_len, *planes)
+
+
+def subject_times(name: str, kind: str, args, int_rate: float):
+    """Time one captured K2 / K3 call: the kernel (profiler device time
+    and per-call time with its launch), its plain version and, for a
+    literal call, the plane kernel plus torch glue that it replaces
+    (the yardstick; no single PyTorch call computes these functions).
+    → (ms, call, how, plain, bytes, ops, extra)."""
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.ops import bytes_ops
+    data = args[0]
+    b, l = data.shape
+    planes = None
+    if kind == "lits":
+        em = args[7]
+        planes = [t.clone() for t in prefilled_planes(
+            em.shape[0], em.shape[1], 3, em.device)]
+    ms, call, how = timed(lambda: subject_kernel(name, kind, args, planes),
+                          200)
+    plain, _, _ = timed(lambda: subject_plain(name, kind, args, planes), 20)
+    moved, ops = subject_work(name, kind, args)
+    n = (args[2] if kind == "plane" else args[4]).n
+    plan = (bytes_ops.dfa_plan(b, l, n, data.device) if name == "dfa_scan"
+            else bytes_ops.byte_plan(b, l, n, data.device))
+    detail = {"entry": kernels.ENTRY_POINTS[name][kind == "lits"], "B": b, "L": l, "patterns": n, "ms": ms, "call_ms": call,
+              "plain_ms": plain, "bytes": moved, "ops": ops,
+              "aligned": bytes_ops._aligned(data), "plan": list(plan)}
+    detail["bound_ms"], detail["bound_by"] = bound(moved, ops, int_rate)
+    extra = {"call_detail": detail}
+    glue_txt = ""
+    if kind == "lits":
+        glue, _, _ = timed(lambda: subject_glue(name, args, planes), 50)
+        detail["glue_ms"] = extra["glue_ms"] = glue
+        glue_txt = f"; plane kernel + torch glue {glue:.5f} ms"
+    log(f"  {name}.{kind:<6} B={b} L={l} k={n} plan {list(plan)} "
+        f"aligned {detail['aligned']}{glue_txt}")
+    return ms, call, how, plain, moved, ops, extra
+
+
 def check_kernels(captured: list, quota0, int_rate: float | None = None
                   ) -> list[dict]:
     """Phase 3: every captured launch, kernel vs plain (exact equality).
@@ -717,43 +868,18 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
         tag = f"{name}#{idx}"
         lib, lib_call = None, None
         extra: dict = {}
-        if name == "dfa_scan":
-            data, lens, bank = inputs
-            table, class_of, starts, accept = bank.on(data.device)
-            got = bytes_ops.dfa_scan(data, lens, bank)
-            want = bytes_ops.dfa_scan_plain(data, lens, table, class_of,
-                                            starts, accept)
-            assert_equal(tag, got, want)
+        if name in ("dfa_scan", "byte_pred"):
+            kind, *args = inputs
+            tag = f"{name}.{kind}#{idx}"
+            got, want = subject_check(name, kind, args, tag)
             if int_rate is None:
                 continue
-            ms, call, how = timed(
-                lambda: bytes_ops.dfa_scan(data, lens, bank), 200)
-            plain, _, _ = timed(lambda: bytes_ops.dfa_scan_plain(
-                data, lens, table, class_of, starts, accept), 20)
-            steps = int(torch.clamp(lens, 0, data.shape[1]).sum())
-            b = steps + nbytes(lens, table, class_of, starts, accept, got)
-            ops = 3.0 * steps * bank.n
-            src, rep = "dfa_scan.cu", "istio_tpu/ops/bytes_ops.py:221"
-            err = int((got != want).sum())
-        elif name == "byte_pred":
-            data, lens, pats = inputs
-            p, pl, kd = pats.on(data.device)
-            got = bytes_ops.byte_pred(data, lens, pats)
-            want = bytes_ops.byte_pred_plain(data, lens, p, pl, kd)
-            assert_equal(tag, got, want)
-            if int_rate is None:
-                continue
-            ms, call, how = timed(
-                lambda: bytes_ops.byte_pred(data, lens, pats), 200)
-            plain, _, _ = timed(lambda: bytes_ops.byte_pred_plain(
-                data, lens, p, pl, kd), 20)
-            row_bytes = int(torch.clamp(lens, 0, data.shape[1]).sum())
-            if bool((kd == bytes_ops.EXACT).any()):
-                row_bytes = data.shape[0] * data.shape[1]
-            b = row_bytes + nbytes(lens, p, pl, kd, got)
-            ops = float(data.shape[0]) * float(pl.sum())
-            src, rep = "byte_pred.cu", "istio_tpu/ops/bytes_ops.py:26"
-            err = int((got != want).sum())
+            ms, call, how, plain, b, ops, extra = subject_times(
+                name, kind, args, int_rate)
+            src, rep = ((f"{name}.cu", "istio_tpu/ops/bytes_ops.py:221")
+                        if name == "dfa_scan" else
+                        (f"{name}.cu", "istio_tpu/ops/bytes_ops.py:26"))
+            err = int(sum(int((g != w).sum()) for g, w in zip(got, want)))
         elif name == "rule_match":
             ids, present, em, en, params, c, *rest = inputs
             planes = rest[0] if rest else ruleset.PLANES
@@ -1002,7 +1128,13 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
                                                  int_rate)
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        glue = extra.pop("glue_ms", None)
+        detail = extra.pop("call_detail", None)
         row.update(extra)
+        if glue is not None:
+            row["glue_ms"] = row.get("glue_ms", 0.0) + glue
+        if detail is not None:
+            row.setdefault("calls", []).append({"tag": tag, **detail})
         row["calls_per_step"] += 1
         if row["library_ms"] is None and lib is not None:
             row["library_ms"], row["library_call"] = lib, lib_call
@@ -1308,55 +1440,230 @@ def edge_bags(n: int, seed: int) -> tuple[list[dict], list[str]]:
     return out, ns
 
 
+# K2 / K3 edge inputs (phase 3b): widths 8, 13 and 128 at B 0 to 33, and
+# 128 at B 2,047 and 2,048
+LITS_EDGE_L = (8, 13, 128)
+LITS_EDGE_B = (0, 1, 31, 32, 33)
+LITS_BIG_B = (2047, 2048)
+LITS_REGEXES = ("a+b*", "(ab|ba)+$", "^b", "[^a]b", "^$", "a", "b$", "^ab",
+                "ab")
+# long rows (width, batch sizes): fewer rows a byte-kernel block, groups
+# of one and two patterns (a block of 256 one-pattern rows of 1,024
+# bytes would not fit its shared memory)
+LITS_LONG = ((1024, (1, 2048)), (1790, (33,)), (2000, (300,)))
+# lits_patterns indices: a single suffix of L - 1 bytes, prefix of 3,
+# exact of L and exact row; a pair prefix L - 1 + suffix 3; a pair of
+# prefixes (3 and 1: every pattern a prefix)
+LITS_LONG_GROUPS = ((10,), (6,), (14,), (18,), (9, 7), (6, 3))
+
+
+def lits_views(b: int, l: int, seed: int) -> list[tuple]:
+    """Subject views of B rows of width L on the card, from a numpy
+    seed: (label, data, lens, ok, err, max_len). Rows of 'a' / 'b' with
+    lengths 0, 1, 2, 3, L/2, L-2, L-1, L, L+1, L+4 and random ones;
+    absent and error rows. Views: contiguous rows; the lean masks (ok
+    and err None); a plane narrowed to L of max_len 2L (rows longer than
+    the plane: the suffix clip shows); bytes past each length that are
+    not zero; a column of a [B, 3, L] plane (row stride 3L) with strided
+    lens and presence; rows at an odd address (a [B, L+1] plane from
+    byte 1); a stride-0 broadcast constant row."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ab = np.frombuffer(b"ab", np.uint8)
+    lens = rng.choice([0, 1, 2, 3, l // 2, l - 2, l - 1, l, l + 1, l + 4],
+                      size=b).astype(np.int32)
+    lens[::3] = rng.integers(0, l + 1, size=len(lens[::3]))
+    data = np.zeros((b, l), np.uint8)
+    for i, n in enumerate(lens):
+        data[i, :min(int(n), l)] = rng.choice(ab, min(int(n), l))
+    garbage = data.copy()
+    for i, n in enumerate(lens):
+        garbage[i, min(int(n), l):] = rng.integers(1, 256,
+                                                   l - min(int(n), l))
+    ok = rng.random(b) < 0.85
+    err = rng.random(b) < 0.1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    d, ln = t(data), t(lens)
+    three = t(np.stack([garbage[::-1], data, garbage], axis=1))
+    pres = t(np.stack([~ok, ok], axis=1))
+    lens2 = t(np.stack([lens, -lens], axis=1))
+    wide = t(np.concatenate([np.full((b, 1), 7, np.uint8), data], axis=1))
+    n0 = int(lens[0]) if b else 0
+    row = t(data[0] if b else np.zeros(l, np.uint8))
+    return [("rows", d, ln, t(ok), t(err), l),
+            ("lean", d, ln, None, None, l),
+            ("narrowed", d, ln, t(ok), None, 2 * l),
+            ("garbage", t(garbage), ln, t(ok), t(err), l),
+            ("strided", three[:, 1, :], lens2[:, 0], pres[:, 1], t(err), l),
+            ("unaligned", wide[:, 1:], ln, t(ok), t(err), l),
+            ("broadcast", row[None, :].expand(b, l),
+             torch.full((b,), n0, dtype=torch.int32, device="cuda"), None,
+             None, l)]
+
+
+def lits_patterns(data, lens, l: int, rng):
+    """Byte patterns of every kind with k = 0, 1, 3, L-1, L and L+1, cut
+    from the rows (so they hit) where a row is long enough, and three
+    rows as exact patterns; → BytePatterns."""
+    from istio_tpu_torch.ops import bytes_ops
+    rows = [bytes(data[i, :min(int(n), l)].tolist())
+            for i, n in enumerate(lens.tolist())]
+    rows = [r for r in rows if r] or [b"ab"]
+    items = []
+    for k in (0, 1, 3, l - 1, l, l + 1):
+        src = [r for r in rows if len(r) >= k]
+        for kind in (bytes_ops.PREFIX, bytes_ops.SUFFIX, bytes_ops.EXACT):
+            if src and k:
+                r = src[int(rng.integers(len(src)))]
+                pat = r[len(r) - k:] if kind == bytes_ops.SUFFIX else r[:k]
+            else:
+                pat = bytes(rng.choice(list(b"ab"), k).tolist())
+            items.append((kind, pat))
+    items += [(bytes_ops.EXACT, r) for r in rows[:3]]
+    return bytes_ops.BytePatterns.of(items)
+
+
+def lits_banks() -> list[tuple]:
+    """(label, DfaBank) for the edge checks: small regexes over 'ab'
+    (anchored and not), a C = 1 bank (the empty regex), an S = 1 bank
+    (one state, three classes, built by hand) and one too large for
+    shared memory (200 anchored hex patterns: 7,490 states x 13
+    classes)."""
+    import numpy as np
+    from istio_tpu_torch.ops import bytes_ops, regex_dfa
+
+    def bank(pats):
+        return bytes_ops.DfaBank.of(regex_dfa.pack_dfas_classes(
+            [regex_dfa.compile_regex(p) for p in pats]))
+    one_state = bytes_ops.DfaBank(
+        table=np.zeros((1, 3), np.int32),
+        class_of=(np.arange(256) % 3).astype(np.int32),
+        starts=np.zeros(2, np.int32), accept=np.array([[1, 0]], np.uint8))
+    return [("small", bank(LITS_REGEXES)), ("C=1", bank(["", "^$"])),
+            ("S=1", one_state),
+            ("large", bank([f"^x{i}[0-9a-f]{{32}}$" for i in range(200)]))]
+
+
+@contextlib.contextmanager
+def byte_path(staged: bool):
+    """The byte wrappers launch the staged (or the direct) kernel in the
+    block, whatever the size rule of bytes_ops.byte_plan picks."""
+    from istio_tpu_torch.ops import bytes_ops
+    served = bytes_ops.byte_plan
+    bytes_ops.byte_plan = functools.partial(served, staged=staged)
+    try:
+        yield
+    finally:
+        bytes_ops.byte_plan = served
+
+
+def lits_edge_checks() -> int:
+    """Phase 3b: byte_pred, byte_lits, dfa_scan and dfa_lits against
+    their plain versions, byte for byte, on every subject view of
+    lits_views at widths LITS_EDGE_L and B ∈ LITS_EDGE_B (B ∈ LITS_BIG_B
+    at L = 128): the byte patterns of lits_patterns with random
+    TRUNC_SAFE / TRUNC_ALL columns (and their prefixes alone, of which
+    the kernel stages only the words below the longest that fits), every
+    bank of lits_banks with
+    random TRUNC_MISS / TRUNC_ALL columns, literal columns scattered in
+    planes of 2k + 5 columns pre-filled with a seeded pattern (which
+    must survive); the large bank also on hex rows that hit it; and
+    rows of LITS_LONG widths, every view, the byte groups of
+    LITS_LONG_GROUPS and the small bank. → the number of calls held."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.ops import bytes_ops
+
+    n = 0
+    banks = lits_banks()
+
+    def part(pats, idx):
+        idx = np.asarray(idx)
+        return bytes_ops.BytePatterns(pats.pats[idx], pats.plens[idx],
+                                      pats.kind[idx])
+    cases = [(l, b) for l in LITS_EDGE_L
+             for b in LITS_EDGE_B + (LITS_BIG_B if l == 128 else ())]
+    cases += [(l, b) for l, bs in LITS_LONG for b in bs]
+    for l, b in cases:
+        rng = np.random.default_rng(1000 * l + b)
+        views = lits_views(b, l, seed=1000 * l + b)
+        host = views[0]
+        pats = lits_patterns(host[1].cpu(), host[2].cpu(), l, rng)
+        if l in LITS_EDGE_L:
+            pre = pats.kind == bytes_ops.PREFIX  # rows read in part
+            tables = [("byte_pred", "bytes", pats),
+                      ("byte_pred", "prefixes",
+                       part(pats, np.flatnonzero(pre)))] + [
+                ("dfa_scan", lbl, bk) for lbl, bk in banks]
+        else:
+            tables = [("byte_pred", f"group{list(ix)}", part(pats, ix))
+                      for ix in LITS_LONG_GROUPS] + [
+                ("dfa_scan", "small", banks[0][1])]
+        for label, data, lens, ok, err, max_len in views:
+            for name, tlabel, table in tables:
+                modes = (bytes_ops.TRUNC_SAFE, bytes_ops.TRUNC_ALL) \
+                    if name == "byte_pred" else \
+                    (bytes_ops.TRUNC_MISS, bytes_ops.TRUNC_ALL)
+                k = table.n
+                x = 2 * k + 5
+                lits = bytes_ops.LitColumns.of(
+                    rng.choice(modes, k),
+                    np.sort(rng.permutation(x)[:k]))
+                em = torch.empty((b, x), dtype=torch.bool, device="cuda")
+                for staged in (True, False) if name == "byte_pred" \
+                        else (None,):
+                    tag = f"{name} {tlabel} {label} L={l} B={b}" + (
+                        "" if staged is None else
+                        " staged" if staged else " direct")
+                    with byte_path(staged) if staged is not None \
+                            else contextlib.nullcontext():
+                        subject_check(name, "plane", (data, lens, table),
+                                      tag)
+                        subject_check(name, "lits", (
+                            data, lens, ok, err, table, lits, max_len, em,
+                            em), tag, seed=b + k)
+                    n += 2
+    # the large bank on rows that reach its accepting states
+    large = banks[-1][1]
+    rng = np.random.default_rng(77)
+    alphabet = np.frombuffer(b"abcx0123456789f", np.uint8)
+    data = rng.choice(alphabet, size=(500, 40))
+    data[::7, :2] = np.frombuffer(b"x1", np.uint8)
+    data[::7, 2:34] = rng.choice(np.frombuffer(b"0123456789abcdef",
+                                               np.uint8), (72, 32))
+    lens = rng.integers(0, 41, size=500).astype(np.int32)
+    lens[::14] = 34
+    d, ln = torch.from_numpy(data).cuda(), torch.from_numpy(lens).cuda()
+    hit = subject_check("dfa_scan", "plane", (d, ln, large),
+                        "dfa_scan large hex")[0][0]
+    if not bool(hit.any()):
+        raise AssertionError("large bank: no row reached an accept state")
+    em = torch.empty((500, 205), dtype=torch.bool, device="cuda")
+    subject_check("dfa_scan", "lits", (
+        d, ln, None, None, large, bytes_ops.LitColumns.of(
+            rng.choice((bytes_ops.TRUNC_MISS, bytes_ops.TRUNC_ALL), 200),
+            np.sort(rng.permutation(205)[:200])), 30, em, em),
+        "dfa_lits large hex")
+    return n + 2
+
+
 def edge_checks() -> int:
     """Phase 3b: each kernel against its plain version on inputs the
-    headline world does not produce: exact globs, patterns longer than
-    the row, a DFA bank too big for shared memory, slot-vs-slot atoms,
-    an all-EQ and an empty ruleset, two lists on one rule, negative
-    hash keys under the floor modulo, unknown namespaces. → cases."""
+    headline world does not produce: slot-vs-slot atoms, an all-EQ and
+    an empty ruleset, two lists on one rule, negative hash keys under
+    the floor modulo, unknown namespaces (K2 and K3: lits_edge_checks).
+    → cases."""
     import numpy as np
     import torch
     from istio_tpu_torch.attribute.bag import bag_from_mapping
     from istio_tpu_torch.compiler.ruleset import Rule
     from istio_tpu_torch.models import policy_engine as pe
-    from istio_tpu_torch.ops import bytes_ops, regex_dfa
     from istio_tpu_torch.testing import workloads
 
     n = 0
-    rng = np.random.default_rng(7)
-    for width in (4, 16, 128):
-        data = torch.from_numpy(rng.integers(0, 4, size=(300, width),
-                                             dtype=np.uint8) + 97)
-        lens = torch.from_numpy(rng.integers(0, width + 1, size=300)
-                                .astype(np.int32))
-        pats = bytes_ops.BytePatterns.of(
-            [(k, bytes(p)) for k in (bytes_ops.PREFIX, bytes_ops.SUFFIX,
-                                     bytes_ops.EXACT)
-             for p in (b"", b"a", b"ab", b"abc", b"a" * 17, b"b" * 200)])
-        dc, lc = data.cuda(), lens.cuda()
-        want = bytes_ops.byte_pred(data, lens, pats)
-        assert_equal(f"byte_pred edge L={width}",
-                     bytes_ops.byte_pred(dc, lc, pats).cpu(), want)
-        # strided rows: a column of a [B, 2, L] plane
-        planes = torch.stack([data, data.flip(0)], dim=1).cuda()
-        assert_equal(f"byte_pred strided L={width}",
-                     bytes_ops.byte_pred(planes[:, 0, :], lc, pats).cpu(),
-                     want)
-        n += 2
-    for pats in ([f"^x{i}[0-9a-f]{{32}}$" for i in range(200)],
-                 ["a+b*c", "(ab|ba)+$", "^c", "[^a]b"]):
-        bank = bytes_ops.DfaBank.of(regex_dfa.pack_dfas_classes(
-            [regex_dfa.compile_regex(p) for p in pats]))
-        alphabet = np.frombuffer(b"abcx0123456789f", np.uint8)
-        data = torch.from_numpy(rng.choice(alphabet, size=(500, 40)))
-        data[::7, :2] = torch.tensor(list(b"x1"), dtype=torch.uint8)
-        lens = torch.from_numpy(rng.integers(0, 41, size=500)
-                                .astype(np.int32))
-        assert_equal(f"dfa_scan edge S={bank.table.shape[0]}",
-                     bytes_ops.dfa_scan(data.cuda(), lens.cuda(), bank).cpu(),
-                     bytes_ops.dfa_scan(data, lens, bank))
-        n += 1
-
     worlds = [
         ([Rule(*r) for r in EDGE_RULES],
          {"deny": [pe.DenySpec(rule=0, valid_duration_s=3.0),
@@ -1541,12 +1848,17 @@ def served_phase() -> dict:
         srv.check_many(big)
     steps += 1
     torch.cuda.synchronize()
+    stage = check_ext_stage(f"[5] served B={HEADLINE_B}",
+                            lambda: srv.check_many(big), rs)
+    steps += stage["calls"]
     results = {}
     for b in E2E_BATCHES:
         bags = served_traffic("headline", HEADLINE_RULES, b, seed=1)
         results[b], n = time_check_many(srv, cpu, bags, "[5] served")
         steps += n
     out = path_counts("[5] served path", SERVED_KERNELS, steps)
+    one_lit_launch_per_group("[5] served path", out, rs)
+    out["ext_stage"] = stage
     return {**out, "results": results, "captured": captured,
             "quota0": plan.engine.quota_counts.clone(),
             "servers": (srv, store, cpu, cpu_store)}
@@ -1611,13 +1923,172 @@ def path_counts(label: str, required: tuple, steps: int) -> dict:
     per_step = {k: counts[k] / steps for k in kernels.KERNELS}
     per_call = {k: grids[k] / counts[k] for k in kernels.KERNELS
                 if counts[k]}
+    entries = dict(kernels.launches.entries)
     log(f"{label} ({steps} served steps): wrapper calls {counts}; "
         f"__global__ launches {grids}; calls per step "
         + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items())
         + "; grids per call "
         + ", ".join(f"{k} {v:.2f}" for k, v in per_call.items()))
     return {"counts": counts, "grids": grids, "steps": steps,
-            "per_step": per_step}
+            "per_step": per_step, "entries": entries}
+
+
+def one_lit_launch_per_group(label: str, out: dict, ruleset,
+                             plane_ok: tuple = ()) -> None:
+    """Every rule_match launch of the path's drive came with one
+    byte_lits launch per byte group and one dfa_lits launch per DFA
+    group of the ruleset (each one grid), and no plane launch of K2 / K3
+    (but for the entry points in `plane_ok`)."""
+    counts, e = out["counts"], out["entries"]
+    g = ruleset.geometry
+    steps = counts["rule_match"]
+    want = {"byte_lits": steps * g["n_byte_groups"],
+            "dfa_lits": steps * g["n_dfa_groups"],
+            "byte_pred": 0, "dfa_scan": 0}
+    got = {k: e[k] for k in want}
+    for k in plane_ok:
+        want[k] = got[k]
+    grids = out["grids"]
+    if got != want or grids["byte_pred"] != counts["byte_pred"] or \
+            grids["dfa_scan"] != counts["dfa_scan"]:
+        raise AssertionError(f"{label}: K2 / K3 entry points {got} "
+                             f"(grids {grids['byte_pred']} / "
+                             f"{grids['dfa_scan']}) for {steps} rule_match "
+                             f"launches, {g['n_byte_groups']} byte and "
+                             f"{g['n_dfa_groups']} DFA groups; want {want}")
+    log(f"{label}: one launch per subject group per step ({steps} steps x "
+        f"({g['n_byte_groups']} byte_lits + {g['n_dfa_groups']} dfa_lits))"
+        + (f"; plane launches {', '.join(f'{k} {got[k]}' for k in plane_ok)}"
+           if plane_ok else "; no plane launch"))
+
+
+def hand_written() -> dict:
+    """The `__global__` functions of csrc/ → their source: what the
+    profiler's kernel names are matched against."""
+    import re
+    from istio_tpu_torch import kernels
+    out = {}
+    for src in sorted(kernels.SRC_DIR.glob("*.cu")):
+        for name in re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)", src.read_text()):
+            out[name] = src.stem
+    return out
+
+
+def source_of_event(name: str, table: dict) -> tuple[str | None, str]:
+    """(csrc/ source, `__global__` function) of a profiler kernel name;
+    (None, the name) for a library kernel, a copy or a memset."""
+    import re
+    for fn, src in table.items():
+        if re.search(r"(?:^|[\s:])" + fn + r"[<(]", name):
+            return src, fn
+    return None, name[:60]
+
+
+def ext_stage(fn, steps: int, srcs=("byte_pred", "dfa_scan")) -> dict:
+    """Profile `steps` calls of fn (one step each) and read the ext
+    stages in them — every device op from the first kernel of `srcs` (K2
+    / K3) to the next rule_match kernel, glue included — and the device
+    time of every op that is not a hand-written kernel. → {"stages": one
+    dict a stage seen ("launches", "k23" (launches of `srcs`),
+    "all_hand_written", "ms", "ops"), "other_ms", "other_ops" (a
+    step's)}; "stages" is empty where the profiler saw no device
+    activity. The profiler drops a kernel record now and then (PERF.md
+    §7): a stage may read one launch short, never one long."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    table = hand_written()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    tagged = [(e, *source_of_event(e.name, table)) for e in evs]
+    other = [e for e, src, _ in tagged if src is None]
+    stages, cur = [], None
+    for e, src, name in tagged:
+        if cur is None and src in srcs:
+            cur = []
+        if cur is not None:
+            # the stage ends at K1 (or, should the profiler have dropped
+            # both K1 records, at the next hand-written kernel of another
+            # source)
+            if src is not None and src not in (*srcs, "field_eval"):
+                stages.append(cur)
+                cur = None
+            else:
+                cur.append((e, src, name))
+    return {"stages": [{
+        "launches": len(st), "k23": sum(src in srcs for _, src, _ in st),
+        "all_hand_written": all(src is not None for _, src, _ in st),
+        "ms": sum(e.time_range.elapsed_us() for e, _, _ in st) / 1e3,
+        "ops": sorted({name for _, _, name in st})} for st in stages],
+        "other_ms": sum(e.time_range.elapsed_us() for e in other)
+        / 1e3 / steps,
+        "other_ops": len(other) / steps}
+
+
+def check_ext_stage(label: str, fn, ruleset, steps: int = 10,
+                    tries: int = 3) -> dict:
+    """The ext stage of `steps` profiled calls: exactly one hand-written
+    launch per subject group, then atom_eval where the ruleset has op
+    programs, and nothing else before rule_match. Every stage the
+    profile shows must hold only hand-written kernels and no launch too
+    many, and most of the steps (more than half) must show their stage
+    whole (the profiler drops a record now and then: such a profile is
+    taken again, up to `tries` profiles in all). A profile with no
+    stage in it fails. → what was seen, with "calls" (fn's
+    calls, warm-ups included)."""
+    g = ruleset.geometry
+    groups = g["n_byte_groups"] + g["n_dfa_groups"]
+    want = groups + (1 if ruleset.atoms.n else 0)
+    need = steps // 2 + 1
+    seen = []
+    for attempt in range(1, tries + 1):
+        st = ext_stage(fn, steps)
+        stages = st["stages"]
+        if not stages:
+            raise AssertionError(f"{label}: the profile of {steps} steps "
+                                 "shows no ext stage (no device events?)")
+        bad = [x for x in stages if not x["all_hand_written"]
+               or x["launches"] > want or x["k23"] > groups]
+        if bad:
+            raise AssertionError(f"{label}: ext stage {bad[0]}; want "
+                                 f"{want} hand-written launches a step "
+                                 f"({groups} subject groups"
+                                 + (" + atom_eval" if ruleset.atoms.n
+                                    else "") + ") and nothing else")
+        whole = [x for x in stages
+                 if x["launches"] == want and x["k23"] == groups]
+        seen.append(len(whole))
+        if len(whole) >= need:
+            break
+        log(f"{label}: profile {attempt} showed {len(whole)} of {steps} "
+            "ext stages whole (dropped records); profiling again")
+    else:
+        raise AssertionError(f"{label}: ext stage seen whole in {seen} of "
+                             f"{steps} steps in {tries} profiles; want "
+                             f"{need}")
+    ms = sorted(x["ms"] for x in whole)[len(whole) // 2]
+    ops = sorted({o for x in whole for o in x["ops"]})
+    log(f"{label}: ext stage {want} launches a step ({', '.join(ops)}; "
+        f"{len(whole)} of {steps} profiled steps seen whole, profile "
+        f"{attempt}), all hand-written ({groups} subject groups"
+        + (" + atom_eval" if ruleset.atoms.n else "")
+        + f"), device {ms:.5f} ms a step (median whole stage); every op "
+        f"that is not a hand-written kernel: {st['other_ops']:.1f} a step, "
+        f"{st['other_ms']:.5f} ms a step")
+    return {"launches": want, "ms": ms, "ops": ops, "whole": len(whole),
+            "steps": steps, "profiles": attempt,
+            "calls": attempt * (steps + 1), "other_ms": st["other_ms"],
+            "other_ops": st["other_ops"]}
 
 
 def swap_phase(srv, store, cpu, cpu_store) -> None:
@@ -1899,10 +2370,16 @@ def authz_phase(int_rate: float) -> dict:
                 srv.check_many(bags)
             steps += 1
             torch.cuda.synchronize()
+            stage = check_ext_stage(f"[6] authz B={b}",
+                                    lambda: srv.check_many(bags),
+                                    snap.ruleset)
+            steps += stage["calls"]
         results[b], n = time_check_many(srv, cpu, bags, "[6] authz")
         steps += n
     out = path_counts("[6] authz path", AUTHZ_KERNELS, steps)
     one_atom_launch_per_step("[6] authz path", out, snap.ruleset)
+    one_lit_launch_per_group("[6] authz path", out, snap.ruleset)
+    out["ext_stage"] = stage
     log(f"[6] authz path, B={HEADLINE_B}: K1, K3, K4, K5, K6 and "
         "atom_eval against their plain versions on its own inputs (timed):")
     rows = check_kernels(captured, plan.engine.quota_counts.clone(),
@@ -2384,6 +2861,8 @@ def list_phase(int_rate: float) -> dict:
             steps += 1
             torch.cuda.synchronize()
     out = path_counts("[7] list path", LIST_KERNELS, steps)
+    one_lit_launch_per_group("[7] list path", out, eng.ruleset,
+                             plane_ok=("dfa_scan",))
     log(f"[7] list path, B={HEADLINE_B}: every kernel against its plain "
         "version on its own inputs (timed):")
     rows = check_kernels(captured, eng.quota_counts.clone(), int_rate)
@@ -4151,7 +4630,8 @@ def route_entry_counts() -> dict:
     from istio_tpu_torch import kernels
     e = kernels.launches.entries
     return {"rule_match": kernels.launches["rule_match"],
-            **{k: e[k] for src in ("route_select", "field_eval")
+            **{k: e[k] for src in ("route_select", "field_eval",
+                                   "byte_pred", "dfa_scan")
                for k in kernels.ENTRY_POINTS[src]}}
 
 
@@ -4260,6 +4740,10 @@ def route_phase(int_rate: float) -> dict:
         f"{json.dumps(tbl.program.geometry)}")
     rng = np.random.default_rng(1010)
     n_atom = int(tbl.program.atoms.n > 0)     # atom_eval per select
+    # one literal launch per subject group per select, no plane launch
+    lits = {"byte_lits": tbl.program.geometry["n_byte_groups"],
+            "dfa_lits": tbl.program.geometry["n_dfa_groups"],
+            "byte_pred": 0, "dfa_scan": 0}
     kernels.launches.reset()
     steps, results, captured = 0, {}, {}
     for b in ROUTE_BATCHES:
@@ -4274,7 +4758,7 @@ def route_phase(int_rate: float) -> dict:
         steps += 1
         if {k: c1[k] - c0[k] for k in c1} != {
                 "rule_match": 1, "route_winner": 1, "route_densify": 0,
-                "field_eval": 0, "atom_eval": n_atom}:
+                "field_eval": 0, "atom_eval": n_atom, **lits}:
             raise AssertionError(f"B={b} dense select launched "
                                  f"{ {k: c1[k] - c0[k] for k in c1} }")
         want = cpu.select(bags)
@@ -4293,7 +4777,7 @@ def route_phase(int_rate: float) -> dict:
         steps += 1
         if {k: c2[k] - c1[k] for k in c2} != {
                 "rule_match": 1, "route_winner": 1, "route_densify": 1,
-                "field_eval": 0, "atom_eval": n_atom}:
+                "field_eval": 0, "atom_eval": n_atom, **lits}:
             raise AssertionError(f"B={b} compact select launched "
                                  f"{ {k: c2[k] - c1[k] for k in c2} }")
         if not (comp == got).all():
@@ -4310,6 +4794,11 @@ def route_phase(int_rate: float) -> dict:
         staged = batch.to("cuda")
         busy = device_ms(lambda: tbl._select_on_device(staged), 5)
         steps += 6
+        if b == HEADLINE_B:
+            stage = check_ext_stage(f"[10] dense select B={b}",
+                                    lambda: tbl._select_on_device(staged),
+                                    tbl.program)
+            steps += stage["calls"]
         p50 = float(np.percentile(walls, 50))
         r = {"p50_ms": p50, "p99_ms": float(np.percentile(walls, 99)),
              "busy_ms": busy, "idle_share": None if busy is None else
@@ -4325,9 +4814,12 @@ def route_phase(int_rate: float) -> dict:
             f"{r['p99_ms']:.4f} ms ({r['selects_per_s']:,.0f} requests/s; "
             f"{idle}); H2D dense {dense_b:,} B, compact {compact_b:,} B; "
             "launches per select: dense rule_match 1 + atom_eval 1 + "
-            "route_winner 1, compact + route_densify 1")
+            f"byte_lits {lits['byte_lits']} + dfa_lits {lits['dfa_lits']} "
+            "+ route_winner 1, compact + route_densify 1")
     out = path_counts("[10] route path", ROUTE_KERNELS, steps)
     one_atom_launch_per_step("[10] route path", out, tbl.program)
+    one_lit_launch_per_group("[10] route path", out, tbl.program)
+    out["ext_stage"] = stage
     out["entries"] = dict(kernels.launches.entries)
     log(f"[10] route_select entry points: {out['entries']}")
     log(f"[10] every kernel of the B={HEADLINE_B} dense select against its "
@@ -5147,6 +5639,17 @@ def main() -> int:
         eng.quota_counts.copy_(quota_before)
     log(f"[3b] {edge_checks()} edge cases: every kernel equal to its "
         "plain version")
+    log(f"[3b] {lits_edge_checks()} byte_pred / byte_lits / dfa_scan / "
+        "dfa_lits calls equal to their plain versions byte for byte "
+        f"(L = {', '.join(map(str, LITS_EDGE_L))}, B = "
+        f"{', '.join(map(str, LITS_EDGE_B + LITS_BIG_B))}; contiguous, "
+        "lean, narrowed, non-zero padding, strided, odd-address and "
+        "broadcast rows; k = 0, 1, 3, L-1, L, L+1 of every kind; small, "
+        "C = 1, S = 1 and larger-than-shared-memory banks; scattered "
+        "columns in pre-filled planes; rows of "
+        f"{', '.join(str(l) for l, _ in LITS_LONG)} bytes in groups of one "
+        "and two patterns; every byte_pred case on both byte_staged and "
+        "byte_direct)")
     log(f"[3c] {rule_match_edge_worlds()} rule_match cases (atom-less, "
         "empty, all-EQ, host-fallback and rule_pad snapshots at B="
         f"{HEADLINE_B} and {', '.join(map(str, K1_EDGE_B))}, every plane "
@@ -5193,6 +5696,11 @@ def main() -> int:
         ms = time_ms(lambda: eng.check(staged, req_d), iters)
         busy = device_ms(lambda: eng.check(staged, req_d), 10)
         steps += iters + 3 + 11
+        if b == HEADLINE_B:
+            e2e_stage = check_ext_stage(f"[4] headline step B={b}",
+                                        lambda: eng.check(staged, req_d),
+                                        eng.ruleset)
+            steps += e2e_stage["calls"]
         e2e[b] = ms
         idle = "not measured" if busy is None else \
             f"busy {busy:.4f} ms, idle share {1 - busy / ms:.3f}"
@@ -5224,6 +5732,9 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the engine "
                              f"path: {missing}")
     k1_grids_per_call("[4] engine path", counts, grids)
+    one_lit_launch_per_group("[4] engine path", {
+        "counts": counts, "grids": grids,
+        "entries": dict(kernels.launches.entries)}, eng.ruleset)
     log(f"[4] wrapper calls on the engine path ({steps} steps): {counts}; "
         f"__global__ launches: {grids}")
 
@@ -5318,11 +5829,18 @@ def main() -> int:
         row["engine_path_launches"] = counts[name]
         row["launches_by_path"] = {"engine": counts[name], **{
             p: r["counts"][name] for p, r in paths.items()}}
-        row["paths"] = {p: {k: x[k] for k in keep}
+        row["paths"] = {p: {k: x[k] for k in keep + ("glue_ms", "calls")
+                            if k in x}
                         for p in ("authz", "lists", "report", "quota",
                                   "routes", "discovery", "seq", "mesh")
                         for x in paths[p]["rows"] if x["name"] == name
                         and p != row["path"]}
+        if name in ("byte_pred", "dfa_scan"):
+            # the ext stage (first K2 / K3 launch to rule_match, glue
+            # included) per step of each path that asserted it
+            row["ext_stage"] = {"engine": e2e_stage, **{
+                p: paths[p].get("ext_stage") for p in (
+                    "served", "authz", "routes")}}
     log("kernels (launches by path): " + "; ".join(
         f"{p}: " + ", ".join(f"{k}={r['counts'][k]}" for k in kernels.KERNELS)
         for p, r in paths.items()))

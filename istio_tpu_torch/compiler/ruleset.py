@@ -7,10 +7,13 @@ The device program runs through the rule_match kernel
 (csrc/rule_match.cu), bit-sliced over requests (32 a word) on its own
 tables (word_tables: each distinct literal once, every conjunction an
 AND over literal words; rule_match_words_plain is their plain version);
-constant regex atoms through dfa_scan and constant
-byte predicates through byte_pred (ops/bytes_ops.py), and every other
+constant regex atoms through dfa_scan's dfa_lits entry point and
+constant byte predicates through byte_pred's byte_lits, one launch per
+subject group (ops/bytes_ops.py, tensor_expr.LitGroup), and every other
 generic-tier atom as an op program of the atom_eval kernel
-(csrc/field_eval.cu, ops/field_ops.py), one launch per step.
+(csrc/field_eval.cu, ops/field_ops.py), one launch per step. All three
+write their literal pairs straight into the ext planes rule_match
+reads.
 
 This is the batched replacement for the reference resolver's per-request
 loop (mixer/pkg/runtime/resolver.go:202-238 filterActions — which calls
@@ -53,7 +56,7 @@ distinct predicates in practice) and evaluated in three tiers:
   2. a vectorized slot-vs-slot compare;
   3. everything else (byte predicates, `|` fallback chains, nested EQ
      of booleans): constant byte predicates batched per subject into
-     byte_pred, the rest as op programs (compiler/op_lower.py) that one
+     byte_lits, the rest as op programs (compiler/op_lower.py) that one
      atom_eval launch interprets. The tensor_expr closures of these
      atoms are atom_eval's plain version (the CPU path) and nothing
      else.
@@ -1006,9 +1009,14 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
                 host_fallback[ridx] = _rule_oracle(rules[ridx], finder)
                 fallback_reason[ridx] = "atom not lowerable"
 
-    dfa_group_fns = [tensor_expr.compile_dfa_group(
-        g["subject"], g["patterns"], g["dfas"], ctx)
-        for g in dfa_groups.values()]
+    # the DFA groups' atoms take the first ext columns, group by group
+    dfa_group_fns, off = [], 0
+    for g in dfa_groups.values():
+        k = len(g["atoms"])
+        dfa_group_fns.append(tensor_expr.compile_dfa_lits(
+            g["subject"], g["patterns"], g["dfas"],
+            np.arange(off, off + k), ctx))
+        off += k
     dfa_atom_idx = [a for g in dfa_groups.values() for a in g["atoms"]]
 
     n_atoms = len(atoms.asts)
@@ -1156,9 +1164,10 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
     # The ext literal planes [B, n_ext] hold the DFA-group atoms, then
     # the generic tier in the reference's gen-atom order. Constant
     # startsWith / endsWith / match() atoms of the generic tier are
-    # batched per subject into one byte_pred launch; every other generic
-    # atom is one op program of the atom_eval kernel, which writes its
-    # literal pair straight into its columns (op_lower, field_ops).
+    # batched per subject into one byte_lits launch; every other generic
+    # atom is one op program of the atom_eval kernel. Each of the three
+    # writes its literal pairs straight into its columns (LitGroup,
+    # op_lower, field_ops).
     n_dfa = len(dfa_atom_idx)
     byte_groups: dict[str, dict] = {}
     prog_atoms: list[tuple[int, Callable, int]] = []
@@ -1173,13 +1182,10 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         else:
             prog_atoms.append((aidx, gfn, n_dfa + gpos))
     byte_group_fns = [
-        (tensor_expr.compile_byte_group(g["subject"], g["calls"], ctx),
-         torch.tensor(g["pos"], dtype=torch.long, device=dev))
+        tensor_expr.compile_byte_lits(g["subject"], g["calls"], g["pos"],
+                                      ctx)
         for g in byte_groups.values()]
-    dfa_cols, off = [], 0
-    for gfn, g in zip(dfa_group_fns, dfa_groups.values()):
-        dfa_cols.append((gfn, off, len(g["atoms"])))
-        off += len(g["atoms"])
+    lit_groups = dfa_group_fns + byte_group_fns
     atom_prog = fo.AtomProgram(
         fns=[gfn for _, gfn, _ in prog_atoms],
         prog=op_lower.lower_programs([atoms.asts[a] for a, _, _ in prog_atoms],
@@ -1206,15 +1212,11 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         em = torch.empty((b, width), dtype=torch.bool, device=dev_b)
         en = torch.empty((b, width), dtype=torch.bool, device=dev_b)
         if use_legacy:
-            for gfn, off, k in dfa_cols:
-                gval, gee = gfn(batch)
-                em[:, off:off + k] = gval      # already masked by ~ee
-                en[:, off:off + k] = ~gval & ~gee
-            for gfn, cols in byte_group_fns:
-                gval, gee = gfn(batch)
-                cols = cols.to(dev_b)
-                em[:, cols] = gval
-                en[:, cols] = ~gval & ~gee
+            # every subject view first (an attribute's is no device op),
+            # then one launch per group and atom_eval, back to back
+            views = [g.view(batch) for g in lit_groups]
+            for g, v in zip(lit_groups, views):
+                g.write(v, em, en)
             fo.atom_eval(batch, atom_prog, em, en)
         return rule_match(batch.ids, batch.present, em, en, params, consts,
                           planes)

@@ -27,8 +27,10 @@ the oracle (istio_tpu_torch/expr/oracle.py), which mirrors the IL codegen:
 Non-boolean values are interned int32 ids (layout.py) and EQ is id
 comparison. Constant byte predicates (startsWith / endsWith / match())
 lower to the byte_pred kernel and constant `matches` regexes to the
-dfa_scan kernel (ops/bytes_ops.py); runtime-pattern predicates and
-ordered comparisons stay torch code.
+dfa_scan kernel (ops/bytes_ops.py; the ruleset's subject groups write
+their literal pairs through the byte_lits / dfa_lits entry points,
+LitGroup); runtime-pattern predicates and ordered comparisons stay
+torch code.
 
 Expressions the device path cannot lower — dynamic-key INDEX, non-constant
 match/regex patterns, ip()/timestamp() over runtime strings, unsupported
@@ -577,6 +579,15 @@ def _compile_byte_pred(f: FunctionCall, ctx: _Ctx) -> NodeFn:
     return fn
 
 
+def _byte_group_spec(calls: list[FunctionCall], max_len: int
+                     ) -> tuple[bytes_ops.BytePatterns, np.ndarray]:
+    """The patterns of a byte group and which of its columns have the
+    truncation mode "all"."""
+    specs = [_byte_pred_spec(c, max_len) for c in calls]
+    return (bytes_ops.BytePatterns.of([s[1] for s in specs]),
+            np.array([s[2] == "all" for s in specs]))
+
+
 def compile_byte_group(subject_ast: Expression, calls: list[FunctionCall],
                        ctx: _Ctx) -> Callable:
     """ALL constant startsWith / endsWith / match() atoms over ONE
@@ -584,11 +595,10 @@ def compile_byte_group(subject_ast: Expression, calls: list[FunctionCall],
     (val [B, k], ee [B, k]) with exactly _compile_byte_pred's semantics
     per column: subject absence/error masks the row, and columns whose
     truncation mode is "all" are undecidable on possibly-truncated
-    rows."""
+    rows. (The ruleset writes its groups' literal pairs instead:
+    compile_byte_lits.)"""
     max_len = ctx.layout.max_str_len
-    specs = [_byte_pred_spec(c, max_len) for c in calls]
-    patterns = bytes_ops.BytePatterns.of([s[1] for s in specs])
-    trunc_all = np.array([s[2] == "all" for s in specs])
+    patterns, trunc_all = _byte_group_spec(calls, max_len)
     fsub = _compile_bytes(subject_ast, ctx)
     dev_trunc: dict[torch.device, torch.Tensor] = {}
 
@@ -614,14 +624,11 @@ def compile_dfa_group(subject_ast: Expression, patterns: list[str],
     _compile_byte_pred's semantics per column: subject absence/error
     masks the row; truncated rows are fully undecidable for $-anchored
     patterns and miss-undecidable otherwise (the truncation contract,
-    applied here around the kernel)."""
-    from istio_tpu_torch.ops.regex_dfa import pack_dfas_tiered
-
+    applied here around the kernel). (The ruleset writes its groups'
+    literal pairs instead: compile_dfa_lits.)"""
     max_len = ctx.layout.max_str_len
     fsub = _compile_bytes(subject_ast, ctx)
-    # the reference's tier selection, kept so the host geometry matches;
-    # the dfa_scan kernel walks the class-compressed table of every tier
-    bank = bytes_ops.DfaBank.of(pack_dfas_tiered(dfas)["classes"])
+    bank = _dfa_bank(dfas)
     trunc_all = np.array(["$" in p for p in patterns])
     dev_trunc: dict[torch.device, torch.Tensor] = {}
 
@@ -640,6 +647,60 @@ def compile_dfa_group(subject_ast: Expression, patterns: list[str],
         val = val & ~ee
         return val, ee
     return fn
+
+
+def _dfa_bank(dfas: list) -> bytes_ops.DfaBank:
+    from istio_tpu_torch.ops.regex_dfa import pack_dfas_tiered
+
+    # the reference's tier selection, kept so the host geometry matches;
+    # the dfa_scan kernel walks the class-compressed table of every tier
+    return bytes_ops.DfaBank.of(pack_dfas_tiered(dfas)["classes"])
+
+
+@dataclasses.dataclass(eq=False)
+class LitGroup:
+    """One subject group of the ruleset's ext columns: every constant
+    byte predicate (table: BytePatterns, one byte_lits launch) or every
+    constant-pattern regex (table: DfaBank, one dfa_lits launch) over
+    one subject, each pattern's literal pair (m, n) written into its
+    column of the ext planes with _compile_byte_pred's absence, error
+    and truncation rules. `view(batch)` is the subject (no device op
+    for an attribute subject); `write(view, em, en)` is the launch."""
+    fsub: Callable
+    table: Any
+    lits: bytes_ops.LitColumns
+    max_len: int
+
+    def view(self, batch: AttributeBatch) -> BVal:
+        return self.fsub(batch)
+
+    def write(self, s: BVal, em: torch.Tensor, en: torch.Tensor) -> None:
+        op = bytes_ops.dfa_lits if isinstance(self.table, bytes_ops.DfaBank) \
+            else bytes_ops.byte_lits
+        op(s.data, s.lens, s.ok, s.err, self.table, self.lits, self.max_len,
+           em, en)
+
+
+def compile_byte_lits(subject_ast: Expression, calls: list[FunctionCall],
+                      cols, ctx: _Ctx) -> LitGroup:
+    """compile_byte_group's atoms as a LitGroup writing column cols[i]
+    for calls[i] (modes: "all" → TRUNC_ALL, "safe" → TRUNC_SAFE)."""
+    max_len = ctx.layout.max_str_len
+    patterns, trunc_all = _byte_group_spec(calls, max_len)
+    modes = np.where(trunc_all, bytes_ops.TRUNC_ALL, bytes_ops.TRUNC_SAFE)
+    return LitGroup(_compile_bytes(subject_ast, ctx, lean=True), patterns,
+                    bytes_ops.LitColumns.of(modes, cols), max_len)
+
+
+def compile_dfa_lits(subject_ast: Expression, patterns: list[str],
+                     dfas: list, cols, ctx: _Ctx) -> LitGroup:
+    """compile_dfa_group's atoms as a LitGroup writing column cols[i]
+    for patterns[i] (`$`-anchored → TRUNC_ALL, else TRUNC_MISS)."""
+    modes = [bytes_ops.TRUNC_ALL if "$" in p else bytes_ops.TRUNC_MISS
+             for p in patterns]
+    return LitGroup(_compile_bytes(subject_ast, ctx, lean=True),
+                    _dfa_bank(dfas), bytes_ops.LitColumns.of(modes, cols),
+                    ctx.layout.max_str_len)
 
 
 def _compile_dyn_byte_pred(f: FunctionCall, ctx: _Ctx) -> NodeFn:
@@ -677,8 +738,11 @@ def _compile_dyn_byte_pred(f: FunctionCall, ctx: _Ctx) -> NodeFn:
     return fn
 
 
-def _compile_bytes(e: Expression, ctx: _Ctx) -> ByteFn:
-    """Compile a STRING-typed subtree to its byte-tensor view."""
+def _compile_bytes(e: Expression, ctx: _Ctx, lean: bool = False) -> ByteFn:
+    """Compile a STRING-typed subtree to its byte-tensor view. `lean`
+    (the LitGroup subjects): an attribute view's err is None (it never
+    errs) and a constant's ok and err are None (present on every row),
+    so the view makes no mask tensor the kernels do not need."""
     lay = ctx.layout
     if e.const_ is not None:
         if e.const_.vtype in ORDER_KEY_TYPES:
@@ -699,9 +763,11 @@ def _compile_bytes(e: Expression, ctx: _Ctx) -> ByteFn:
             r = dev_rows.get(dev)
             if r is None:
                 r = dev_rows[dev] = torch.from_numpy(row).to(dev)
-            return BVal(r[:w][None, :].expand(b, w),
-                        torch.full((b,), n, dtype=_I32, device=dev),
-                        _ones(batch), _zeros(batch))
+            lens = torch.full((b,), n, dtype=_I32, device=dev)
+            if lean:
+                return BVal(r[:w][None, :].expand(b, w), lens, None, None)
+            return BVal(r[:w][None, :].expand(b, w), lens, _ones(batch),
+                        _zeros(batch))
         return fn
 
     if e.var is not None:
@@ -711,7 +777,7 @@ def _compile_bytes(e: Expression, ctx: _Ctx) -> ByteFn:
         def fn(batch: AttributeBatch) -> BVal:
             ok = batch.present[:, col]
             return BVal(batch.str_bytes[:, bcol, :], batch.str_lens[:, bcol],
-                        ok, torch.zeros_like(ok))
+                        ok, None if lean else torch.zeros_like(ok))
         return fn
 
     f = e.fn
@@ -724,7 +790,7 @@ def _compile_bytes(e: Expression, ctx: _Ctx) -> ByteFn:
         def fn(batch: AttributeBatch) -> BVal:
             ok = batch.present[:, col]
             return BVal(batch.str_bytes[:, bcol, :], batch.str_lens[:, bcol],
-                        ok, torch.zeros_like(ok))
+                        ok, None if lean else torch.zeros_like(ok))
         return fn
 
     if f.name == "OR":

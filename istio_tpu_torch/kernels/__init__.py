@@ -43,7 +43,9 @@ KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
 # inside one wrapper call and are counted in its grids)
 ENTRY_POINTS = {"route_select": ("route_winner", "route_densify"),
                 "field_eval": ("field_eval", "atom_eval"),
-                "seq_match": ("chunk_map", "compose_maps")}
+                "seq_match": ("chunk_map", "compose_maps"),
+                "byte_pred": ("byte_pred", "byte_lits"),
+                "dfa_scan": ("dfa_scan", "dfa_lits")}
 # kernels built from another kernel's source: one interpreter with two
 # entry points (csrc/field_eval.cu), and the sharded verdict fold's entry
 # points beside the unsharded one, on one row-fold body

@@ -13,13 +13,18 @@ kernel with its plain PyTorch version beside it:
              exact / glob over one subject; replaces prefix_match /
              suffix_match / exact_match / glob_match
 
-A wrapper given CPU tensors runs the plain version; given CUDA tensors
-it launches the kernel (or raises). The runtime-pattern predicates
-(dyn_*) and lex_cmp stay torch code.
+Each source has two entry points: the plane one (byte_pred, dfa_scan:
+bool [B, P]) and the literal one (byte_lits, dfa_lits), which writes
+every pattern's literal pair (m, n) with the subject group's absence,
+error and truncation rules straight into its column of rule_match's ext
+planes (the ruleset's path). A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches the kernel (or raises). The
+runtime-pattern predicates (dyn_*) and lex_cmp stay torch code.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -28,6 +33,27 @@ from istio_tpu_torch import kernels
 
 # byte_pred kinds (csrc/byte_pred.cu)
 PREFIX, SUFFIX, EXACT = 0, 1, 2
+# truncation modes of a literal column (csrc/lit_cols.cuh): where a
+# possibly truncated row (ok and len >= max_len) is undecidable — never,
+# where the pattern missed, always
+TRUNC_SAFE, TRUNC_MISS, TRUNC_ALL = 0, 1, 2
+
+
+class _OnDevice:
+    """Host arrays with one copy per device, made on first use."""
+
+    _fields: tuple[str, ...] = ()
+
+    def __post_init__(self) -> None:
+        self._dev: dict[torch.device, tuple] = {}
+
+    def on(self, device: torch.device) -> tuple:
+        t = self._dev.get(device)
+        if t is None:
+            t = tuple(torch.from_numpy(np.ascontiguousarray(
+                getattr(self, f))).to(device) for f in self._fields)
+            self._dev[device] = t
+        return t
 
 
 def _kernel_or_plain(*tensors: torch.Tensor) -> bool:
@@ -56,6 +82,95 @@ def _lens(t: torch.Tensor, b: int) -> torch.Tensor:
         raise ValueError(f"lens: want int32 [{b}], got {t.dtype} "
                          f"{tuple(t.shape)}")
     return t
+
+
+def _aligned(data: torch.Tensor) -> int:
+    """1 where the kernels may read data's rows as 32-bit words: the
+    first row and the row stride on a 4-byte boundary, L a multiple
+    of 4; else they assemble words from byte loads."""
+    return int(data.data_ptr() % 4 == 0 and data.stride(0) % 4 == 0
+               and data.shape[1] % 4 == 0)
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+@dataclasses.dataclass(eq=False)
+class LitColumns(_OnDevice):
+    """Where a subject group's literal pairs go: mode int32 [k] (each
+    column's TRUNC_* mode) and cols int32 [k] (its ext column)."""
+    mode: np.ndarray
+    cols: np.ndarray
+    _fields = ("mode", "cols")
+
+    @classmethod
+    def of(cls, modes, cols) -> "LitColumns":
+        return cls(np.asarray(modes, np.int32), np.asarray(cols, np.int32))
+
+    @property
+    def n(self) -> int:
+        return int(self.cols.shape[0])
+
+
+def write_lits_plain(hit: torch.Tensor, lens: torch.Tensor,
+                     ok: torch.Tensor | None, err: torch.Tensor | None,
+                     mode: torch.Tensor, cols: torch.Tensor, max_len: int,
+                     em: torch.Tensor, en: torch.Tensor) -> None:
+    """The literal pair of every column of a subject group, in place:
+    ee = err | ~ok, or on a possibly truncated row (ok & len >= max_len)
+    where the column's mode says so (TRUNC_ALL always, TRUNC_MISS where
+    the pattern missed); em[:, cols] = hit & ~ee, en[:, cols] = ~hit &
+    ~ee. ok None: present on every row; err None: never an error."""
+    okv = torch.ones_like(lens, dtype=torch.bool) if ok is None else ok
+    ee0 = ~okv if err is None else err | ~okv
+    maybe = (okv & (lens >= max_len))[:, None]
+    und = maybe & ((mode == TRUNC_ALL)[None, :]
+                   | ((mode == TRUNC_MISS)[None, :] & ~hit))
+    ee = ee0[:, None] | und
+    c = cols.long()
+    em[:, c] = hit & ~ee
+    en[:, c] = ~hit & ~ee
+
+
+def _lit_planes(em: torch.Tensor, en: torch.Tensor, b: int,
+                lits: LitColumns, name: str) -> None:
+    for t, nm in ((em, "em"), (en, "en")):
+        if t.dim() != 2 or t.shape[0] != b or t.dtype != torch.bool or \
+                (t.numel() and t.stride(1) != 1) or \
+                (lits.n and int(lits.cols.max()) >= t.shape[1]):
+            raise ValueError(f"{name}: {nm} must be a bool [{b}, X] plane "
+                             "with unit column stride holding every "
+                             "column of the group")
+    if em.shape != en.shape or (em.numel() and
+                                em.stride(0) != en.stride(0)):
+        raise ValueError(f"{name}: em and en differ in shape or stride")
+
+
+def _masks(ok: torch.Tensor | None, err: torch.Tensor | None, b: int,
+           name: str) -> list[torch.Tensor]:
+    out = []
+    for t, nm in ((ok, "ok"), (err, "err")):
+        if t is None:
+            continue
+        if t.dim() != 1 or t.shape[0] != b or t.dtype != torch.bool:
+            raise ValueError(f"{name}: {nm} must be bool [{b}] or None")
+        out.append(t)
+    return out
+
+
+def _mask_args(t: torch.Tensor | None) -> tuple:
+    return (kernels.VP(None), 0) if t is None else \
+        (kernels.ptr(t), t.stride(0))
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +225,80 @@ class BytePatterns:
             self._dev[device] = t
         return t
 
+    def row_words(self, l: int) -> int:
+        """The words of an L-byte row the byte kernel reads: every one
+        (ceil(L / 4)) where a suffix or exact pattern fits the row, else
+        those below the longest prefix that does."""
+        fits = self.plens <= l
+        if (fits & (self.kind != PREFIX)).any():
+            return -(-l // 4)
+        return -(-int(self.plens[fits].max(initial=0)) // 4)
+
+    def words_on(self, device: torch.device) -> torch.Tensor:
+        """The patterns as the kernel stages them: little-endian 32-bit
+        words int32 [P, ceil(Lp / 4)], zero past each pattern's end."""
+        key = ("words", device)
+        t = self._dev.get(key)
+        if t is None:
+            p, lp = self.pats.shape
+            w = np.zeros((p, -(-lp // 4) * 4), np.uint8)
+            w[:, :lp] = self.pats
+            t = self._dev[key] = torch.from_numpy(
+                w.view("<u4").view(np.int32).copy()).to(device)
+        return t
+
+
+def byte_smem(need: int, rows: int, chunk: int) -> int:
+    """Shared memory of a byte-kernel block (csrc/byte_pred.cu
+    smem_bytes): `chunk` patterns of `need` words (an odd word stride)
+    with their k, kind, column and mode, and `rows` rows of `need` words
+    and a zero word (an odd word stride)."""
+    return 4 * (chunk * ((need | 1) + 4) + rows * ((need + 1) | 1))
+
+
+def byte_plan(b: int, l: int, p: int, device: torch.device,
+              need: int | None = None, staged: bool | None = None,
+              group: int | None = None, threads: int = 256,
+              blocks_per_sm: int = 2) -> tuple[int, int, int, int, int]:
+    """The byte kernel's launch: (lanes per row, threads per block,
+    patterns staged per round, grid, staged). `need`: the words of a row
+    the patterns read (BytePatterns.row_words; default every word). A
+    row's group of lanes splits its patterns: by default the power of
+    two that gives each pattern a lane, up to a warp (`group=32` is a
+    warp per row, `group=1` lanes as rows). Staged (byte_staged, where
+    a row and a pattern fit _BYTE_SMEM): a block holds `threads / group`
+    rows, halved until they fit _BYTE_SMEM beside one pattern (a group
+    then widens so that a block keeps a warp), and stages as many
+    patterns a round as fit beside them; else direct (byte_direct: rows
+    and patterns read in place, no shared memory). The grid covers the
+    rows, at most `blocks_per_sm` blocks an SM. The wrappers pass `need`
+    alone; the other keywords are for the variants script (and
+    `staged` for chip_smoke's edge checks, which hold both kernels)."""
+    need = -(-l // 4) if need is None else need
+    if group is None:
+        group = min(32, 1 << max(p - 1, 0).bit_length())
+    if staged is None:
+        staged = byte_smem(need, 1, 1) <= _BYTE_SMEM
+    rows = max(1, threads // group)
+    rows = 1 << (rows.bit_length() - 1)
+    chunk = 1
+    if staged:
+        while rows > 1 and byte_smem(need, rows, 1) > _BYTE_SMEM:
+            rows //= 2
+        if byte_smem(need, rows, 1) > _BYTE_SMEM:
+            raise ValueError(f"byte kernel: a row of {l} bytes does not "
+                             "fit a block's shared memory")
+        chunk = max(1, min(p, (_BYTE_SMEM - byte_smem(need, rows, 0))
+                           // byte_smem(need, 0, 1)))
+    if rows * group < 32:
+        group = 32 // rows
+    grid = max(1, min(-(-b // rows), blocks_per_sm * _sm_count(device)))
+    return group, rows * group, chunk, grid, int(staged)
+
+
+# shared memory the staged byte kernel may ask for (of 227 KB a block)
+_BYTE_SMEM = 96 * 1024
+
 
 def byte_pred_plain(data: torch.Tensor, lens: torch.Tensor,
                     pats: torch.Tensor, plens: torch.Tensor,
@@ -145,9 +334,13 @@ def byte_pred_plain(data: torch.Tensor, lens: torch.Tensor,
 
 
 _BYTE_PRED_ARGS = [kernels.VP, kernels.I64, kernels.VP, kernels.I64,
-                   kernels.I32, kernels.I32, kernels.VP, kernels.VP,
-                   kernels.VP, kernels.I32, kernels.I32, kernels.VP,
-                   kernels.VP]
+                   kernels.I32, kernels.I32, kernels.I32, kernels.I32,
+                   kernels.VP, kernels.VP, kernels.VP, kernels.I32,
+                   kernels.I32, kernels.VP] + [kernels.I32] * 5 + [kernels.VP]
+_BYTE_LITS_ARGS = ([kernels.VP, kernels.I64] * 4
+                   + [kernels.I32] * 5 + [kernels.VP] * 5
+                   + [kernels.I32] * 2 + [kernels.VP] * 2 + [kernels.I64]
+                   + [kernels.I32] * 5 + [kernels.VP])
 
 
 def byte_pred(data: torch.Tensor, lens: torch.Tensor,
@@ -163,14 +356,70 @@ def byte_pred(data: torch.Tensor, lens: torch.Tensor,
     out = torch.empty((b, patterns.n), dtype=torch.bool, device=data.device)
     if b == 0 or patterns.n == 0:
         return out
+    words = patterns.words_on(data.device)
+    need = patterns.row_words(l)
     fn = kernels.function("byte_pred", "byte_pred", _BYTE_PRED_ARGS)
     rc = fn(kernels.ptr(data), data.stride(0), kernels.ptr(lens),
-            lens.stride(0), b, l, kernels.ptr(pats), kernels.ptr(plens),
-            kernels.ptr(kind), patterns.n, pats.shape[1], kernels.ptr(out),
+            lens.stride(0), b, l, _aligned(data), need,
+            kernels.ptr(words), kernels.ptr(plens), kernels.ptr(kind),
+            patterns.n, words.shape[1], kernels.ptr(out),
+            *byte_plan(b, l, patterns.n, data.device, need=need),
             kernels.VP(kernels.stream_ptr()))
-    kernels.launched("byte_pred", kernels.check(rc, "byte_pred"), data, lens,
-                     patterns)
+    kernels.launched("byte_pred", kernels.check(rc, "byte_pred"), "plane",
+                     data, lens, patterns, entry="byte_pred")
     return out
+
+
+def byte_lits_plain(data: torch.Tensor, lens: torch.Tensor,
+                    ok: torch.Tensor | None, err: torch.Tensor | None,
+                    pats: torch.Tensor, plens: torch.Tensor,
+                    kind: torch.Tensor, mode: torch.Tensor,
+                    cols: torch.Tensor, max_len: int, em: torch.Tensor,
+                    en: torch.Tensor) -> None:
+    """Plain version of the byte_lits kernel, in place: byte_pred_plain's
+    hits, then write_lits_plain into the group's columns."""
+    write_lits_plain(byte_pred_plain(data, lens, pats, plens, kind), lens,
+                     ok, err, mode, cols, max_len, em, en)
+
+
+def byte_lits(data: torch.Tensor, lens: torch.Tensor,
+              ok: torch.Tensor | None, err: torch.Tensor | None,
+              patterns: BytePatterns, lits: LitColumns, max_len: int,
+              em: torch.Tensor, en: torch.Tensor) -> None:
+    """Every constant prefix / suffix / exact pattern of one subject
+    group, its literal pair written in place into its column of the
+    bool [B, X] ext planes em / en, in one launch. ok / err: the
+    subject's presence and error rows (bool [B]; None = present on
+    every row / never an error)."""
+    data = _rows(data, "data")
+    b, l = data.shape
+    _lens(lens, b)
+    masks = _masks(ok, err, b, "byte_lits")
+    _lit_planes(em, en, b, lits, "byte_lits")
+    if lits.n != patterns.n:
+        raise ValueError(f"byte_lits: {patterns.n} patterns, {lits.n} "
+                         "columns")
+    pats, plens, kind = patterns.on(data.device)
+    mode, cols = lits.on(data.device)
+    if not _kernel_or_plain(data, lens, em, en, *masks):
+        byte_lits_plain(data, lens, ok, err, pats, plens, kind, mode, cols,
+                        max_len, em, en)
+        return
+    if b == 0 or patterns.n == 0:
+        return
+    words = patterns.words_on(data.device)
+    need = patterns.row_words(l)
+    p = kernels.ptr
+    fn = kernels.function("byte_pred", "byte_lits", _BYTE_LITS_ARGS)
+    rc = fn(p(data), data.stride(0), p(lens), lens.stride(0),
+            *_mask_args(ok), *_mask_args(err), b, l, _aligned(data), need,
+            int(max_len), p(words), p(plens), p(kind), p(mode), p(cols),
+            patterns.n, words.shape[1], p(em), p(en), em.stride(0),
+            *byte_plan(b, l, patterns.n, data.device, need=need),
+            kernels.VP(kernels.stream_ptr()))
+    kernels.launched("byte_pred", kernels.check(rc, "byte_lits"), "lits",
+                     data, lens, ok, err, patterns, lits, max_len, em, en,
+                     entry="byte_lits")
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +575,19 @@ class DfaBank:
             self._dev[device] = t
         return t
 
+    def scaled_on(self, device: torch.device) -> torch.Tensor:
+        """The table as the kernel walks it: each next state multiplied
+        by C (its row offset), int32 [S, C]."""
+        key = ("scaled", device)
+        t = self._dev.get(key)
+        if t is None:
+            c = self.table.shape[1]
+            if self.table.size and int(self.table.max()) * c >= 2 ** 31:
+                raise ValueError("DFA bank: S x C exceeds int32 offsets")
+            t = self._dev[key] = torch.from_numpy(
+                (self.table.astype(np.int64) * c).astype(np.int32)).to(device)
+        return t
+
 
 def dfa_scan_plain(data: torch.Tensor, lens: torch.Tensor,
                    table: torch.Tensor, class_of: torch.Tensor,
@@ -348,9 +610,64 @@ def dfa_scan_plain(data: torch.Tensor, lens: torch.Tensor,
     return accept[state, cols] != 0
 
 
+def dfa_lits_plain(data: torch.Tensor, lens: torch.Tensor,
+                   ok: torch.Tensor | None, err: torch.Tensor | None,
+                   table: torch.Tensor, class_of: torch.Tensor,
+                   starts: torch.Tensor, accept: torch.Tensor,
+                   mode: torch.Tensor, cols: torch.Tensor, max_len: int,
+                   em: torch.Tensor, en: torch.Tensor) -> None:
+    """Plain version of the dfa_lits kernel, in place: dfa_scan_plain's
+    acceptance, then write_lits_plain into the group's columns."""
+    write_lits_plain(dfa_scan_plain(data, lens, table, class_of, starts,
+                                    accept), lens, ok, err, mode, cols,
+                     max_len, em, en)
+
+
+def dfa_class_stride(l: int) -> int:
+    """Bytes of one row's class string in the kernel's shared memory
+    (csrc/dfa_scan.cu class_stride): an odd number of words."""
+    return 4 * ((-(-l // 4)) | 1)
+
+
+def dfa_plan(b: int, l: int, n: int, device: torch.device,
+             min_threads: int = 128, max_threads: int = 256,
+             tiles_per_sm: float = 2.0) -> tuple[int, int, int]:
+    """The DFA kernel's launch: (threads per block, rows per tile,
+    grid). A tile is ceil(B / (SMs · tiles_per_sm)) rows (its class
+    strings within 64 KB), so the grid is about two blocks an SM; a
+    block has a thread for each of its tile's B_tile·N walks, between
+    `min_threads` (which copy the table in) and `max_threads` (more
+    walks take more rounds). The keywords are for the variants script;
+    the wrappers take the defaults."""
+    rows = max(1, math.ceil(b / (_sm_count(device) * tiles_per_sm)))
+    rows = max(1, min(rows, (64 * 1024) // dfa_class_stride(l)))
+    threads = max(min_threads, min(max_threads, -(-rows * n // 32) * 32))
+    return threads, rows, max(1, -(-b // rows))
+
+
 _DFA_ARGS = [kernels.VP, kernels.I64, kernels.VP, kernels.I64, kernels.I32,
-             kernels.I32, kernels.VP, kernels.VP, kernels.VP, kernels.VP,
-             kernels.I32, kernels.I32, kernels.I32, kernels.VP, kernels.VP]
+             kernels.I32, kernels.I32, kernels.VP, kernels.VP, kernels.VP,
+             kernels.VP, kernels.I32, kernels.I32, kernels.I32, kernels.VP
+             ] + [kernels.I32] * 3 + [kernels.VP]
+_DFA_LITS_ARGS = ([kernels.VP, kernels.I64] * 4 + [kernels.I32] * 4
+                  + [kernels.VP] * 6 + [kernels.I32] * 3
+                  + [kernels.VP] * 2 + [kernels.I64] + [kernels.I32] * 3
+                  + [kernels.VP])
+
+
+def _dfa_fits(data: torch.Tensor, bank: "DfaBank", name: str) -> None:
+    """What the kernel needs of its inputs: at most 256 byte classes and
+    one row's class string within a block's shared memory."""
+    if bank.table.shape[1] > 256:
+        raise ValueError(f"{name}: {bank.table.shape[1]} byte classes, "
+                         "at most 256")
+    if dfa_class_stride(data.shape[1]) + 256 > _DFA_SMEM:
+        raise ValueError(f"{name}: rows of {data.shape[1]} bytes do not "
+                         "fit one class string in shared memory")
+
+
+# shared memory of one block on sm_90 (227 KB)
+_DFA_SMEM = 232448
 
 
 def dfa_scan(data: torch.Tensor, lens: torch.Tensor,
@@ -364,18 +681,59 @@ def dfa_scan(data: torch.Tensor, lens: torch.Tensor,
     table, class_of, starts, accept = bank.on(data.device)
     if not _kernel_or_plain(data, lens):
         return dfa_scan_plain(data, lens, table, class_of, starts, accept)
+    _dfa_fits(data, bank, "dfa_scan")
     out = torch.empty((b, bank.n), dtype=torch.bool, device=data.device)
-    if b == 0:
+    if b == 0 or bank.n == 0:
         return out
     fn = kernels.function("dfa_scan", "dfa_scan", _DFA_ARGS)
     rc = fn(kernels.ptr(data), data.stride(0), kernels.ptr(lens),
-            lens.stride(0), b, l, kernels.ptr(table), kernels.ptr(class_of),
-            kernels.ptr(starts), kernels.ptr(accept), table.shape[0],
-            table.shape[1], bank.n, kernels.ptr(out),
+            lens.stride(0), b, l, _aligned(data),
+            kernels.ptr(bank.scaled_on(data.device)),
+            kernels.ptr(class_of), kernels.ptr(starts), kernels.ptr(accept),
+            table.shape[0], table.shape[1], bank.n, kernels.ptr(out),
+            *dfa_plan(b, l, bank.n, data.device),
             kernels.VP(kernels.stream_ptr()))
-    kernels.launched("dfa_scan", kernels.check(rc, "dfa_scan"), data, lens,
-                     bank)
+    kernels.launched("dfa_scan", kernels.check(rc, "dfa_scan"), "plane",
+                     data, lens, bank, entry="dfa_scan")
     return out
+
+
+def dfa_lits(data: torch.Tensor, lens: torch.Tensor,
+             ok: torch.Tensor | None, err: torch.Tensor | None,
+             bank: DfaBank, lits: LitColumns, max_len: int,
+             em: torch.Tensor, en: torch.Tensor) -> None:
+    """Every constant-pattern regex of one subject group, its literal
+    pair written in place into its column of the bool [B, X] ext planes
+    em / en, in one launch (ok / err as for byte_lits)."""
+    data = _rows(data, "data")
+    b, l = data.shape
+    _lens(lens, b)
+    masks = _masks(ok, err, b, "dfa_lits")
+    _lit_planes(em, en, b, lits, "dfa_lits")
+    if lits.n != bank.n:
+        raise ValueError(f"dfa_lits: {bank.n} patterns, {lits.n} columns")
+    table, class_of, starts, accept = bank.on(data.device)
+    mode, cols = lits.on(data.device)
+    if not _kernel_or_plain(data, lens, em, en, *masks):
+        dfa_lits_plain(data, lens, ok, err, table, class_of, starts, accept,
+                       mode, cols, max_len, em, en)
+        return
+    _dfa_fits(data, bank, "dfa_lits")
+    if b == 0 or bank.n == 0:
+        return
+    p = kernels.ptr
+    fn = kernels.function("dfa_scan", "dfa_lits", _DFA_LITS_ARGS)
+    rc = fn(p(data), data.stride(0), p(lens), lens.stride(0),
+            *_mask_args(ok), *_mask_args(err), b, l, _aligned(data),
+            int(max_len), p(bank.scaled_on(data.device)), p(class_of),
+            p(starts), p(accept),
+            p(mode), p(cols), table.shape[0], table.shape[1], bank.n,
+            p(em), p(en), em.stride(0),
+            *dfa_plan(b, l, bank.n, data.device),
+            kernels.VP(kernels.stream_ptr()))
+    kernels.launched("dfa_scan", kernels.check(rc, "dfa_lits"), "lits",
+                     data, lens, ok, err, bank, lits, max_len, em, en,
+                     entry="dfa_lits")
 
 
 # ---------------------------------------------------------------------------
@@ -385,23 +743,6 @@ def dfa_scan(data: torch.Tensor, lens: torch.Tensor,
 # bits of the per-(row, list) state byte the list_banks kernels write and
 # the verdict_fold kernel reads
 LIST_MEMBER, LIST_UND, LIST_BAD = 1, 2, 4
-
-
-class _OnDevice:
-    """Host arrays with one copy per device, made on first use."""
-
-    _fields: tuple[str, ...] = ()
-
-    def __post_init__(self) -> None:
-        self._dev: dict[torch.device, tuple] = {}
-
-    def on(self, device: torch.device) -> tuple:
-        t = self._dev.get(device)
-        if t is None:
-            t = tuple(torch.from_numpy(np.ascontiguousarray(
-                getattr(self, f))).to(device) for f in self._fields)
-            self._dev[device] = t
-        return t
 
 
 @dataclasses.dataclass(eq=False)

@@ -8,7 +8,7 @@ Each DIR is the root of a checkout (the same one may be named twice, as
 in `parent change change parent`). For each, in the order given and in
 a process of its own started from that directory, the checkout's
 `chip_smoke.py` is imported, its kernels are built, and the chosen
-phases run (default: all nine):
+phases run (default: all ten):
 
   engine  the headline engine step at B=2048, every kernel held against
           its plain version (phase 3's headline traffic);
@@ -70,6 +70,20 @@ phases run (default: all nine):
           check_many wall p50 at B = 64, 256 and 2,048. The build lines
           name every instantiation with its registers, stack frame and
           spills.
+  lits    dfa_scan and byte_pred (K2, K3) on every launch they make in
+          the headline engine step, the authz world's served step
+          (make_rbac_store(1000)) and the route select
+          (make_route_world(10_000)), each at B = 64, 256 and 2,048, and
+          the REGEX lists' acceptance plane of the list world (B =
+          2,048): each held against its plain version, the median of 7
+          profiler windows of 20 calls beside CUDA-event time, grids
+          and [B, L, patterns] (and, where the checkout's chip_smoke has
+          subject_work, the bound); and per step of each of those
+          drives, the ext stage — every device op from the first K2 /
+          K3 kernel to the next rule_match kernel, the torch glue
+          between them included — its launches and device time, the
+          device time and count of every op that is not a hand-written
+          kernel, and the whole step's device time.
 
 Each phase fails as it does in chip_smoke. Per run, the device time,
 plain time and bound of every kernel row (and the registers ptxas gave
@@ -584,15 +598,160 @@ if "fe" in phases:
             batch = dataclasses.replace(
                 batch, str_bytes=batch.str_bytes[:, :, :width].contiguous())
         atom_row(world, batch.to("cuda"), atoms, atoms.n)
+if "lits" in phases:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.ops import bytes_ops
+    from istio_tpu_torch.pilot.route_nfa import RouteTable
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+
+    # the checkout's __global__ functions → their csrc source
+    gfn = {}
+    for src in sorted(kernels.SRC_DIR.glob("*.cu")):
+        for fn in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                             r"\([^)]*\)\s+)?(\w+)", src.read_text()):
+            gfn[fn] = src.stem
+
+    def src_of(name):
+        for fn, src in gfn.items():
+            if re.search(r"(?:^|[\s:])" + fn + r"[<(]", name):
+                return src
+        return None
+
+    # per step of `call` (10 steps profiled): the ext stage (every device
+    # op from the first K2 / K3 kernel to the next rule_match kernel),
+    # the device time of the ops that are not hand-written, and the
+    # whole step's device time
+    def ext_stage(call, world):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        tagged = [(e, src_of(e.name)) for e in evs]
+        stages, cur = [], None
+        for e, src in tagged:
+            if cur is None and src in ("byte_pred", "dfa_scan"):
+                cur = []
+            if cur is not None:
+                if src == "rule_match":
+                    stages.append(cur)
+                    cur = None
+                else:
+                    cur.append((e, src))
+        n = max(len(stages), 1)
+        us = sum(e.time_range.elapsed_us() for st in stages for e, _ in st)
+        other = [e for e, src in tagged if src is None]
+        busy = cs.device_ms(call, 10)
+        rows.append({"phase": "lits", "name": f"ext.{world}",
+                     "ms": us / 1e3 / n,
+                     "launches": sum(len(st) for st in stages) / n,
+                     "ms_source": f"{len(stages)} profiled steps",
+                     "bound_ms": None,
+                     "other_ms": sum(e.time_range.elapsed_us()
+                                     for e in other) / 1e3 / 10,
+                     "other_ops": len(other) / 10, "busy_ms": busy,
+                     "ops": sorted({e.name.split("(")[0][:60]
+                                    for st in stages for e, _ in st})})
+
+    # one captured K2 / K3 call of either checkout's wrappers: this PR's
+    # captures carry their entry kind first ("plane" / "lits"), earlier
+    # ones are (data, lens, table) plane calls
+    def k23_row(name, x, world):
+        if isinstance(x[0], str):
+            kind, args = x[0], x[1:]
+            cs.subject_check(name, kind, args, f"lits {world}")
+            planes = None
+            if kind == "lits":
+                planes = [torch.zeros_like(args[7]) for _ in range(2)]
+            call = lambda: cs.subject_kernel(name, kind, args, planes)
+            data, k = args[0], (args[2] if kind == "plane" else args[4]).n
+            bnd = cs.bound(*cs.subject_work(name, kind, args), rate)
+        else:
+            kind, (data, lens, table) = "plane", x
+            fn, plain = ((bytes_ops.dfa_scan, bytes_ops.dfa_scan_plain)
+                         if name == "dfa_scan" else
+                         (bytes_ops.byte_pred, bytes_ops.byte_pred_plain))
+            cs.assert_equal(f"lits {world}", fn(data, lens, table),
+                            plain(data, lens, *table.on(data.device)))
+            call = lambda: fn(data, lens, table)
+            k, bnd = table.n, (None, None)
+        row = profiled(call, name, phase="lits",
+                       name=f"{name}.{kind}.{world}",
+                       shape=[int(data.shape[0]), int(data.shape[1]), k])
+        row["bound_ms"], row["bound_by"] = bnd
+        rows.append(row)
+
+    def k23_rows(drive, world, want=("byte_pred", "dfa_scan")):
+        drive()
+        with kernels.launches.capture() as cap:
+            drive()
+        torch.cuda.synchronize()
+        for i, (n, x) in enumerate(c for c in cap if c[0] in want):
+            k23_row(n, x, f"{world}#{i}")
+
+    eng = workloads.make_engine(cs.HEADLINE_RULES, with_quota=True,
+                                device="cuda")
+    for b in (64, 256, cs.HEADLINE_B):
+        bags, req = cs.headline_batch(eng, b)
+        batch = eng.tensorizer.tensorize(bags).to("cuda")
+        req_d = torch.as_tensor(req).to("cuda")
+        step = lambda: eng.check(batch, req_d)
+        k23_rows(step, f"headline{b}")
+        ext_stage(step, f"headline{b}")
+    az_store = workloads.make_rbac_store(cs.AUTHZ_ROLE_RULES)
+    az = RuntimeServer(az_store, ServerArgs(
+        default_manifest=workloads.MESH_MANIFEST,
+        buckets=(64, 256, cs.HEADLINE_B), rulestats_drain_s=0),
+        device="cuda")
+    az_bags = [bag_from_mapping(x) for x in workloads.make_rbac_request_dicts(
+        cs.HEADLINE_B, seed=cs.HEADLINE_B)]
+    for b in (64, 256, cs.HEADLINE_B):
+        step = lambda: az.check_many(az_bags[:b])
+        k23_rows(step, f"authz{b}")
+        ext_stage(step, f"authz{b}")
+    az.close()
+    az_store.close()
+    services, rules = workloads.make_route_world(cs.ROUTE_RULES)
+    tbl = RouteTable(services, rules, device="cuda")
+    for b in (64, 256, cs.HEADLINE_B):
+        rt_bags = [bag_from_mapping(r) for r in workloads.make_route_requests(
+            b, n_services=len(services), seed=b)]
+        staged = tbl.tensorizer.tensorize(rt_bags).to("cuda")
+        step = lambda: tbl._select_on_device(staged)
+        k23_rows(step, f"routes{b}")
+        ext_stage(step, f"routes{b}")
+    ls_store = cs.list_world_store()
+    ls = RuntimeServer(ls_store, ServerArgs(
+        buckets=(64, 256, cs.HEADLINE_B), rulestats_drain_s=0),
+        device="cuda")
+    dicts = cs.list_world_dicts()
+    ls_bags = [bag_from_mapping(x) for x in
+               (dicts * (cs.HEADLINE_B // len(dicts) + 1))[:cs.HEADLINE_B]]
+    k23_rows(lambda: ls.check_many(ls_bags), f"lists{cs.HEADLINE_B}",
+             want=("dfa_scan",))
+    ls.close()
+    ls_store.close()
 keep = ("phase", "name", "ms", "call_ms", "plain_ms", "bound_ms",
         "bound_by", "ms_source", "library_ms", "grids", "hot_rows",
         "plane_gb_s", "stages", "windows", "planes", "walls_p50_ms",
-        "grid_ms", "floor_ms", "shape", "launches")
+        "grid_ms", "floor_ms", "shape", "launches", "other_ms",
+        "other_ops", "busy_ms", "ops")
 print("ROWS " + json.dumps([{k: r.get(k) for k in keep} for r in rows]))
 """
 
 PHASES = ("engine", "seq", "mesh", "k6", "k9", "k1", "k1d", "fold",
-          "fe")
+          "fe", "lits")
+
+
+def _ms(x) -> str:
+    return "none" if x is None else f"{x:.5f}"
 
 
 def smi() -> str:
@@ -642,10 +801,12 @@ def main() -> int:
                     f"{r['bound_ms']:.6f} ({r['bound_by']})"
                 print(f"run {i} {d}: {r['phase']:10s} {r['name']:22s} "
                       f"{r['ms']:.5f} ms [{r['ms_source']}]  call "
-                      f"{r['call_ms']:.5f}  plain {r['plain_ms']:.5f}  "
-                      f"bound {bnd}{extra}", flush=True)
+                      f"{_ms(r.get('call_ms'))}  plain "
+                      f"{_ms(r.get('plain_ms'))}  bound {bnd}{extra}",
+                      flush=True)
                 for k in ("windows", "planes", "walls_p50_ms", "grid_ms",
-                          "shape", "launches"):
+                          "shape", "launches", "other_ms", "other_ops",
+                          "busy_ms", "ops"):
                     if r.get(k) is not None:
                         print(f"run {i} {d}:   {k} {r[k]}", flush=True)
                 for st in r.get("stages") or ():
