@@ -172,8 +172,14 @@ Phases, each fatal on failure:
      of make_route_world(10_000); sharded_dfa_match equal to dfa_scan
      (K2) over the unchunked rows and to Python re on 64 rows, with 8
      chunk_map and 8 + 1 (or 1) compose_maps launches per match; K12
-     equal to its plain version on every launch of the drive, its
-     launches in one headline match timed with their bound;
+     equal to its plain version on every launch of the drive and on
+     edge inputs (SEQ_EDGE_*: S 1 to 240, a table over 227 KB read
+     through L1, Lc of 13 to 512, odd addresses and strides, lengths 0,
+     on seams and past the row, converging and never-converging DFAs;
+     compose_maps over up to 300 chunks); each launch of one headline
+     match timed alone on one stream (a CUDA graph of SEQ_GRAPH_REPS
+     launches, its output held against the plain version) with its
+     bound and the table lookups chunk_map's function needs;
   13. mesh serving (B14) on the same 8 virtual devices:
      make_store(10_000) under ServerArgs(mesh_shape=(4, 2), buckets=(64,
      256, 2048)) against a mesh-less server on the card, at B ∈ {64,
@@ -182,11 +188,17 @@ Phases, each fatal on failure:
      rule_match (matched and err only, each held against its plain
      versions) and one mesh_fold launch, no verdict_fold; walls beside
      the mesh-less server's; mesh_stage_probe; K13 against its plain
-     version on the B=2048 trip (timed), every shard's mesh_partial
-     record against verdict_fold_words_plain over its window. Then (13b) make_rbac_store(1000)
-     at (2, 4) (RBAC allow rows across mp slices), the headline world at
-     (8, 1) and (1, 1), and shard_engine_check on make_engine(10_000,
-     with_quota=True) with small quotas, counters carried;
+     version on the B=2048 trip (timed; each entry point's device time
+     a launch from profiler windows that saw every launch, the
+     combine's bound and torch.amin yardstick), every shard's
+     mesh_partial record against verdict_fold_words_plain over its
+     window. Then (13b) make_rbac_store(1000) at (2, 4) (RBAC allow rows
+     across mp slices), the headline world at (8, 1) and (1, 1),
+     shard_engine_check on make_engine(10_000, with_quota=True) with
+     small quotas, counters carried, and mesh_combine (with mesh_quota)
+     against combine_fold_records on edge records (COMBINE_EDGE_*: MP 1
+     to 8, 0 / 1 / 33 RBAC specs, 0 / 3 quotas, row counts off a block,
+     every int field INT32_MAX);
   14. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
@@ -289,6 +301,87 @@ def timed(fn, iters: int) -> tuple[float, float, str]:
     dev = device_ms(fn, max(iters // 5, 2))
     return (dev, call, "profiler") if dev is not None else \
         (call, call, "cuda_events")
+
+
+def ms_label(how: str) -> str:
+    """What a time from `timed` is, for a log line: only the profiler's
+    sum is a kernel's device time; CUDA events around a loop of calls
+    include the host's launch cost between them."""
+    return "kernel" if how == "profiler" else "call (CUDA events)"
+
+
+def graph_ms(fn, reps: int, want=None, replays: int = 5) -> float:
+    """Device ms of one call of fn, alone on one stream: `reps` calls
+    captured back to back into one CUDA graph, the graph replayed
+    `replays` times between CUDA events, so no host launch cost sits
+    between the calls. fn launches on the current stream and returns a
+    tensor; it runs twice first, outside the graph. With `want`, the
+    graph's last output is overwritten, the graph replayed once more and
+    the output held against `want`: the graph holds the launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [fn() for _ in range(reps)]
+    if want is not None:
+        last = outs[-1]
+        last.copy_(~want if want.dtype == torch.bool else
+                   torch.full_like(want, -1))
+        g.replay()
+        torch.cuda.synchronize()
+        assert_equal("graph_ms replay", last, want)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def kernel_ms(fn, name: str, per_call: int, iters: int = 2,
+              windows: int = 7) -> tuple[float, int]:
+    """Device ms per launch of the `__global__` function `name` (a
+    substring of the profiler's kernel name) made `per_call` times by
+    each call of fn: the median over profiler windows of `iters` calls
+    whose kernel-record count is exactly per_call * iters (the profiler
+    drops records now and then: a window short of one is profiled again,
+    up to 8 * windows windows) → (ms, windows kept). Raises, with the
+    counts seen, when no window saw every launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    kept, seen = [], []
+    for _ in range(8 * windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key]
+        n = sum(e.count for e in evs)
+        seen.append(n)
+        if n == per_call * iters:
+            kept.append(sum(e.self_device_time_total for e in evs) / 1e3 / n)
+            if len(kept) == windows:
+                break
+    if not kept:
+        raise AssertionError(f"kernel_ms: no profiler window saw all "
+                             f"{per_call * iters} launches of {name} (saw "
+                             f"{sorted(set(seen))})")
+    return sorted(kept)[len(kept) // 2], len(kept)
 
 
 def assert_equal(name: str, got, want) -> None:
@@ -1102,8 +1195,9 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
         else:
             raise AssertionError(f"unknown kernel {name}")
         bms, by = bound(b, ops, int_rate)
-        log(f"  {tag:<16} kernel {ms:9.5f} ms (per call incl. launch "
-            f"{call:8.5f})   plain {plain:9.5f} ms   bound {bms:8.5f} ms "
+        log(f"  {tag:<16} {ms_label(how)} {ms:9.5f} ms (per call incl. "
+            f"launch {call:8.5f})   plain {plain:9.5f} ms   bound "
+            f"{bms:8.5f} ms "
             f"({by}; {b:.0f} B, {ops:.0f} ops)   equal: yes   [{how}]"
             + ("" if "floor_ms" not in extra else
                f"   dense-plane floor {extra['floor_ms']:.5f} ms")
@@ -2558,7 +2652,8 @@ def atom_edge_checks(int_rate: float) -> list[dict]:
         log(f"[6b] atom_eval {tag}: {atoms.n} atoms ({len(atoms.prog.ops)} "
             f"op rows, {len(opcodes)} opcodes, stack {atoms.prog.need}) x "
             f"B={b} width {batch.str_bytes.shape[2]}: m and n equal to the "
-            f"closures and to the op table; kernel {ms:.5f} ms (per call "
+            f"closures and to the op table; {ms_label(how)} {ms:.5f} ms "
+            "(per call "
             f"incl. launch {call:.5f}) plain {plain:.5f} ms bound "
             f"{bms:.6f} ms ({by}; {nb:.0f} B, {ops:.0f} ops) [{how}]")
         rows.append({"world": tag, "atoms": atoms.n, "b": b, "ms": ms,
@@ -4423,8 +4518,9 @@ def quota_big_checks(int_rate: float, rng) -> dict:
             ms, call, how, plain, n_bytes, ops, lib, _ = quota_alloc_times(
                 kmode, plane, rows, gate)
             bms, by = bound(n_bytes, ops, int_rate)
-            log(f"  quota_alloc {mode:<5} B={b:6d} kernel {ms:9.5f} ms (per "
-                f"call incl. launch {call:8.5f}, {grids} grids)   plain "
+            log(f"  quota_alloc {mode:<5} B={b:6d} {ms_label(how)} "
+                f"{ms:9.5f} ms "
+                f"(per call incl. launch {call:8.5f}, {grids} grids)   plain "
                 f"{plain:9.5f} ms   bound {bms:9.7f} ms ({by})   equal: yes"
                 f"   hottest key {hot} rows   [{how}]   argsort "
                 f"{lib:9.5f} ms")
@@ -4533,8 +4629,10 @@ def quota_mode_times(pool, rng, int_rate: float) -> dict:
             ms, call, how, plain, n_bytes, ops, lib, _ = quota_alloc_times(
                 mode, pool.counts, qrows, None)
             bms, by = bound(n_bytes, ops, int_rate)
-            log(f"  quota_alloc {mode:<5} B={b:5d} kernel {ms:9.5f} ms (per "
-                f"call incl. launch {call:8.5f})   plain {plain:9.5f} ms   "
+            log(f"  quota_alloc {mode:<5} B={b:5d} {ms_label(how)} "
+                f"{ms:9.5f} ms "
+                f"(per call incl. launch {call:8.5f})   plain {plain:9.5f} "
+                "ms   "
                 f"bound {bms:9.7f} ms ({by})   equal: yes   [{how}]"
                 + ("" if lib is None else f"   argsort {lib:9.5f} ms"))
             out[f"{mode}@{b}"] = {"ms": ms, "plain_ms": plain,
@@ -5045,18 +5143,47 @@ def route_subjects(b: int, total: int, seed: int):
     return data, lens
 
 
-def seq_work(launches: list) -> tuple[float, float]:
-    """(bytes, ops) of K12's launches in one sharded match on this run's
-    data: chunk_map reads each chunk's walked bytes, the lens and the
-    table once and writes its [C, B, S] maps, doing 1 int op per (entry
-    state, byte walked): the next-state index state * 256 + byte, one
-    IMAD (the table read is a load, not an ALU op; the byte is shared by
-    the S walks; the loop's position check is overhead of the walk, not
-    the function's work: a full chunk needs none per byte); compose_maps
+def chunk_map_work(data, lens, tr, c0: int) -> float:
+    """The table lookups chunk_map's function needs on one launch's
+    inputs: at each byte a chunk walks, one for each distinct state its S
+    entry-state walks stand on, absorbing states (every byte leads back
+    to them) left out. Walks that have met step as one, and a walk on an
+    absorbing state needs no step; S a byte is what walks that never meet
+    make."""
+    import torch
+    nb, nc, lc = data.shape
+    s = int(tr.shape[0])
+    flat = tr.reshape(-1).long()
+    absorb = (tr.long() == torch.arange(s, device=tr.device)[:, None]) \
+        .all(dim=1)
+    starts = (torch.arange(nc, device=data.device) + c0) * lc
+    walked = (lens.long()[:, None] - starts[None, :]).clamp(0, lc)
+    state = torch.arange(s, device=data.device).expand(nb, nc, s)
+    n = torch.zeros((), dtype=torch.int64, device=data.device)
+    for i in range(int(walked.max()) if walked.numel() else 0):
+        srt = state.sort(dim=2).values
+        new = torch.ones_like(srt, dtype=torch.bool)
+        new[..., 1:] = srt[..., 1:] != srt[..., :-1]
+        on = i < walked
+        n += ((new & ~absorb[srt]).sum(dim=2) * on).sum()
+        nxt = flat[state * 256 + data[:, :, i].long()[..., None]]
+        state = torch.where(on[..., None], nxt, state)
+    return float(n)
+
+
+def seq_work(launches: list) -> tuple[float, float, float]:
+    """(bytes, ops, ops of every walk) of K12's launches in one sharded
+    match on this run's data: chunk_map reads each chunk's walked bytes,
+    the lens and the table once and writes its [C, B, S] maps, doing 1
+    int op per table lookup its function needs (chunk_map_work), the
+    next-state index state * 256 + byte, one IMAD (the table read is a
+    load, not an ALU op; the loop's position check is overhead of the
+    walk, not the function's work); S a byte walked is the third figure,
+    the work of walks that never meet, a reference only. compose_maps
     reads its maps and writes [B, S] (or [B] bools), one gather per
     (chunk, row, entry state)."""
     import torch
-    b = ops = 0.0
+    b = ops = every = 0.0
     for name, inputs in launches:
         kind, *args = inputs
         if kind == "chunk_map":
@@ -5067,7 +5194,8 @@ def seq_work(launches: list) -> tuple[float, float]:
             walked = (lens.long()[:, None] - starts[None, :]).clamp(0, lc)
             steps = float(walked.sum())
             b += steps + nbytes(lens, tr) + nc * nb * s * 4
-            ops += steps * s
+            ops += chunk_map_work(data, lens, tr, c0)
+            every += steps * s
         else:
             maps, accept, entry = args
             nc, nb, s = maps.shape
@@ -5075,7 +5203,8 @@ def seq_work(launches: list) -> tuple[float, float]:
             if accept is not None:
                 b += nbytes(accept)
             ops += float(nc) * nb * (1 if accept is not None else s)
-    return b, ops
+            every += float(nc) * nb * (1 if accept is not None else s)
+    return b, ops, every
 
 
 def seq_fns(kind: str):
@@ -5085,6 +5214,106 @@ def seq_fns(kind: str):
     if kind == "chunk_map":
         return sm.chunk_maps, sm.chunk_maps_plain
     return sm.compose, sm.compose_maps_plain
+
+
+SEQ_GRAPH_REPS = 50            # launches of one graph (seq_times)
+
+
+def seq_times(captured: list, int_rate: float) -> dict:
+    """K12's entry points on one match's captured launches (`captured`:
+    kernels.launches.capture() of one sharded_dfa_match): each launch
+    timed alone on one stream (graph_ms, its graph's output held against
+    the plain version), summed per entry point into device ms a match,
+    beside the plain version and the bound (seq_work); for chunk_map
+    `lookups` are the table lookups its function needs (the bound's
+    ops) and `lookups_all_walks` S a byte walked → {kind: row}."""
+    parts = {}
+    for kind in ("chunk_map", "compose_maps"):
+        ls = [x[1][1:] for x in captured if x[1][0] == kind]
+        kern, plain_fn = seq_fns(kind)
+        per = [graph_ms(lambda a=a: kern(*a), SEQ_GRAPH_REPS,
+                        want=plain_fn(*a)) for a in ls]
+        plain, _, _ = timed(lambda: [plain_fn(*a) for a in ls], 3)
+        bb, ops, every = seq_work([(kind, (kind, *a)) for a in ls])
+        bms, by = bound(bb, ops, int_rate)
+        parts[kind] = {"ms": sum(per), "per_launch_ms": per,
+                       "ms_source": "cuda_graph", "plain_ms": plain,
+                       "bound_ms": bms, "bound_by": by, "bytes": bb,
+                       "ops": ops, "launches_per_match": len(ls),
+                       "library_ms": None}
+        if kind == "chunk_map":
+            parts[kind].update(lookups=ops, lookups_all_walks=every)
+    return parts
+
+
+# K12 edge inputs (phase 12): states S on every path (the register
+# buckets 8 / 16 / 32 and past them, 33 and 64 with the table in shared
+# memory, 240 with a 240 KB table read through L1), chunk lengths under
+# 16 bytes, not a multiple of 16, one and several sub-chunks; rows at odd
+# addresses and odd strides; lengths of 0, inside a chunk, on chunk seams
+# and past the row; DFAs that converge (random, and with two absorbing
+# states) and one that never does (a permutation of the states per byte)
+SEQ_EDGE_S = (1, 2, 7, 19, 32, 33, 64, 240)
+SEQ_EDGE_LC = (13, 100, 128, 200, 512)
+SEQ_EDGE_KINDS = ("random", "sinks", "perm")
+SEQ_EDGE_COMPOSE_C = (1, 2, 8, 60, 300)
+
+
+def seq_edge_dfa(rng, s: int, kind: str):
+    """An int32 [s, 256] transition table of `kind`."""
+    import numpy as np
+    if kind == "perm":
+        return np.stack([rng.permutation(s) for _ in range(256)],
+                        1).astype(np.int32)
+    t = rng.integers(0, s, (s, 256)).astype(np.int32)
+    if kind == "sinks":
+        t[s - 1] = s - 1
+        t[0] = 0
+    return t
+
+
+def seq_edge_checks() -> int:
+    """chunk_map and compose_maps against their plain versions on
+    SEQ_EDGE_* inputs → calls checked."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.parallel import seq_match as sm
+    rng = np.random.default_rng(1214)
+    n = 0
+    for i_s, s in enumerate(SEQ_EDGE_S):
+        for i_k, kind in enumerate(SEQ_EDGE_KINDS):
+            tr = torch.from_numpy(seq_edge_dfa(rng, s, kind)).cuda()
+            for i_l, lc in enumerate(SEQ_EDGE_LC):
+                i = i_s + i_k + i_l
+                c, off, b = (1, 3)[i % 2], (0, 1, 7)[i % 3], (1, 33)[i % 2]
+                width = c * lc + off + (i % 2) * 3   # odd strides too
+                buf = torch.from_numpy(rng.integers(
+                    0, 256, (b, width), dtype=np.uint8)).cuda()
+                data = buf[:, off:off + c * lc].unflatten(1, (c, lc))
+                c0 = i % 3
+                start = c0 * lc
+                lens = rng.integers(0, start + c * lc + 20, b)
+                lens[:4] = (0, start + lc, start + c * lc,
+                            start + lc // 2)[:b]
+                lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+                assert_equal(f"chunk_map S={s} {kind} Lc={lc} C={c} "
+                             f"off={off}", sm.chunk_maps(data, lens, tr, c0),
+                             sm.chunk_maps_plain(data, lens, tr, c0))
+                n += 1
+            for cc in SEQ_EDGE_COMPOSE_C:
+                bb = (1, 33, 2048)[(i_s + cc) % 3]
+                maps = torch.from_numpy(rng.integers(
+                    0, s, (cc, bb, s)).astype(np.int32)).cuda()
+                acc = torch.from_numpy(rng.random(s) < 0.5).cuda()
+                entry = int(rng.integers(0, s))
+                assert_equal(f"compose_maps S={s} C={cc} B={bb}",
+                             sm.compose(maps), sm.compose_maps_plain(maps))
+                assert_equal(f"compose_maps accept S={s} C={cc} B={bb}",
+                             sm.compose(maps, acc, entry),
+                             sm.compose_maps_plain(maps, acc, entry))
+                n += 2
+    torch.cuda.synchronize()
+    return n
 
 
 def seq_phase(int_rate: float) -> dict:
@@ -5097,10 +5326,12 @@ def seq_phase(int_rate: float) -> dict:
     sharded_dfa_match equal to dfa_scan (K2) over the unchunked rows
     and to Python `re` on SEQ_RE_ROWS rows, with exactly N chunk_map and
     N (or 1 with one chunk per device) + 1 compose_maps launches per
-    match; every captured K12 launch equal to its plain version; the
-    launches of one headline match (2048 rows x 8 KiB, the needle)
-    timed with their bound; the sharded match beside one dfa_scan over
-    the same rows."""
+    match; every captured K12 launch equal to its plain version, and K12
+    on SEQ_EDGE_* inputs; the launches of one headline match (2048 rows x
+    8 KiB, the needle) each timed alone on one stream (seq_times) with
+    their bound and the table lookups chunk_map's function needs; the
+    sharded match
+    beside one dfa_scan over the same rows."""
     import re
     import numpy as np
     import torch
@@ -5198,30 +5429,28 @@ def seq_phase(int_rate: float) -> dict:
                 n += 1
         log(f"[12] K12 equal to its plain version on all {n} launches of "
             "the drive")
-        # ---- K12 timed on the headline match's own launches
+        log(f"[12] K12 equal to its plain version on {seq_edge_checks()} "
+            f"edge calls (S {SEQ_EDGE_S}, Lc {SEQ_EDGE_LC}, odd addresses "
+            f"and strides, {', '.join(SEQ_EDGE_KINDS)} DFAs; compose C "
+            f"{SEQ_EDGE_COMPOSE_C})")
+        # ---- K12 timed on the headline match's own launches, each one
+        # alone on one stream (seq_times), with the lookups it needs
         b, c, lc = SEQ_LAYOUTS[0]
         p = pats[0][0]
         data, lens = worlds[(b, c * lc)]["long"]
         dfa = dfas[p]
-        parts = {}
-        for kind in ("chunk_map", "compose_maps"):
-            ls = [x for x in captured if x[1][0] == kind]
-            kern, plain_fn = seq_fns(kind)
-            ms, call, how = timed(
-                lambda: [kern(*x[1][1:]) for x in ls], SEQ_ITERS)
-            plain, _, _ = timed(
-                lambda: [plain_fn(*x[1][1:]) for x in ls], 3)
-            bb, ops = seq_work(ls)
-            bms, by = bound(bb, ops, int_rate)
-            parts[kind] = {"ms": ms, "call_ms": call, "ms_source": how,
-                           "plain_ms": plain, "bound_ms": bms,
-                           "bound_by": by, "bytes": bb, "ops": ops,
-                           "launches_per_match": len(ls),
-                           "library_ms": None}
-            log(f"  seq_match.{kind:<13} {len(ls)} launches: kernel "
-                f"{ms:9.5f} ms (per call incl. launch {call:8.5f})   plain "
-                f"{plain:9.5f} ms   bound {bms:8.5f} ms ({by}; {bb:.0f} B, "
-                f"{ops:.0f} ops)   equal: yes   [{how}]")
+        parts = seq_times(captured, int_rate)
+        for kind, x in parts.items():
+            walks = "" if "lookups" not in x else \
+                (f": the table lookups the function needs; "
+                 f"{x['lookups_all_walks']:.0f} if no walks met")
+            log(f"  seq_match.{kind:<13} {x['launches_per_match']} launches: "
+                f"kernel {x['ms']:9.5f} ms a match (CUDA graph, each launch "
+                f"alone: {', '.join(f'{t:.5f}' for t in x['per_launch_ms'])})"
+                f"   plain {x['plain_ms']:9.5f} ms   bound "
+                f"{x['bound_ms']:8.5f}"
+                f" ms ({x['bound_by']}; {x['bytes']:.0f} B, {x['ops']:.0f} "
+                f"ops{walks})   equal: yes")
         flat = torch.from_numpy(data.reshape(b, c, lc)).cuda()
         ln = torch.from_numpy(lens).cuda()
         bank = bytes_ops.DfaBank.of(pack_dfas_classes([dfa]))
@@ -5242,7 +5471,6 @@ def seq_phase(int_rate: float) -> dict:
            "replaces": "istio_tpu/parallel/seq_match.py:34",
            "launches": 0, "max_abs_err": 0,
            "ms": sum(x["ms"] for x in parts.values()),
-           "call_ms": sum(x["call_ms"] for x in parts.values()),
            "plain_ms": sum(x["plain_ms"] for x in parts.values()),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
            "library_call": None,
@@ -5250,6 +5478,8 @@ def seq_phase(int_rate: float) -> dict:
                                  for x in parts.values()),
            "grid_launches": 0, "ms_source": parts["chunk_map"]["ms_source"],
            "bytes": bb, "ops": ops, "entries": parts,
+           "lookups": parts["chunk_map"]["lookups"],
+           "lookups_all_walks": parts["chunk_map"]["lookups_all_walks"],
            "sharded_match_ms": whole, "dfa_scan_ms": one,
            "route_max_states": s_route}
     return {**out, "rows": [row]}
@@ -5306,6 +5536,126 @@ def mesh_partial_checks(tag: str, parts, c, n_q: int) -> int:
     return sum(len(row) for row in parts)
 
 
+def combine_work(mp: int, bd: int, n_rbac: int, n_q: int,
+                 n_attr: int) -> tuple[float, float]:
+    """(bytes, ops) of one dp shard's mesh_combine: it reads the mp
+    records (REC_ROWS int32 a row) and flag rows (NRB + Q bytes), the
+    request namespaces, the RBAC rules and TTLs and each quota's hash id
+    and presence, and writes status, dur, uses, deny_rule, the referenced
+    row and the quota keys; per row an op per record field and flag byte,
+    4 per RBAC decision and 3 per quota key."""
+    from istio_tpu_torch.models.policy_engine import REC_ROWS
+    nf = n_rbac + n_q
+    moved = bd * (mp * (REC_ROWS * 4 + nf) + 4 + 16 + n_attr + n_q * 9) \
+        + 8 * n_rbac
+    ops = bd * (mp * (REC_ROWS + nf) + 4 * n_rbac + 3 * n_q)
+    return float(moved), float(ops)
+
+
+# mesh_combine edge records (phase 13): mp records 1 / 2 / 4 / 8, RBAC
+# specs 0 / 1 / 33 (a warp's lanes and one more), quotas 0 / 3, row counts
+# off the 4 rows a block takes, random records and records whose every
+# int field is INT32_MAX (the duration field 3.4e38, the largest a partial
+# writes: its INT32_MAX bits are a NaN no partial writes)
+COMBINE_EDGE_MP = (1, 2, 4, 8)
+COMBINE_EDGE_NRB = (0, 1, 33)
+COMBINE_EDGE_Q = (0, 3)
+COMBINE_EDGE_BD = (1, 7, 33, 1001)
+
+
+def combine_edge_world(rng, mp: int, n_rbac: int, n_q: int, bd: int,
+                       maxed: bool):
+    """Synthetic mesh_combine inputs on the card → (rec, flags, req_ns,
+    batch, params, quota_counts, consts)."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.compiler.layout import AttributeBatch
+    from istio_tpu_torch.models import policy_engine as pe
+    i32 = np.int32
+    imax = pe.INT32_MAX
+    n_rules, n_cols, n_attr, n_b, t_rows = 64, 6, 5, 16, 4
+
+    def t(x, dt=torch.int32):
+        return torch.as_tensor(np.asarray(x)).to(dt).cuda()
+
+    def maybe(lo, hi, p_max):
+        v = rng.integers(lo, hi, bd)
+        return np.where(rng.random(bd) < p_max, imax, v)
+
+    rec = np.empty((mp, pe.REC_ROWS, bd), i32)
+    for m in range(mp):
+        if maxed:
+            rec[m] = imax
+            rec[m, pe.REC_DUR] = np.full(bd, 3.4e38, np.float32).view(i32)
+            continue
+        rec[m, pe.REC_DENY] = maybe(0, n_rules, 0.6)
+        rec[m, pe.REC_DUR] = rng.choice(np.array(
+            [0.5, 1.0, 5.0, 3.4e38], np.float32), bd).view(i32)
+        rec[m, pe.REC_USES] = maybe(0, 20000, 0.5)
+        rec[m, pe.REC_ERR] = rng.integers(0, 4, bd)
+        rec[m, pe.REC_LRULE] = maybe(0, n_rules, 0.6)
+        rec[m, pe.REC_LARG] = rng.integers(0, 3, bd)
+        rec[m, pe.REC_LSTATUS] = rng.choice([5, 7, 13], bd)
+    nf = n_rbac + n_q
+    flags = rng.integers(0, 8, (mp, bd, nf)).astype(np.uint8)
+    flags[:, :, n_rbac:] &= 1
+    params = {
+        "pe_deny_status": t(rng.choice([7, 13, 16], n_rules)),
+        "pe_rb_rule": t(rng.integers(0, n_rules, n_rbac)),
+        "pe_rb_dur": t(rng.choice([2.0, 30.0], n_rbac), torch.float32),
+        "pe_q_slot": t(rng.integers(0, n_cols, n_q)),
+        "pe_q_nb": t(rng.choice([1, 7, n_b], n_q)),
+        "pe_q_max": t(rng.integers(1, 4, n_q)),
+        "pe_q_rule": t(rng.integers(0, n_rules, n_q)),
+        "pe_ref_table": t(rng.random((t_rows, n_attr + 2)) < 0.5,
+                          torch.bool)}
+    batch = AttributeBatch(
+        ids=t(rng.integers(-3, 50, (bd, n_cols))),
+        present=t(rng.random((bd, n_cols)) < 0.8, torch.bool),
+        map_present=t(np.zeros((bd, 0), bool), torch.bool),
+        str_bytes=t(np.zeros((bd, 0, 1), np.uint8), torch.uint8),
+        str_lens=t(np.zeros((bd, 0), i32)),
+        hash_ids=t(rng.integers(-2 ** 31, 2 ** 31 - 1, (bd, n_cols))))
+    counts = t(rng.integers(0, 3, (max(n_q, 1), n_b)))
+    consts = pe.FoldConsts(default_ns=0, has_lists=False,
+                           has_quota=n_q > 0, n_attr_cols=n_attr,
+                           has_rbac=n_rbac > 0)
+    req = t(rng.integers(-2, t_rows + 1, bd))
+    return (t(rec), t(flags, torch.uint8), req, batch, params, counts,
+            consts)
+
+
+def combine_edge_checks() -> int:
+    """mesh_combine (with mesh_quota where Q > 0) against
+    combine_fold_records on COMBINE_EDGE_* records → calls checked."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.models import policy_engine as pe
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    rng = np.random.default_rng(1314)
+    n = 0
+    for i, (mp, n_rbac, n_q) in enumerate(
+            (a, r, q) for a in COMBINE_EDGE_MP for r in COMBINE_EDGE_NRB
+            for q in COMBINE_EDGE_Q):
+        for maxed in (False, True):
+            bd = COMBINE_EDGE_BD[(i + maxed) % len(COMBINE_EDGE_BD)]
+            rec, flags, req, batch, params, counts, c = combine_edge_world(
+                rng, mp, n_rbac, n_q, bd, maxed)
+            qk, qp = counts.clone(), counts.clone()
+            got = mf.combine_records(rec, flags, req, batch, params, qk, c)
+            want = pe.combine_fold_records(list(rec), list(flags), req,
+                                           batch, params, qp, c)
+            tag = (f"mesh_combine MP={mp} NRB={n_rbac} Q={n_q} Bd={bd}"
+                   + (" INT32_MAX" if maxed else ""))
+            for part, g, w in zip(("status", "dur", "uses", "deny_rule",
+                                   "referenced", "err_count"), got, want):
+                assert_equal(f"{tag}.{part}", g, w)
+            assert_equal(f"{tag}.quota_counts", qk, qp)
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
 def mesh_fold_check(tag: str, inputs, int_rate: float | None) -> dict:
     """K13 against its plain version on one captured launch's inputs
     (from its quota state), and with int_rate timed with its bound."""
@@ -5342,12 +5692,56 @@ def mesh_fold_check(tag: str, inputs, int_rate: float | None) -> dict:
     n_flags = int(parts[0][0].params["pe_rb_rule"].numel()) * c.has_rbac
     b += 2.0 * matched.shape[0] * mp * (mf.REC_ROWS * 4 + n_flags)
     bms, by = bound(b, ops, int_rate)
-    log(f"  {tag:<16} kernel {ms:9.5f} ms (per call incl. launch "
+    log(f"  {tag:<16} {ms_label(how)} {ms:9.5f} ms (per call incl. launch "
         f"{call:8.5f})   plain {plain:9.5f} ms   bound {bms:8.5f} ms ({by}; "
         f"{b:.0f} B, {ops:.0f} ops)   equal: yes   [{how}]")
     return {"ms": ms, "call_ms": call, "ms_source": how, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "bytes": b, "ops": ops,
-            "mesh": f"{dp}x{mp}"}
+            "mesh": f"{dp}x{mp}",
+            "entries": mesh_entry_times(tag, inputs, int_rate)}
+
+
+def mesh_entry_times(tag: str, inputs, int_rate: float) -> dict:
+    """Each entry point of one captured mesh_fold call, device ms per
+    launch from the profiler's records of that `__global__` function
+    (kernel_ms: windows that saw every launch), beside its launches per
+    call; mesh_combine also with its bound (combine_work) and the
+    torch.amin over dp shard 0's stacked records (the min only)."""
+    import torch
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    parts, params, before, c, lk, dev = inputs
+    dp, mp = len(parts), len(parts[0])
+    n_q = int(before.shape[0]) if c.has_quota else 0
+    n_rbac = int(parts[0][0].params["pe_rb_rule"].numel()) * c.has_rbac
+    n_rules = int(params["pe_deny_dur"].shape[0])
+    scratch = before.clone() if before is not None else \
+        torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    out = {}
+    for ent, kname, per in (("mesh_partial", "partial_kernel", dp * mp),
+                            ("mesh_combine", "combine_kernel", dp),
+                            ("mesh_quota", "quota_", 2 * dp * (n_q > 0))):
+        if not per:
+            continue
+        ms, kept = kernel_ms(lambda: mf.mesh_fold(parts, params, scratch, c,
+                                                  lk, dev), kname, per)
+        out[ent] = {"ms": ms, "launches_per_call": per, "windows": kept,
+                    "ms_source": "profiler (every launch seen)"}
+    bd = int(parts[0][0].matched.shape[0])
+    rec = torch.stack([mf.partial_record(p, n_rules, c, n_q)[0]
+                       for p in parts[0]])
+    torch.cuda.synchronize()
+    moved, ops = combine_work(mp, bd, n_rbac, n_q, c.n_attr_cols)
+    comb = out["mesh_combine"]
+    comb["bound_ms"], comb["bound_by"] = bound(moved, ops, int_rate)
+    comb["bytes"], comb["ops"] = moved, ops
+    comb["library_ms"] = time_ms(lambda: torch.amin(rec, dim=0), 200)
+    comb["library_call"] = "torch.amin of the stacked [MP, 7, Bd] records"
+    log(f"  {tag:<16} per launch: " + ", ".join(
+        f"{e} {x['ms']:.5f} ms x {x['launches_per_call']}"
+        for e, x in out.items())
+        + f"; mesh_combine bound {comb['bound_ms']:.6f} ms "
+        f"({comb['bound_by']}), torch.amin {comb['library_ms']:.5f} ms")
+    return out
 
 
 def mesh_phase(int_rate: float) -> dict:
@@ -5565,6 +5959,11 @@ def mesh_phase(int_rate: float) -> dict:
             f"(every verdict field, the counters); {exhausted} "
             "RESOURCE_EXHAUSTED; K13 (with its quota launches) equal to its "
             "plain version on each")
+        log(f"[13b] mesh_combine (and mesh_quota) equal to "
+            f"combine_fold_records on {combine_edge_checks()} edge record "
+            f"sets (MP {COMBINE_EDGE_MP}, NRB {COMBINE_EDGE_NRB}, Q "
+            f"{COMBINE_EDGE_Q}, Bd {COMBINE_EDGE_BD}, every int field "
+            "INT32_MAX)")
     row = {"name": "mesh_fold", "route": "cuda",
            "source": "istio_tpu_torch/csrc/verdict_fold.cu",
            "replaces": "istio_tpu/parallel/mesh.py:146", "launches": 0,

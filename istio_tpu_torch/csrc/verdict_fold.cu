@@ -75,12 +75,16 @@
 //      (the quota's rule is in the slice and active). One spec's allow
 //      rows, its guard row and its own rule may lie on different shards;
 //      each bit is an OR, so the combine sees the unsharded values.
-//   mesh_combine  per dp shard, on that shard's device, one block per row:
-//      min / sum / lowest (rule, list) over the mp records, the flag bytes
-//      OR'd over mp and decided as in row_fold, the same resolution
-//      (LOWEST INDEX wins, ties deny -> list -> RBAC -> quota, never the
-//      highest status, so no per-shard max can stand in for it), quota
-//      keys into the shard's ckey [Q, B/dp] and the referenced rows.
+//   mesh_combine  per dp shard, on that shard's device, one warp per row
+//      as in row_fold (kFoldWarps rows a block, no shared memory, no
+//      block barrier): the lanes OR each RBAC spec's flag bytes over mp
+//      and decide the specs as in row_fold, lane m reads mp record m, and
+//      warp reductions give the min / sum / lowest (rule, list) over the
+//      records; the same resolution (LOWEST INDEX wins, ties deny -> list
+//      -> RBAC -> quota, never the highest status, so no per-shard max can
+//      stand in for it), quota keys into the shard's ckey [Q, B/dp] and
+//      the referenced rows by the warp's lanes, one error-count atomic a
+//      warp.
 //   mesh_quota    per dp replica, after the [Q, B/dp] keys of every dp
 //      shard are gathered into [Q, B]: a quota rank spans the WHOLE batch,
 //      so no dp shard can rank alone. Each replica runs quota_rank and
@@ -122,7 +126,6 @@ using rule_words::kUnroll;
 constexpr int kFoldWarps = FOLD_WARPS;
 constexpr int kFoldThreads = 32 * kFoldWarps;
 constexpr int kThreads = 256;
-constexpr int kCombineThreads = 128;
 constexpr int kTile = 4096;
 constexpr int32_t kIntMax = 2147483647;
 constexpr float kBig = 3.4e38f;
@@ -531,7 +534,14 @@ __global__ void __launch_bounds__(kFoldThreads) partial_kernel(
     f_row[NRB + q] = w.active(q_rule[q]) ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kCombineThreads, 16) combine_kernel(
+// One warp per dp-shard row b, kFoldWarps rows a block (no shared memory,
+// no block barrier): the lanes stride over the RBAC specs, each spec's
+// flag bytes OR'd over the MP records, then lane m < MP reads record m;
+// warp reductions give the lowest (rule, spec) and (rule, list) keys (on a
+// tie of list keys the lowest record, as the plain argmin), the min TTL,
+// use count and deny rule and the error sum; then resolve and row_tail on
+// the warp's lanes.
+__global__ void __launch_bounds__(kFoldThreads) combine_kernel(
     int MP, const int32_t* __restrict__ rec, const uint8_t* __restrict__ flags,
     int Bd, const int32_t* __restrict__ req_ns,
     const int32_t* __restrict__ deny_status, int NRB,
@@ -544,78 +554,70 @@ __global__ void __launch_bounds__(kCombineThreads, 16) combine_kernel(
     int32_t* __restrict__ uses, int32_t* __restrict__ deny_rule,
     uint8_t* __restrict__ referenced, int32_t* __restrict__ err_count,
     int32_t* __restrict__ ckey) {
-  __shared__ unsigned long long s_key[kCombineThreads];
-  __shared__ int32_t s_deny[kCombineThreads];
-  __shared__ float s_dur[kCombineThreads];
-  __shared__ int32_t s_status;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int b = blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
+  if (b >= Bd) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
   const int NF = NRB + Q;
-  auto flag = [&](int m, int k) {
-    return flags[((long long)m * Bd + b) * NF + k];
-  };
-  // RBAC specs: each spec's flag bytes OR'd over the mp records
+  const long long rec_stride = (long long)kRecRows * Bd;
+  const long long flag_stride = (long long)Bd * NF;
+  const uint8_t* f_row = flags + (long long)b * NF;
+  // RBAC specs over the lanes: each spec's flag bytes OR'd over mp
   RbacWin rb;
-  for (int i = tid; i < NRB; i += blockDim.x) {
+  for (int i = lane; i < NRB; i += 32) {
     uint8_t f = 0;
-    for (int m = 0; m < MP; ++m) f |= flag(m, i);
+    for (int m = 0; m < MP; ++m) f |= f_row[m * flag_stride + i];
     rb.take(f, i, rb_rule, rb_dur);
   }
-  s_key[tid] = rb.key;
-  s_deny[tid] = rb.deny;
-  s_dur[tid] = rb.dur;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      if (s_key[tid + s] < s_key[tid]) {
-        s_key[tid] = s_key[tid + s];
-        s_deny[tid] = s_deny[tid + s];
+  RbacWin all;
+  all.key = warp_min64(rb.key);
+  all.deny = __any_sync(kFull, rb.key == all.key && rb.deny);
+  all.dur = warp_fmin(rb.dur);
+  // the records: lane m reads record m (and m + 32, ...)
+  int32_t deny = kIntMax, u = kIntMax, errs = 0, l_status = kOK;
+  int l_rec = kIntMax;
+  float d = kBig;
+  unsigned long long lkey = ~0ull;
+  for (int m = lane; m < MP; m += 32) {
+    const int32_t* r = rec + m * rec_stride + b;
+    deny = min(deny, r[kRecDeny * Bd]);
+    d = fminf(d, __int_as_float(r[kRecDur * Bd]));
+    u = min(u, r[kRecUses * Bd]);
+    errs += r[kRecErr * Bd];
+    const int32_t l_rule = r[kRecLRule * Bd];
+    if (l_rule != kIntMax) {
+      const unsigned long long k =
+          ((unsigned long long)(uint32_t)l_rule << 32) |
+          (uint32_t)r[kRecLArg * Bd];
+      if (k < lkey) {
+        lkey = k;
+        l_status = r[kRecLStatus * Bd];
+        l_rec = m;
       }
-      s_dur[tid] = fminf(s_dur[tid], s_dur[tid + s]);
     }
-    __syncthreads();
   }
-  if (tid == 0) {
-    RbacWin all;
-    all.key = s_key[0];
-    all.deny = s_deny[0];
-    int32_t deny = kIntMax, u = kIntMax, errs = 0, l_status = kOK;
-    float d = kBig;
-    unsigned long long lkey = ~0ull;
-    const long long stride = (long long)kRecRows * Bd;
-    for (int m = 0; m < MP; ++m) {
-      const int32_t* r = rec + m * stride;
-      deny = min(deny, r[kRecDeny * Bd + b]);
-      d = fminf(d, __int_as_float(r[kRecDur * Bd + b]));
-      u = min(u, r[kRecUses * Bd + b]);
-      errs += r[kRecErr * Bd + b];
-      const int32_t l_rule = r[kRecLRule * Bd + b];
-      if (l_rule != kIntMax) {
-        const unsigned long long k =
-            ((unsigned long long)(uint32_t)l_rule << 32) |
-            (uint32_t)r[kRecLArg * Bd + b];
-        if (k < lkey) {
-          lkey = k;
-          l_status = r[kRecLStatus * Bd + b];
-        }
-      }
-    }
-    const int32_t st =
-        resolve(deny, deny_status, lkey, l_status, all, deny_rule + b);
+  deny = __reduce_min_sync(kFull, deny);
+  u = __reduce_min_sync(kFull, u);
+  errs = __reduce_add_sync(kFull, errs);
+  d = warp_fmin(d);
+  const unsigned long long lmin = warp_min64(lkey);
+  const int m_win = __reduce_min_sync(
+      kFull, lkey == lmin ? l_rec : kIntMax);  // the lowest record
+  l_status = lmin != ~0ull ? __shfl_sync(kFull, l_status, m_win & 31) : kOK;
+  int32_t drule;
+  const int32_t st = resolve(deny, deny_status, lmin, l_status, all, &drule);
+  if (lane == 0) {
     status[b] = st;
-    dur[b] = fminf(d, s_dur[0]);  // caching TTL; RBAC never touches uses
+    dur[b] = fminf(d, all.dur);  // caching TTL; RBAC never touches uses
     uses[b] = u;
-    s_status = st;
+    deny_rule[b] = drule;
     if (errs) atomicAdd(err_count, errs);
   }
-  __syncthreads();
   auto act = [&](int q) {
     for (int m = 0; m < MP; ++m)
-      if (flag(m, NRB + q)) return true;
+      if (f_row[m * flag_stride + NRB + q]) return true;
     return false;
   };
-  row_tail(tid, blockDim.x, b, Bd, s_status, act, Q, NB, q_slot, q_nb,
+  row_tail(lane, 32, b, Bd, st, act, Q, NB, q_slot, q_nb,
            present + (long long)b * C, hash_ids + (long long)b * C, ckey,
            req_ns[b], table, T_rows, T_cols, n_attr, referenced);
 }
@@ -800,7 +802,7 @@ extern "C" int mesh_combine(
     int32_t* ckey, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Bd == 0) return 0;
-  combine_kernel<<<Bd, kCombineThreads, 0, s>>>(
+  combine_kernel<<<fold_blocks(Bd), kFoldThreads, 0, s>>>(
       MP, rec, flags, Bd, req_ns, deny_status, NRB, rb_rule, rb_dur, present,
       hash_ids, C, Q, NB, q_slot, q_nb, table, T_rows, T_cols, n_attr, status,
       dur, uses, deny_rule, referenced, err_count, ckey);

@@ -21,7 +21,9 @@ list states over the mesh and runs the unsharded plain fold
 (models/policy_engine.verdict_fold_plain) on the whole batch; the CPU
 runs it, a card never does. `partial_record` is one shard's mesh_partial
 step alone, whose plain version is the word fold over the shard's
-window (models/policy_engine.verdict_fold_words_plain with `window`).
+window (models/policy_engine.verdict_fold_words_plain with `window`);
+`combine_records` is the mesh_combine and mesh_quota steps alone over
+given records, whose plain version is combine_fold_records.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from istio_tpu_torch import kernels
 from istio_tpu_torch.compiler.layout import AttributeBatch
 from istio_tpu_torch.models.policy_engine import (REC_ROWS, FoldConsts,
                                                   check_plane_pair,
+                                                  combine_fold_records,
                                                   check_word_tables,
                                                   verdict_fold_plain,
                                                   verdict_fold_words_plain)
@@ -172,6 +175,83 @@ def _same_phys(a: VirtualDevice, b: VirtualDevice) -> bool:
     return a.device == b.device
 
 
+def _combine(rec: torch.Tensor, flags: torch.Tensor, req_ns: torch.Tensor,
+             batch: AttributeBatch, pm: Mapping[str, torch.Tensor],
+             n_rbac: int, n_q: int, n_buckets: int, c: FoldConsts
+             ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, int]:
+    """One dp shard's mesh_combine launch on the current stream over its
+    records rec int32 [MP, REC_ROWS, Bd] and flags uint8 [MP, Bd, NRB +
+    Q] (any width where NRB + Q is 0: none is read) → ((status, dur, uses,
+    deny_rule, referenced, err_count), ckey int32 [max(Q, 1), Bd],
+    `__global__` launches)."""
+    dev = rec.device
+    mp, bd = int(rec.shape[0]), int(rec.shape[2])
+    table = pm["pe_ref_table"]
+    o = (torch.empty(bd, dtype=torch.int32, device=dev),
+         torch.empty(bd, dtype=torch.float32, device=dev),
+         torch.empty(bd, dtype=torch.int32, device=dev),
+         torch.empty(bd, dtype=torch.int32, device=dev),
+         torch.empty((bd, c.n_attr_cols), dtype=torch.bool, device=dev),
+         torch.zeros((), dtype=torch.int32, device=dev))
+    ckey = torch.empty((max(n_q, 1), bd), dtype=torch.int32, device=dev)
+    p_ = kernels.ptr
+    fn = kernels.function("mesh_fold", "mesh_combine", _COMBINE_ARGS)
+    rc = fn(mp, p_(rec), p_(flags), bd, p_(req_ns),
+            p_(pm["pe_deny_status"]), n_rbac, p_(pm["pe_rb_rule"]),
+            p_(pm["pe_rb_dur"]), p_(batch.present), p_(batch.hash_ids),
+            int(batch.ids.shape[1]), n_q, n_buckets, p_(pm["pe_q_slot"]),
+            p_(pm["pe_q_nb"]), p_(table), int(table.shape[0]),
+            int(table.shape[1]), c.n_attr_cols, *(p_(t) for t in o),
+            p_(ckey), kernels.VP(kernels.stream_ptr()))
+    return o, ckey, kernels.check(rc, "mesh_fold")
+
+
+def _quota(keys: torch.Tensor, pm: Mapping[str, torch.Tensor],
+           counts: torch.Tensor, row0: int, status: torch.Tensor,
+           deny_rule: torch.Tensor) -> int:
+    """One dp replica's mesh_quota launch on the current stream over the
+    gathered keys int32 [Q, B] (status / deny_rule its Bd rows from
+    row0; counts updated in place) → `__global__` launches."""
+    n_q, b = int(keys.shape[0]), int(keys.shape[1])
+    qstate = torch.empty((n_q, b), dtype=torch.uint8, device=keys.device)
+    p_ = kernels.ptr
+    fn = kernels.function("mesh_fold", "mesh_quota", _QUOTA_ARGS)
+    rc = fn(p_(keys), b, n_q, row0, int(status.shape[0]), p_(pm["pe_q_max"]),
+            p_(pm["pe_q_rule"]), p_(counts), p_(qstate), p_(status),
+            p_(deny_rule), kernels.VP(kernels.stream_ptr()))
+    return kernels.check(rc, "mesh_fold")
+
+
+def combine_records(rec: torch.Tensor, flags: torch.Tensor,
+                    req_ns: torch.Tensor, batch: AttributeBatch,
+                    params: Mapping[str, torch.Tensor],
+                    quota_counts: torch.Tensor, c: FoldConsts
+                    ) -> tuple[torch.Tensor, ...]:
+    """The verdict of one row block from its records over MP windows,
+    rec int32 [MP, REC_ROWS, B] and flags uint8 [MP, B, NRB + Q]: the
+    mesh_combine and (with quotas) mesh_quota steps of mesh_fold alone,
+    as one dp shard of a one-row-block mesh, on the current stream
+    (mesh_fold counts its launches; this counts none) → (status, dur,
+    uses, deny_rule, referenced, err_count), quota_counts updated in
+    place. CPU tensors run combine_fold_records."""
+    n_rbac = int(params["pe_rb_rule"].shape[0]) if c.has_rbac else 0
+    n_q = int(quota_counts.shape[0]) if c.has_quota else 0
+    if rec.device.type == "cpu":
+        return combine_fold_records(list(rec), list(flags), req_ns, batch,
+                                    params, quota_counts, c)
+    if rec.dtype != torch.int32 or flags.dtype != torch.uint8 or \
+            rec.shape[1] != REC_ROWS or tuple(flags.shape) != \
+            (rec.shape[0], rec.shape[2], n_rbac + n_q):
+        raise ValueError("combine_records: rec must be int32 [MP, "
+                         f"{REC_ROWS}, B] and flags uint8 [MP, B, NRB + Q]")
+    o, ckey, _ = _combine(rec.contiguous(), flags.contiguous(), req_ns,
+                          batch, params, n_rbac, n_q,
+                          int(quota_counts.shape[1]), c)
+    if n_q:
+        _quota(ckey, params, quota_counts, 0, o[0], o[3])
+    return o
+
+
 def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
               quota_counts: torch.Tensor, c: FoldConsts,
               list_kind: torch.Tensor | None,
@@ -253,34 +333,16 @@ def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
                 evs.append(vd.record())
         ev_part.append(evs)
     # ---- combine: one launch per dp shard on its first device's stream
-    combine = kernels.function("mesh_fold", "mesh_combine", _COMBINE_ARGS)
     outs, ckeys, ev_comb = [], [], []
     for d, row in enumerate(parts):
         home, p = row[0].vdev, row[0]
         for ev in ev_part[d]:
             home.wait(ev)
         with home.scope():
-            pm = p.params
-            table = pm["pe_ref_table"]
-            o = (torch.empty(bd, dtype=torch.int32, device=home.device),
-                 torch.empty(bd, dtype=torch.float32, device=home.device),
-                 torch.empty(bd, dtype=torch.int32, device=home.device),
-                 torch.empty(bd, dtype=torch.int32, device=home.device),
-                 torch.empty((bd, c.n_attr_cols), dtype=torch.bool,
-                             device=home.device),
-                 torch.zeros((), dtype=torch.int32, device=home.device))
-            ckey = torch.empty((max(n_q, 1), bd), dtype=torch.int32,
-                               device=home.device)
-            rc = combine(
-                mp, p_(recs[d]), p_(flags[d]), bd, p_(p.req_ns),
-                p_(pm["pe_deny_status"]), n_rbac, p_(pm["pe_rb_rule"]),
-                p_(pm["pe_rb_dur"]), p_(p.batch.present),
-                p_(p.batch.hash_ids), int(p.batch.ids.shape[1]), n_q,
-                int(quota_counts.shape[1]), p_(pm["pe_q_slot"]),
-                p_(pm["pe_q_nb"]), p_(table), int(table.shape[0]),
-                int(table.shape[1]), c.n_attr_cols, *(p_(t) for t in o),
-                p_(ckey), kernels.VP(kernels.stream_ptr()))
-            grids += kernels.check(rc, "mesh_fold")
+            o, ckey, g = _combine(recs[d], flags[d], p.req_ns, p.batch,
+                                  p.params, n_rbac, n_q,
+                                  int(quota_counts.shape[1]), c)
+            grids += g
             ev_comb.append(home.record())
         outs.append(o)
         ckeys.append(ckey)
@@ -288,7 +350,6 @@ def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
     replica0 = None
     # ---- quota: every dp replica ranks the whole batch
     if n_q:
-        quota = kernels.function("mesh_fold", "mesh_quota", _QUOTA_ARGS)
         finals = []
         for d, row in enumerate(parts):
             home, pm = row[0].vdev, row[0].params
@@ -299,14 +360,8 @@ def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
                 keys = torch.cat([handed_over(k, home.stream).to(home.device)
                                   for k in ckeys], dim=1)
                 counts = quota_counts.to(home.device, copy=True)
-                qstate = torch.empty((n_q, b), dtype=torch.uint8,
-                                     device=home.device)
-                status, deny_rule = outs[d][0], outs[d][3]
-                rc = quota(p_(keys), b, n_q, d * bd, bd, p_(pm["pe_q_max"]),
-                           p_(pm["pe_q_rule"]), p_(counts), p_(qstate),
-                           p_(status), p_(deny_rule),
-                           kernels.VP(kernels.stream_ptr()))
-                grids += kernels.check(rc, "mesh_fold")
+                grids += _quota(keys, pm, counts, d * bd, outs[d][0],
+                                outs[d][3])
                 finals.append(home.record())
             if d == 0:
                 replica0 = counts

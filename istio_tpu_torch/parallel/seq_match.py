@@ -20,7 +20,7 @@ a card (the kernel launches; a CUDA tensor never falls back).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -32,6 +32,49 @@ from istio_tpu_torch.platform import fork, handed_over
 # ---------------------------------------------------------------------------
 # K12: seq_match (csrc/seq_match.cu)
 # ---------------------------------------------------------------------------
+
+REG_STATES = (8, 16, 32)   # entry states a thread walks in registers (kS)
+PATH_LANES_SMEM, PATH_LANES_L1 = 0, -1
+SUB_LEN = 128              # bytes a register walk takes before composing
+MAX_SUBS = 8               # sub-chunks of one chunk (threads of one block)
+MAX_SMEM = 232448          # 227 KB a block on sm_90
+
+
+class ChunkPlan(NamedTuple):
+    """One chunk_map launch (the C entry point's plan arguments): `path`
+    the register bucket kS (8, 16, 32) or a lanes path (PATH_LANES_SMEM:
+    one thread per entry state, the table byte-major in shared memory;
+    PATH_LANES_L1: read through L1); `subs` sub-chunks of `sub_len` bytes
+    a chunk, each a thread, composed by the first."""
+    path: int
+    subs: int
+    sub_len: int
+
+
+def lanes_smem(s: int) -> int:
+    """Shared memory of a lanes-path block: the absorbing-state bit words
+    (padded to 4) and the [256, S] int32 table."""
+    return 4 * ((-(-s // 32) + 3) // 4 * 4 + 256 * s)
+
+
+def chunk_plan(lc: int, s: int, *, sub_len: int = SUB_LEN) -> ChunkPlan:
+    """The plan of a chunk_map launch over chunks of lc bytes under an
+    S-state DFA. The wrapper always takes the default sub_len; the
+    keyword lets a measurement script time other sub-chunk lengths."""
+    if sub_len < 16 or sub_len % 16:
+        raise ValueError(f"chunk_plan: sub_len must be a multiple of 16, "
+                         f"got {sub_len}")
+    if s > REG_STATES[-1]:
+        path = PATH_LANES_SMEM if lanes_smem(s) <= MAX_SMEM else \
+            PATH_LANES_L1
+        return ChunkPlan(path, 1, max(lc, 1))
+    path = next(k for k in REG_STATES if s <= k)
+    subs = 1
+    while subs < MAX_SUBS and subs * sub_len < lc:
+        subs *= 2
+    # sub-chunk starts keep the chunk's alignment within a 16-byte word
+    eff = max(lc, 1) if subs == 1 else 16 * -(-lc // (16 * subs))
+    return ChunkPlan(path, subs, eff)
 
 
 def chunk_maps_plain(data: torch.Tensor, lens: torch.Tensor,
@@ -74,7 +117,7 @@ def compose_maps_plain(maps: torch.Tensor, accept: torch.Tensor | None = None,
 
 _K = kernels
 _CHUNK_ARGS = [_K.VP, _K.I64, _K.I32, _K.VP, _K.I32, _K.I32, _K.I32, _K.VP,
-               _K.I32, _K.VP, _K.VP]
+               _K.I32, _K.VP] + [_K.I32] * 3 + [_K.VP]
 _COMPOSE_ARGS = [_K.VP, _K.I32, _K.I32, _K.I32, _K.VP, _K.I32, _K.VP, _K.VP]
 
 
@@ -94,7 +137,8 @@ def chunk_maps(data: torch.Tensor, lens: torch.Tensor,
     (chunk index c0 + c of each row; lens int32 [B] TOTAL lengths) under
     transitions int32 [S, 256], in one launch. The chunk axis may be a
     slice of a wider row (a stride of the row); each chunk's bytes are
-    unit-stride. CPU tensors run chunk_maps_plain."""
+    unit-stride. The launch follows chunk_plan(Lc, S). CPU tensors run
+    chunk_maps_plain."""
     if data.dim() != 3 or data.dtype != torch.uint8:
         raise ValueError(f"chunk_maps: data must be uint8 [B, C, Lc], got "
                          f"{data.dtype} {tuple(data.shape)}")
@@ -112,12 +156,16 @@ def chunk_maps(data: torch.Tensor, lens: torch.Tensor,
     lens = lens.contiguous()
     transitions = transitions.contiguous()
     s = int(transitions.shape[0])
+    plan = chunk_plan(lc, s)
+    if c * b * max(s, plan.subs) >= 2 ** 31:
+        raise ValueError(f"chunk_maps: {c} x {b} x {s} work items exceed "
+                         "the kernel's 32-bit indexing")
     out = torch.empty((c, b, s), dtype=torch.int32, device=data.device)
     if out.numel() == 0:
         return out
     fn = kernels.function("seq_match", "chunk_map", _CHUNK_ARGS)
     rc = fn(kernels.ptr(data), data.stride(0), lc, kernels.ptr(lens), b, c,
-            int(c0), kernels.ptr(transitions), s, kernels.ptr(out),
+            int(c0), kernels.ptr(transitions), s, kernels.ptr(out), *plan,
             kernels.VP(kernels.stream_ptr()))
     kernels.launched("seq_match", kernels.check(rc, "seq_match"), "chunk_map",
                      data, lens, transitions, int(c0), entry="chunk_map")
@@ -149,6 +197,9 @@ def compose(maps: torch.Tensor, accept: torch.Tensor | None = None,
         out = torch.empty(b, dtype=torch.bool, device=maps.device)
     if b == 0 or s == 0:
         return out
+    if c * b * s >= 2 ** 31:
+        raise ValueError(f"compose_maps: {c} x {b} x {s} maps exceed the "
+                         "kernel's 32-bit indexing")
     if c == 0:
         ident = torch.arange(s, dtype=torch.int32, device=maps.device)
         return ident.expand(b, s).contiguous() if accept is None else \

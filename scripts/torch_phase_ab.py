@@ -8,11 +8,23 @@ Each DIR is the root of a checkout (the same one may be named twice, as
 in `parent change change parent`). For each, in the order given and in
 a process of its own started from that directory, the checkout's
 `chip_smoke.py` is imported, its kernels are built, and the chosen
-phases run (default: all ten):
+phases run (default: all ten). The timers that must read every
+checkout alike (chip_smoke's graph_ms, kernel_ms, seq_times,
+mesh_entry_times, seq_work, combine_work) come from the chip_smoke.py
+beside this script, loaded by path:
 
   engine  the headline engine step at B=2048, every kernel held against
           its plain version (phase 3's headline traffic);
-  seq     the sequence-parallel DFA phase (`seq_phase`);
+  seq     the sequence-parallel DFA phase (`seq_phase`), then K12 on
+          one needle match (workloads.LONG_PATTERNS[0]) at each of this
+          script's chip_smoke SEQ_LAYOUTS: every chunk_map and
+          compose_maps launch of the match timed alone on one stream
+          (chip_smoke.seq_times: a CUDA graph of 50 launches between
+          CUDA events, its output held against the plain version),
+          summed per entry point into device ms a match, with the bound,
+          the table lookups chunk_map's function needs (the bound's
+          ops; chip_smoke.chunk_map_work) beside S a byte walked, and
+          the match's CUDA-event wall;
   mesh    the mesh serving phase (`mesh_phase`);
   k6      rule_stats on phase 5's served launch (make_store(10_000),
           bench.py's headline traffic, B=2048), against its plain
@@ -50,7 +62,13 @@ phases run (default: all ten):
           call, the bound (chip_smoke's fold_work / pack_work), the
           dense-plane floor (the launch's [B, R] planes read once at
           3.35 TB/s), check_pack's torch._int_mm yardstick, and the
-          served check_many wall p50 at B = 64, 256 and 2,048.
+          served check_many wall p50 at B = 64, 256 and 2,048; then one
+          (2, 4) mesh_fold call of the authz world
+          (make_rbac_store(1000)), and for both mesh calls each entry
+          point's device ms per launch (chip_smoke.mesh_entry_times:
+          profiler windows that saw every launch of mesh_partial,
+          mesh_combine and mesh_quota; the combine's bound and torch.amin
+          yardstick).
 
   fe      field_eval and atom_eval, each against its plain version:
           field_eval on the telemetry world's captured report trips at
@@ -100,7 +118,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import dataclasses, json, re, sys, time
+import dataclasses, importlib.util, json, re, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
@@ -108,6 +126,10 @@ from istio_tpu_torch import kernels
 from istio_tpu_torch.testing import workloads
 
 phases = sys.argv[1].split(",")
+# the timers of the script's own chip_smoke.py, the same in every checkout
+_spec = importlib.util.spec_from_file_location("ab_timers", sys.argv[2])
+tm = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tm)
 for src, info in kernels.build().items():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or (
@@ -183,6 +205,35 @@ for phase in (cs.seq_phase, cs.mesh_phase):
         for k, sub in subs.items():
             rows.append({"phase": phase.__name__,
                          **sub, "name": f"{r['name']}.{k}"})
+if "seq" in phases:
+    import numpy as np
+    from istio_tpu_torch import platform
+    from istio_tpu_torch.ops.regex_dfa import compile_regex
+    from istio_tpu_torch.parallel import seq_match as sm
+    from istio_tpu_torch.parallel.mesh import Mesh
+    pat = workloads.LONG_PATTERNS[0]
+    dfa = compile_regex(pat)
+    with platform.force_virtual_devices(tm.N_VIRTUAL, "cuda:0") as devs:
+        mesh = Mesh(np.array(devs, dtype=object), ("sp",))
+        for b, c, lc in tm.SEQ_LAYOUTS:
+            data, lens = workloads.make_long_subjects(b, c, lc, seed=b)
+            data = torch.from_numpy(data.reshape(b, c, lc)).cuda()
+            lens = torch.from_numpy(lens).cuda()
+
+            def match():
+                return sm.sharded_dfa_match(mesh, "sp", data, lens,
+                                            dfa.transitions, dfa.accept)
+            match()
+            with kernels.launches.capture() as cap:
+                match()
+            torch.cuda.synchronize()
+            parts = tm.seq_times([(n, x) for n, x in cap], rate)
+            wall = cs.time_ms(match, 20)
+            for kind, r in parts.items():
+                rows.append({"phase": "seq_k12", **r,
+                             "name": f"seq_match.{kind}.{b}x{c}x{lc}",
+                             "call_ms": None, "pattern": pat,
+                             "match_wall_ms": wall})
 if "k6" in phases:
     srv, store = cs.served(cs.HEADLINE_RULES, "cuda",
                            dict(buckets=(cs.HEADLINE_B,),
@@ -454,6 +505,32 @@ if "fold" in phases:
         row["bound_ms"] = row["bound_by"] = row["library_ms"] = None
         rows.append(row)
         msrv.close()
+        az = cs.mesh_server(workloads.make_rbac_store(cs.AUTHZ_ROLE_RULES),
+                            (2, 4), (cs.HEADLINE_B,), workloads.MESH_MANIFEST)
+        az_bags = [bag_from_mapping(x) for x in
+                   workloads.make_rbac_request_dicts(cs.HEADLINE_B,
+                                                     seed=cs.HEADLINE_B)]
+        cap = captured(lambda: az.check_many(az_bags))
+        ((_, az_ins),) = [x for x in cap if x[0] == "mesh_fold"]
+        cs.mesh_fold_check("mesh_fold (2, 4)", az_ins, None)
+        parts, params, before, c, lk, dev = az_ins
+        scratch = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+        az_row = profiled(lambda: mf.mesh_fold(parts, params, scratch, c, lk,
+                                               dev), "mesh_fold",
+                          phase="fold", name="mesh_fold.authz2x4")
+        az_row["plain_ms"] = cs.time_ms(lambda: mf.mesh_fold_plain(
+            parts, params, scratch, c, lk, dev), 5)
+        az_row["bound_ms"] = az_row["bound_by"] = az_row["library_ms"] = None
+        rows.append(az_row)
+        az.close()
+        # each entry point's device ms per launch (windows that saw every
+        # launch), the combine with its bound and torch.amin yardstick
+        for name, x in (("4x2", ins), ("authz2x4", az_ins)):
+            for ent, e in tm.mesh_entry_times(f"mesh_fold.{name}", x,
+                                              rate).items():
+                rows.append({"phase": "fold", "name": f"{ent}.{name}",
+                             "call_ms": None, "plain_ms": None,
+                             "bound_ms": None, "bound_by": None, **e})
 if "fe" in phases:
     from istio_tpu_torch.attribute.bag import bag_from_mapping
     from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
@@ -742,7 +819,9 @@ keep = ("phase", "name", "ms", "call_ms", "plain_ms", "bound_ms",
         "bound_by", "ms_source", "library_ms", "grids", "hot_rows",
         "plane_gb_s", "stages", "windows", "planes", "walls_p50_ms",
         "grid_ms", "floor_ms", "shape", "launches", "other_ms",
-        "other_ops", "busy_ms", "ops")
+        "other_ops", "busy_ms", "ops", "bytes", "per_launch_ms", "lookups",
+        "lookups_all_walks", "match_wall_ms", "launches_per_match",
+        "launches_per_call", "library_call")
 print("ROWS " + json.dumps([{k: r.get(k) for k in keep} for r in rows]))
 """
 
@@ -764,6 +843,10 @@ def smi() -> str:
         return f"nvidia-smi failed: {e}"
 
 
+_TIMERS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "chip_smoke.py")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
@@ -779,8 +862,9 @@ def main() -> int:
     rc = 0
     with open(args.out, "a") as out:
         for i, d in enumerate(args.dirs):
-            p = subprocess.run([sys.executable, "-c", _CHILD, args.phases],
-                               cwd=d, capture_output=True, text=True)
+            p = subprocess.run([sys.executable, "-c", _CHILD, args.phases,
+                                _TIMERS], cwd=d, capture_output=True,
+                               text=True)
             rows = [json.loads(line[5:]) for line in p.stdout.splitlines()
                     if line.startswith("ROWS ")]
             if p.returncode != 0 or not rows:
@@ -806,7 +890,9 @@ def main() -> int:
                       flush=True)
                 for k in ("windows", "planes", "walls_p50_ms", "grid_ms",
                           "shape", "launches", "other_ms", "other_ops",
-                          "busy_ms", "ops"):
+                          "busy_ms", "ops", "per_launch_ms", "lookups",
+                          "lookups_all_walks", "match_wall_ms",
+                          "launches_per_call"):
                     if r.get(k) is not None:
                         print(f"run {i} {d}:   {k} {r[k]}", flush=True)
                 for st in r.get("stages") or ():
