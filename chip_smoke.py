@@ -31,11 +31,17 @@ Phases, each fatal on failure:
      and check_pack_words_plain, and their rows print the dense-plane
      floor beside the bound. Then (3d) verdict_fold, mesh_partial and
      check_pack on edge inputs (FOLD_EDGE_*): rule axes of 0, 8 and odd
-     length mod 16 with quotas (three grids a fold), B from 0 to 2,048
+     length mod 16 with quotas (two grids a fold), B from 0 to 2,048
      either side of a warp, request namespaces -1, -7, the default, the
      largest id and one past it and the int32 extremes, windows of the
      rule axis off a 32-rule word whose kernel records combine into the
-     unsharded fold, and 3 and 11 instance words;
+     unsharded fold, and 3 and 11 instance words; and whole folds with
+     quotas of limit 3 on make_engine(1,000) at QUOTA_FOLD_B (one quota
+     block, a cluster of 2, a cluster of 8), three batches carried, equal
+     to verdict_fold_plain and, the quota step alone, to
+     quota_grant_plain (the kernel's formulation), two grids a fold. The
+     headline row times the row fold and the quota launch apart, with the
+     quota launch's bound and the stable argsort of its keys;
   4. end to end at B ∈ {64, 256, 2048}: three consecutive batches of
      each traffic with quota carried, every verdict field and the quota
      counters equal to the plain path (the same engine on the CPU) run
@@ -93,8 +99,14 @@ Phases, each fatal on failure:
      v4-mapped IPv6, malformed IP lengths and an absent source.ip; every
      kernel must launch (list_banks among them) and is held against its
      plain version on the B=2048 inputs (timed: the list_banks row);
-     then (7b) list_banks on random inputs at B=2048 (64 REGEX lists
-     over 256 patterns with truncated rows, 64 CIDR lists x 16 entries);
+     then (7b) list_banks (one launch for both banks) against its plain
+     versions (the reference's formulas and the word formulation,
+     list_banks_words_plain) on random inputs at B=2048 (64 REGEX lists
+     over 256 patterns with truncated rows, 64 CIDR lists x 16 entries),
+     on CIDR lists of E = 0, 1, 31, 32, 33 and 1,024 entries (mixed,
+     v4-only and v6-only; K = 64 lists of 33) over value rows contiguous,
+     at an odd address and strided, and on the sized list world (a
+     1,024-entry blocklist, about 90 % v4, and a 64-pattern path list);
   8. the report path (this slice's main path): the telemetry world —
      make_store(10_000) plus Istio's default Mixer telemetry config
      (telemetry_world: six metrics into prometheus, the accesslog into a
@@ -195,7 +207,12 @@ Phases, each fatal on failure:
      window. Then (13b) make_rbac_store(1000) at (2, 4) (RBAC allow rows
      across mp slices), the headline world at (8, 1) and (1, 1),
      shard_engine_check on make_engine(10_000, with_quota=True) with
-     small quotas, counters carried, and mesh_combine (with mesh_quota)
+     small quotas, counters carried (one mesh_quota grid a dp replica),
+     mesh_quota against quota_rank_plain on synthetic key columns on
+     every path of the quota plan (MESH_QUOTA_B: B = 0 to 65,537, one
+     block, a cluster, three launches; Q = 1 and 34; three batches
+     carried; composite keys near INT32_MAX over a 2 x (2^30 - 1) counter
+     plane), and mesh_combine (with mesh_quota)
      against combine_fold_records on edge records (COMBINE_EDGE_*: MP 1
      to 8, 0 / 1 / 33 RBAC specs, 0 / 3 quotas, row counts off a block,
      every int field INT32_MAX);
@@ -497,6 +514,52 @@ def fold_work(matched, req, batch, params, c, quota0, quota1, got,
     return b, ops
 
 
+def quota_keys(matched, req, batch, params, c, n_buckets: int,
+               lstate=None, list_kind=None):
+    """int32 [Q, B]: the composite keys the fold's quota rank sorts —
+    q·NB + the key's bucket where the row's status before quota is OK,
+    the quota's rule matched and visible to the row's namespace and its
+    key attribute present; INT32_MAX elsewhere (verdict_fold_plain's
+    ckey, transposed)."""
+    import dataclasses as dc
+    import torch
+    from istio_tpu_torch.models import policy_engine as pe
+    q0 = torch.zeros(1, 1, dtype=torch.int32, device=matched.device)
+    status = pe.verdict_fold_plain(matched, torch.zeros_like(matched), req,
+                                   batch, params, q0,
+                                   dc.replace(c, has_quota=False), lstate,
+                                   list_kind)[0]
+    rule = params["pe_q_rule"].long()
+    rns = params["pe_rule_ns"][rule]
+    vis = (rns[None, :] == c.default_ns) | (rns[None, :] == req[:, None])
+    slot = params["pe_q_slot"].long()
+    act = matched[:, rule] & vis & batch.present[:, slot] & \
+        (status == OK)[:, None]
+    n_q = int(rule.shape[0])
+    key = torch.remainder(batch.hash_ids[:, slot], params["pe_q_nb"][None]) \
+        + torch.arange(n_q, device=act.device)[None, :] * n_buckets
+    return torch.where(act, key, pe.INT32_MAX).to(torch.int32).T \
+        .contiguous()
+
+
+def quota_grant_work(keys, q0, q1, over_rows: int) -> tuple[float, float]:
+    """(bytes, ops) the quota rank / grant / commit must move and do on
+    this run's data: every key read once, one counter read per distinct
+    active key and one write per counter that changed (q1 vs q0), the
+    status and deny rule written for each over-limit row, the q_max /
+    q_rule tables; an op per key to find its group, one per group to
+    grant and one per row to decide."""
+    import torch
+    from istio_tpu_torch.models.policy_engine import INT32_MAX
+    live = keys[keys != INT32_MAX]
+    groups = int(torch.unique(live).numel())
+    changed = int((q1 != q0).sum())
+    n_q = int(keys.shape[0])
+    moved = keys.numel() * 4 + groups * 4 + changed * 4 + over_rows * 8 \
+        + n_q * 8
+    return float(moved), float(2 * live.numel() + groups)
+
+
 def pack_work(inputs, got) -> tuple[float, float]:
     """(bytes, ops) check_pack must move and do on this run's data: a
     row reads the matched cells of the rules its namespace sees (the
@@ -657,13 +720,22 @@ def rbac_library_ms(matched, params) -> tuple[float | None, str]:
 
 def list_work(inputs, lstate, err) -> tuple[float, float]:
     """(bytes, ops) a list_banks call must move and do on this run's
-    data. regex_list: each (row, list) reads the acceptance bytes of the
+    data (a launch of both banks: the sum of its banks'). regex_list:
+    each (row, list) reads the acceptance bytes of the
     list's patterns and the value's length, writes its state byte, and
     an err byte where und holds; cidr_list: each (row, list) reads the
     value's 16 bytes and length and writes its state byte, and compares
-    (32 byte ops) every valid entry of the value's IP version up to the
-    first hit. The tables are read once."""
+    every valid entry of the value's IP version up to the first hit (a
+    masked compare of one 32-bit word for a v4 value, four for a v6
+    one: 2 and 8 ops). The tables are read once, in words."""
     import torch
+    if inputs[0] == "list_banks":     # both banks of one launch
+        _, acc, sb, sl, ml, rx, cidr, _, _ = inputs
+        parts = ([("regex_list", acc, sl, ml, rx, None, None)]
+                 if rx is not None else []) + \
+            ([("cidr_list", sb, sl, cidr, None)] if cidr is not None else [])
+        work = [list_work(x, lstate, err) for x in parts]
+        return float(sum(w[0] for w in work)), float(sum(w[1] for w in work))
     if inputs[0] == "regex_list":
         _, acc, str_lens, max_len, lists, _, _ = inputs
         pos, rule, bslot, ptr, pat, pdef = lists.on(acc.device)
@@ -690,9 +762,15 @@ def list_work(inputs, lstate, err) -> tuple[float, float]:
                         hit.shape[2])
     upto = torch.arange(hit.shape[2], device=hit.device)[None, None, :] \
         < first[:, :, None]
-    compared = int((cand & upto).sum())
-    b = nb * k * 21 + nbytes(pos, bslot, prefix, mask, valid, ent_v4)
-    return float(b), float(nb * k * 16 + 32 * compared)
+    compared = cand & upto
+    n4 = int((compared & val_v4[:, :, None]).sum())
+    n6 = int(compared.sum()) - n4
+    # the entry tables as words: a v4 net's word-3 mask and prefix, a v6
+    # net's four of each
+    tables = 8 * int((valid & ent_v4).sum()) + 32 * int((valid & ~ent_v4)
+                                                        .sum())
+    b = nb * k * 21 + nbytes(pos, bslot) + tables
+    return float(b), float(nb * k * 16 + 2 * n4 + 8 * n6)
 
 
 K1_EDGE_B = (0, 1, 31, 32, 33, 97)   # rule_match edge request counts
@@ -1019,6 +1097,26 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             b, ops = fold_work(matched, req, batch, params, c, quota0, qk,
                                got, lstate, kind)
             extra["floor_ms"] = plane_floor_ms(matched, errp)
+            if c.has_quota and matched.shape[0]:
+                # each grid alone: the row fold, and the quota launch with
+                # its bound and the stable argsort of the same keys
+                fold = lambda: pe.verdict_fold(  # noqa: E731
+                    matched, errp, req, batch, params, scratch, c, lstate,
+                    kind)
+                extra["row_fold_ms"] = kernel_ms(fold, "row_fold", 1)[0]
+                per = pe.quota_plan(int(matched.shape[0])).launches
+                extra["quota_ms"] = kernel_ms(fold, "quota_grant",
+                                              per)[0] * per
+                keys = quota_keys(matched, req, batch, params, c,
+                                  int(quota0.shape[1]), lstate, kind)
+                qb, qo = quota_grant_work(
+                    keys, quota0, qk,
+                    int((got[0] == RESOURCE_EXHAUSTED).sum()))
+                extra["quota_bound_ms"], extra["quota_bound_by"] = bound(
+                    qb, qo, int_rate)
+                flat = keys.reshape(-1)
+                extra["quota_argsort_ms"] = time_ms(
+                    lambda: torch.argsort(flat, stable=True), 50)
             if c.has_rbac:
                 lib, lib_call = rbac_library_ms(matched, params)
             src, rep = ("verdict_fold.cu",
@@ -1059,45 +1157,50 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
                         "istio_tpu/runtime/rulestats.py:165")
             err = int(sum(int((g != w).sum()) for g, w in zip(*accs)))
         elif name == "list_banks":
-            kind, *args = inputs
-            if kind == "regex_list":
-                acc, sl, ml, lists, ls0, err0 = args
-                run = lambda ls, e: bytes_ops.regex_list(  # noqa: E731
-                    acc, sl, ml, lists, ls, e)
-                run_plain = lambda ls, e: bytes_ops.regex_list_plain(  # noqa
-                    acc, sl, ml, *lists.on(acc.device), ls, e)
-            else:
-                sb, sl, lists, ls0 = args
-                err0 = torch.zeros(0, dtype=torch.bool, device=ls0.device)
-                run = lambda ls, e: bytes_ops.cidr_list(  # noqa: E731
-                    sb, sl, lists, ls)
-                run_plain = lambda ls, e: bytes_ops.cidr_list_plain(  # noqa
-                    sb, sl, *lists.on(sb.device), ls)
+            kind, acc, sb, sl, ml, rx, cidr, ls0, err0 = inputs
+            if err0 is None:
+                err0 = torch.zeros((ls0.shape[0], 0), dtype=torch.bool,
+                                   device=ls0.device)
+            run = lambda ls, e: bytes_ops.list_banks(  # noqa: E731
+                acc, sb, sl, ml, rx, cidr, ls, e)
+
+            def run_plain(ls, e):
+                if rx is not None:
+                    bytes_ops.regex_list_plain(acc, sl, ml,
+                                               *rx.on(acc.device), ls, e)
+                if cidr is not None:
+                    bytes_ops.cidr_list_plain(sb, sl, *cidr.on(sb.device),
+                                              ls)
             # from a zero state plane and the err plane as captured
-            outs = [(torch.zeros_like(ls0), err0.clone()) for _ in range(2)]
+            outs = [(torch.zeros_like(ls0), err0.clone()) for _ in range(3)]
             run(*outs[0])
             run_plain(*outs[1])
-            for part, g, w in zip(("lstate", "err"), *outs):
-                assert_equal(f"{tag}.{kind}.{part}", g, w)
+            bytes_ops.list_banks_words_plain(acc, sb, sl, ml, rx, cidr,
+                                             *outs[2])
+            for part, g, w, x in zip(("lstate", "err"), *outs):
+                assert_equal(f"{tag}.{part}", g, w)
+                assert_equal(f"{tag}.{part} (word plain)", x, w)
             if int_rate is None:
                 continue
             scratch = (torch.zeros_like(ls0), err0.clone())
             ms, call, how = timed(lambda: run(*scratch), 200)
             plain, _, _ = timed(lambda: run_plain(*scratch), 20)
             b, ops = list_work(inputs, *outs[0])
-            if kind == "regex_list":
-                _, _, _, ptr, pat, _ = lists.on(acc.device)
+            if rx is not None:
+                _, _, _, ptr, pat, _ = rx.on(acc.device)
                 owner = torch.repeat_interleave(
-                    torch.arange(lists.n, device=acc.device),
+                    torch.arange(rx.n, device=acc.device),
                     (ptr[1:] - ptr[:-1]).long())
-                m01 = torch.zeros((acc.shape[1], lists.n), dtype=torch.bool,
+                m01 = torch.zeros((acc.shape[1], rx.n), dtype=torch.bool,
                                   device=acc.device)
                 m01[pat.long(), owner] = True
                 lib, lib_call = int_mm_ms(acc, m01)
                 lib_call += " (REGEX hit product only)"
+            extra["lanes"] = list(bytes_ops.list_plan(rx, cidr,
+                                                      int(ls0.shape[0])))
             src, rep = ("list_banks.cu",
                         "istio_tpu/models/policy_engine.py:439")
-            err = int(sum(int((g != w).sum()) for g, w in zip(*outs)))
+            err = int(sum(int((g != w).sum()) for g, w in zip(*outs[:2])))
         elif name == "field_eval":
             batch, prog = inputs
             got = field_ops.field_eval(batch, prog)
@@ -1201,6 +1304,12 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
             f"({by}; {b:.0f} B, {ops:.0f} ops)   equal: yes   [{how}]"
             + ("" if "floor_ms" not in extra else
                f"   dense-plane floor {extra['floor_ms']:.5f} ms")
+            + ("" if "quota_ms" not in extra else
+               f"   row fold {extra['row_fold_ms']:.5f} ms, quota launch "
+               f"{extra['quota_ms']:.5f} ms (bound "
+               f"{extra['quota_bound_ms']:.6f}, "
+               f"{extra['quota_bound_by']}; stable argsort of the keys "
+               f"{extra['quota_argsort_ms']:.5f})")
             + ("" if lib is None else
                f"   library {lib:9.5f} ms ({lib_call})"))
         row = rows.setdefault(name, {
@@ -1238,7 +1347,7 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
 # verdict_fold / mesh_partial / check_pack edge inputs (phase 3d): request
 # counts either side of a warp and a block; engines whose rule axis is 0
 # mod 16 (make_engine(10_000)), 8 mod 16 (1,000) and odd (1,001), each with
-# quotas (the in-step rank / commit: three grids a call); windows of the
+# quotas (the in-fold rank / grant / commit: two grids a call); windows of the
 # rule axis that start off a 32-rule word and have odd widths; request
 # namespaces: unknown, the pad namespace, the default, the largest id and
 # one past it, and the int32 extremes (FOLD_EDGE_NS, the ids filled in per
@@ -1266,12 +1375,13 @@ def fold_edge_checks(worlds: dict) -> int:
     plain versions (and the fold against verdict_fold_words_plain) on
     edge inputs: for each engine of `worlds` (rules → a cuda engine), a
     captured B = 2,048 step's planes cut to every FOLD_EDGE_B and given
-    FOLD_EDGE_NS namespaces, from the same quota counters (three grids a
-    call where B > 0); mesh_partial over windows of the rule axis that
-    start off a word boundary, whose kernel records combine into the
-    unsharded fold; check_pack on random instance and predicate masks of
-    3 and 11 instance words (registers alone, and the warp's shared
-    words) over the world's namespaces. → cases."""
+    FOLD_EDGE_NS namespaces, from the same quota counters (two grids a
+    call where B > 0: the row fold and one quota launch); mesh_partial
+    over windows of the rule axis that start off a word boundary, whose
+    kernel records combine into the unsharded fold; check_pack on random
+    instance and predicate masks of 3 and 11 instance words (registers
+    alone, and the warp's shared words) over the world's namespaces.
+    → cases."""
     import numpy as np
     import torch
     from istio_tpu_torch import kernels
@@ -1311,9 +1421,9 @@ def fold_edge_checks(worlds: dict) -> int:
                 assert_equal(f"{tag}.{part} (word plain)", x, w)
             assert_equal(f"{tag}.quota_counts", qk, qp)
             assert_equal(f"{tag}.quota_counts (word plain)", qw, qp)
-            if grids != (3 if b else 0):
+            if grids != (2 if b else 0):
                 raise AssertionError(f"{tag}: {grids} grids, want "
-                                     f"{3 if b else 0}")
+                                     f"{2 if b else 0}")
             n += 1
         # mesh_partial over windows off a word boundary, odd widths
         cuts = [0, 37, 101, r // 2 + 3, r - 5, r]
@@ -1374,6 +1484,75 @@ def fold_edge_checks(worlds: dict) -> int:
                 assert_equal(f"{tag} (word plain)", got,
                              fused.check_pack_words_plain(*ins))
                 n += 1
+    return n
+
+
+# whole folds with quotas on the quota plan's paths (phase 3d): one block
+# (B <= QUOTA_BLOCK_ROWS), one past it (a cluster of 2) and B = 8,192 (a
+# cluster of 4), on make_engine(1,000) with limits of 3 so that groups
+# run over their limit inside a batch, three batches carried
+QUOTA_FOLD_B = (1, 33, 2048, 2049, 8192)
+QUOTA_FOLD_RULES = 1000
+
+
+def quota_fold_checks() -> int:
+    """Phase 3d: verdict_fold with quotas at QUOTA_FOLD_B rows of the hit
+    traffic on make_engine(QUOTA_FOLD_RULES, quota_max=3), three batches
+    with the counters carried: every verdict field and the counters equal
+    to verdict_fold_plain (and the quota step alone, over the fold's
+    keys, equal to quota_grant_plain), two grids a call, and some rows
+    RESOURCE_EXHAUSTED → cases."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.models import policy_engine as pe
+    from istio_tpu_torch.testing import workloads
+    eng = workloads.make_engine(QUOTA_FOLD_RULES, with_quota=True,
+                                device="cuda", quota_max=3)
+    n = exhausted = 0
+    for b in QUOTA_FOLD_B:
+        qk = eng.quota_counts.clone()
+        qp = qk.clone()
+        for s in range(N_STEPS):
+            bags, req = hit_batch(eng, QUOTA_FOLD_RULES, b,
+                                  seed=400 + 7 * b + s)
+            batch = eng.tensorizer.tensorize(bags).to("cuda")
+            req = torch.as_tensor(req).to("cuda")
+            with kernels.launches.capture() as cap:
+                eng.check(batch, req)
+            torch.cuda.synchronize()
+            ((_, ins),) = [x for x in cap if x[0] == "verdict_fold"]
+            m, e, rq, bt, params, _, c, ls, kind = ins
+            g0 = kernels.launches.grids["verdict_fold"]
+            got = pe.verdict_fold(m, e, rq, bt, params, qk, c, ls, kind)
+            grids = kernels.launches.grids["verdict_fold"] - g0
+            q_before = qp.clone()
+            want = pe.verdict_fold_plain(m, e, rq, bt, params, qp, c, ls,
+                                         kind)
+            tag = f"quota fold B={b} step {s}"
+            for part, g, w in zip(("status", "dur", "uses", "deny_rule",
+                                   "referenced", "err_count"), got, want):
+                assert_equal(f"{tag}.{part}", g, w)
+            assert_equal(f"{tag}.quota_counts", qk, qp)
+            if grids != 2:
+                raise AssertionError(f"{tag}: {grids} grids, want 2")
+            # the quota step alone, in the kernel's own formulation
+            keys = quota_keys(m, rq, bt, params, c, int(qp.shape[1]), ls,
+                              kind)
+            keys = torch.where(keys == pe.INT32_MAX, -1, keys)
+            pre = pe.verdict_fold_plain(m, e, rq, bt, params,
+                                        q_before.clone(),
+                                        dataclasses.replace(
+                                            c, has_quota=False), ls, kind)
+            st, rule, q2 = pre[0].clone(), pre[3].clone(), q_before.clone()
+            pe.quota_grant_plain(keys, q2, params["pe_q_max"],
+                                 params["pe_q_rule"], st, rule)
+            assert_equal(f"{tag}.status (grant plain)", got[0], st)
+            assert_equal(f"{tag}.deny_rule (grant plain)", got[3], rule)
+            assert_equal(f"{tag}.quota_counts (grant plain)", qk, q2)
+            exhausted += int((got[0] == RESOURCE_EXHAUSTED).sum())
+            n += 1
+    if not exhausted:
+        raise AssertionError("quota fold edge: no row ran over its limit")
     return n
 
 
@@ -2966,19 +3145,20 @@ def list_phase(int_rate: float) -> dict:
     return {**out, "rows": rows}
 
 
-def list_banks_edge_checks() -> int:
-    """Phase 7b: list_banks against its plain version on random inputs
-    at B=2048: 64 REGEX lists over 256 pattern columns (a third of the
-    patterns with `$`), values on four byte slots with a quarter of the
-    rows truncated, lists sharing rules; and 64 IP_ADDRESSES lists × 16
-    entries of mixed versions and prefix lengths, over values of length
-    4, 16 (v4-mapped or not), and malformed lengths. → cases."""
+def random_list_world(b: int = HEADLINE_B, seed: int = 12):
+    """Phase 7b's random list world on the card: 64 REGEX lists over 256
+    acceptance columns (a third of the patterns with `$`), values on four
+    byte slots with a quarter of the rows truncated, lists sharing rules;
+    and 64 IP_ADDRESSES lists x 16 entries of mixed versions and prefix
+    lengths over values of length 4, 16 (v4-mapped or not) and malformed
+    lengths → (acc, str_bytes, (regex lens, ip lens), max_len, rx, cidr,
+    n_rules): lstate has 128 positions."""
     import numpy as np
     import torch
     from istio_tpu_torch.ops import bytes_ops
 
-    rng = np.random.default_rng(12)
-    b, n_slots, width, n_pat, n_rules = HEADLINE_B, 4, 128, 256, 200
+    rng = np.random.default_rng(seed)
+    n_slots, width, n_pat, n_rules = 4, 128, 256, 200
     acc = torch.from_numpy(rng.random((b, n_pat)) < 0.05).cuda()
     lens = rng.integers(0, width + 40, size=(b, n_slots)).astype(np.int32)
     lens[rng.random((b, n_slots)) < 0.25] = width
@@ -3015,27 +3195,216 @@ def list_banks_edge_checks() -> int:
     data[:, :, 12:16] = np.where(rng.random((b, n_slots, 1)) < 0.5, 10,
                                  data[:, :, 12:16])
     ip_lens = rng.choice([4, 16, 16, 0, 3, 5, 17], size=(b, n_slots))
-    cases = 0
-    for lens_np in (lens, ip_lens.astype(np.int32)):
+    return (acc, torch.from_numpy(data).cuda(),
+            (torch.from_numpy(lens).cuda(),
+             torch.from_numpy(ip_lens.astype(np.int32)).cuda()),
+            width, rx, cidr, n_rules)
+
+
+# the sized list world: one blocklist about the size of a public one
+# (Spamhaus DROP: about a thousand CIDR nets) and one REGEX path list
+SIZED_CIDR_ENTRIES = 1024
+SIZED_REGEX_PATTERNS = 64
+
+
+def cidr_nets(rng, n: int, v6_share: float) -> list:
+    """n CIDR nets made from rng: v4 /8 to /32, and (a v6_share of
+    them) v6 /16 to /128."""
+    import ipaddress
+    nets = []
+    for _ in range(n):
+        if rng.random() >= v6_share:
+            a = rng.integers(0, 256, size=4)
+            nets.append(ipaddress.ip_network(
+                f"{a[0]}.{a[1]}.{a[2]}.{a[3]}/{int(rng.integers(8, 33))}",
+                strict=False))
+        else:
+            a = rng.integers(0, 1 << 16, size=8)
+            nets.append(ipaddress.ip_network(
+                ":".join(f"{x:x}" for x in a) +
+                f"/{int(rng.integers(16, 129))}", strict=False))
+    return nets
+
+
+def cidr_values(rng, nets: list, b: int, width: int = 128):
+    """b IP values (uint8 [b, width], int32 lengths) over `nets`: half
+    inside a net (where there is one), a tenth of the v4 ones v4-mapped
+    16-byte values, a tenth of the rest v6, one in 64 of a malformed
+    length (0, 3, 5 or 17)."""
+    import numpy as np
+    data = np.zeros((b, width), np.uint8)
+    lens = np.zeros(b, np.int32)
+    for i in range(b):
+        inside = bool(nets) and rng.random() < 0.5
+        net = nets[int(rng.integers(0, len(nets)))] if inside else None
+        v6 = net.version == 6 if inside else rng.random() < 0.1
+        if inside:
+            host = int.from_bytes(rng.bytes(16), "big") & int(net.hostmask)
+            addr = int(net.network_address) | host
+        else:
+            addr = int.from_bytes(rng.bytes(16 if v6 else 4), "big")
+        if v6:
+            raw = addr.to_bytes(16, "big")
+        elif rng.random() < 0.1:                    # v4-mapped IPv6
+            raw = b"\0" * 10 + b"\xff\xff" + addr.to_bytes(4, "big")
+        else:
+            raw = addr.to_bytes(4, "big")
+        data[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+        lens[i] = len(raw) if rng.random() >= 1 / 64 else \
+            int(rng.choice([0, 3, 5, 17]))
+    return data, lens
+
+
+def sized_list_world(b: int = HEADLINE_B, seed: int = 15,
+                     n_entries: int = SIZED_CIDR_ENTRIES):
+    """The sized list world on the card: one IP_ADDRESSES blocklist of
+    n_entries CIDR nets made from a seed (about 90 % v4, /8 to /32; about
+    10 % v6, /16 to /128) on byte slot 0, and one REGEX path list of
+    SIZED_REGEX_PATTERNS patterns (two thirds `$`-free) on slot 1. Of the
+    b values (cidr_values), half lie inside some entry, about a tenth
+    are v6 and a tenth v4-mapped, one in 64 has a malformed length; half
+    the paths have a pattern hit in the acceptance plane and a quarter
+    are truncated → (acc, str_bytes, str_lens, max_len, rx, cidr,
+    n_rules): lstate has 2 positions (the REGEX list at 0, the blocklist
+    at 1)."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.ops import bytes_ops
+
+    rng = np.random.default_rng(seed)
+    width, n_pat, n_rules = 128, SIZED_REGEX_PATTERNS, 4
+    nets = cidr_nets(rng, n_entries, 0.1)
+    data = np.zeros((b, 2, width), np.uint8)
+    lens = np.zeros((b, 2), np.int32)
+    data[:, 0], lens[:, 0] = cidr_values(rng, nets, b, width)
+    data[:, 1] = rng.integers(32, 127, size=(b, width))
+    lens[:, 1] = rng.integers(1, width, size=b)
+    lens[rng.random(b) < 0.25, 1] = width               # truncated
+    acc = np.zeros((b, n_pat), bool)
+    hit = rng.random(b) < 0.5
+    acc[hit, rng.integers(0, n_pat, size=int(hit.sum()))] = True
+    rx = bytes_ops.RegexLists(
+        pos=np.zeros(1, np.int32), rule=np.zeros(1, np.int32),
+        bslot=np.ones(1, np.int32), ptr=np.asarray([0, n_pat], np.int32),
+        pat=np.arange(n_pat, dtype=np.int32),
+        pdef=(rng.random(n_pat) > 1 / 3).astype(np.uint8))
+    cidr = bytes_ops.CidrLists.of([1], [0], [[str(x) for x in nets]])
+    return (torch.from_numpy(acc).cuda(), torch.from_numpy(data).cuda(),
+            torch.from_numpy(lens).cuda(), width, rx, cidr, n_rules)
+
+
+# list_banks edge lists (phase 7b): entries a CIDR list, each as a mixed,
+# a v4-only and a v6-only list, and 64 lists of 33 entries
+LIST_EDGE_E = (0, 1, 31, 32, 33, 1024)
+
+
+def list_edge_worlds(b: int = HEADLINE_B):
+    """Phase 7b's CIDR edge worlds on the card → [(tag, str_bytes,
+    str_lens, cidr, n_pos)]: for each LIST_EDGE_E a mixed, a v4-only and
+    a v6-only list over one slot of values inside their nets (and not),
+    and K = 64 lists of 33 entries over four slots; each world also with
+    its value rows at an odd address and with a row stride of two rows
+    (a strided view)."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.ops import bytes_ops
+    rng = np.random.default_rng(71)
+    width = 40
+    worlds = []
+    for e in LIST_EDGE_E:
+        nets = [cidr_nets(rng, e, share) for share in (0.3, 0.0, 1.0)]
+        data, lens = cidr_values(rng, [x for n in nets for x in n], b,
+                                 width)
+        cidr = bytes_ops.CidrLists.of([0, 1, 2], [0, 0, 0],
+                                      [[str(x) for x in n] for n in nets])
+        worlds.append((f"E={e}", data[:, None], lens[:, None], cidr, 3))
+    nets = [cidr_nets(rng, 33, float(rng.random())) for _ in range(64)]
+    data = np.zeros((b, 4, width), np.uint8)
+    lens = np.zeros((b, 4), np.int32)
+    flat = [x for n in nets for x in n]
+    for slot in range(4):
+        data[:, slot], lens[:, slot] = cidr_values(rng, flat, b, width)
+    cidr = bytes_ops.CidrLists.of(list(range(64)),
+                                  rng.integers(0, 4, 64).tolist(),
+                                  [[str(x) for x in n] for n in nets])
+    worlds.append(("K=64 E=33", data, lens, cidr, 64))
+    out = []
+    for tag, data, lens, cidr, n_pos in worlds:
         sb = torch.from_numpy(data).cuda()
-        sl = torch.from_numpy(lens_np).cuda()
+        sl = torch.from_numpy(lens).cuda()
+        odd = torch.zeros((b, sb.shape[1], width + 1), dtype=torch.uint8,
+                          device="cuda")
+        odd[:, :, 1:] = sb
+        wide = torch.zeros((2 * b, sb.shape[1], width), dtype=torch.uint8,
+                           device="cuda")
+        wide[::2] = sb
+        out += [(tag, sb, sl, cidr, n_pos),
+                (f"{tag} odd address", odd[:, :, 1:], sl, cidr, n_pos),
+                (f"{tag} strided", wide[::2], sl, cidr, n_pos)]
+    return out
+
+
+def list_banks_edge_checks() -> int:
+    """Phase 7b: list_banks against its plain versions (the reference's
+    formulas and the word formulation, list_banks_words_plain) on random
+    inputs at B=2048 (random_list_world: 64 REGEX lists over 256 pattern
+    columns, 64 IP_ADDRESSES lists x 16 entries) on its two value
+    layouts; on the CIDR edge worlds (list_edge_worlds: E = 0, 1, 31, 32,
+    33 and 1,024 as mixed, v4-only and v6-only lists, K = 64 lists,
+    value rows contiguous, at an odd address and strided); and on the
+    sized list world (a 1,024-entry blocklist and a 64-pattern path
+    list, both banks in one launch). → cases."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.ops import bytes_ops
+
+    acc, sb, lens_pair, width, rx, cidr, n_rules = random_list_world()
+    b = int(acc.shape[0])
+    cases = 0
+    for sl in lens_pair:
         outs = [(torch.zeros((b, 128), dtype=torch.uint8, device="cuda"),
                  torch.rand(b, n_rules, device="cuda") < 0.01)
                 for _ in range(2)]
         outs[1][1].copy_(outs[0][1])
-        bytes_ops.regex_list(acc, sl, width, rx, *outs[0])
+        bytes_ops.list_banks(acc, sb, sl, width, rx, cidr, *outs[0])
         bytes_ops.regex_list_plain(acc, sl, width, *rx.on(acc.device),
                                    *outs[1])
-        bytes_ops.cidr_list(sb, sl, cidr, outs[0][0])
         bytes_ops.cidr_list_plain(sb, sl, *cidr.on(sb.device), outs[1][0])
         for part, g, w in zip(("lstate", "err"), *outs):
             assert_equal(f"list_banks edge {part}", g, w)
         st = outs[0][0]
         bits = [int(((st & m) != 0).sum()) for m in (1, 2, 4)]
-        if lens_np is lens and not (bits[0] and bits[1]):
+        if sl is lens_pair[0] and not (bits[0] and bits[1]):
             raise AssertionError(f"list_banks edge: member / und {bits}")
-        if lens_np is not lens and not (bits[0] and bits[2]):
+        if sl is not lens_pair[0] and not (bits[0] and bits[2]):
             raise AssertionError(f"list_banks edge: member / bad {bits}")
+        cases += 1
+    # CIDR edge lists, both banks of the sized world in one launch
+    worlds = [(tag, None, sb, sl, 0, None, c, n_pos, 1)
+              for tag, sb, sl, c, n_pos in list_edge_worlds(b)]
+    acc, sb, sl, width, rx, cidr, n_rules = sized_list_world(b)
+    worlds.append(("sized", acc, sb, sl, width, rx, cidr, 2, n_rules))
+    for tag, acc, sb, sl, width, rx, cidr, n_pos, n_rules in worlds:
+        outs = [(torch.zeros((b, n_pos), dtype=torch.uint8, device="cuda"),
+                 torch.zeros((b, n_rules), dtype=torch.bool, device="cuda"))
+                for _ in range(3)]
+        g0 = kernels.launches.grids["list_banks"]
+        bytes_ops.list_banks(acc, sb, sl, width, rx, cidr, *outs[0])
+        if kernels.launches.grids["list_banks"] - g0 != 1:
+            raise AssertionError(f"list_banks edge {tag}: not one launch")
+        if rx is not None:
+            bytes_ops.regex_list_plain(acc, sl, width, *rx.on(acc.device),
+                                       *outs[1])
+        bytes_ops.cidr_list_plain(sb, sl, *cidr.on(sb.device), outs[1][0])
+        bytes_ops.list_banks_words_plain(acc, sb, sl, width, rx, cidr,
+                                         *outs[2])
+        for part, g, w, x in zip(("lstate", "err"), *outs):
+            assert_equal(f"list_banks edge {tag} {part}", g, w)
+            assert_equal(f"list_banks edge {tag} {part} (word plain)", x, w)
+        st = outs[0][0]
+        e_n = int(cidr.valid.sum())
+        if e_n and not bool(((st & 1) != 0).any()):
+            raise AssertionError(f"list_banks edge {tag}: no member")
         cases += 1
     return cases
 
@@ -5656,6 +6025,129 @@ def combine_edge_checks() -> int:
     return n
 
 
+# mesh_quota on synthetic key columns (phase 13b): every path of the quota
+# plan — one block (B <= 2,048), a cluster (2,049 to 65,536 rows) and the
+# three launches past it — at Q = 1 and 34, key columns with one hot key,
+# a few keys, many keys and none, counters at q_max - 1 and q_max, a dp
+# replica's rows, three batches carried; and composite keys near
+# INT32_MAX over a counter plane of 2 x (2^30 - 1) cells
+MESH_QUOTA_B = (0, 1, 31, 33, 2048, 2049, 8192, 65536, 65537)
+MESH_QUOTA_Q = (1, 34)
+
+
+def mesh_quota_columns(rng, n_q: int, b: int, kind: str, nb: int = 64):
+    """Synthetic mesh_quota inputs on the card → (keys int32 [Q, B] with
+    -1 inactive, counts [Q, nb], q_max, q_rule)."""
+    import numpy as np
+    import torch
+    if kind == "hot":
+        bucket = np.where(rng.random((n_q, b)) < 0.9,
+                          rng.integers(0, nb, (n_q, 1)), -1)
+    elif kind == "few":
+        bucket = np.where(rng.random((n_q, b)) < 0.5,
+                          rng.integers(0, 3, (n_q, b)), -1)
+    elif kind == "many":
+        bucket = np.where(rng.random((n_q, b)) < 0.6,
+                          rng.integers(0, nb, (n_q, b)), -1)
+    else:
+        bucket = np.full((n_q, b), -1)
+    keys = np.where(bucket >= 0, bucket + np.arange(n_q)[:, None] * nb, -1)
+    q_max = rng.integers(1, max(b // 4, 2) + 3, n_q)
+    counts = rng.integers(0, 4, (n_q, nb))
+    near = rng.random((n_q, nb))
+    counts = np.where(near < 0.2, q_max[:, None] - 1, counts)
+    counts = np.where((near >= 0.2) & (near < 0.3), q_max[:, None], counts)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32)) \
+            .cuda()
+    return (t(keys), t(counts), t(q_max), t(rng.integers(0, 50, n_q)))
+
+
+def mesh_quota_edge_checks() -> int:
+    """Phase 13b: mesh_quota against quota_rank_plain (the reference's
+    sort) on MESH_QUOTA_B x MESH_QUOTA_Q synthetic key columns (and
+    quota_grant_plain, the kernel's formulation, where B <= 2,048), a dp
+    replica's rows from row0 = B / 4, three batches with the counters
+    carried; `__global__` grids per call as the quota plan says (1 up to
+    65,536 rows, 3 past); then keys near INT32_MAX → cases."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch.models import policy_engine as pe
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    rng = np.random.default_rng(1315)
+    n = 0
+    kinds = ("hot", "few", "many", "none")
+    for b in MESH_QUOTA_B:
+        for n_q in MESH_QUOTA_Q:
+            kind = kinds[n % len(kinds)]
+            plan = pe.quota_plan(b)
+            _, counts, q_max, q_rule = mesh_quota_columns(rng, n_q, b, kind)
+            ck, cp, cg = counts.clone(), counts.clone(), counts.clone()
+            row0 = b // 4
+            for step in range(N_STEPS):
+                keys = mesh_quota_columns(rng, n_q, b, kind)[0]
+                outs = []
+                for c in (ck, cp, cg):
+                    outs.append((torch.zeros(b - row0, dtype=torch.int32,
+                                             device="cuda"),
+                                 torch.full((b - row0,), pe.INT32_MAX,
+                                            dtype=torch.int32,
+                                            device="cuda")))
+                grids = mf.mesh_quota(keys, q_max, q_rule, ck, row0,
+                                      *outs[0])
+                pe.quota_rank_plain(keys, cp, q_max, q_rule, *outs[1],
+                                    row0)
+                tag = f"mesh_quota B={b} Q={n_q} {kind} step {step}"
+                want = plan.launches if b else 0
+                if grids != want:
+                    raise AssertionError(f"{tag}: {grids} grids, want "
+                                         f"{want}")
+                assert_equal(f"{tag}.counts", ck, cp)
+                for part, g, w in zip(("status", "deny_rule"), outs[0],
+                                      outs[1]):
+                    assert_equal(f"{tag}.{part}", g, w)
+                if b <= 2048:
+                    pe.quota_grant_plain(keys, cg, q_max, q_rule, *outs[2],
+                                         row0)
+                    assert_equal(f"{tag}.counts (grant plain)", ck, cg)
+                    for part, g, w in zip(("status", "deny_rule"), outs[0],
+                                          outs[2]):
+                        assert_equal(f"{tag}.{part} (grant plain)", g, w)
+                else:
+                    cg.copy_(ck)
+                n += 1
+    # composite keys near INT32_MAX: 2 quotas x (2^30 - 1) buckets
+    nb = 2 ** 30 - 1
+    big = torch.zeros((2, nb), dtype=torch.int32, device="cuda")
+    for b in (257, 2048):
+        top = nb - 1 - rng.integers(0, 6, (2, b))
+        keys = torch.from_numpy(np.where(
+            rng.random((2, b)) < 0.8, top + np.arange(2)[:, None] * nb,
+            -1).astype(np.int32)).cuda()
+        q_max = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+        q_rule = torch.tensor([7, 1], dtype=torch.int32, device="cuda")
+        live = torch.unique(keys[keys >= 0]).long()
+        big.view(-1)[live] = torch.randint(0, 4, (live.numel(),),
+                                           dtype=torch.int32, device="cuda")
+        before = big.view(-1)[live].clone()
+        outs = [(torch.zeros(b, dtype=torch.int32, device="cuda"),
+                 torch.full((b,), pe.INT32_MAX, dtype=torch.int32,
+                            device="cuda")) for _ in range(2)]
+        mf.mesh_quota(keys, q_max, q_rule, big, 0, *outs[0])
+        got = big.view(-1)[live].clone()
+        big.view(-1)[live] = before
+        pe.quota_rank_plain(keys, big, q_max, q_rule, *outs[1])
+        tag = f"mesh_quota B={b} keys near INT32_MAX"
+        assert_equal(f"{tag}.counts", got, big.view(-1)[live])
+        for part, g, w in zip(("status", "deny_rule"), *outs):
+            assert_equal(f"{tag}.{part}", g, w)
+        n += 1
+    del big
+    torch.cuda.synchronize()
+    return n
+
+
 def mesh_fold_check(tag: str, inputs, int_rate: float | None) -> dict:
     """K13 against its plain version on one captured launch's inputs
     (from its quota state), and with int_rate timed with its bound."""
@@ -5698,16 +6190,22 @@ def mesh_fold_check(tag: str, inputs, int_rate: float | None) -> dict:
     return {"ms": ms, "call_ms": call, "ms_source": how, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "bytes": b, "ops": ops,
             "mesh": f"{dp}x{mp}",
-            "entries": mesh_entry_times(tag, inputs, int_rate)}
+            "entries": mesh_entry_times(tag, inputs, int_rate, (b, ops))}
 
 
-def mesh_entry_times(tag: str, inputs, int_rate: float) -> dict:
+def mesh_entry_times(tag: str, inputs, int_rate: float,
+                     call_work: tuple[float, float] | None = None) -> dict:
     """Each entry point of one captured mesh_fold call, device ms per
     launch from the profiler's records of that `__global__` function
     (kernel_ms: windows that saw every launch), beside its launches per
     call; mesh_combine also with its bound (combine_work) and the
-    torch.amin over dp shard 0's stacked records (the min only)."""
+    torch.amin over dp shard 0's stacked records (the min only); given
+    the whole call's (bytes, ops), also mesh_partial's bound a launch
+    (the call's work less the combines' and the quota launches') and
+    mesh_quota's (quota_grant_work: the keys and the counters they read,
+    once a replica)."""
     import torch
+    from istio_tpu_torch.models import policy_engine as pe
     from istio_tpu_torch.parallel import mesh_fold as mf
     parts, params, before, c, lk, dev = inputs
     dp, mp = len(parts), len(parts[0])
@@ -5719,7 +6217,10 @@ def mesh_entry_times(tag: str, inputs, int_rate: float) -> dict:
     out = {}
     for ent, kname, per in (("mesh_partial", "partial_kernel", dp * mp),
                             ("mesh_combine", "combine_kernel", dp),
-                            ("mesh_quota", "quota_", 2 * dp * (n_q > 0))):
+                            ("mesh_quota", "quota_grant",
+                             dp * (n_q > 0) * pe.quota_plan(
+                                 dp * int(parts[0][0].matched.shape[0]))
+                             .launches)):
         if not per:
             continue
         ms, kept = kernel_ms(lambda: mf.mesh_fold(parts, params, scratch, c,
@@ -5736,11 +6237,36 @@ def mesh_entry_times(tag: str, inputs, int_rate: float) -> dict:
     comb["bytes"], comb["ops"] = moved, ops
     comb["library_ms"] = time_ms(lambda: torch.amin(rec, dim=0), 200)
     comb["library_call"] = "torch.amin of the stacked [MP, 7, Bd] records"
+    if call_work is not None:
+        # mesh_partial's share of the call's work: the whole call's less
+        # the combines' and the quota launches' (quota_grant_work over the
+        # gathered keys, once a replica), a launch's of it
+        part_b = call_work[0] - dp * moved
+        part_o = call_work[1] - dp * ops
+        if n_q:
+            keys = quota_keys(mf.gather_plane(parts, "matched", dev),
+                              torch.cat([r[0].req_ns for r in parts]),
+                              type(parts[0][0].batch).cat(
+                                  [r[0].batch for r in parts], dev),
+                              params, c, int(before.shape[1]),
+                              mf.gather_lstate(parts, dev), lk)
+            qb, qo = quota_grant_work(keys, before, before, 0)
+            part_b -= dp * qb
+            part_o -= dp * qo
+            out["mesh_quota"]["bound_ms"], out["mesh_quota"]["bound_by"] = \
+                bound(qb, qo, int_rate)
+        part = out["mesh_partial"]
+        part["bound_ms"], part["bound_by"] = bound(
+            max(part_b, 0.0) / (dp * mp), max(part_o, 0.0) / (dp * mp),
+            int_rate)
     log(f"  {tag:<16} per launch: " + ", ".join(
         f"{e} {x['ms']:.5f} ms x {x['launches_per_call']}"
         for e, x in out.items())
         + f"; mesh_combine bound {comb['bound_ms']:.6f} ms "
-        f"({comb['bound_by']}), torch.amin {comb['library_ms']:.5f} ms")
+        f"({comb['bound_by']}), torch.amin {comb['library_ms']:.5f} ms"
+        + "".join(f"; {e} bound {x['bound_ms']:.7f} ms ({x['bound_by']})"
+                  for e, x in out.items()
+                  if e != "mesh_combine" and "bound_ms" in x))
     return out
 
 
@@ -5939,9 +6465,17 @@ def mesh_phase(int_rate: float) -> dict:
             bags, req = hit_batch(a, HEADLINE_RULES, 256, seed=7000 + s)
             batch = a.tensorizer.tensorize(bags)
             va, _ = a.raw_step(a.params, batch, req, a.quota_counts)
+            g0 = kernels.launches.grids["mesh_fold"]
             with kernels.launches.capture() as cap:
                 vm, _ = step(m.params, batch, req, m.quota_counts)
             torch.cuda.synchronize()
+            dp, mp = MESH_SHAPE
+            grids = kernels.launches.grids["mesh_fold"] - g0
+            if grids != dp * mp + 2 * dp:
+                raise AssertionError(
+                    f"quota mesh step: {grids} grids, want {dp * mp} "
+                    f"partial + {dp} combine + {dp} mesh_quota (one a "
+                    "replica)")
             for f in FIELDS:
                 assert_equal(f"shard_engine_check step {s} {f}",
                              getattr(vm, f), getattr(va, f))
@@ -5957,8 +6491,20 @@ def mesh_phase(int_rate: float) -> dict:
             f"with_quota=True) at {MESH_SHAPE}: {N_STEPS} batches of 256 "
             f"with the counters carried equal to the unsharded engine "
             f"(every verdict field, the counters); {exhausted} "
-            "RESOURCE_EXHAUSTED; K13 (with its quota launches) equal to its "
-            "plain version on each")
+            "RESOURCE_EXHAUSTED; K13 (with its quota launches, one "
+            "mesh_quota grid a dp replica) equal to its plain version on "
+            "each")
+        t0 = time.perf_counter()
+        log(f"[13b] mesh_quota equal to quota_rank_plain on "
+            f"{mesh_quota_edge_checks()} key-column cases (B = "
+            f"{', '.join(map(str, MESH_QUOTA_B))}: one block, a cluster, "
+            f"three launches past 65,536; Q = {MESH_QUOTA_Q}; hot / few / "
+            "many / no keys, counters at q_max - 1 and q_max, a replica's "
+            f"rows, {N_STEPS} batches carried; keys near INT32_MAX), and to "
+            "quota_grant_plain up to 2,048 rows; grids per call as the "
+            "quota plan says")
+        log(f"[t] 13b mesh_quota edge cases took "
+            f"{time.perf_counter() - t0:.1f} s")
         log(f"[13b] mesh_combine (and mesh_quota) equal to "
             f"combine_fold_records on {combine_edge_checks()} edge record "
             f"sets (MP {COMBINE_EDGE_MP}, NRB {COMBINE_EDGE_NRB}, Q "
@@ -6062,7 +6608,14 @@ def main() -> int:
         f"{', '.join(map(str, FOLD_EDGE_B))}, namespaces -1, -7, default, "
         "largest id and one past it, int32 min and max; windows off a word "
         "boundary; 3 and 11 instance words) equal to their plain versions "
-        "and the word plain versions; three grids a quota fold")
+        "and the word plain versions; two grids a quota fold")
+    t0 = time.perf_counter()
+    log(f"[3d] {quota_fold_checks()} quota folds (make_engine("
+        f"{QUOTA_FOLD_RULES}) at quota max 3, B = "
+        f"{', '.join(map(str, QUOTA_FOLD_B))}: one block, a cluster of 2 "
+        f"and of 4; {N_STEPS} batches carried) equal to verdict_fold_plain "
+        "and quota_grant_plain, two grids each")
+    log(f"[t] 3d quota folds took {time.perf_counter() - t0:.1f} s")
     eng.quota_counts.copy_(quota_before)
 
     log(f"[t] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
@@ -6166,8 +6719,12 @@ def main() -> int:
     log(f"[t] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 7: the list world, counters zeroed just before
     ls = list_phase(int_rate)
+    t0 = time.perf_counter()
     log(f"[7b] {list_banks_edge_checks()} edge cases at B={HEADLINE_B}: "
-        "list_banks equal to its plain version")
+        "list_banks equal to its plain versions (random, CIDR edge and "
+        "sized worlds)")
+    log(f"[t] 7b list_banks edge cases took "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"[t] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 8: the report path, counters zeroed just before
     rp = report_phase(int_rate)

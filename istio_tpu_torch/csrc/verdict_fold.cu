@@ -4,8 +4,9 @@
 // count; unsharded (verdict_fold) and over a dp x mp mesh (mesh_partial,
 // mesh_combine, mesh_quota). Both share one row-fold body over a window
 // [r0, r0 + Rm) of the global rule axis, one RBAC decision, one
-// lowest-index resolution and one quota rank / commit pair; the
-// unsharded fold is the window [0, R) of one shard, in one launch.
+// lowest-index resolution and one quota rank / grant / commit; the
+// unsharded fold is the window [0, R) of one shard, in one launch (and
+// one more for its quotas).
 //
 // Replaces the JAX package's istio_tpu/models/policy_engine.py:379-654,
 // PolicyEngine.__init__.<locals>.step, after the byte-level list banks
@@ -21,7 +22,8 @@
 // from vis_ns), deny_words and err_words. No per-rule namespace, deny or
 // err-mask byte is read.
 //
-// verdict_fold: three launches, one chain on the caller's stream.
+// verdict_fold: two launches (one without quotas), one chain on the
+// caller's stream.
 //   1. row_fold      one warp per request row b, kFoldWarps rows a block.
 //      The lanes walk the row's matched and err bytes in 16-byte words
 //      (16 rules a load, every word of both rows: gating a load on the
@@ -51,15 +53,7 @@
 //      modulo) to ckey[q, b] (-1 if inactive), the referenced row is
 //      copied from the per-namespace table, and the warp's error count
 //      is added to the batch scalar with one int32 atomicAdd.
-//   2. quota_rank    one thread per (b, q): rank = #{j < b : ckey[j, q] ==
-//      ckey[b, q]} over shared-memory tiles of the key column — the
-//      definition both of the reference's tiers compute (pairwise for
-//      B ≤ 256, batch_rank's stable sort above) — then grant iff
-//      counts[key] + rank < max. Every read of the counters happens in
-//      this launch, before any commit.
-//   3. quota_commit  one thread per row: int32 atomicAdd of each grant
-//      into quota_counts [Q, NB] (in place), and RESOURCE_EXHAUSTED with
-//      deny_rule = the lowest over-limit quota rule where any was over.
+//   2. quota_grant   the quota rank / grant / commit (below).
 //
 // The mesh (a shard holds matched and err [B/dp, R/mp]), each entry point
 // launched on the stream of the virtual device it runs for:
@@ -87,11 +81,35 @@
 //      warp.
 //   mesh_quota    per dp replica, after the [Q, B/dp] keys of every dp
 //      shard are gathered into [Q, B]: a quota rank spans the WHOLE batch,
-//      so no dp shard can rank alone. Each replica runs quota_rank and
-//      quota_commit on every row, commits every grant into ITS copy of the
-//      counters (the counters stay replicated and equal to the unsharded
-//      step's), and sets RESOURCE_EXHAUSTED only on its own rows [row0,
-//      row0 + Bd).
+//      so no dp shard can rank alone. Each replica runs quota_grant on
+//      every row, commits every grant into ITS copy of the counters (the
+//      counters stay replicated and equal to the unsharded step's), and
+//      sets RESOURCE_EXHAUSTED only on its own rows [row0, row0 + Bd).
+//
+// quota_grant: rank[b, q] = #{j < b : ckey[j, q] == ckey[b, q]} (active
+// keys), granted iff counts[key] + rank < q_max[q] in int32, every counter
+// read before any grant of the batch is committed. A composite key holds
+// q·NB, so the columns touch disjoint counters and rank independently: a
+// block per column (grid.y) over consecutive rows, and where a column's
+// rows exceed one block's, a thread-block cluster of up to 16 blocks
+// (distributed shared memory), then three launches with the tables in a
+// global scratch buffer — chosen by size in the host's quota plan
+// (models/policy_engine.quota_plan). A block hashes its rows' keys into a
+// shared-memory table with their counts (a warp's equal keys counted by
+// one atomic of their leader), then decides each key once: its rows hold
+// the group ranks [pre, pre + n), pre its rows in the column's earlier
+// blocks (looked up in their tables), so with the counter c its rows are
+// all granted (c + pre + n - 1 < q_max), all over (c + pre >= q_max), or
+// — only where the limit falls inside the group, or the int32 sum wraps —
+// ranked exactly by one warp walking the block's rows in 32-row windows
+// in row order (__match_any_sync peers in the window plus the key's
+// running count). Over-limit rows combine across columns by atomicMin of
+// the rule into deny_rule and a store of RESOURCE_EXHAUSTED; each key
+// commits its grants with one add (plain for a block's own column,
+// atomic across a cluster's blocks), after every read of the counters.
+// No sort, and no per-row work past the table for a decided key: the
+// time is a few shared-memory passes over the rows and one global read
+// and write per distinct key.
 // Padding rows of the rule axis carry namespace -7: a request namespace
 // of -7 sees them (its own vis row), and they match nothing.
 //
@@ -107,10 +125,13 @@
 // the matched row, which the walk has just brought into L1 / L2. Under a
 // mesh the per-row [R] work stays where the rules are and only the small
 // records cross shards.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "rule_words.cuh"
+
+namespace cg = cooperative_groups;
 
 // Request rows (warps) per block of the row folds; chosen by A/B on the
 // card (PERF.md).
@@ -125,8 +146,7 @@ using rule_words::kUnroll;
 
 constexpr int kFoldWarps = FOLD_WARPS;
 constexpr int kFoldThreads = 32 * kFoldWarps;
-constexpr int kThreads = 256;
-constexpr int kTile = 4096;
+constexpr int kQuotaMaxRows = 4096;  // rows a quota block holds, at most
 constexpr int32_t kIntMax = 2147483647;
 constexpr float kBig = 3.4e38f;
 constexpr int32_t kOK = 0, kPermissionDenied = 7, kInternal = 13,
@@ -622,74 +642,312 @@ __global__ void __launch_bounds__(kFoldThreads) combine_kernel(
            req_ns[b], table, T_rows, T_cols, n_attr, referenced);
 }
 
-__global__ void quota_rank_kernel(const int32_t* __restrict__ ckey, int B,
-                                  const int32_t* __restrict__ q_max,
-                                  const int32_t* __restrict__ counts,
-                                  uint8_t* __restrict__ qstate) {
-  __shared__ int32_t tile[kTile];
-  const int q = blockIdx.y;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t* col = ckey + (long long)q * B;
-  const int32_t mine = b < B ? col[b] : -1;
-  const int b_end = min(B, (int)((blockIdx.x + 1) * blockDim.x));
-  int32_t rank = 0;
-  for (int base = 0; base < b_end; base += kTile) {
-    const int n = min(kTile, b_end - base);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = col[base + i];
-    __syncthreads();
-    if (mine >= 0) {
-      const int lim = min(n, b - base);
-      for (int i = 0; i < lim; ++i) rank += tile[i] == mine;
-    }
-    __syncthreads();
-  }
-  if (b < B) {
-    uint8_t st = 0;  // 0 inactive, 1 granted, 2 over the limit
-    if (mine >= 0) st = (counts[mine] + rank < q_max[q]) ? 1 : 2;
-    qstate[(long long)q * B + b] = st;
+// ---------------------------------------------------------------------------
+// the quota rank / grant / commit: one launch, a block (or a cluster of
+// blocks) per quota column
+// ---------------------------------------------------------------------------
+
+// The quota launch plan (models/policy_engine.quota_plan): `blocks` blocks
+// a quota column, each over `rows` consecutive rows with `threads`
+// threads and a hash table of `slots` (a power of two >= 2 rows), and
+// `launches` 1 (one block, or one cluster of `blocks`) or 3 (the
+// multi-launch path: build, decide, commit).
+struct QuotaArgs {
+  const int32_t* ckey;  // [Q, B]; < 0 inactive
+  int B, Q, row0, Bd;
+  const int32_t* q_max;
+  const int32_t* q_rule;
+  int32_t* counts;
+  int32_t* status;     // the Bd rows from row0
+  int32_t* deny_rule;
+  int blocks, rows, slots;
+  int32_t* scratch;    // multi-launch: [Q][blocks][3][slots]
+};
+
+// the kernel's paths: one block a column, one cluster a column, and the
+// three launches of the multi-launch path
+enum QuotaPath : int { kQOne, kQCluster, kQBuild, kQDecide, kQCommit };
+constexpr int kQuotaMaxThreads = 1024;
+
+__device__ __forceinline__ uint32_t lanemask_lt() {
+  uint32_t m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Fibonacci hashing: the top log2(S) bits of key * 2^32 / phi
+__device__ __forceinline__ uint32_t key_slot(int32_t key, int S) {
+  return ((uint32_t)key * 2654435769u) >> (__clz(S) + 1);
+}
+
+// The slot of key in the open-addressed table tkey [S] (-1 empty),
+// claimed if absent. S >= 2 x the keys inserted, so a probe ends.
+__device__ __forceinline__ int table_insert(int32_t* tkey, int S,
+                                            int32_t key) {
+  uint32_t h = key_slot(key, S);
+  for (;;) {
+    const int32_t old = atomicCAS(tkey + h, -1, key);
+    if (old == -1 || old == key) return (int)h;
+    h = (h + 1) & (S - 1);
   }
 }
 
-// Every grant of the B rows is committed; status / deny_rule are the Bd
-// rows from row0 (the whole batch unsharded, a dp replica's own rows).
-__global__ void quota_commit_kernel(const int32_t* __restrict__ ckey,
-                                    const uint8_t* __restrict__ qstate, int B,
-                                    int Q, int row0, int Bd,
-                                    const int32_t* __restrict__ q_rule,
-                                    int32_t* __restrict__ counts,
-                                    int32_t* __restrict__ status,
-                                    int32_t* __restrict__ deny_rule) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int32_t over_rule = kIntMax;
-  bool any_over = false;
-  for (int q = 0; q < Q; ++q) {
-    const long long o = (long long)q * B + b;
-    const uint8_t st = qstate[o];
-    if (st == 1) {
-      atomicAdd(counts + ckey[o], 1);
-    } else if (st == 2) {
-      any_over = true;
-      over_rule = min(over_rule, q_rule[q]);
-    }
-  }
-  if (any_over && b >= row0 && b < row0 + Bd) {  // quota ran only where OK
-    status[b - row0] = kResourceExhausted;
-    deny_rule[b - row0] = over_rule;
+// The slot of key in tkey [S], or -1.
+__device__ __forceinline__ int table_find(const int32_t* tkey, int S,
+                                          int32_t key) {
+  uint32_t h = key_slot(key, S);
+  for (;;) {
+    const int32_t k = tkey[h];
+    if (k == key) return (int)h;
+    if (k < 0) return -1;
+    h = (h + 1) & (S - 1);
   }
 }
 
-// quota_rank then quota_commit over ckey [Q, B]; → launches.
-int launch_quota(const int32_t* ckey, int B, int Q, int row0, int Bd,
-                 const int32_t* q_max, const int32_t* q_rule, int32_t* counts,
-                 uint8_t* qstate, int32_t* status, int32_t* deny_rule,
+// A block's shared state: per slot the key, the block's count of it (the
+// walk's running count once decided), its base prior + pre (the counter
+// plus the key's rows in earlier blocks, int32-wrapped), its grant (n: all
+// granted, 0: all over, < 0: the walk decides, -1 - its grants so far);
+// per row its slot (-1 inactive).
+struct QuotaSmem {
+  int32_t *tkey, *tcnt, *tbase, *tgr, *rslot;
+  __device__ QuotaSmem(int32_t* base, int S)
+      : tkey(base), tcnt(base + S), tbase(base + 2 * S), tgr(base + 3 * S),
+        rslot(base + 4 * S) {}
+};
+
+__host__ __device__ constexpr size_t quota_smem_bytes(int slots, int rows) {
+  return ((size_t)4 * slots + rows) * 4;
+}
+
+// Build: every active row of the block's range into the table, a warp's
+// equal keys (__match_any_sync) counted by one atomic of their leader.
+__device__ void quota_build(const int32_t* col, int r0, int n,
+                            const QuotaSmem& m, int S) {
+  for (int h = threadIdx.x; h < S; h += blockDim.x) {
+    m.tkey[h] = -1;
+    m.tcnt[h] = 0;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int32_t key = i < n ? col[r0 + i] : -1;
+    const unsigned peers = __match_any_sync(kFull, key);
+    const int leader = __ffs(peers) - 1;
+    int s = -1;
+    if (key >= 0 && lane == leader) {
+      s = table_insert(m.tkey, S, key);
+      atomicAdd(m.tcnt + s, __popc(peers));
+    }
+    s = __shfl_sync(kFull, s, leader);
+    if (i < n) m.rslot[i] = key >= 0 ? s : -1;
+  }
+}
+
+// An over-limit row: RESOURCE_EXHAUSTED with the lowest over-limit quota
+// rule, on the Bd rows from row0 only. Quota keys exist only on rows whose
+// status was OK, whose deny_rule is kIntMax (resolve), so the min over
+// the columns' atomics is the lowest over-limit rule.
+__device__ __forceinline__ void quota_over(const QuotaArgs& a, int q, int b) {
+  if (b >= a.row0 && b < a.row0 + a.Bd) {
+    atomicMin(a.deny_rule + (b - a.row0), a.q_rule[q]);
+    a.status[b - a.row0] = kResourceExhausted;
+  }
+}
+
+// Decide every key of the block: its rows hold the group ranks [pre, pre
+// + n) (pre: its rows in earlier blocks, `peer_count(k2, key)`), granted
+// while counts[key] + rank < q_max in int32 — all of them, none, or
+// (where the threshold falls inside, or the sum wraps) the walk decides
+// row by row. → whether any key needs the walk (block-wide).
+template <typename PeerCount>
+__device__ bool quota_decide(const QuotaArgs& a, int q, int k,
+                             const QuotaSmem& m, int S,
+                             PeerCount peer_count) {
+  bool walk = false;
+  const int32_t qm = a.q_max[q];
+  for (int h = threadIdx.x; h < S; h += blockDim.x) {
+    const int32_t x = m.tkey[h];
+    if (x < 0) continue;
+    long long pre = 0;
+    for (int k2 = 0; k2 < k; ++k2) pre += peer_count(k2, x);
+    const int32_t n = m.tcnt[h];
+    const long long lo = (long long)a.counts[x] + pre;
+    int32_t g = -1;
+    if (lo + n - 1 <= kIntMax) {
+      const long long avail = qm - lo;
+      g = avail >= n ? n : (avail <= 0 ? 0 : -1);
+    }
+    m.tbase[h] = (int32_t)(uint32_t)(unsigned long long)lo;
+    m.tgr[h] = g;
+    walk |= g < 0;
+  }
+  return __syncthreads_or(walk) != 0;
+}
+
+// The rows of decided keys; then, where a key needs it, one warp walks the
+// block's rows in 32-row windows in row order: __match_any_sync gives a
+// row's earlier peers in its window, the slot's running count those of
+// earlier windows, so each row of a walked key gets its exact rank.
+__device__ void quota_rows(const QuotaArgs& a, int q, int r0, int n,
+                           const QuotaSmem& m, int S, bool walk) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int s = m.rslot[i];
+    if (s >= 0 && m.tgr[s] == 0) quota_over(a, q, r0 + i);
+  }
+  if (!walk) return;
+  for (int h = threadIdx.x; h < S; h += blockDim.x)
+    if (m.tkey[h] >= 0 && m.tgr[h] < 0) m.tcnt[h] = 0;
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int32_t qm = a.q_max[q];
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const int s = i < n ? m.rslot[i] : -1;
+    const bool w = s >= 0 && m.tgr[s] < 0;
+    if (!__any_sync(kFull, w)) continue;
+    const unsigned peers = __match_any_sync(kFull, w ? s : -1);
+    int32_t run = 0;
+    bool granted = false;
+    if (w) {
+      run = m.tcnt[s];
+      const uint32_t r = (uint32_t)(run + __popc(peers & lanemask_lt()));
+      granted = (int32_t)((uint32_t)m.tbase[s] + r) < qm;
+    }
+    const unsigned gm = __ballot_sync(kFull, granted);
+    __syncwarp();
+    if (w && lane == __ffs(peers) - 1) {
+      m.tcnt[s] = run + __popc(peers);
+      m.tgr[s] -= __popc(gm & peers);
+    }
+    __syncwarp();
+    if (w && !granted) quota_over(a, q, r0 + i);
+  }
+}
+
+__device__ __forceinline__ int32_t grants_of(int32_t g) {
+  return g >= 0 ? g : -1 - g;
+}
+
+__global__ void __launch_bounds__(kQuotaMaxThreads)
+    quota_grant_kernel(QuotaArgs a, int path) {
+  extern __shared__ int32_t qsm[];
+  const int k = blockIdx.x, q = blockIdx.y, S = a.slots;
+  const int r0 = k * a.rows;
+  const int n = max(0, min(a.rows, a.B - r0));
+  const int32_t* col = a.ckey + (long long)q * a.B;
+  int32_t* pub = a.scratch + ((long long)q * a.blocks + k) * 3 * S;
+  if (path == kQCommit) {  // multi-launch: every block's grants, atomics
+    for (int h = threadIdx.x; h < S; h += blockDim.x) {
+      const int32_t x = pub[h], g = grants_of(pub[2 * S + h]);
+      if (x >= 0 && g) atomicAdd(a.counts + x, g);
+    }
+    return;
+  }
+  const QuotaSmem m(qsm, S);
+  if (path == kQDecide) {  // multi-launch: the table the build published
+    for (int h = threadIdx.x; h < S; h += blockDim.x) {
+      m.tkey[h] = pub[h];
+      m.tcnt[h] = pub[S + h];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int32_t key = col[r0 + i];
+      m.rslot[i] = key >= 0 ? table_find(m.tkey, S, key) : -1;
+    }
+  } else {
+    quota_build(col, r0, n, m, S);
+  }
+  if (path == kQBuild) {
+    __syncthreads();
+    for (int h = threadIdx.x; h < S; h += blockDim.x) {
+      pub[h] = m.tkey[h];
+      pub[S + h] = m.tcnt[h];
+    }
+    return;
+  }
+  bool walk;
+  if (path == kQCluster) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();  // every block's table built
+    walk = quota_decide(a, q, k, m, S, [&](int k2, int32_t x) {
+      const int32_t* tk = cl.map_shared_rank(m.tkey, k2);
+      const int h = table_find(tk, S, x);
+      return h < 0 ? 0 : cl.map_shared_rank(m.tcnt, k2)[h];
+    });
+    cl.sync();  // every counter read, no table read remotely any more
+  } else {
+    __syncthreads();
+    const int32_t* base = a.scratch + (long long)q * a.blocks * 3 * S;
+    walk = quota_decide(a, q, k, m, S, [&](int k2, int32_t x) {
+      const int32_t* tk = base + (long long)k2 * 3 * S;
+      const int h = table_find(tk, S, x);
+      return h < 0 ? 0 : tk[S + h];
+    });
+  }
+  quota_rows(a, q, r0, n, m, S, walk);
+  __syncthreads();
+  for (int h = threadIdx.x; h < S; h += blockDim.x) {
+    const int32_t x = m.tkey[h];
+    if (x < 0) continue;
+    if (path == kQDecide) {
+      pub[2 * S + h] = m.tgr[h];
+    } else if (const int32_t g = grants_of(m.tgr[h])) {
+      // one block a column: this thread read counts[x] in quota_decide,
+      // and no other block holds x; a cluster: every block's read
+      // precedes the cluster barrier above
+      if (path == kQOne) a.counts[x] += g;
+      else atomicAdd(a.counts + x, g);
+    }
+  }
+}
+
+// The quota launches of one plan → launches, or -cudaError_t.
+int launch_quota(const QuotaArgs& a, int threads, int launches,
                  cudaStream_t s) {
-  const unsigned row_blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  quota_rank_kernel<<<dim3(row_blocks, (unsigned)Q), kThreads, 0, s>>>(
-      ckey, B, q_max, counts, qstate);
-  quota_commit_kernel<<<row_blocks, kThreads, 0, s>>>(
-      ckey, qstate, B, Q, row0, Bd, q_rule, counts, status, deny_rule);
-  return 2;
+  const size_t smem = quota_smem_bytes(a.slots, a.rows);
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        quota_grant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)quota_smem_bytes(2 * kQuotaMaxRows, kQuotaMaxRows));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(quota_grant_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (e != cudaSuccess) return -(int)e;
+    ready = true;
+  }
+  const dim3 grid((unsigned)a.blocks, (unsigned)a.Q);
+  if (launches == 3) {
+    quota_grant_kernel<<<grid, threads, smem, s>>>(a, kQBuild);
+    quota_grant_kernel<<<grid, threads, smem, s>>>(a, kQDecide);
+    quota_grant_kernel<<<grid, threads, 0, s>>>(a, kQCommit);
+    const cudaError_t e = cudaGetLastError();
+    return e == cudaSuccess ? 3 : -(int)e;
+  }
+  if (a.blocks == 1) {
+    quota_grant_kernel<<<grid, threads, smem, s>>>(a, kQOne);
+    const cudaError_t e = cudaGetLastError();
+    return e == cudaSuccess ? 1 : -(int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, quota_grant_kernel, a, (int)kQCluster);
+  return e == cudaSuccess ? 1 : -(int)e;
 }
 
 int launched(int n) {
@@ -740,7 +998,8 @@ extern "C" int verdict_fold(
     int32_t* quota_counts, const uint8_t* table, int T_rows, int T_cols,
     int n_attr, int32_t* status, float* dur, int32_t* uses,
     int32_t* deny_rule, uint8_t* referenced, int32_t* err_count,
-    int32_t* ckey, uint8_t* qstate, void* stream) {
+    int32_t* ckey, int q_blocks, int q_rows, int q_threads, int q_slots,
+    int q_launches, int32_t* q_scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
   const ListTables L{NL,        E,         list_ids,  list_rule, list_slot,
@@ -752,11 +1011,14 @@ extern "C" int verdict_fold(
       rb_rule, rb_dur, rb_guard, rb_allow, ids, present, hash_ids, C, Q, NB,
       q_rule, q_slot, q_nb, table, T_rows, T_cols, n_attr, status, dur, uses,
       deny_rule, referenced, err_count, ckey);
-  int n = 1;
-  if (Q > 0)
-    n += launch_quota(ckey, B, Q, 0, B, q_max, q_rule, quota_counts, qstate,
-                      status, deny_rule, s);
-  return launched(n);
+  if (Q == 0) return launched(1);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return -(int)e;
+  const QuotaArgs qa{ckey,    B,      Q,      0,       B,       q_max,
+                     q_rule,  quota_counts,   status,  deny_rule, q_blocks,
+                     q_rows,  q_slots, q_scratch};
+  const int n = launch_quota(qa, q_threads, q_launches, s);
+  return n < 0 ? n : 1 + n;
 }
 
 // The partial record of one (dp, mp) shard over the rules [r0, r0 + Rm)
@@ -809,17 +1071,21 @@ extern "C" int mesh_combine(
   return launched(1);
 }
 
-// One dp replica's quota rank and commit over the gathered keys ckey int32
-// [Q, B] (qstate uint8 [Q, B] scratch); status / deny_rule are the
-// replica's own Bd rows, from global row row0. Returns the number of
-// kernels launched, or -cudaError_t on failure.
+// One dp replica's quota rank, grant and commit over the gathered keys
+// ckey int32 [Q, B] under the quota plan (q_blocks .. q_launches; q_scratch
+// int32 [Q, q_blocks, 3, q_slots] on the multi-launch path, else unused);
+// status / deny_rule are the replica's own Bd rows, from global row row0.
+// Returns the number of kernels launched, or -cudaError_t on failure.
 extern "C" int mesh_quota(const int32_t* ckey, int B, int Q, int row0,
                           int Bd, const int32_t* q_max,
                           const int32_t* q_rule, int32_t* counts,
-                          uint8_t* qstate, int32_t* status,
-                          int32_t* deny_rule, void* stream) {
+                          int32_t* status, int32_t* deny_rule, int q_blocks,
+                          int q_rows, int q_threads, int q_slots,
+                          int q_launches, int32_t* q_scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Q == 0) return 0;
-  return launched(launch_quota(ckey, B, Q, row0, Bd, q_max, q_rule, counts,
-                               qstate, status, deny_rule, s));
+  const QuotaArgs qa{ckey,   B,      Q,      row0,    Bd,      q_max,
+                     q_rule, counts, status, deny_rule, q_blocks,
+                     q_rows, q_slots, q_scratch};
+  return launch_quota(qa, q_threads, q_launches, s);
 }

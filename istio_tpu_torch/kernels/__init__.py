@@ -9,8 +9,8 @@ module of the package on a machine with no nvcc and no card.
 `launches` counts, per kernel, the calls of its wrapper that launched
 the kernel on the card (a wrapper given CPU tensors runs its plain
 version and counts nothing); `launches.grids` counts the `__global__`
-launches those calls made (rule_match chains two, verdict_fold up to
-three). Inside `launches.capture()` each call also records the
+launches those calls made (rule_match chains two, verdict_fold two with
+quotas, four past 65,536 rows). Inside `launches.capture()` each call also records the
 wrapper's inputs, so a check can replay the kernel and its plain
 version on exactly what the main path gave it.
 

@@ -620,6 +620,147 @@ def check_plane_pair(name: str, matched: torch.Tensor,
                          "that differ modulo 16")
 
 
+# The quota launch plan (csrc/verdict_fold.cu quota_grant): rows a block
+# takes as a rule (2,048 beat 512, 1,024 and 4,096 at B = 2,048 and
+# 8,192 on the card, PERF.md §6), blocks a cluster, and rows a block
+# holds at most.
+QUOTA_BLOCK_ROWS = 2048
+QUOTA_MAX_CLUSTER = 16
+QUOTA_MAX_ROWS = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class QuotaPlan:
+    """How quota_grant covers a batch: `blocks` blocks a quota column,
+    each over `rows` consecutive rows with `threads` threads and a hash
+    table of `slots`; `launches` 1 (one block, or one cluster of
+    `blocks`) or 3 (build, decide and commit over a global scratch of
+    `scratch_words(Q)` int32)."""
+    blocks: int
+    rows: int
+    threads: int
+    slots: int
+    launches: int
+
+    def scratch_words(self, n_q: int) -> int:
+        return n_q * self.blocks * 3 * self.slots if self.launches == 3 \
+            else 0
+
+    @property
+    def args(self) -> tuple[int, int, int, int, int]:
+        return (self.blocks, self.rows, self.threads, self.slots,
+                self.launches)
+
+
+def quota_plan(b: int) -> QuotaPlan:
+    """The quota launch plan for b rows: one block up to
+    QUOTA_BLOCK_ROWS rows; one cluster of ceil(b / QUOTA_BLOCK_ROWS)
+    blocks, at most QUOTA_MAX_CLUSTER, the rows spread evenly, while a
+    block holds at most QUOTA_MAX_ROWS; past that, three launches over
+    blocks of QUOTA_MAX_ROWS."""
+    blocks = min(QUOTA_MAX_CLUSTER, max(1, -(-b // QUOTA_BLOCK_ROWS)))
+    rows = max(1, -(-b // blocks))
+    launches = 1
+    if rows > QUOTA_MAX_ROWS:
+        rows, blocks, launches = QUOTA_MAX_ROWS, -(-b // QUOTA_MAX_ROWS), 3
+    threads = min(1024, max(32, -(-rows // 32) * 32))
+    slots = max(64, 1 << (2 * rows - 1).bit_length())
+    return QuotaPlan(blocks, rows, threads, slots, launches)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 with two's-complement wrap."""
+    return (((x + (1 << 31)) % (1 << 32)) - (1 << 31)).to(torch.int32)
+
+
+def _mark_over(over_rule: torch.Tensor, row0: int, status: torch.Tensor,
+               deny_rule: torch.Tensor) -> None:
+    """RESOURCE_EXHAUSTED and the lowest over-limit rule (over_rule [B],
+    INT32_MAX where none) on status / deny_rule [Bd], the rows from
+    row0, in place."""
+    mine = over_rule[row0:row0 + int(status.shape[0])]
+    hit = mine != INT32_MAX
+    status.copy_(torch.where(hit, RESOURCE_EXHAUSTED, status))
+    deny_rule.copy_(torch.where(hit, torch.minimum(deny_rule, mine),
+                                deny_rule))
+
+
+def quota_grant_plain(ckey: torch.Tensor, counts: torch.Tensor,
+                      q_max: torch.Tensor, q_rule: torch.Tensor,
+                      status: torch.Tensor, deny_rule: torch.Tensor,
+                      row0: int = 0, plan: QuotaPlan | None = None) -> None:
+    """Plain version of the quota_grant kernel in its own formulation, in
+    place: ckey int32 [Q, B] (< 0 inactive; column q's keys index
+    counts.view(-1) [Q·NB] inside row q), counts updated, status /
+    deny_rule int32 [Bd] of the rows from row0. Per column and per block
+    of `plan.rows` rows, each key's rows hold the group ranks [pre, pre +
+    n) (pre: the key's rows in earlier blocks) and are all granted
+    (counter + pre + n - 1 < q_max), all over (counter + pre >= q_max)
+    or, where the limit falls inside or the int32 sum wraps, ranked
+    exactly (their stable rank in the block); each group commits its
+    grants after every read of the counters; an over-limit row gets
+    RESOURCE_EXHAUSTED and the lowest over-limit quota rule."""
+    n_q, b = int(ckey.shape[0]), int(ckey.shape[1])
+    plan = plan or quota_plan(b)
+    dev = ckey.device
+    flat = counts.view(-1)
+    keys_all = torch.unique(ckey[ckey >= 0].long())     # every live key
+    prior = flat[keys_all].long()           # every read before a commit
+    add = torch.zeros_like(prior)
+    over_rule = torch.full((b,), INT32_MAX, dtype=torch.int32, device=dev)
+    for q in range(n_q):
+        col = ckey[q]
+        run = torch.zeros_like(prior)       # the key's rows in earlier blocks
+        qm = int(q_max[q])
+        for r0 in range(0, b, plan.rows):
+            keys = col[r0:r0 + plan.rows].long()
+            act = keys >= 0
+            if not bool(act.any()):
+                continue
+            uniq, inv, n = torch.unique(keys[act], return_inverse=True,
+                                        return_counts=True)
+            u = torch.searchsorted(keys_all, uniq)
+            lo = prior[u] + run[u]                            # per key
+            avail = qm - lo
+            fits = lo + n - 1 <= INT32_MAX
+            g = torch.where(fits & (avail >= n), n,
+                            torch.where(fits & (avail <= 0), 0, -1))
+            rank = batch_rank(inv.to(torch.int32)).long()     # in the block
+            exact = _wrap32(lo[inv] + rank) < qm
+            granted = torch.where(g[inv] < 0, exact, g[inv] > 0)
+            walked = torch.zeros_like(n).index_add_(0, inv, granted.long())
+            add.index_add_(0, u, torch.where(g < 0, walked, g))
+            run.index_add_(0, u, n)
+            rows = torch.nonzero(act).flatten()[~granted] + r0
+            over_rule[rows] = torch.minimum(over_rule[rows], q_rule[q])
+    flat[keys_all] = _wrap32(prior + add)
+    _mark_over(over_rule, row0, status, deny_rule)
+
+
+def quota_rank_plain(ckey: torch.Tensor, counts: torch.Tensor,
+                     q_max: torch.Tensor, q_rule: torch.Tensor,
+                     status: torch.Tensor, deny_rule: torch.Tensor,
+                     row0: int = 0) -> None:
+    """The reference's quota rank / grant / commit (as verdict_fold_plain
+    computes it: one stable sort of the Q·B composite keys, batch_rank)
+    on key columns ckey int32 [Q, B] (< 0 inactive), in place as
+    quota_grant_plain: counts [Q, NB] updated, status / deny_rule int32
+    [Bd] of the rows from row0."""
+    n_q, b = int(ckey.shape[0]), int(ckey.shape[1])
+    act = ckey >= 0
+    rank = batch_rank(torch.where(act, ckey, INT32_MAX).reshape(-1)) \
+        .reshape(n_q, b)
+    flat = counts.view(-1)
+    key = torch.where(act, ckey, 0).long()
+    granted = act & (flat[key] + rank < q_max[:n_q, None])
+    over = act & ~granted
+    rule = torch.where(over, q_rule[:n_q, None], INT32_MAX).min(dim=0) \
+        .values if n_q else torch.full((b,), INT32_MAX, dtype=torch.int32)
+    flat.index_add_(0, key[granted], torch.ones_like(key[granted],
+                                                     dtype=torch.int32))
+    _mark_over(rule.to(torch.int32), row0, status, deny_rule)
+
+
 _K = kernels
 _FOLD_ARGS = ([_K.VP, _K.VP, _K.VP, _K.I32, _K.I32]           # matched..R
               + [_K.VP, _K.I32, _K.VP, _K.VP, _K.VP]           # word tables
@@ -630,7 +771,8 @@ _FOLD_ARGS = ([_K.VP, _K.VP, _K.VP, _K.I32, _K.I32]           # matched..R
               + [_K.VP, _K.VP, _K.VP, _K.I32]                  # batch planes
               + [_K.I32, _K.I32] + [_K.VP] * 5                 # quota
               + [_K.VP, _K.I32, _K.I32, _K.I32]                # ref table
-              + [_K.VP] * 6 + [_K.VP, _K.VP] + [_K.VP])        # outs, scratch
+              + [_K.VP] * 6 + [_K.VP]                          # outs, ckey
+              + [_K.I32] * 5 + [_K.VP, _K.VP])                 # plan, stream
 
 
 def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
@@ -702,7 +844,9 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
                              device=dev)
     err_count = torch.zeros((), dtype=torch.int32, device=dev)
     ckey = torch.empty((max(n_q, 1), b), dtype=torch.int32, device=dev)
-    qstate = torch.empty((max(n_q, 1), b), dtype=torch.uint8, device=dev)
+    plan = quota_plan(b)
+    scratch = torch.empty(max(plan.scratch_words(n_q), 1),
+                          dtype=torch.int32, device=dev)
     if b == 0:
         return status, dur, uses, deny_rule, referenced, err_count
     p = kernels.ptr
@@ -731,7 +875,7 @@ def verdict_fold(matched: torch.Tensor, err: torch.Tensor,
             p(table), int(table.shape[0]), int(table.shape[1]),
             c.n_attr_cols,
             p(status), p(dur), p(uses), p(deny_rule), p(referenced),
-            p(err_count), p(ckey), p(qstate),
+            p(err_count), p(ckey), *plan.args, p(scratch),
             kernels.VP(kernels.stream_ptr()))
     kernels.launched("verdict_fold", kernels.check(rc, "verdict_fold"),
                      matched, err, req_ns, batch, params, quota_counts, c,
@@ -955,9 +1099,10 @@ class PolicyEngine:
                     ) -> torch.Tensor | None:
         """State bytes of the REGEX and IP_ADDRESSES lists, uint8 [B, NL]
         (bytes_ops.LIST_*; zero for STRINGS lists), or None when there
-        are none: one dfa_scan per regex bank, then the list_banks
-        kernels. The regex banks OR their undecidable rows into `err`
-        in place (the reference's err plane after its list fold).
+        are none: one dfa_scan per regex bank, then one list_banks
+        launch for both banks. The regex banks OR their undecidable rows
+        into `err` in place (the reference's err plane after its list
+        fold).
         `rules` (r0, r1): a mesh shard's rule slice — only the lists of
         rules in [r0, r1) are evaluated (the others' bytes stay zero),
         and `err` is that slice's plane [B, r1 - r0]."""
@@ -969,16 +1114,15 @@ class PolicyEngine:
         n_lists = int(self._list_kind.shape[0])
         lstate = torch.zeros((b, n_lists), dtype=torch.uint8,
                              device=batch.ids.device)
+        acc = None
         if rx is not None:
             accs = [bytes_ops.dfa_scan(batch.str_bytes[:, bslot],
                                        batch.str_lens[:, bslot], bank)
                     for bslot, bank in self._dfa_banks]
             acc = accs[0] if len(accs) == 1 else torch.cat(accs, dim=1)
-            bytes_ops.regex_list(acc, batch.str_lens, self._max_len,
-                                 rx, lstate, err)
-        if cidr is not None:
-            bytes_ops.cidr_list(batch.str_bytes, batch.str_lens, cidr,
-                                lstate)
+        if rx is not None or cidr is not None:
+            bytes_ops.list_banks(acc, batch.str_bytes, batch.str_lens,
+                                 self._max_len, rx, cidr, lstate, err)
         return lstate
 
     def _shard_lists(self, r0: int, r1: int) -> tuple:

@@ -818,13 +818,58 @@ class CidrLists(_OnDevice):
     def n(self) -> int:
         return int(self.pos.shape[0])
 
+    def words(self) -> tuple[np.ndarray, ...]:
+        """The list_banks kernel's entry tables, in 32-bit little-endian
+        words of the v6-mapped bytes: each list's valid entries in CSR
+        order, its v4 nets in one run and its v6 nets in another →
+        (v4_ptr int32 [K + 1], v4 uint32 [N4, 2]: word 3's mask and
+        prefix — a v4 net's words 0..2 are the ::ffff:0:0/96 prefix every
+        v4 value carries —, v6_ptr int32 [K + 1], v6 uint32 [N6, 8]: the
+        four mask words, then the four prefix words)."""
+        w = getattr(self, "_words", None)
+        if w is None:
+            mask = self.mask.reshape(self.n, -1, 16).view("<u4")
+            pre = self.prefix.reshape(self.n, -1, 16).view("<u4")
+            v4 = self.valid & self.ent_v4
+            v6 = self.valid & ~self.ent_v4
+            v4_ptr = np.concatenate([[0], np.cumsum(v4.sum(1))])
+            v6_ptr = np.concatenate([[0], np.cumsum(v6.sum(1))])
+            w4 = np.stack([mask[..., 3][v4], pre[..., 3][v4]], axis=1)
+            w6 = np.concatenate([mask[v6], pre[v6]], axis=1)
+            w = self._words = (v4_ptr.astype(np.int32),
+                               w4.reshape(-1, 2).astype(np.uint32),
+                               v6_ptr.astype(np.int32),
+                               w6.reshape(-1, 8).astype(np.uint32))
+        return w
+
+    def words_on(self, device: torch.device) -> tuple[torch.Tensor, ...]:
+        """words() on `device` (one copy per device; the uint32 tables as
+        int32 bit patterns), each table at least one row."""
+        cache = self.__dict__.setdefault("_words_dev", {})
+        t = cache.get(device)
+        if t is None:
+            v4_ptr, v4, v6_ptr, v6 = self.words()
+            t = cache[device] = tuple(
+                torch.from_numpy(np.ascontiguousarray(
+                    a if a.shape[0] else np.zeros((1,) + a.shape[1:],
+                                                  a.dtype)).view(np.int32))
+                .to(device) for a in (v4_ptr, v4, v6_ptr, v6))
+        return t
+
+    def run_lengths(self) -> int:
+        """The longest v4 or v6 run of any list (what the kernel's lanes
+        a pair cover)."""
+        v4_ptr, _, v6_ptr, _ = self.words()
+        return int(max(np.diff(v4_ptr).max(initial=0),
+                       np.diff(v6_ptr).max(initial=0)))
+
 
 def regex_list_plain(acc: torch.Tensor, str_lens: torch.Tensor,
                      max_len: int, pos: torch.Tensor, rule: torch.Tensor,
                      bslot: torch.Tensor, ptr: torch.Tensor,
                      pat: torch.Tensor, pdef: torch.Tensor,
                      lstate: torch.Tensor, err: torch.Tensor) -> None:
-    """Plain version of the regex_list kernel (the reference's
+    """Plain version of list_banks' REGEX bank (the reference's
     policy_engine.py:439-473 after the DFA scan), in place: hit / dec are
     the acceptance plane times the list's pattern matrix M / M_def (> 0);
     member = trunc ? dec : hit, und = trunc & ~dec with trunc = the
@@ -856,7 +901,7 @@ def cidr_list_plain(str_bytes: torch.Tensor, str_lens: torch.Tensor,
                     prefix: torch.Tensor, mask: torch.Tensor,
                     valid: torch.Tensor, ent_v4: torch.Tensor,
                     lstate: torch.Tensor) -> None:
-    """Plain version of the cidr_list kernel (the reference's
+    """Plain version of list_banks' CIDR bank (the reference's
     policy_engine.py:475-502), in place: lstate[:, pos] gets member |
     bad << 2, member = any entry whose prefix the value's v6-mapped
     bytes fall under with the entry's IP version, bad = the value's
@@ -882,14 +927,101 @@ def cidr_list_plain(str_bytes: torch.Tensor, str_lens: torch.Tensor,
         ((~val_ok).to(torch.uint8) << 2)
 
 
-_REGEX_LIST_ARGS = ([kernels.VP, kernels.I32, kernels.I32, kernels.VP,
-                     kernels.I64, kernels.I64, kernels.I32, kernels.I32]
-                    + [kernels.VP] * 7 + [kernels.I32, kernels.VP,
-                                          kernels.I32, kernels.VP])
-_CIDR_LIST_ARGS = ([kernels.VP, kernels.I64, kernels.I64, kernels.I32,
-                    kernels.VP, kernels.I64, kernels.I64, kernels.I32,
-                    kernels.VP, kernels.VP, kernels.I32]
-                   + [kernels.VP] * 5 + [kernels.I32, kernels.VP])
+def _le_words(v: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., 16] → int64 [..., 4]: the four little-endian 32-bit
+    words the kernel loads."""
+    x = v.to(torch.int64).reshape(*v.shape[:-1], 4, 4)
+    return x[..., 0] | x[..., 1] << 8 | x[..., 2] << 16 | x[..., 3] << 24
+
+
+def list_banks_words_plain(acc: torch.Tensor | None,
+                           str_bytes: torch.Tensor | None,
+                           str_lens: torch.Tensor, max_len: int,
+                           rx: RegexLists | None, cidr: CidrLists | None,
+                           lstate: torch.Tensor,
+                           err: torch.Tensor | None) -> None:
+    """Plain version of the list_banks kernel in its own formulation, in
+    place (the tests hold it against the JAX package; the served path
+    never runs it): REGEX, per list, hit / dec = the OR of acc over its
+    CSR row of patterns and over its $-free ones, member = trunc ? dec :
+    hit, und = trunc & ~dec, the err plane OR'd with und at the list's
+    rule; CIDR from CidrLists.words(): the value's first 16 bytes as
+    four little-endian words, a v4 value (length 4 — its word 0 — or 16
+    with the ::ffff:0:0/96 prefix) tested against the list's v4 run on
+    word 3 alone, a v6 value against its v6 run on all four words, and a
+    value of another length bad."""
+    if rx is not None and rx.n:
+        pos, rule, bslot, ptr, pat, pdef = rx.on(acc.device)
+        for j in range(rx.n):
+            cols = pat[int(ptr[j]):int(ptr[j + 1])].long()
+            a = acc[:, cols]
+            hit = a.any(dim=1)
+            dec = (a & (pdef[cols] != 0)[None, :]).any(dim=1)
+            trunc = str_lens[:, int(bslot[j])] >= max_len
+            und = trunc & ~dec
+            lstate[:, int(pos[j])] = torch.where(trunc, dec, hit).to(
+                torch.uint8) | (und.to(torch.uint8) << 1)
+            err[:, int(rule[j])] |= und
+    if cidr is not None and cidr.n:
+        v4_ptr, v4, v6_ptr, v6 = (torch.from_numpy(a.astype(np.int64))
+                                  for a in cidr.words())
+        for k in range(cidr.n):
+            slot = int(cidr.bslot[k])
+            w = _le_words(str_bytes[:, slot, :16]).cpu()
+            n = str_lens[:, slot].cpu()
+            is4 = n == 4
+            ok = is4 | (n == 16)
+            v4val = is4 | ((n == 16) & (w[:, 0] == 0) & (w[:, 1] == 0)
+                           & (w[:, 2] == 0xFFFF0000))
+            w3 = torch.where(is4, w[:, 0], w[:, 3])
+            e4 = v4[int(v4_ptr[k]):int(v4_ptr[k + 1])]
+            e6 = v6[int(v6_ptr[k]):int(v6_ptr[k + 1])]
+            hit4 = ((w3[:, None] & e4[None, :, 0]) == e4[None, :, 1]) \
+                .any(dim=1)
+            hit6 = ((w[:, None, :] & e6[None, :, :4]) == e6[None, :, 4:]) \
+                .all(dim=2).any(dim=1)
+            member = ok & torch.where(v4val, hit4, hit6)
+            lstate[:, int(cidr.pos[k])] = (member.to(torch.uint8) | (
+                (~ok).to(torch.uint8) << 2)).to(lstate.device)
+
+
+_LIST_BANKS_ARGS = ([kernels.VP, kernels.I32, kernels.I32, kernels.I32]
+                    + [kernels.VP] * 7 + [kernels.I32, kernels.I32]
+                    + [kernels.VP, kernels.I64, kernels.I64, kernels.I32]
+                    + [kernels.VP] * 6 + [kernels.I32, kernels.I32]
+                    + [kernels.VP, kernels.I64, kernels.I64, kernels.VP,
+                       kernels.I32, kernels.VP])
+
+
+def _lanes(n: int) -> int:
+    """The lanes a (row, list) pair takes for a run of n items: the
+    smallest power of two that covers it, at most a warp."""
+    return min(32, 1 << max(n - 1, 0).bit_length())
+
+
+# the threads a list_banks launch aims at, at most (about two waves of an
+# H100's 132 SMs x 2,048 resident threads; it beat 2^17, 2^21 and no cap
+# on the card, PERF.md §6): past it a bank's lanes a pair are halved
+LIST_THREADS = 1 << 19
+
+
+def list_plan(rx: "RegexLists | None", cidr: "CidrLists | None",
+              b: int = 0) -> tuple[int, int]:
+    """list_banks' lanes a (row, list) pair → (REGEX lanes, CIDR lanes):
+    enough for the longest pattern row of a REGEX list and the longest
+    v4 or v6 run of a CIDR list (longer ones take rounds of a warp's 32),
+    halved while the bank's B x lists x lanes exceeds LIST_THREADS, so
+    a large batch of short lists keeps a few lanes a pair and a small
+    batch of long lists a warp."""
+    def fit(lanes: int, pairs: int) -> int:
+        while lanes > 1 and pairs * lanes > LIST_THREADS:
+            lanes //= 2
+        return lanes
+    rx_l = fit(_lanes(int(np.diff(rx.ptr).max(initial=0))), b * rx.n) \
+        if rx is not None else 1
+    c_l = fit(_lanes(cidr.run_lengths()), b * cidr.n) \
+        if cidr is not None else 1
+    return rx_l, c_l
 
 
 def _planes(lstate: torch.Tensor, str_lens: torch.Tensor,
@@ -912,67 +1044,77 @@ def _planes(lstate: torch.Tensor, str_lens: torch.Tensor,
                          "outside lstate / str_lens")
 
 
-def regex_list(acc: torch.Tensor, str_lens: torch.Tensor, max_len: int,
-               lists: RegexLists, lstate: torch.Tensor,
-               err: torch.Tensor) -> None:
-    """Membership of every REGEX list from the DFA acceptance plane acc
-    bool [B, N] of its banks, in one launch: writes each list's state
-    byte (member | und << 1) into lstate uint8 [B, NL] and sets the err
-    plane bool [B, R] at the list's rule where und holds."""
-    b = int(acc.shape[0])
-    _planes(lstate, str_lens, lists, b, "regex_list")
-    if acc.dim() != 2 or err.dim() != 2 or err.shape[0] != b or \
-            lists.pdef.shape[0] != acc.shape[1] or \
-            (lists.n and int(lists.rule.max()) >= err.shape[1]):
-        raise ValueError(f"regex_list: acc {tuple(acc.shape)} / err "
-                         f"{tuple(err.shape)} do not fit the lists")
-    pos, rule, bslot, ptr, pat, pdef = lists.on(acc.device)
-    if not _kernel_or_plain(acc, str_lens, lstate, err):
-        regex_list_plain(acc, str_lens, max_len, pos, rule, bslot, ptr,
-                         pat, pdef, lstate, err)
+def list_banks(acc: torch.Tensor | None, str_bytes: torch.Tensor | None,
+               str_lens: torch.Tensor, max_len: int,
+               rx: RegexLists | None, cidr: CidrLists | None,
+               lstate: torch.Tensor, err: torch.Tensor | None) -> None:
+    """Membership of every REGEX and IP_ADDRESSES list of a step in ONE
+    launch: writes each list's state byte into lstate uint8 [B, NL]
+    (REGEX: member | und << 1, from the DFA acceptance plane acc bool
+    [B, N] of its banks, setting the err plane bool [B, R] at the list's
+    rule where und holds; IP_ADDRESSES: member | bad << 2, from the byte
+    plane str_bytes uint8 [B, S, L >= 16]). A bank that is None (with
+    its planes) is skipped. CPU tensors run the plain versions."""
+    b = int(lstate.shape[0])
+    rx = rx if rx is not None and rx.n else None
+    cidr = cidr if cidr is not None and cidr.n else None
+    ts = [str_lens, lstate]
+    if rx is not None:
+        _planes(lstate, str_lens, rx, b, "list_banks")
+        if acc is None or err is None or acc.dim() != 2 or \
+                acc.shape[0] != b or err.dim() != 2 or err.shape[0] != b \
+                or rx.pdef.shape[0] != acc.shape[1] or \
+                int(rx.rule.max()) >= err.shape[1]:
+            raise ValueError("list_banks: acc / err do not fit the REGEX "
+                             "lists")
+        ts += [acc, err]
+    if cidr is not None:
+        _planes(lstate, str_lens, cidr, b, "list_banks")
+        if str_bytes is None or str_bytes.dim() != 3 or \
+                str_bytes.shape[0] != b or str_bytes.shape[2] < 16 or \
+                str_bytes.shape[1] != str_lens.shape[1] or \
+                str_bytes.stride(2) != 1 or str_bytes.dtype != torch.uint8:
+            raise ValueError("list_banks: str_bytes must be uint8 [B, S, L] "
+                             "with L >= 16 and unit-stride rows")
+        ts.append(str_bytes)
+    if not _kernel_or_plain(*ts):
+        if rx is not None:
+            regex_list_plain(acc, str_lens, max_len, *rx.on(acc.device),
+                             lstate, err)
+        if cidr is not None:
+            cidr_list_plain(str_bytes, str_lens, *cidr.on(str_bytes.device),
+                            lstate)
         return
-    for t, name in ((acc, "acc"), (err, "err")):
-        if t.dtype != torch.bool or not t.is_contiguous():
-            raise ValueError(f"regex_list: {name} must be a contiguous "
-                             "bool tensor")
-    if b == 0 or lists.n == 0:
+    if rx is not None:
+        for t, name in ((acc, "acc"), (err, "err")):
+            if t.dtype != torch.bool or not t.is_contiguous():
+                raise ValueError(f"list_banks: {name} must be a contiguous "
+                                 "bool tensor")
+    if b == 0 or (rx is None and cidr is None):
         return
     p = kernels.ptr
-    fn = kernels.function("list_banks", "regex_list", _REGEX_LIST_ARGS)
-    rc = fn(p(acc), b, int(acc.shape[1]), p(str_lens), str_lens.stride(0),
-            str_lens.stride(1), int(max_len), lists.n, p(pos), p(rule),
-            p(bslot), p(ptr), p(pat), p(pdef), p(lstate),
-            int(lstate.shape[1]), p(err), int(err.shape[1]),
+    null = kernels.VP(0)
+    dev = lstate.device
+    rx_l, c_l = list_plan(rx, cidr, b)
+    if rx is not None:
+        pos, rule, bslot, ptr, pat, pdef = rx.on(dev)
+        rx_args = (p(acc), int(acc.shape[1]), int(max_len), rx.n, p(pos),
+                   p(rule), p(bslot), p(ptr), p(pat), p(pdef), p(err),
+                   int(err.shape[1]), rx_l)
+    else:
+        rx_args = (null, 0, int(max_len), 0) + (null,) * 7 + (0, rx_l)
+    if cidr is not None:
+        c_pos, c_bslot = cidr.on(dev)[:2]
+        v4_ptr, v4, v6_ptr, v6 = cidr.words_on(dev)
+        c_args = (p(str_bytes), str_bytes.stride(0), str_bytes.stride(1),
+                  cidr.n, p(c_pos), p(c_bslot), p(v4_ptr), p(v4),
+                  p(v6_ptr), p(v6), c_l)
+    else:
+        c_args = (null, 0, 0, 0) + (null,) * 6 + (c_l,)
+    fn = kernels.function("list_banks", "list_banks", _LIST_BANKS_ARGS)
+    rc = fn(*rx_args, *c_args, b, p(str_lens), str_lens.stride(0),
+            str_lens.stride(1), p(lstate), int(lstate.shape[1]),
             kernels.VP(kernels.stream_ptr()))
     kernels.launched("list_banks", kernels.check(rc, "list_banks"),
-                     "regex_list", acc, str_lens, max_len, lists, lstate,
-                     err)
-
-
-def cidr_list(str_bytes: torch.Tensor, str_lens: torch.Tensor,
-              lists: CidrLists, lstate: torch.Tensor) -> None:
-    """Membership of every IP_ADDRESSES list, in one launch: writes each
-    list's state byte (member | bad << 2) into lstate uint8 [B, NL]."""
-    b = int(str_bytes.shape[0])
-    _planes(lstate, str_lens, lists, b, "cidr_list")
-    if str_bytes.dim() != 3 or str_bytes.shape[2] < 16 or \
-            str_bytes.shape[1] != str_lens.shape[1] or \
-            str_bytes.stride(2) != 1 or str_bytes.dtype != torch.uint8:
-        raise ValueError("cidr_list: str_bytes must be uint8 [B, S, L] "
-                         f"with L >= 16, got {tuple(str_bytes.shape)}")
-    fields = lists.on(str_bytes.device)
-    if not _kernel_or_plain(str_bytes, str_lens, lstate):
-        cidr_list_plain(str_bytes, str_lens, *fields, lstate)
-        return
-    if b == 0 or lists.n == 0:
-        return
-    pos, bslot, prefix, mask, valid, ent_v4 = fields
-    p = kernels.ptr
-    fn = kernels.function("list_banks", "cidr_list", _CIDR_LIST_ARGS)
-    rc = fn(p(str_bytes), str_bytes.stride(0), str_bytes.stride(1), b,
-            p(str_lens), str_lens.stride(0), str_lens.stride(1), lists.n,
-            p(pos), p(bslot), int(prefix.shape[1]), p(prefix), p(mask),
-            p(valid), p(ent_v4), p(lstate), int(lstate.shape[1]),
-            kernels.VP(kernels.stream_ptr()))
-    kernels.launched("list_banks", kernels.check(rc, "list_banks"),
-                     "cidr_list", str_bytes, str_lens, lists, lstate)
+                     "list_banks", acc, str_bytes, str_lens, max_len, rx,
+                     cidr, lstate, err)

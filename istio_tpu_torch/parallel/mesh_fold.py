@@ -12,7 +12,8 @@ virtual device it runs for:
                 deny_rule, referenced, the error count, quota keys
   mesh_quota    per dp replica (only with quotas): the keys of every dp
                 shard gathered, the whole batch ranked, every grant
-                committed into the replica's counters
+                committed into the replica's counters (one launch up to
+                the rows one cluster holds, policy_engine.quota_plan)
 
 The records of a dp shard's mp partials are written straight into one
 buffer on that shard's device when they share its physical device, and
@@ -23,7 +24,10 @@ runs it, a card never does. `partial_record` is one shard's mesh_partial
 step alone, whose plain version is the word fold over the shard's
 window (models/policy_engine.verdict_fold_words_plain with `window`);
 `combine_records` is the mesh_combine and mesh_quota steps alone over
-given records, whose plain version is combine_fold_records.
+given records, whose plain version is combine_fold_records; `mesh_quota`
+is the quota step alone over given key columns, whose plain versions are
+policy_engine.quota_grant_plain (the kernel's formulation) and the
+reference's rank (verdict_fold_plain's batch_rank).
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ from istio_tpu_torch.models.policy_engine import (REC_ROWS, FoldConsts,
                                                   check_plane_pair,
                                                   combine_fold_records,
                                                   check_word_tables,
+                                                  quota_grant_plain,
+                                                  quota_plan,
                                                   verdict_fold_plain,
                                                   verdict_fold_words_plain)
 from istio_tpu_torch.platform import VirtualDevice, fork, handed_over
@@ -113,7 +119,8 @@ _COMBINE_ARGS = ([_K.I32, _K.VP, _K.VP, _K.I32, _K.VP, _K.VP]
                  + [_K.VP, _K.VP, _K.I32, _K.I32, _K.I32, _K.VP, _K.VP]
                  + [_K.VP, _K.I32, _K.I32, _K.I32]          # ref table
                  + [_K.VP] * 7 + [_K.VP])                   # outs, stream
-_QUOTA_ARGS = ([_K.VP] + [_K.I32] * 4 + [_K.VP] * 7)
+_QUOTA_ARGS = ([_K.VP] + [_K.I32] * 4 + [_K.VP] * 5 + [_K.I32] * 5
+               + [_K.VP, _K.VP])
 
 
 def partial_record(p: FoldPart, n_rows: int, c: FoldConsts, n_q: int,
@@ -206,19 +213,43 @@ def _combine(rec: torch.Tensor, flags: torch.Tensor, req_ns: torch.Tensor,
     return o, ckey, kernels.check(rc, "mesh_fold")
 
 
-def _quota(keys: torch.Tensor, pm: Mapping[str, torch.Tensor],
-           counts: torch.Tensor, row0: int, status: torch.Tensor,
-           deny_rule: torch.Tensor) -> int:
-    """One dp replica's mesh_quota launch on the current stream over the
-    gathered keys int32 [Q, B] (status / deny_rule its Bd rows from
-    row0; counts updated in place) → `__global__` launches."""
+def mesh_quota(keys: torch.Tensor, q_max: torch.Tensor,
+               q_rule: torch.Tensor, counts: torch.Tensor, row0: int,
+               status: torch.Tensor, deny_rule: torch.Tensor) -> int:
+    """One dp replica's quota rank / grant / commit (mesh_fold's quota
+    step alone; mesh_fold counts its launches, this counts none) over
+    the gathered keys int32 [Q, B] (< 0 inactive, column q's keys inside
+    row q of counts [Q, NB]): every grant committed into counts in
+    place, RESOURCE_EXHAUSTED and the lowest over-limit rule on status /
+    deny_rule int32 [Bd], the rows from row0, on the current stream under
+    policy_engine.quota_plan(B) → `__global__` launches. CPU tensors run
+    quota_grant_plain (no launch)."""
+    if keys.device.type == "cpu":
+        quota_grant_plain(keys, counts, q_max, q_rule, status, deny_rule,
+                          row0)
+        return 0
     n_q, b = int(keys.shape[0]), int(keys.shape[1])
-    qstate = torch.empty((n_q, b), dtype=torch.uint8, device=keys.device)
+    for name, t in (("keys", keys), ("q_max", q_max), ("q_rule", q_rule),
+                    ("counts", counts), ("status", status),
+                    ("deny_rule", deny_rule)):
+        if t.device != keys.device or t.dtype != torch.int32 or \
+                not t.is_contiguous():
+            raise ValueError(f"mesh_quota: {name} must be a contiguous "
+                             f"int32 tensor on {keys.device}")
+    if counts.dim() != 2 or int(counts.shape[0]) < n_q or \
+            int(q_max.numel()) < n_q or int(q_rule.numel()) < n_q or \
+            tuple(deny_rule.shape) != tuple(status.shape) or \
+            not 0 <= row0 <= b - int(status.shape[0]):
+        raise ValueError("mesh_quota: counts / q_max / q_rule / status do "
+                         f"not fit {n_q} quotas x {b} rows from {row0}")
+    plan = quota_plan(b)
+    scratch = torch.empty(max(plan.scratch_words(n_q), 1),
+                          dtype=torch.int32, device=keys.device)
     p_ = kernels.ptr
     fn = kernels.function("mesh_fold", "mesh_quota", _QUOTA_ARGS)
-    rc = fn(p_(keys), b, n_q, row0, int(status.shape[0]), p_(pm["pe_q_max"]),
-            p_(pm["pe_q_rule"]), p_(counts), p_(qstate), p_(status),
-            p_(deny_rule), kernels.VP(kernels.stream_ptr()))
+    rc = fn(p_(keys), b, n_q, row0, int(status.shape[0]), p_(q_max),
+            p_(q_rule), p_(counts), p_(status), p_(deny_rule), *plan.args,
+            p_(scratch), kernels.VP(kernels.stream_ptr()))
     return kernels.check(rc, "mesh_fold")
 
 
@@ -248,7 +279,8 @@ def combine_records(rec: torch.Tensor, flags: torch.Tensor,
                           batch, params, n_rbac, n_q,
                           int(quota_counts.shape[1]), c)
     if n_q:
-        _quota(ckey, params, quota_counts, 0, o[0], o[3])
+        mesh_quota(ckey, params["pe_q_max"], params["pe_q_rule"],
+                   quota_counts, 0, o[0], o[3])
     return o
 
 
@@ -360,8 +392,8 @@ def mesh_fold(parts: list[list[FoldPart]], params: Mapping[str, torch.Tensor],
                 keys = torch.cat([handed_over(k, home.stream).to(home.device)
                                   for k in ckeys], dim=1)
                 counts = quota_counts.to(home.device, copy=True)
-                grids += _quota(keys, pm, counts, d * bd, outs[d][0],
-                                outs[d][3])
+                grids += mesh_quota(keys, pm["pe_q_max"], pm["pe_q_rule"],
+                                    counts, d * bd, outs[d][0], outs[d][3])
                 finals.append(home.record())
             if d == 0:
                 replica0 = counts

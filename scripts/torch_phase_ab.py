@@ -8,7 +8,7 @@ Each DIR is the root of a checkout (the same one may be named twice, as
 in `parent change change parent`). For each, in the order given and in
 a process of its own started from that directory, the checkout's
 `chip_smoke.py` is imported, its kernels are built, and the chosen
-phases run (default: all ten). The timers that must read every
+phases run (default: all twelve). The timers that must read every
 checkout alike (chip_smoke's graph_ms, kernel_ms, seq_times,
 mesh_entry_times, seq_work, combine_work) come from the chip_smoke.py
 beside this script, loaded by path:
@@ -102,6 +102,35 @@ beside this script, loaded by path:
           between them included — its launches and device time, the
           device time and count of every op that is not a hand-written
           kernel, and the whole step's device time.
+
+  quota   the verdict fold's quota rank / grant / commit: on the headline
+          engine (make_engine(10_000, with_quota=True), 34 quota specs)
+          under make_hit_requests traffic (aimed at quota rules) and
+          bench.py's headline traffic at B = 64, 256, 2,048 and 8,192,
+          on make_engine(1,000) at a limit of 3 from zero counters at B =
+          2,048 and 8,192 (keys whose limit falls inside their rows: the
+          kernel's row-order walk; `groups` counts them), and on one (4,
+          2) mesh step with quotas (shard_engine_check, hit traffic, B =
+          256 and 2,048: the mesh_quota launches of every dp replica),
+          each fold held against its plain version:
+          the device ms a call of every `__global__` function whose name
+          holds "quota" (chip_smoke's kernel_ms: profiler windows that
+          saw every launch), its launches a call, the whole call's grid
+          times, the bound (chip_smoke.quota_grant_work over the
+          composite keys of chip_smoke.quota_keys) and the stable
+          torch.argsort of those Q·B keys;
+  lists   list_banks (K7) a step — one launch of the combined entry
+          point where the checkout has it, else regex_list and
+          cidr_list — on the list world (chip_smoke.list_world_store,
+          its acceptance plane from dfa_scan) at B = 64 and 2,048, on
+          phase 7b's random world (chip_smoke.random_list_world, both
+          value layouts) and on the sized list world
+          (chip_smoke.sized_list_world: a 1,024-entry blocklist and a
+          64-pattern path list) at B = 2,048, each held against the
+          plain versions: device ms a step of every `__global__`
+          function whose name holds "list" (kernel_ms), launches a step,
+          the plain versions' time and the bound (chip_smoke.list_work
+          per bank).
 
 Each phase fails as it does in chip_smoke. Per run, the device time,
 plain time and bound of every kernel row (and the registers ptxas gave
@@ -815,18 +844,260 @@ if "lits" in phases:
              want=("dfa_scan",))
     ls.close()
     ls_store.close()
+if "quota" in phases:
+    import numpy as np
+    from istio_tpu_torch import platform
+    from istio_tpu_torch.models import policy_engine as pe
+    from istio_tpu_torch.parallel import mesh_fold as mf
+    from istio_tpu_torch.parallel.mesh import MeshSpec, shard_engine_check
+
+    # The quota grids of one call (every __global__ function whose name
+    # holds "quota"; the fold's other grids are `other`): device ms a call
+    # from profiler windows that saw every launch, beside the bound and
+    # the stable argsort of the same composite keys.
+    def quota_row(name, call, kernel, other, keys, q0, q1, over, **extra):
+        g0 = kernels.launches.grids[kernel]
+        call()
+        torch.cuda.synchronize()
+        per = kernels.launches.grids[kernel] - g0 - other
+        ms, kept = tm.kernel_ms(call, "quota", per)
+        whole = profiled(call, kernel, phase="quota", name=name, **extra)
+        work = tm.quota_grant_work(keys, q0, q1, over)
+        flat = keys.reshape(-1)
+        row = {"phase": "quota", "name": name, "ms": ms * per,
+               "ms_source": f"profiler, {kept} windows that saw every "
+                            "launch", "launches_per_call": per,
+               "per_launch_ms": ms, "grid_ms": whole["grid_ms"],
+               "call_ms": whole["ms"], "grids": whole["grids"],
+               "plain_ms": None, "shape": list(keys.shape),
+               "library_ms": tm.time_ms(
+                   lambda: torch.argsort(flat, stable=True), 50),
+               "library_call": "torch.argsort(stable=True) of the Q*B "
+                               "composite keys", **extra}
+        row["bound_ms"], row["bound_by"] = tm.bound(*work, rate)
+        row["bytes"], row["ops"] = work
+        rows.append(row)
+
+    eng = workloads.make_engine(cs.HEADLINE_RULES, with_quota=True,
+                                device="cuda")
+    n_b = int(eng.quota_counts.shape[1])
+    for traffic in ("hit", "headline"):
+        for b in (64, 256, cs.HEADLINE_B, 8192):
+            bags, req = (cs.hit_batch(eng, cs.HEADLINE_RULES, b,
+                                      seed=900 + b)
+                         if traffic == "hit" else cs.headline_batch(eng, b))
+            batch = eng.tensorizer.tensorize(bags).to("cuda")
+            req = torch.as_tensor(req).to("cuda")
+            eng.check(batch, req)
+            with kernels.launches.capture() as cap:
+                eng.check(batch, req)
+            torch.cuda.synchronize()
+            ((_, ins),) = [x for x in cap if x[0] == "verdict_fold"]
+            m, e, rq, bt, params, _, c, ls, kind = ins
+            q0 = eng.quota_counts.clone()
+            qk, qp = q0.clone(), q0.clone()
+            got = pe.verdict_fold(m, e, rq, bt, params, qk, c, ls, kind)
+            want = pe.verdict_fold_plain(m, e, rq, bt, params, qp, c, ls,
+                                         kind)
+            for g, w in zip(got, want):
+                cs.assert_equal(f"quota {traffic} B={b}", g, w)
+            cs.assert_equal(f"quota {traffic} B={b} counters", qk, qp)
+            keys = tm.quota_keys(m, rq, bt, params, c, n_b, ls, kind)
+            over = int((got[0] == cs.RESOURCE_EXHAUSTED).sum())
+            scratch = q0.clone()
+            quota_row(f"quota.{traffic}.B{b}", lambda: pe.verdict_fold(
+                m, e, rq, bt, params, scratch, c, ls, kind), "verdict_fold",
+                1, keys, q0, qk, over,
+                active=int((keys != pe.INT32_MAX).sum()),
+                groups=int(torch.unique(keys[keys != pe.INT32_MAX]).numel()))
+            # the plan's rows a block as a rule, where the checkout has it
+            if traffic == "hit" and b >= cs.HEADLINE_B and \
+                    hasattr(pe, "QUOTA_BLOCK_ROWS"):
+                rows0 = pe.QUOTA_BLOCK_ROWS
+                for blk in (512, 2048, 4096):
+                    pe.QUOTA_BLOCK_ROWS = blk
+                    quota_row(f"quota.{traffic}.B{b}.rows{blk}",
+                              lambda: pe.verdict_fold(
+                                  m, e, rq, bt, params, scratch, c, ls,
+                                  kind), "verdict_fold", 1, keys, q0, qk,
+                              over, plan=str(pe.quota_plan(b)))
+                pe.QUOTA_BLOCK_ROWS = rows0
+    # keys whose limit falls inside their rows: make_engine(1,000) at a
+    # limit of 3 from zero counters (reset before every call, so each
+    # call ranks the same contested groups), hit traffic
+    weng = workloads.make_engine(1000, with_quota=True, device="cuda",
+                                 quota_max=3)
+    for b in (cs.HEADLINE_B, 8192):
+        weng.reset_quota()
+        bags, req = cs.hit_batch(weng, 1000, b, seed=990 + b)
+        batch = weng.tensorizer.tensorize(bags).to("cuda")
+        req = torch.as_tensor(req).to("cuda")
+        with kernels.launches.capture() as cap:
+            weng.check(batch, req)
+        torch.cuda.synchronize()
+        ((_, ins),) = [x for x in cap if x[0] == "verdict_fold"]
+        m, e, rq, bt, params, _, c, ls, kind = ins
+        q0 = torch.zeros_like(weng.quota_counts)
+        qk, qp = q0.clone(), q0.clone()
+        got = pe.verdict_fold(m, e, rq, bt, params, qk, c, ls, kind)
+        want = pe.verdict_fold_plain(m, e, rq, bt, params, qp, c, ls, kind)
+        for g, w in zip(got, want):
+            cs.assert_equal(f"quota walk B={b}", g, w)
+        cs.assert_equal(f"quota walk B={b} counters", qk, qp)
+        keys = tm.quota_keys(m, rq, bt, params, c,
+                             int(weng.quota_counts.shape[1]), ls, kind)
+        live = keys[keys != pe.INT32_MAX]
+        _, n_rows = torch.unique(live, return_counts=True)
+        over = int((got[0] == cs.RESOURCE_EXHAUSTED).sum())
+        scratch = q0.clone()
+
+        def walk_call():
+            scratch.copy_(q0)
+            pe.verdict_fold(m, e, rq, bt, params, scratch, c, ls, kind)
+        quota_row(f"quota.walk.B{b}", walk_call, "verdict_fold", 1, keys,
+                  q0, qk, over, active=int(live.numel()),
+                  groups=int((n_rows > 3).sum()))
+    with platform.force_virtual_devices(tm.N_VIRTUAL, "cuda:0"):
+        meng = workloads.make_engine(cs.HEADLINE_RULES, with_quota=True,
+                                     device="cuda")
+        step = shard_engine_check(MeshSpec(*tm.MESH_SHAPE).build(), meng)
+        dp, mp = tm.MESH_SHAPE
+        for b in (256, cs.HEADLINE_B):
+            bags, req = cs.hit_batch(meng, cs.HEADLINE_RULES, b,
+                                     seed=950 + b)
+            batch = meng.tensorizer.tensorize(bags)
+            step(meng.params, batch, req, meng.quota_counts)
+            with kernels.launches.capture() as cap:
+                step(meng.params, batch, req, meng.quota_counts)
+            torch.cuda.synchronize()
+            ((_, ins),) = [x for x in cap if x[0] == "mesh_fold"]
+            cs.mesh_fold_check(f"mesh_fold quota B={b}", ins, None)
+            parts, params, before, c, lk, dev = ins
+            q0 = before.clone()
+            qk = q0.clone()
+            got = mf.mesh_fold(parts, params, qk, c, lk, dev)
+            m = mf.gather_plane(parts, "matched", dev)
+            rq = torch.cat([r[0].req_ns for r in parts])
+            bt = type(parts[0][0].batch).cat([r[0].batch for r in parts],
+                                              dev)
+            keys = tm.quota_keys(m, rq, bt, params, c, n_b,
+                                 mf.gather_lstate(parts, dev), lk)
+            over = int((got[0] == cs.RESOURCE_EXHAUSTED).sum())
+            scratch = q0.clone()
+            quota_row(f"mesh_quota.4x2.B{b}", lambda: mf.mesh_fold(
+                parts, params, scratch, c, lk, dev), "mesh_fold",
+                dp * mp + dp, keys, q0, qk, over, replicas=dp)
+if "lists" in phases:
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.ops import bytes_ops
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+
+    # one list_banks step: one combined launch where the checkout has
+    # the combined entry point, else (a checkout before it) its two banks'
+    # regex_list and cidr_list, one launch each
+    def list_step(acc, sb, sl, max_len, rx, cidr, lstate, err):
+        if hasattr(bytes_ops, "list_banks"):
+            return lambda: bytes_ops.list_banks(acc, sb, sl, max_len, rx,
+                                                cidr, lstate, err)
+        return lambda: (bytes_ops.regex_list(acc, sl, max_len, rx, lstate,
+                                             err),
+                        bytes_ops.cidr_list(sb, sl, cidr, lstate))
+
+    def list_plain(acc, sb, sl, max_len, rx, cidr, lstate, err):
+        bytes_ops.regex_list_plain(acc, sl, max_len, *rx.on(acc.device),
+                                   lstate, err)
+        bytes_ops.cidr_list_plain(sb, sl, *cidr.on(sb.device), lstate)
+
+    # The list_banks grids of a step (every __global__ function whose name
+    # holds "list"): device ms a step from profiler windows that saw every
+    # launch, the plain versions' time, the bound (list_work per bank).
+    def list_row(name, acc, sb, sl, max_len, rx, cidr, n_pos, n_rules):
+        b = int(acc.shape[0])
+        outs = [(torch.zeros((b, n_pos), dtype=torch.uint8, device="cuda"),
+                 torch.zeros((b, n_rules), dtype=torch.bool,
+                             device="cuda")) for _ in range(2)]
+        call = list_step(acc, sb, sl, max_len, rx, cidr, *outs[0])
+        g0 = kernels.launches.grids["list_banks"]
+        call()
+        torch.cuda.synchronize()
+        per = kernels.launches.grids["list_banks"] - g0
+        list_plain(acc, sb, sl, max_len, rx, cidr, *outs[1])
+        for part, g, w in zip(("lstate", "err"), *outs):
+            cs.assert_equal(f"{name} {part}", g, w)
+        ms, kept = tm.kernel_ms(call, "list", per)
+        whole = profiled(call, "list_banks")
+        work = [tm.list_work(("regex_list", acc, sl, max_len, rx, None,
+                              None), *outs[0]),
+                tm.list_work(("cidr_list", sb, sl, cidr, None), *outs[0])]
+        moved, ops = (sum(w[i] for w in work) for i in (0, 1))
+        row = {"phase": "lists", "name": name, "ms": ms * per,
+               "ms_source": f"profiler, {kept} windows that saw every "
+                            "launch", "launches_per_call": per,
+               "per_launch_ms": ms, "grid_ms": whole["grid_ms"],
+               "call_ms": whole["call_ms"], "grids": whole["grids"],
+               "plain_ms": tm.time_ms(lambda: list_plain(
+                   acc, sb, sl, max_len, rx, cidr, *outs[1]), 10),
+               "shape": [b, rx.n, cidr.n, int(cidr.valid.sum())],
+               "bytes": moved, "ops": ops}
+        row["bound_ms"], row["bound_by"] = tm.bound(moved, ops, rate)
+        rows.append(row)
+
+    ls_store = cs.list_world_store()
+    ls = RuntimeServer(ls_store, ServerArgs(
+        buckets=(64, cs.HEADLINE_B), rulestats_drain_s=0), device="cuda")
+    dicts = cs.list_world_dicts()
+    leng = ls.controller.dispatcher.fused.engine
+    for b in (64, cs.HEADLINE_B):
+        bags = [bag_from_mapping(x) for x in
+                (dicts * (b // len(dicts) + 1))[:b]]
+        batch = leng.tensorizer.tensorize(bags).to("cuda")
+        accs = [bytes_ops.dfa_scan(batch.str_bytes[:, bslot],
+                                   batch.str_lens[:, bslot], bank)
+                for bslot, bank in leng._dfa_banks]
+        acc = accs[0] if len(accs) == 1 else torch.cat(accs, dim=1)
+        list_row(f"list_banks.tiny.B{b}", acc.contiguous(),
+                 batch.str_bytes, batch.str_lens, leng._max_len,
+                 leng._rx_lists, leng._cidr_lists,
+                 int(leng._list_kind.shape[0]),
+                 int(leng.ruleset.rule_ns.shape[0]))
+    ls.close()
+    ls_store.close()
+    acc, sb, (sl, ip_sl), width, rx, cidr, n_rules = tm.random_list_world()
+    list_row("list_banks.random.B2048", acc, sb, sl, width, rx, cidr, 128,
+             n_rules)
+    list_row("list_banks.random_ip.B2048", acc, sb, ip_sl, width, rx, cidr,
+             128, n_rules)
+    acc, sb, sl, width, rx, cidr, n_rules = tm.sized_list_world()
+    list_row("list_banks.sized.B2048", acc, sb, sl, width, rx, cidr, 2,
+             n_rules)
+    # the lanes plan's thread cap, where the checkout has one
+    if hasattr(bytes_ops, "LIST_THREADS"):
+        cap0 = bytes_ops.LIST_THREADS
+        for cap in (1 << 17, 1 << 21, 1 << 30):
+            bytes_ops.LIST_THREADS = cap
+            acc, sb, (sl, ip_sl), width, rx, cidr, n_rules = \
+                tm.random_list_world()
+            list_row(f"list_banks.random.B2048.cap{cap}", acc, sb, sl,
+                     width, rx, cidr, 128, n_rules)
+            list_row(f"list_banks.random_ip.B2048.cap{cap}", acc, sb, ip_sl,
+                     width, rx, cidr, 128, n_rules)
+            acc, sb, sl, width, rx, cidr, n_rules = tm.sized_list_world()
+            list_row(f"list_banks.sized.B2048.cap{cap}", acc, sb, sl, width,
+                     rx, cidr, 2, n_rules)
+        bytes_ops.LIST_THREADS = cap0
 keep = ("phase", "name", "ms", "call_ms", "plain_ms", "bound_ms",
         "bound_by", "ms_source", "library_ms", "grids", "hot_rows",
         "plane_gb_s", "stages", "windows", "planes", "walls_p50_ms",
         "grid_ms", "floor_ms", "shape", "launches", "other_ms",
         "other_ops", "busy_ms", "ops", "bytes", "per_launch_ms", "lookups",
         "lookups_all_walks", "match_wall_ms", "launches_per_match",
-        "launches_per_call", "library_call")
+        "launches_per_call", "library_call", "replicas", "active",
+        "groups", "plan")
 print("ROWS " + json.dumps([{k: r.get(k) for k in keep} for r in rows]))
 """
 
 PHASES = ("engine", "seq", "mesh", "k6", "k9", "k1", "k1d", "fold",
-          "fe", "lits")
+          "fe", "lits", "quota", "lists")
 
 
 def _ms(x) -> str:
@@ -892,7 +1163,8 @@ def main() -> int:
                           "shape", "launches", "other_ms", "other_ops",
                           "busy_ms", "ops", "per_launch_ms", "lookups",
                           "lookups_all_walks", "match_wall_ms",
-                          "launches_per_call"):
+                          "launches_per_call", "replicas", "active",
+                          "groups", "plan"):
                     if r.get(k) is not None:
                         print(f"run {i} {d}:   {k} {r[k]}", flush=True)
                 for st in r.get("stages") or ():
