@@ -109,12 +109,13 @@ Phases, each fatal on failure:
      1,024-entry blocklist, about 90 % v4, and a 64-pattern path list);
   8. the report path (this slice's main path): the telemetry world —
      make_store(10_000) plus Istio's default Mixer telemetry config
-     (telemetry_world: six metrics into prometheus, the accesslog into a
-     noop sink; 10,005 rules, 8 lowered report instances, F = 60 field
-     programs) — served through the port's RuntimeServer.report on the
-     card against a device="cpu" server, capture sinks in place of both
-     report handlers: the delivered instances equal in order and the
-     prometheus series equal at B ∈ {64, 256, 2048}; one field_eval
+     (telemetry_world: six metrics into prometheus, the accesslog into
+     stdio writing a temporary file; 10,005 rules, 8 lowered report
+     instances, F = 60 field programs) — served through the port's
+     RuntimeServer.report on the card against a device="cpu" server,
+     capture sinks in place of both report handlers: the delivered
+     instances equal in order and the prometheus series equal at
+     B ∈ {64, 256, 2048}; one field_eval
      launch and one device-to-host copy per report trip, no rule-
      telemetry fold and unchanged rule counts; report() timed (p50 /
      p99, records/s, the five report stages, device busy and idle
@@ -124,7 +125,27 @@ Phases, each fatal on failure:
      1 / 22 / 33, empty rows, ephemeral ids, full and narrowed byte
      planes) and at the launch plan's seams (SEAM_F fields x SEAM_B
      records, both stack instantiations, rows of a larger buffer,
-     strided planes);
+     strided planes); then (8c) the host adapters on the card
+     (adapters_phase; counters zeroed just before it): the port's
+     RuntimeServer on the card against a device="cpu" one at B in
+     {64, 256}. (a) The telemetry world as upstream writes it (the
+     access log in stdio, writing a temporary file) with real handlers,
+     and statsd, circonus, stackdriver and fluentd beside prometheus:
+     report()'s stdio lines, statsd datagrams (an AF_UNIX socketpair
+     seam), fluentd bytes (the same), circonus and stackdriver payloads
+     (their transport seams) and prometheus series equal, one
+     field_eval launch per report trip. (b) The APA world
+     (make_store(10_000) + a kubernetesenv handler over 1,000 static
+     pods, attribute_bindings, a deny rule on a bound label, a stdio
+     access log of the bound attributes): bound attributes, check_many
+     responses, rule counts, report()'s stdio lines and prometheus
+     series equal; rows denied only through a bound attribute; one
+     rule_match launch per preprocessed bag plus one per trip; a sample
+     of the preprocess launches (K1, K2, K3) held against their plain
+     versions. (c) On the same world OPA (expression and Rego mode) and
+     servicecontrol check actions: rows denied by each and by the fused
+     plan, and the B=256 check trip's launches held against their plain
+     versions. Walls (p50 / p99), busy and idle share of every drive;
   9. the Quota() path (this slice's main path): the quota world —
      make_store(10_000) with its memquota limit set to the default quota
      of Istio's Bookinfo rate-limit sample (5,000 per 1 s window) — on
@@ -228,6 +249,7 @@ import dataclasses
 import functools
 import gc
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -3414,14 +3436,15 @@ TELEMETRY_HTTP = ("requestcount", "requestduration", "requestsize",
 TELEMETRY_TCP = ("tcpbytesent", "tcpbytereceived")
 
 
-def telemetry_world(store) -> None:
+def telemetry_world(store, log_stream: str) -> None:
     """Istio's default Mixer telemetry config (install/kubernetes/
-    istio.yaml of Istio 0.4/0.5: its metric, prometheus, logentry and
-    rule resources) added to `store` with store.set alone, so that either
-    package's MemStore takes it: six metrics into a prometheus handler
-    `handler` and the accesslog logentry. Upstream routes the access log
-    to the stdio adapter, which is not ported (it would print every
-    record); it goes to a noop handler `sink` here."""
+    istio.yaml of Istio 0.4/0.5: its metric, prometheus, stdio, logentry
+    and rule resources) added to `store` with store.set alone, so that
+    either package's MemStore takes it: six metrics into a prometheus
+    handler `handler` and the accesslog logentry into a stdio handler
+    `stdio`. The one change to upstream's config is the stdio handler's
+    `log_stream`: upstream writes STDOUT, here the lines go to the file
+    `log_stream`, so that this script's output stays its own."""
     ns = "istio-system"
     labels = ["source_service", "source_version", "destination_service",
               "destination_version", "response_code", "connection_mtls"]
@@ -3434,7 +3457,8 @@ def telemetry_world(store) -> None:
             {"name": f"{m}.{ns}", "kind": kinds[m],
              "label_names": labels if m in TELEMETRY_HTTP else tcp_labels}
             for m in TELEMETRY_HTTP + TELEMETRY_TCP]}})
-    store.set(("handler", ns, "sink"), {"adapter": "noop", "params": {}})
+    store.set(("handler", ns, "stdio"), {
+        "adapter": "stdio", "params": {"log_stream": log_stream}})
     dims = {"source_service": 'source.service | "unknown"',
             "source_version": 'source.labels["version"] | "unknown"',
             "destination_service": 'destination.service | "unknown"',
@@ -3474,7 +3498,7 @@ def telemetry_world(store) -> None:
              TELEMETRY_HTTP),
             ("promtcp", 'context.protocol == "tcp"', "handler",
              TELEMETRY_TCP),
-            ("stdio", "true", "sink", ("accesslog",))):
+            ("stdio", "true", "stdio", ("accesslog",))):
         store.set(("rule", ns, name), {"match": match, "actions": [
             {"handler": f"{handler}.{ns}", "instances": q(*insts)}]})
 
@@ -3883,15 +3907,15 @@ def report_stage_sums() -> dict:
     return {st: h.sum(st) for st in monitor.REPORT_STAGES}
 
 
-def telemetry_server(device: str, args: dict):
+def telemetry_server(device: str, args: dict, log_stream: str):
     from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
     from istio_tpu_torch.testing import workloads
     store = workloads.make_store(HEADLINE_RULES)
-    telemetry_world(store)
+    telemetry_world(store, log_stream)
     srv = RuntimeServer(store, ServerArgs(**args), device=device)
     d = srv.controller.dispatcher
     sinks = {h: CaptureSink(d.handlers[h]) for h in
-             ("handler.istio-system", "sink.istio-system")}
+             ("handler.istio-system", "stdio.istio-system")}
     d.handlers.update(sinks)
     return srv, store, sinks
 
@@ -3980,19 +4004,24 @@ def report_phase(int_rate: float) -> dict:
     path's B=2048 trip, with every other kernel of that trip (timed:
     field_eval's kernels table row and the others' report rows), and the
     trip's one pull checked block by block (report_pull_checks)."""
+    import shutil
+    import tempfile
+
     import numpy as np
     import torch
     from istio_tpu_torch import kernels
     from istio_tpu_torch.attribute.bag import bag_from_mapping
 
     t0 = time.perf_counter()
+    logs = tempfile.mkdtemp(prefix="chip_smoke_report_")
     # no rule-stats drainer: its pulls would land among the report trips'
     srv, store, sinks = telemetry_server(
         "cuda", dict(buckets=E2E_BATCHES, max_batch=HEADLINE_B, pipeline=1,
-                     rulestats_drain_s=0))
+                     rulestats_drain_s=0), f"{logs}/card.log")
     build_s = time.perf_counter() - t0
     cpu, cpu_store, cpu_sinks = telemetry_server(
-        "cpu", dict(CPU_SERVER, max_batch=HEADLINE_B, pipeline=1))
+        "cpu", dict(CPU_SERVER, max_batch=HEADLINE_B, pipeline=1),
+        f"{logs}/cpu.log")
     d = srv.controller.dispatcher
     plan, snap = d.fused, d.snapshot
     rl = plan.report_lowering
@@ -4136,7 +4165,613 @@ def report_phase(int_rate: float) -> dict:
                        cpu.controller.dispatcher.fused, batch, ns_ids)
     for x in (srv, cpu, store, cpu_store):
         x.close()
+    shutil.rmtree(logs, ignore_errors=True)
     return {**out, "results": results, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the host adapters on the card
+# ---------------------------------------------------------------------------
+
+ADAPTER_B = (64, 256)       # phase 8c's batches
+ADAPTER_ITERS = 5           # timed calls per batch in phase 8c
+APA_PODS = 1000             # pods in the APA world's kubernetesenv cache
+APA_KERNELS = SERVED_KERNELS + ("field_eval",)
+# the stackdriver handler's clock in phase 8c (its time series' interval)
+ADAPTER_NOW = 1_520_000_000.0
+
+
+def adapter_telemetry_world(store, log_stream: str, sent: dict) -> None:
+    """telemetry_world (stdio writing `log_stream`) plus a handler of each
+    of statsd, circonus and stackdriver for three of its metrics, and
+    fluentd and stackdriver for the access log, on http records. The
+    circonus and stackdriver transports append each payload to
+    sent["circonus"] / sent["stackdriver"]; statsd's and fluentd's
+    sockets are swapped for SocketSeams after the build
+    (attach_seams)."""
+    ns = "istio-system"
+    telemetry_world(store, log_stream)
+    metrics = [f"{m}.{ns}" for m in ("requestcount", "requestsize",
+                                     "responsesize")]
+    store.set(("handler", ns, "statsd"), {"adapter": "statsd", "params": {
+        "prefix": "istio.", "metrics": [
+            {"name": metrics[0], "type": "COUNTER",
+             "name_template": "${destination_service}.${response_code}"},
+            {"name": metrics[1], "type": "TIMING", "sample_rate": 0.5},
+            {"name": metrics[2], "type": "GAUGE"}]}})
+    store.set(("handler", ns, "circonus"), {"adapter": "circonus", "params": {
+        "submission_url": "https://trap.example/module/httptrap/a/b",
+        "submission_interval_s": 3600,
+        "metrics": [{"name": metrics[0], "type": "counter"},
+                    {"name": metrics[1], "type": "distribution"},
+                    {"name": metrics[2], "type": "gauge"}],
+        "transport": lambda url, payload: sent["circonus"].append(
+            (url, payload))}})
+    store.set(("handler", ns, "stackdriver"), {
+        "adapter": "stackdriver", "params": {
+            "project_id": "mesh-1", "push_interval_s": 3600,
+            "now": lambda: ADAPTER_NOW,
+            "metric_info": {
+                metrics[0]: {"kind": "DELTA", "value": "INT64"},
+                metrics[1]: {"kind": "DELTA", "value": "DISTRIBUTION",
+                             "buckets": {"exponential": {
+                                 "num_finite_buckets": 12,
+                                 "growth_factor": 4.0, "scale": 1.0}}},
+                metrics[2]: {"kind": "GAUGE", "value": "INT64"}},
+            "log_info": {f"accesslog.{ns}": {
+                "payload_template": "{method} {url} {responseCode}",
+                "http_mapping": {"requestMethod": "method",
+                                 "status": "responseCode"}}},
+            "transport": lambda method, batch: sent["stackdriver"].append(
+                (method, batch))}})
+    store.set(("handler", ns, "fluentd"), {"adapter": "fluentd",
+                                           "params": {}})
+    acts = [{"handler": f"{h}.{ns}", "instances": metrics}
+            for h in ("statsd", "circonus", "stackdriver")]
+    acts += [{"handler": f"{h}.{ns}", "instances": [f"accesslog.{ns}"]}
+             for h in ("stackdriver", "fluentd")]
+    store.set(("rule", ns, "adapters"), {
+        "match": 'context.protocol == "http"', "actions": acts})
+
+
+class SocketSeam:
+    """A socket seam for statsd (`sendto`, datagrams) or fluentd
+    (`sendall`, a byte stream): the handler writes into one end of an
+    AF_UNIX socketpair, whose sender blocks rather than drops when the
+    reader falls behind, and a thread keeps everything the other end
+    reads. take() waits for every byte sent and hands back what arrived
+    (a list of datagrams, or the stream's bytes)."""
+
+    def __init__(self, datagrams: bool) -> None:
+        import socket
+        import threading
+        kind = socket.SOCK_DGRAM if datagrams else socket.SOCK_STREAM
+        self._tx, self._rx = socket.socketpair(socket.AF_UNIX, kind)
+        self._rx.settimeout(0.1)
+        self.datagrams = datagrams
+        self.sent = self.received = 0
+        self.got: list[bytes] = []
+        self.addresses: set = set()
+        self._stop = False
+        self._reader = threading.Thread(target=self._drain, daemon=True)
+        self._reader.start()
+
+    def _drain(self) -> None:
+        import socket
+        while not self._stop:
+            try:
+                data = self._rx.recv(1 << 16)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            self.got.append(data)
+            self.received += len(data)
+
+    def sendto(self, data: bytes, address) -> int:
+        self.addresses.add(address)
+        self.sent += len(data)
+        return self._tx.send(data)
+
+    def sendall(self, data: bytes) -> None:
+        self.sent += len(data)
+        self._tx.sendall(data)
+
+    def take(self):
+        deadline = time.time() + 30
+        while self.received < self.sent:
+            if time.time() > deadline:
+                raise AssertionError(f"socket seam: {self.received} of "
+                                     f"{self.sent} bytes arrived")
+            time.sleep(0.001)
+        got, self.got = self.got, []
+        return got if self.datagrams else b"".join(got)
+
+    def close(self) -> None:
+        self._stop = True
+        self._reader.join()
+        self._tx.close()
+        self._rx.close()
+
+
+def attach_seams(srv) -> dict:
+    """Swap the statsd handler's UDP socket and the fluentd handler's
+    TCP connection for SocketSeams; → {"statsd": seam, "fluentd": seam}."""
+    hs = srv.controller.dispatcher.handlers
+    statsd, fluentd = hs["statsd.istio-system"], hs["fluentd.istio-system"]
+    statsd._sock.close()
+    statsd._sock = SocketSeam(datagrams=True)
+    fluentd._sock = SocketSeam(datagrams=False)
+    return {"statsd": statsd._sock, "fluentd": fluentd._sock}
+
+
+def flush_pushers(srv) -> None:
+    """Push what circonus and stackdriver aggregated (their tickers run
+    once an hour here)."""
+    hs = srv.controller.dispatcher.handlers
+    hs["circonus.istio-system"]._flush()
+    sd = hs["stackdriver.istio-system"]
+    sd._metrics.flush()
+    sd._logs.flush()
+
+
+class AdapterFailures(logging.Filter):
+    """Counts the dispatcher's "adapter report failed" records and keeps
+    them out of the log (the prometheus adapter refuses every DURATION
+    value, as in the JAX package); other records pass."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.n = 0
+
+    def filter(self, record) -> bool:
+        if record.getMessage() == "adapter report failed":
+            self.n += 1
+            return False
+        return True
+
+
+def apa_pod_ip(k: int) -> bytes:
+    return bytes([10, 64 + (k >> 16) % 64, (k >> 8) & 255, k & 255])
+
+
+def apa_world(store, n_pods: int, log_stream: str) -> None:
+    """tests/test_runtime.py's APA world (test_apa_preprocess) added to
+    make_store's `store`: a kubernetesenv handler `kube` over `n_pods`
+    static pods (web<k>.ns<k % 23>, every 8th on the canary track), a
+    kubernetes instance whose attribute_bindings put the pod's name,
+    namespace and labels into the request, an APA rule with match "", a
+    deny rule on a bound attribute (the pod's track label, through
+    make_store's denier), and an access log of the bound attributes to
+    a stdio handler writing `log_stream`."""
+    import ipaddress
+    ns = "istio-system"
+    pods = {}
+    for k in range(n_pods):
+        track = "canary" if k % 8 == 0 else "stable"
+        pods[f"web{k}.ns{k % 23}"] = {
+            "pod_name": f"web{k}-{track}", "namespace": f"ns{k % 23}",
+            "labels": {"app": f"app{k % 40}", "track": track},
+            "pod_ip": str(ipaddress.ip_address(apa_pod_ip(k))),
+            "service_account_name": f"sa{k % 61}"}
+    store.set(("handler", ns, "kube"), {"adapter": "kubernetesenv",
+                                        "params": {"pods": pods}})
+    store.set(("instance", ns, "kubeattrs"), {
+        "template": "kubernetes", "params": {
+            "source_uid": 'source.uid | ""',
+            "source_ip": 'source.ip | ip("0.0.0.0")',
+            "attribute_bindings": {
+                "source.name": "$out.source_pod_name",
+                "source.namespace": "$out.source_namespace",
+                "source.labels": "$out.source_labels"}}})
+    store.set(("rule", ns, "kubeapa"), {"match": "", "actions": [
+        {"handler": "kube", "instances": ["kubeattrs"]}]})
+    store.set(("rule", ns, "denycanary"), {
+        "match": 'source.labels["track"] == "canary"',
+        "actions": [{"handler": "denyall", "instances": ["nothing"]}]})
+    store.set(("handler", ns, "podstdio"), {
+        "adapter": "stdio", "params": {"log_stream": log_stream}})
+    store.set(("instance", ns, "podlog"), {"template": "logentry", "params": {
+        "severity": '"Info"',
+        "timestamp": 'timestamp("2018-03-01T12:00:00Z")',
+        "variables": {"pod": 'source.name | "none"',
+                      "podns": 'source.namespace | "none"',
+                      "track": 'source.labels["track"] | "none"',
+                      "path": 'request.path | ""'}}})
+    store.set(("rule", ns, "podlog"), {"match": "", "actions": [
+        {"handler": "podstdio", "instances": ["podlog"]}]})
+
+
+def apa_dicts(b: int, seed: int, n_pods: int) -> list[dict]:
+    """make_request_dicts(b, seed) with a source pod each: 45 % by
+    source.uid, 40 % by source.ip, 15 % from an ip no pod has; one pod
+    in 11 unknown to the cache."""
+    import numpy as np
+    from istio_tpu_torch.testing import workloads
+    rng = np.random.default_rng(seed)
+    dicts = workloads.make_request_dicts(b, seed=seed)
+    for d in dicts:
+        k = int(rng.integers(0, n_pods + n_pods // 10))
+        u = rng.random()
+        if u < 0.45:
+            d["source.uid"] = f"kubernetes://web{k}.ns{k % 23}"
+        elif u < 0.85:
+            d["source.ip"] = apa_pod_ip(k)
+        else:
+            d["source.ip"] = bytes([192, 168, int(rng.integers(0, 256)),
+                                    int(rng.integers(1, 255))])
+    return dicts
+
+
+# the Rego policy of the APA world's OPA rule: a GET of a path that ends
+# in 7 is refused
+APA_REGO = """package mixerauthz
+default allow = false
+allow { not blocked }
+blocked { endswith(input.action.path, "7") }
+"""
+
+
+def apikey_transport(method: str, service: str, payload: dict) -> dict:
+    """servicecontrol's in-process Service Control API: an api key whose
+    session number is a multiple of 9 is invalid."""
+    key = payload["operation"]["consumerId"]
+    if int(key.rsplit("=", 1)[1]) % 9 == 0:
+        return {"checkErrors": [{"code": "API_KEY_INVALID",
+                                 "detail": f"{key} revoked"}]}
+    return {}
+
+
+def check_actions_world(store) -> None:
+    """Host check actions beside make_store's rules: an OPA rule in
+    expression mode on POSTs (allowed to /api/v0/ only), one in Rego
+    mode on GETs (APA_REGO), and a servicecontrol apikey rule on mTLS
+    connections whose key is the session cookie (apikey_transport)."""
+    ns = "istio-system"
+    store.set(("handler", ns, "opaexpr"), {"adapter": "opa", "params": {
+        "policies": ['action.path.startsWith("/api/v0/")']}})
+    store.set(("handler", ns, "oparego"), {"adapter": "opa", "params": {
+        "policies": [APA_REGO], "check_method": "data.mixerauthz.allow"}})
+    store.set(("handler", ns, "sc"), {"adapter": "servicecontrol", "params": {
+        "service_configs": [{"mesh_service_name": "productpage.default",
+                             "google_service_name": "bookinfo.example"}],
+        "runtime_config": {"check_result_expiration_s": 30},
+        "transport": apikey_transport}})
+    store.set(("instance", ns, "authz"), {"template": "authorization",
+                                          "params": {
+        "subject": {"user": 'source.user | ""'},
+        "action": {"namespace": 'destination.namespace | "default"',
+                   "service": 'destination.service | ""',
+                   "method": 'request.method | ""',
+                   "path": 'request.path | ""'}}})
+    store.set(("instance", ns, "apikey"), {"template": "apikey", "params": {
+        "api_key": 'request.headers["cookie"] | ""',
+        "api_operation": 'request.method | ""'}})
+    for name, match, handler, inst in (
+            ("opa-expr", 'request.method == "POST"', "opaexpr", "authz"),
+            ("opa-rego", 'request.method == "GET"', "oparego", "authz"),
+            ("apikey", "connection.mtls", "sc", "apikey")):
+        store.set(("rule", ns, name), {"match": match, "actions": [
+            {"handler": handler, "instances": [inst]}]})
+
+
+def deny_causes(responses) -> dict:
+    """Denied responses by cause: the OPA rules, servicecontrol, or the
+    fused plan (every other non-OK status)."""
+    out = {"opa": 0, "servicecontrol": 0, "fused": 0}
+    for r in responses:
+        if r.status_code == OK:
+            continue
+        msg = r.status_message
+        key = "opa" if msg.startswith("opa:") else "servicecontrol" \
+            if msg.startswith("API_KEY_INVALID") else "fused"
+        out[key] += 1
+    return out
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (replays of captured launches against
+    their plain versions) leave the launch counters as they were."""
+    from istio_tpu_torch import kernels
+    n = kernels.launches
+    saved = dict(n), dict(n.grids), dict(n.entries)
+    try:
+        yield
+    finally:
+        n.update(saved[0])
+        n.grids.update(saved[1])
+        n.entries.update(saved[2])
+
+
+def timed_walls(fn, iters: int) -> dict:
+    """fn() timed over `iters` calls: wall p50 / p99 ms, and the device
+    busy ms a call and idle share (profiler, one more call after one
+    untimed one: a profiled APA call of 257 trips takes seconds)."""
+    import numpy as np
+    walls = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t) * 1e3)
+    busy = device_ms(fn, 1)
+    p50, p99 = (float(np.percentile(walls, q)) for q in (50, 99))
+    return {"p50_ms": p50, "p99_ms": p99, "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / p50}
+
+
+def wall_line(r: dict) -> str:
+    idle = "busy not measured" if r["busy_ms"] is None else \
+        f"busy {r['busy_ms']:.4f} ms, idle share {r['idle_share']:.4f}"
+    return f"p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms ({idle})"
+
+
+def counted_trips(plan) -> list:
+    """Count the plan's check and report trips: → a list that grows by
+    one entry per trip ("check" or "report")."""
+    trips: list = []
+    for kind in ("check", "report"):
+        orig = getattr(plan, f"packed_{kind}")
+
+        def counted(*a, _orig=orig, _kind=kind, **kw):
+            trips.append(_kind)
+            return _orig(*a, **kw)
+        setattr(plan, f"packed_{kind}", counted)
+    return trips
+
+
+def adapters_phase() -> dict:
+    """Phase 8c: the host adapters on the card, the launch counters
+    zeroed just before its drive and read just after. The port's
+    RuntimeServer on the card against a device="cpu" one, each over its
+    own store of the same config and fed the same bags, at B in
+    ADAPTER_B:
+    (a) the telemetry world as upstream writes it (stdio writing a file)
+        with real handlers, and statsd, circonus, stackdriver and
+        fluentd beside prometheus (adapter_telemetry_world): report()'s
+        stdio lines, statsd datagrams, fluentd bytes, circonus and
+        stackdriver payloads and prometheus series equal to the CPU
+        server's, and one field_eval launch per report trip;
+    (b) the APA world (apa_world over make_store(10_000), APA_PODS pods)
+        with the host check actions of check_actions_world: check_many()
+        and report() equal to the CPU server (responses, rule counts,
+        the bound attributes of preprocessed bags, the stdio access log
+        of the bound attributes, prometheus series); some rows denied
+        only through a bound attribute (OK on the same bags without the
+        APA phase); rule_match once per preprocessed bag plus once per
+        fused trip; a sample of the preprocess launches (K1, K2, K3)
+        held against their plain versions;
+    (c) on the same world, rows denied by OPA (both modes), by
+        servicecontrol and by the fused plan, and every kernel of one
+        B=256 check trip held against its plain version (parity).
+    Every drive timed (p50 / p99, device busy and idle share)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.testing import workloads
+
+    t_phase = time.perf_counter()
+    logs = tempfile.mkdtemp(prefix="chip_smoke_adapters_")
+    quiet = AdapterFailures()
+    dlog = logging.getLogger("istio_tpu_torch.runtime.dispatcher")
+    dlog.addFilter(quiet)
+    card_args = dict(buckets=ADAPTER_B, max_batch=ADAPTER_B[-1],
+                     pipeline=1, rulestats_drain_s=0)
+    cpu_args = dict(CPU_SERVER, max_batch=ADAPTER_B[-1], pipeline=1)
+
+    def server(device: str, world) -> tuple:
+        store = workloads.make_store(HEADLINE_RULES)
+        world(store, device)
+        srv = RuntimeServer(store, ServerArgs(
+            **(card_args if device == "cuda" else cpu_args)), device=device)
+        errors = srv.controller.dispatcher.snapshot.errors
+        if errors:
+            raise AssertionError(f"8c {device} world errors {errors[:3]}")
+        return srv, store
+
+    def lines(path: str) -> list[str]:
+        with open(path, encoding="utf-8") as f:
+            return f.read().splitlines()
+
+    # ---- (a) the telemetry world with real handlers
+    sent = {dev: {"circonus": [], "stackdriver": []}
+            for dev in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    (srv, store), (cpu, cpu_store) = (server(dev, lambda s, dev: (
+        adapter_telemetry_world(s, f"{logs}/telemetry_{dev}.log",
+                                sent[dev]))) for dev in ("cuda", "cpu"))
+    build_a = time.perf_counter() - t0
+    seams = {srv: attach_seams(srv), cpu: attach_seams(cpu)}
+    plan = srv.controller.dispatcher.fused
+    trips = counted_trips(plan)
+    kernels.launches.reset()
+    results: dict = {"telemetry": {}, "apa_check": {}, "apa_report": {}}
+    n_lines = 0
+    for b in ADAPTER_B:
+        bags = [bag_from_mapping(x) for x in telemetry_dicts(b, seed=80 + b)]
+        got = {}
+        for s in (srv, cpu):
+            f0 = quiet.n
+            s.report(bags)
+            flush_pushers(s)
+            dev = "cuda" if s is srv else "cpu"
+            got[s] = {"refused": quiet.n - f0,
+                      "stdio": lines(f"{logs}/telemetry_{dev}.log"),
+                      **{k: v.take() for k, v in seams[s].items()},
+                      **{k: list(v) for k, v in sent[dev].items()}}
+            for v in sent[dev].values():
+                v.clear()
+        prom = [s.controller.dispatcher.handlers["handler.istio-system"]
+                .series for s in (srv, cpu)]
+        for k, want in got[cpu].items():
+            if got[srv][k] != want:
+                raise AssertionError(f"8c telemetry B={b}: {k} differs "
+                                     "from the CPU server's")
+        if prom[0] != prom[1] or not prom[0]:
+            raise AssertionError(f"8c telemetry B={b}: prometheus series "
+                                 "differ")
+        g = got[srv]
+        if not all((g["stdio"], g["statsd"], g["fluentd"], g["circonus"],
+                    g["stackdriver"])) or len(g["stdio"]) - n_lines != b:
+            raise AssertionError(f"8c telemetry B={b}: a handler got "
+                                 f"nothing, or {len(g['stdio']) - n_lines} "
+                                 "stdio lines")
+        n_lines = len(g["stdio"])
+        log(f"[8c] telemetry B={b}: report() equal to the CPU server: "
+            f"stdio {n_lines} lines line for line, {len(g['statsd'])} "
+            f"statsd datagrams, {len(g['fluentd'])} fluentd bytes, "
+            f"{len(g['circonus'])} circonus and {len(g['stackdriver'])} "
+            f"stackdriver pushes, {len(prom[0])} prometheus series; "
+            f"{g['refused']} prometheus refusals (DURATION) on both")
+    report_trips = trips.count("report")
+    for b in ADAPTER_B:
+        bags = [bag_from_mapping(x) for x in telemetry_dicts(b, seed=80 + b)]
+        srv.report(bags)
+        results["telemetry"][b] = r = timed_walls(
+            lambda: srv.report(bags), ADAPTER_ITERS)
+        log(f"[8c] telemetry report() B={b}: {wall_line(r)}")
+    field_launches = kernels.launches["field_eval"]
+    if field_launches != trips.count("report") or not report_trips:
+        raise AssertionError(f"8c telemetry: {field_launches} field_eval "
+                             f"launches for {trips.count('report')} trips")
+    steps = len(trips)
+    for s in seams.values():
+        for seam in s.values():
+            seam.take()
+    for x in (srv, cpu, store, cpu_store):
+        x.close()
+    for s in seams.values():
+        for seam in s.values():
+            seam.close()
+
+    # ---- (b), (c) the APA world with host check actions
+    def apa(s, dev):
+        apa_world(s, APA_PODS, f"{logs}/pods_{dev}.log")
+        check_actions_world(s)
+
+    t0 = time.perf_counter()
+    with uncounted():       # the publish warms the plan: not the drive
+        (srv, store), (cpu, cpu_store) = (server(dev, apa)
+                                          for dev in ("cuda", "cpu"))
+    build_b = time.perf_counter() - t0
+    seconds_a = t0 - t_phase
+    d = srv.controller.dispatcher
+    plan, snap = d.fused, d.snapshot
+    if not d.has_apa or len(plan.host_actions) != 3:
+        raise AssertionError(f"8c APA world: has_apa {d.has_apa}, "
+                             f"{len(plan.host_actions)} host-overlay rules")
+    trips = counted_trips(plan)
+    quota0 = plan.engine.quota_counts.clone()
+    causes = {}
+    n_lines = 0
+    for b in ADAPTER_B:
+        bags = [bag_from_mapping(x) for x in apa_dicts(b, 90 + b, APA_PODS)]
+        if b == ADAPTER_B[0]:
+            pre = [dict(srv.preprocess(x)._values) for x in bags]
+            if pre != [dict(cpu.preprocess(x)._values) for x in bags]:
+                raise AssertionError(f"8c APA B={b}: bound attributes "
+                                     "differ")
+            log(f"[8c] APA B={b}: the bound attributes of every "
+                f"preprocessed bag equal the CPU server's "
+                f"({sum(len(p) for p in pre)} bound in {b} bags)")
+        k1, n0 = kernels.launches["rule_match"], len(trips)
+        before, cpu_before = rule_counts(srv), rule_counts(cpu)
+        got, want = srv.check_many(bags), cpu.check_many(bags)
+        k1_check = kernels.launches["rule_match"] - k1
+        compare_responses(f"8c APA check B={b}", got, want)
+        compare_counts(f"8c APA check B={b}", counts_since(srv, before),
+                       counts_since(cpu, cpu_before))
+        if k1_check != b + (len(trips) - n0) or \
+                trips[n0:] != ["check"] * (len(trips) - n0):
+            raise AssertionError(f"8c APA B={b}: {k1_check} rule_match "
+                                 f"launches for {b} bags and "
+                                 f"{len(trips) - n0} trips")
+        # the same bags without the APA phase, on the CPU server
+        raw = cpu.controller.dispatcher.check(bags)
+        bound_only = sum(1 for g, r in zip(got, raw)
+                         if g.status_code != OK and r.status_code == OK)
+        causes[b] = deny_causes(got)
+        if bound_only == 0 or 0 in causes[b].values():
+            raise AssertionError(f"8c APA B={b}: {bound_only} rows denied "
+                                 f"only through a bound attribute; causes "
+                                 f"{causes[b]}")
+        k1, n0 = kernels.launches["rule_match"], len(trips)
+        srv.report(bags)
+        cpu.report(bags)
+        k1_report = kernels.launches["rule_match"] - k1
+        card_lines, cpu_lines = (lines(f"{logs}/pods_{dev}.log")
+                                 for dev in ("cuda", "cpu"))
+        prom = [s.controller.dispatcher.handlers["prom.istio-system"]
+                .series for s in (srv, cpu)]
+        if card_lines != cpu_lines or len(card_lines) - n_lines != b or \
+                prom[0] != prom[1] or not prom[0]:
+            raise AssertionError(f"8c APA report B={b}: stdio lines or "
+                                 "prometheus series differ from the CPU "
+                                 "server's")
+        if k1_report != b + (len(trips) - n0):
+            raise AssertionError(f"8c APA report B={b}: {k1_report} "
+                                 f"rule_match launches for {b} bags and "
+                                 f"{len(trips) - n0} trips")
+        n_lines = len(card_lines)
+        log(f"[8c] APA B={b}: check_many responses and rule "
+            f"counts equal to the CPU server; {bound_only} rows denied "
+            f"only through a bound attribute; denied by cause "
+            f"{causes[b]}; report() stdio {n_lines} lines line for line "
+            f"and prometheus series equal; rule_match {k1_check} launches "
+            f"in check_many ({b} preprocessed bags + {k1_check - b} "
+            f"trips), {k1_report} in report ({b} + {k1_report - b})")
+    with kernels.launches.capture() as captured:
+        for x in apa_dicts(4, 7, APA_PODS):
+            srv.preprocess(bag_from_mapping(x))
+    torch.cuda.synchronize()
+    names = sorted({n for n, _ in captured})
+    with uncounted():
+        check_kernels(captured, quota0)
+    log(f"[8c] {len(captured)} captured preprocess launches of 4 bags "
+        f"({', '.join(names)}) equal to their plain versions")
+    bags = [bag_from_mapping(x)
+            for x in apa_dicts(ADAPTER_B[-1], 99, APA_PODS)]
+    pre = [srv.preprocess(x) for x in bags]
+    quota0 = plan.engine.quota_counts.clone()
+    with kernels.launches.capture() as captured:
+        srv.controller.dispatcher.check(pre)
+    torch.cuda.synchronize()
+    trip_names = sorted({n for n, _ in captured})
+    if not {"rule_match", "verdict_fold", "check_pack",
+            "rule_stats"} <= set(trip_names):
+        raise AssertionError(f"8c check trip launched {trip_names}")
+    with uncounted():
+        check_kernels(captured, quota0)
+    log(f"[8c] the B=256 check trip's {len(captured)} launches "
+        f"({', '.join(trip_names)}) equal to their plain versions")
+    seconds_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in ADAPTER_B:
+        bags = [bag_from_mapping(x) for x in apa_dicts(b, 90 + b, APA_PODS)]
+        results["apa_check"][b] = r = timed_walls(
+            lambda: srv.check_many(bags), ADAPTER_ITERS)
+        log(f"[8c] APA check_many() B={b}: {wall_line(r)}")
+        results["apa_report"][b] = r = timed_walls(
+            lambda: srv.report(bags), ADAPTER_ITERS)
+        log(f"[8c] APA report() B={b}: {wall_line(r)}")
+    seconds_t = time.perf_counter() - t0
+    steps += len(trips)
+    for x in (srv, cpu, store, cpu_store):
+        x.close()
+    dlog.removeFilter(quiet)
+    shutil.rmtree(logs, ignore_errors=True)
+    out = path_counts("[8c] host adapters", APA_KERNELS, steps)
+    seconds = time.perf_counter() - t_phase
+    log(f"[8c] host adapters: phase {seconds:.1f} s: (a) {seconds_a:.1f} "
+        f"s (servers built in {build_a:.2f} s), (b) and (c) "
+        f"{seconds_b:.1f} s (servers built in {build_b:.2f} s), their "
+        f"timed loops {seconds_t:.1f} s")
+    return {**out, "results": results, "causes": causes, "rows": [],
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -6735,6 +7370,9 @@ def main() -> int:
         "register-stack and general kernels, strided planes, narrowed "
         "bytes): field_eval equal to both plain versions, "
         "the buffer's other rows unchanged")
+    log(f"[t] phase 8c starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 8c: the host adapters, counters zeroed just before
+    ac = adapters_phase()
     log(f"[t] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 9: the quota path, counters zeroed just before
     qt = quota_phase(int_rate)
@@ -6760,8 +7398,8 @@ def main() -> int:
     # winner, with both entry points under "entries"). Each row carries
     # its kernel's rows on the other paths under "paths".
     paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
-             "quota": qt, "routes": rt, "discovery": dc, "seq": sq,
-             "mesh": mh}
+             "adapters": ac, "quota": qt, "routes": rt, "discovery": dc,
+             "seq": sq, "mesh": mh}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
                             ("atom_eval", "authz", az),
@@ -6809,6 +7447,17 @@ def main() -> int:
         f"B={b} p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms "
         f"{r['records_per_s']:.0f} records/s {r['trips_per_call']:.2f} "
         "trips/call" for b, r in rp["results"].items()))
+    log(f"adapters (phase 8c, {ac['seconds']:.1f} s): telemetry world "
+        "report() " + ", ".join(
+            f"B={b} {wall_line(r)}" for b, r in
+            ac["results"]["telemetry"].items())
+        + "; APA world check_many() " + ", ".join(
+            f"B={b} {wall_line(r)}" for b, r in
+            ac["results"]["apa_check"].items())
+        + ", report() " + ", ".join(
+            f"B={b} {wall_line(r)}" for b, r in
+            ac["results"]["apa_report"].items())
+        + f"; denied by cause {json.dumps(ac['causes'])}")
     log("quota (quota world, 100,000 live keys): " + ", ".join(
         f"B={b} in-step p50 {r['instep']['p50_ms']:.4f} ms p99 "
         f"{r['instep']['p99_ms']:.4f} ms, classic p50 "

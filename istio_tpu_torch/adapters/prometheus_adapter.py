@@ -5,10 +5,9 @@ mixer/adapter/prometheus): each configured metric maps a metric
 instance to a counter/gauge/histogram with label names drawn from the
 instance's dimensions. The reference backs this with prometheus_client;
 the port keeps the values in its own small in-process series table, so
-the package does not need that library. Report dispatch is not on this
-slice's path (Dispatcher.report raises NotPorted); the handler builds
-and validates like the reference's so a served store that names it
-loads unchanged.
+the package does not need that library. The handler builds and
+validates like the reference's, so a served store that names it loads
+unchanged.
 """
 from __future__ import annotations
 

@@ -203,14 +203,15 @@ class RouteTable:
     def native(self):
         """The C++ wire→tensor decoder of the reference: not carried."""
         raise NotPorted("RouteTable.native: the C++ tensorizer shim is "
-                        "not carried (ROADMAP.md queue A item 7)")
+                        "not carried (ROADMAP.md queue A, wire fronts "
+                        "and the native shim)")
 
     def select_wire(self, wires: Sequence[bytes], block: bool = True):
         """The wire-record fast path of the reference: needs api/wire and
         the C++ shim, which the port does not carry."""
         raise NotPorted("RouteTable.select_wire: api/wire and the C++ "
                         "tensorizer shim are not carried (ROADMAP.md "
-                        "queue A item 7)")
+                        "queue A, wire fronts and the native shim)")
 
     def _compact_planes(self, batch: AttributeBatch):
         """select_wire's host compaction of a tensorized batch → (flat

@@ -21,10 +21,11 @@ trip and one pull per chunk carry the active report rules' bits and
 every lowered instance field (runtime/report_lower.py), and adapters
 receive finished instances. `check(instep=...)` carries an in-step quota
 allocation on the check trip (FusedPlan.packed_check_instep), and
-`quota` is the host quota path through the adapter. Not carried in this
-slice: the APA preprocess (it raises NotPorted), and the adapter-executor
-plane, check-cache grants, the canary recorder and the overlapped h2d
-staging (their constructor arguments raise NotPorted when set).
+`quota` is the host quota path through the adapter, and `preprocess`
+the APA phase (one resolve trip per bag, as in the reference). Not
+carried in this slice: the adapter-executor plane, check-cache grants,
+the canary recorder and the overlapped h2d staging (their constructor
+arguments raise NotPorted when set).
 Host-overlay and host quota actions run inline, the reference's
 behavioural-oracle loop.
 """
@@ -40,7 +41,7 @@ import numpy as np
 
 from istio_tpu_torch.adapters.sdk import (CheckResult, Handler, QuotaArgs,
                                           QuotaResult)
-from istio_tpu_torch.attribute.bag import Bag
+from istio_tpu_torch.attribute.bag import Bag, MutableBag
 from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.expr.oracle import EvalError
 from istio_tpu_torch.models.policy_engine import INTERNAL, OK
@@ -763,5 +764,39 @@ class Dispatcher:
         return QuotaResult(granted_amount=args.quota_amount)
 
     def preprocess(self, bag: Bag) -> Bag:
-        raise NotPorted("Dispatcher.preprocess (ATTRIBUTE_GENERATOR "
-                        "actions)")
+        """APA phase (dispatcher.go:285): run ATTRIBUTE_GENERATOR
+        actions, bind outputs into a child bag. The resolve is one
+        device trip for the one bag (rule_match and the literal
+        kernels its world has)."""
+        actives = self._resolve([bag])[0][0]
+        child = MutableBag(parent=bag)
+        for ridx in actives:
+            for hc, template, inst_names in self.snapshot.actions_for(
+                    ridx, Variety.ATTRIBUTE_GENERATOR):
+                handler = self._handler_for(hc)
+                if handler is None:
+                    continue
+                for iname in inst_names:
+                    ib = self.snapshot.instances[iname]
+                    try:
+                        instance = ib.build(bag)
+                        outputs = handler.generate_attributes(template,
+                                                              instance)
+                    except EvalError as exc:
+                        monitor.DISPATCH_ERRORS.inc()
+                        log.warning("APA %s: %s", iname, exc)
+                        continue
+                    except Exception:
+                        monitor.DISPATCH_ERRORS.inc()
+                        log.exception("APA adapter failed")
+                        continue
+                    bindings = getattr(ib, "attribute_bindings", None)
+                    if bindings:
+                        for attr, ref in bindings.items():
+                            key = str(ref).removeprefix("$out.")
+                            if key in outputs:
+                                child.set(attr, outputs[key])
+                    else:
+                        for key, value in outputs.items():
+                            child.set(key.replace("_", "."), value)
+        return child

@@ -5,10 +5,8 @@ generations, a handler whose (adapter, params) signature is unchanged
 is REUSED (adapters hold sockets/caches); new signatures are built,
 vanished ones closed after the old snapshot drains.
 
-Port of istio_tpu/runtime/handler_table.py with one deliberate
-deviation: a NotPorted error while building a handler (an adapter this
-slice does not carry) propagates instead of becoming a snapshot
-config error, which nobody would see.
+Port of istio_tpu/runtime/handler_table.py: host code, the reference's
+own.
 """
 from __future__ import annotations
 
@@ -18,7 +16,6 @@ from typing import Mapping
 
 from istio_tpu_torch.adapters.registry import adapter_registry, load_inventory
 from istio_tpu_torch.adapters.sdk import AdapterError, Env, Handler
-from istio_tpu_torch.device import NotPorted
 from istio_tpu_torch.runtime.config import HandlerConfig, Snapshot
 
 log = logging.getLogger("istio_tpu_torch.runtime.handlers")
@@ -46,8 +43,6 @@ class HandlerTable:
                 if handler is None:
                     try:
                         handler = self._build(hc, snapshot)
-                    except NotPorted:
-                        raise
                     except Exception as exc:
                         snapshot.errors.append(
                             f"handler {qname}: build failed: {exc}")

@@ -13,7 +13,9 @@ the reference's three entries: `quota_fused` allocates through the
 device quota pools on a check's activity bits (one quota_alloc launch
 per pool batch window), `check_batch_quota_instep` (with
 `quota_in_step`) allocates inside the check trip itself, and `quota` is
-the host path through the adapter. It takes one argument the reference
+the host path through the adapter. Every entry runs the APA phase
+(`preprocess`, one resolve trip per bag) first when the config has an
+ATTRIBUTE_GENERATOR rule. It takes one argument the reference
 lacks, `device` ("cuda" by default; tests pass "cpu", where every kernel
 wrapper runs its plain version).
 
@@ -252,8 +254,8 @@ class RuntimeServer:
 
     def preprocess(self, bag: Bag) -> Bag:
         d = self.controller.dispatcher
-        # skip the APA resolve unless an ATTRIBUTE_GENERATOR action is
-        # configured (Dispatcher.preprocess is not ported and raises)
+        # the APA resolve costs a device trip per request — skip it
+        # unless an ATTRIBUTE_GENERATOR action is configured
         if not self.args.preprocess or not d.has_apa:
             return bag
         return d.preprocess(bag)

@@ -58,6 +58,10 @@ def test_every_module_imports_without_jax_and_istio_tpu():
     assert len(names) >= 73
     assert {"istio_tpu_torch.compiler.rbac_lower",
             "istio_tpu_torch.adapters.rbac",
+            "istio_tpu_torch.adapters.rego",
+            *(f"istio_tpu_torch.adapters.{a}" for a in (
+                "circonus", "fluentd", "kubernetesenv", "opa",
+                "servicecontrol", "stackdriver", "statsd", "stdio")),
             "istio_tpu_torch.ops.route_ops",
             "istio_tpu_torch.pilot.route_nfa",
             "istio_tpu_torch.pilot.discovery",

@@ -20,6 +20,7 @@ config swap. The port runs on the CPU (plain versions of every kernel).
 """
 import datetime
 import importlib.util
+import os
 import pathlib
 import threading
 import time
@@ -188,7 +189,7 @@ def _report_lower_dicts(seed: int) -> list[dict]:
 
 def _telemetry_store():
     s = ref_workloads.make_store(24)
-    SMOKE.telemetry_world(s)
+    SMOKE.telemetry_world(s, os.devnull)
     return s
 
 
@@ -205,7 +206,7 @@ WORLDS = {
     "leaves": (_leaf_store, lambda: _leaf_dicts(37, seed=3),
                ("sink.istio-system",)),
     "telemetry": (_telemetry_store, lambda: SMOKE.telemetry_dicts(45, 7),
-                  ("handler.istio-system", "sink.istio-system")),
+                  ("handler.istio-system", "stdio.istio-system")),
 }
 
 

@@ -376,8 +376,11 @@ def test_unported_options_raise():
                             device="cpu")
         try:
             d = got.controller.dispatcher
-            with pytest.raises(NotPorted):
-                d.preprocess(bag_from_mapping({}))
+            # the APA phase is carried: with no ATTRIBUTE_GENERATOR rule
+            # the child bag adds nothing to its parent
+            pre = d.preprocess(bag_from_mapping({"request.method": "GET"}))
+            assert pre.names() == ["request.method"]
+            assert pre.get("request.method") == ("GET", True)
             with pytest.raises(NotPorted):
                 type(d)(d.snapshot, d.handlers, executor=object())
         finally:
