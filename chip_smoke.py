@@ -261,7 +261,37 @@ Phases, each fatal on failure:
      injections, sheds — equals what the injected schedule predicts.
      Every other phase ends at a gate (resilience_gate): no retry,
      fallback or breaker transition since the last gate and every CHAOS
-     lever inert, or the run fails naming the phase;
+     lever inert; and on the host plane (the adapter executor that every
+     default server now runs its host actions on), no outcome other than
+     ok since the last gate, the conservation ledger exact and every
+     lane breaker closed; or the run fails naming the phase;
+  14b. the adapter-executor plane (executor_phase): a card server with
+     host_breaker_failures=2, host_breaker_reset_s=0.2 and 2 workers a
+     lane beside a device="cpu" server with host_executor=False (the
+     inline oracle) on make_store(10_000, host_overlay_every=5) (every
+     fifth rule carries a host list action on cilist, provlist or
+     dynpat), B = 64 and 256 bags aimed at the overlay rules: (a) clean,
+     every response equal to the inline oracle's, one probe trip held
+     against the plain versions; (b) one injected adapter failure the
+     lane's retry absorbs; (c) a cilist adapter that raises on both
+     servers: INTERNAL as the inline path answers it, the lane opens and
+     the next batch answers UNAVAILABLE, the half-open probe closes it;
+     (d) provlist wedged under a 50 ms batch deadline: its rows answer
+     UNAVAILABLE (overrun / expired) within the deadline and a slack,
+     the other handlers' rows unchanged, the late completions counted;
+     (e) host_fail_policy "open": the wedged rows answer OK with a 1 s /
+     1-use TTL; (f) quota() through the memquota lane under the server's
+     default deadline, equal to the CPU server's grants, then a wedge,
+     injected failures and an open lane answering quota_fallback's
+     results, one K1 trip a call; (g) check-cache grants on a
+     check_grants=True card server: TTLs in [floor, cap], revocation
+     before the swap on a store delete, the first response of the new
+     generation at the floor's bound; (h) the maintenance lane: a
+     list provider refreshed every 0.1 s, a failing one counted with its
+     last good list kept. Every count (outcomes by handler, retries,
+     late completions, device trips, launches) equals what the schedule
+     predicts; check_many walls with the executor on and off, and
+     quota() walls;
   15. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
@@ -7197,7 +7227,8 @@ BREAKER_STATES = ("closed", "half_open", "open")
 
 
 def resilience_reading() -> dict:
-    """The process-wide resilience counters (monitor) and CHAOS seams."""
+    """The process-wide resilience counters (monitor), the executor
+    plane's host-action counters and CHAOS seams."""
     from istio_tpu_torch.runtime import monitor
     from istio_tpu_torch.runtime.resilience import CHAOS
     c = monitor.resilience_counters()
@@ -7208,32 +7239,68 @@ def resilience_reading() -> dict:
             "transitions": {s: int(monitor.BREAKER_TRANSITIONS.value(s))
                             for s in BREAKER_STATES},
             "injected": {"device": snap["injected_device"],
-                         "oracle": snap["injected_oracle"]},
+                         "oracle": snap["injected_oracle"],
+                         "adapter": snap["injected_adapter"]},
+            "host": monitor.host_action_counters(),
             "armed": CHAOS.armed()}
 
 
 _GATE: dict = {}
+# every executor lane the run built (track_lanes): the gate reads their
+# breakers
+_LANES: list = []
+
+
+def track_lanes() -> None:
+    """Record every HandlerLane the port builds from now on."""
+    from istio_tpu_torch.runtime import executor
+    init = executor.HandlerLane.__init__
+    if getattr(init, "_tracked", False):
+        return
+
+    def tracked(self, *a, **kw):
+        init(self, *a, **kw)
+        _LANES.append(self)
+
+    tracked._tracked = True
+    executor.HandlerLane.__init__ = tracked
 
 
 def resilience_gate(label: str) -> None:
-    """The end of every phase but 14: no retry, no fallback and no
-    breaker transition since the last gate (so every breaker stayed
-    closed), and every CHAOS lever inert, or the run fails naming the
-    phase. A card server raises a device fault that CHAOS did not
-    inject; this gate also catches any degraded answer that would
-    have slipped past that."""
+    """The end of every phase but 14 and 14b: no retry, no fallback and
+    no breaker transition since the last gate (so every breaker stayed
+    closed), and every CHAOS lever inert; on the host plane no outcome
+    other than ok and no injected adapter failure since the last gate,
+    the conservation ledger exact and every lane breaker closed; or the
+    run fails naming the phase. A card server raises a device fault that
+    CHAOS did not inject; this gate also catches any degraded answer
+    that would have slipped past that, and a host adapter that failed
+    for real on the card's host."""
     now = resilience_reading()
     base = _GATE.get("base", now)
     moved = {k: (base[k], now[k]) for k in ("retries", "fallback",
-                                            "transitions")
+                                            "transitions", "injected")
              if now[k] != base[k]}
-    if moved or now["armed"]:
+    host, host0 = now["host"], base["host"]
+    not_ok = {o: n - host0["outcomes"][o]
+              for o, n in host["outcomes"].items()
+              if o != "ok" and n != host0["outcomes"][o]}
+    if host["late"]["error"] != host0["late"]["error"]:
+        not_ok["late_error"] = host["late"]["error"] - host0["late"]["error"]
+    open_lanes = {ln.name: ln.breaker.state for ln in _LANES
+                  if ln.breaker.state != "closed"}
+    if moved or now["armed"] or not_ok or not host["exact"] or open_lanes:
         raise AssertionError(
             f"{label}: degraded check path: moved {moved}, armed CHAOS "
-            f"levers {now['armed']}")
+            f"levers {now['armed']}; host actions: outcomes other than ok "
+            f"{not_ok}, ledger exact {host['exact']} (submitted "
+            f"{host['submitted']}, resolved {host['resolved']}), lane "
+            f"breakers not closed {open_lanes}")
     _GATE["base"] = now
+    ok = host["outcomes"]["ok"] - host0["outcomes"]["ok"]
     log(f"{label}: no retry, fallback or breaker transition; CHAOS "
-        "inert")
+        f"inert; {ok} host actions since the last gate, all ok, ledger "
+        f"exact, {len(_LANES)} lanes closed")
 
 
 def served_trip(ruleset) -> dict:
@@ -7697,6 +7764,639 @@ def real_fault_raises(srv, win, bags) -> None:
         "server's check_many: no retry, fallback or breaker transition")
 
 
+# ---- phase 14b: the adapter-executor plane
+
+# the card server of phase 14b: a lane breaker of two failures and a
+# 0.2 s window, two workers a lane, and quota()'s default deadline
+EXECUTOR_ARGS = dict(host_breaker_failures=2, host_breaker_reset_s=0.2,
+                     executor_workers=2, default_check_deadline_ms=250.0,
+                     buckets=(64, 256))
+EXECUTOR_B = (64, 256)
+EXECUTOR_ITERS = 20          # timed check_many calls per B and mode
+EXECUTOR_QUOTA_ITERS = 20    # quota() calls, each held against the CPU's
+EXECUTOR_DEADLINE_S = 0.05   # (d), (e): the batch deadline
+# what a call may take past its deadline: on an H100 80GB HBM3 at 700 W
+# the wedged batches of (d) and (e) returned 5.7 and 4.3 ms past their
+# 50 ms deadline and the wedged quota() of (f) 0.9 ms past its 250 ms,
+# with the overlay world's B = 64 check_many p99 at 51.4 ms
+EXECUTOR_SLACK_S = 0.15
+HOST_HANDLERS = ("cilist.istio-system", "provlist.istio-system",
+                 "dynpat.istio-system")
+MQ_HANDLER = "mq.istio-system"
+
+
+def overlay_traffic(b: int, n_rules: int) -> tuple[list, list]:
+    """b bags aimed at make_store(host_overlay_every=5)'s overlay rules:
+    bag j hits rule 5j + 2 alone, whose host list action is on
+    HOST_HANDLERS[j % 3] (tests/test_executor.py's _overlay_bag) →
+    (bags, the handler of each bag)."""
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    n_services = n_rules // 2
+    bags = []
+    for j in range(b):
+        i = 5 * j + 2
+        bags.append(bag_from_mapping({
+            "destination.service":
+                f"svc{i % n_services}.ns{i % 23}.svc.cluster.local",
+            "source.namespace": "ns2",
+            "request.method": "GET",
+            "request.path": f"/api/v{i % 3}/items"}))
+    return bags, [HOST_HANDLERS[j % 3] for j in range(b)]
+
+
+def host_delta(before: dict) -> dict:
+    """host_action_counters() growth since `before`, per handler:
+    submitted and every outcome that moved; late completions; retries;
+    and whether the ledger is exact now."""
+    from istio_tpu_torch.runtime import monitor
+    after = monitor.host_action_counters()
+    by = {}
+    for h, v in after["by_handler"].items():
+        b = before["by_handler"].get(h, {"submitted": 0, "outcomes": {}})
+        row = {o: n - b["outcomes"].get(o, 0)
+               for o, n in v["outcomes"].items()
+               if n != b["outcomes"].get(o, 0)}
+        if v["submitted"] != b["submitted"]:
+            row["submitted"] = v["submitted"] - b["submitted"]
+        if row:
+            by[h] = row
+    return {"by_handler": by,
+            "late": {k: after["late"][k] - before["late"][k]
+                     for k in after["late"]},
+            "retries": after["retries"] - before["retries"],
+            "exact": after["exact"]}
+
+
+def host_want(handlers: list, late_ok: int = 0, retries: int = 0,
+              **outcomes) -> dict:
+    """The host_delta a step's schedule predicts: every action of
+    `handlers` (one a bag) ok, except the handlers named in `outcomes`
+    (handler key → {outcome: n}, the rest of its actions ok)."""
+    by: dict = {}
+    for h in handlers:
+        row = by.setdefault(h, {"submitted": 0})
+        row["submitted"] += 1
+    for key, outs in outcomes.items():
+        h = f"{key}.istio-system"
+        by.setdefault(h, {"submitted": 0})
+        by[h].update({o: n for o, n in outs.items() if n})
+    for h, row in by.items():
+        rest = row["submitted"] - sum(v for k, v in row.items()
+                                      if k != "submitted")
+        if rest:
+            row["ok"] = rest
+    return {"by_handler": by, "late": {"ok": late_ok, "error": 0},
+            "retries": retries, "exact": True}
+
+
+def host_step(label: str, want: dict, before: dict, wait_late: bool = False
+              ) -> dict:
+    """Hold host_delta(before) against `want`; with wait_late, first wait
+    (at most 5 s) for the late completions `want` predicts."""
+    end = time.perf_counter() + 5.0
+    got = host_delta(before)
+    while wait_late and got["late"] != want["late"] and \
+            time.perf_counter() < end:
+        time.sleep(0.005)
+        got = host_delta(before)
+    if got != want:
+        raise AssertionError(f"{label}: host actions {got}, the schedule "
+                             f"predicts {want}")
+    return got
+
+
+def with_fallback(resp, result):
+    """A copy of `resp` with one more host result merged the
+    dispatcher's way (lowest rule wins, TTLs take the min)."""
+    from istio_tpu_torch.runtime.dispatcher import Dispatcher
+    out = dataclasses.replace(resp)
+    Dispatcher._combine(out, result)
+    return out
+
+
+def grants_store():
+    """tests/test_cache_grants.py's store (a denier on /admin paths),
+    plus a rule no request matches, so the world keeps a rule when the
+    deny rule is deleted."""
+    from istio_tpu_torch.runtime.store import MemStore
+    s = MemStore()
+    s.set(("handler", "istio-system", "denyadmin"), {
+        "adapter": "denier",
+        "params": {"status_code": 7, "status_message": "admin is off limits",
+                   "valid_duration_s": 600.0, "valid_use_count": 100000}})
+    s.set(("instance", "istio-system", "nothing"), {
+        "template": "checknothing", "params": {}})
+    s.set(("rule", "istio-system", "r-deny"), {
+        "match": 'request.path.startsWith("/admin")',
+        "actions": [{"handler": "denyadmin", "instances": ["nothing"]}]})
+    s.set(("rule", "istio-system", "r-none"), {
+        "match": 'destination.service == "nowhere.prod.svc.cluster.local"',
+        "actions": [{"handler": "denyadmin", "instances": ["nothing"]}]})
+    return s
+
+
+GRANT_ARGS = dict(check_grants=True, grant_ttl_floor_s=0.3,
+                  grant_ttl_cap_s=1.2, grant_ttl_ramp_per_s=2.0,
+                  buckets=(8,), max_batch=8)
+
+
+def executor_phase() -> dict:
+    """Phase 14b: the adapter-executor plane on the card. A card server
+    (EXECUTOR_ARGS) and a device="cpu" server with host_executor=False
+    (the inline oracle) on one make_store(10_000, host_overlay_every=5)
+    store; overlay_traffic at B = 64 and 256. (a) clean: every response
+    equal to the inline oracle's, every action ok, one trip's launches
+    held against their plain versions; (b) one injected cilist failure,
+    absorbed by the lane's retry; (c) a cilist adapter that raises on
+    both servers, in a batch of host_breaker_failures cilist rows:
+    INTERNAL with the inline path's status and message
+    (after the exception's type name the executor adds, as the
+    reference's does), the lane opens, the next batch answers
+    UNAVAILABLE (breaker_open), and after host_breaker_reset_s the
+    half-open probe closes it; (d) provlist wedged, a batch under a 50
+    ms deadline: its rows UNAVAILABLE (overrun / expired) within the
+    deadline and EXECUTOR_SLACK_S, the other rows unchanged (the
+    bulkhead), the lane open, a second batch short-circuited; once
+    unwedged, the late completions counted and the answers equal (a)'s
+    again; (e) host_fail_policy "open": the wedged rows answer OK with a
+    1 s / 1-use TTL; (f) quota() through the memquota lane under the
+    server's default deadline: grants equal to the CPU server's, a
+    wedged call answering UNAVAILABLE by that deadline, injected
+    failures and the open lane answering quota_fallback's results, one
+    K1 trip a call; (g) a check_grants=True card server: TTLs in [floor,
+    cap] for an allow and a deny, the policy revoking before the
+    dispatcher swap on a store delete, the first response of the new
+    generation within the floor's bound; (h) the maintenance lane: a
+    list provider refreshed every 0.1 s, a failing one counted and its
+    last good list kept. Outcomes by handler, retries, late completions,
+    device trips and launches are exact in every step; the device
+    breaker never moves. Timed: check_many at EXECUTOR_B with the
+    executor on and off (the dispatcher's executor set aside), quota()."""
+    import numpy as np
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.adapters.list_adapter import ListHandler
+    from istio_tpu_torch.adapters.sdk import CheckResult, QuotaArgs
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.runtime import (RuntimeServer, ServerArgs, grants,
+                                         monitor)
+    from istio_tpu_torch.runtime.executor import (AdapterExecutor,
+                                                  ExecutorConfig,
+                                                  quota_fallback)
+    from istio_tpu_torch.runtime.fused import FusedPlan
+    from istio_tpu_torch.runtime.resilience import CHAOS
+    from istio_tpu_torch.testing import workloads
+
+    t_phase = time.perf_counter()
+    ci, prov, _dyn = HOST_HANDLERS
+    store = workloads.make_store(HEADLINE_RULES, host_overlay_every=5)
+    srv = RuntimeServer(store, ServerArgs(**EXECUTOR_ARGS), device="cuda")
+    cpu = RuntimeServer(store, ServerArgs(
+        host_executor=False, **{**CPU_SERVER, "buckets": (64, 256)}),
+        device="cpu")
+    gstore = grants_store()
+    gsrv = RuntimeServer(gstore, ServerArgs(**GRANT_ARGS), device="cuda")
+    try:
+        d = srv.controller.dispatcher
+        rs = d.snapshot.ruleset
+        trip = served_trip(rs)
+        win = ResilienceWindow(srv, trip)
+        ex = srv.executor
+        traffic = {b: overlay_traffic(b, HEADLINE_RULES) for b in EXECUTOR_B}
+        bags, hs = traffic[64]
+        n_kind = {h: hs.count(h) for h in HOST_HANDLERS}
+        want_cpu = {b: cpu.check_many(tb) for b, (tb, _) in traffic.items()}
+        clean = want_cpu[64]
+        log(f"[14b] card server {EXECUTOR_ARGS}, inline CPU server and a "
+            f"check_grants card server built in "
+            f"{time.perf_counter() - t_phase:.2f} s; "
+            f"{len(d.fused.host_actions)} host-overlay rules; B=64 actions "
+            f"by handler {n_kind}; published refreshables "
+            f"{sorted(ex.snapshot()['maintenance'])}")
+
+        kernels.launches.reset()
+        # (a) clean, both batch sizes; one B=256 trip captured
+        for b, (tb, th) in traffic.items():
+            h0 = monitor.host_action_counters()
+            plan = srv.controller.dispatcher.fused
+            quota0 = plan.engine.quota_counts.clone()
+            with kernels.launches.capture() as probe:
+                got = win.run(f"(a) clean B={b}",
+                              lambda: srv.check_many(tb), 1)
+            compare_responses(f"[14b a] B={b}", got, want_cpu[b])
+            host_step(f"(a) B={b}", host_want(th), h0)
+        torch.cuda.synchronize()
+        with uncounted():
+            check_kernels(probe, quota0)
+        log(f"[14b a] B=64 and 256: every response equal to the inline "
+            f"oracle's; every host action ok, ledger exact; one device "
+            f"trip a batch; the B=256 trip's {len(probe)} launches equal "
+            "their plain versions")
+
+        # (b) one injected failure on cilist: the retry absorbs it
+        h0 = monitor.host_action_counters()
+        i0 = CHAOS.injected_adapter
+        CHAOS.adapter_failures[ci] = 1
+        got = win.run("(b) one adapter failure",
+                      lambda: srv.check_many(bags), 1)
+        compare_responses("[14b b]", got, clean)
+        host_step("(b)", host_want(hs, retries=1), h0)
+        if (CHAOS.injected_adapter - i0, ex.lane(ci).breaker.state) != \
+                (1, "closed"):
+            raise AssertionError("(b) injected / lane state")
+        CHAOS.reset()
+        log("[14b b] one injected cilist failure: one retry, every answer "
+            "equal to (a)'s, the lane closed")
+
+        # (c) a cilist adapter that raises, on both servers
+        def flaky(template, instance):
+            raise RuntimeError("flaky adapter (raised by chip_smoke)")
+
+        raising = [x.controller.dispatcher.handlers[ci] for x in (srv, cpu)]
+        for h in raising:
+            h.handle_check = flaky
+        # the inline loop logs a traceback a failed action
+        quiet = logging.getLogger("istio_tpu_torch.runtime.dispatcher")
+        level = quiet.level
+        quiet.setLevel(logging.CRITICAL)
+        try:
+            # exactly host_breaker_failures cilist rows: the lane's
+            # workers run while the fold still submits, so in a larger
+            # batch the lane opens part way through the submissions
+            few = bags[:3 * EXECUTOR_ARGS["host_breaker_failures"]]
+            n_few = hs[:len(few)].count(ci)
+            want_c = cpu.check_many(few)
+            h0 = monitor.host_action_counters()
+            got = win.run("(c) raising adapter",
+                          lambda: srv.check_many(few), 1)
+            host_step("(c) batch 1", host_want(
+                hs[:len(few)], retries=n_few, cilist={"error": n_few}), h0)
+            inline_msgs = 0
+            for i, (a, w) in enumerate(zip(got, want_c)):
+                if hs[i] == ci:
+                    # the reference's executor names the exception's type
+                    # in its INTERNAL message; the inline loop does not
+                    w = dataclasses.replace(w, status_message=w.status_message
+                                            .replace("adapter panic: ",
+                                                     "adapter panic: "
+                                                     "RuntimeError: "))
+                    inline_msgs += w.status_code == 13
+                compare_responses(f"[14b c] row {i}", [a], [w])
+            if not inline_msgs or ex.lane(ci).breaker.state != "open":
+                raise AssertionError(f"(c) {inline_msgs} INTERNAL rows, lane "
+                                     f"{ex.lane(ci).breaker.state}")
+            h0 = monitor.host_action_counters()
+            got = win.run("(c) lane open", lambda: srv.check_many(bags), 1)
+            host_step("(c) batch 2", host_want(
+                hs, cilist={"breaker_open": n_kind[ci]}), h0)
+            fb = CheckResult(status_code=14, status_message=(
+                "host adapter unavailable (breaker_open)"))
+            compare_responses("[14b c] lane open", got, [
+                with_fallback(c, fb) if h == ci else c
+                for c, h in zip(clean, hs)])
+        finally:
+            quiet.setLevel(level)
+            for h in raising:
+                del h.handle_check
+        time.sleep(EXECUTOR_ARGS["host_breaker_reset_s"] + 0.01)
+        h0 = monitor.host_action_counters()
+        got = win.run("(c) half-open probe",
+                      lambda: srv.check_many(bags[:1]), 1)
+        compare_responses("[14b c] probe", got, clean[:1])
+        host_step("(c) probe", host_want(hs[:1]), h0)
+        if ex.lane(ci).breaker.state != "closed":
+            raise AssertionError("(c) the probe left the lane "
+                                 f"{ex.lane(ci).breaker.state}")
+        log(f"[14b c] a raising cilist adapter: {n_few} rows INTERNAL "
+            "as the inline path answers (its message after the type name), "
+            f"{n_few} retries, the lane open; the next batch "
+            "UNAVAILABLE (breaker_open) on those rows, the rest unchanged; "
+            "the half-open probe closed the lane")
+
+        # (d) provlist wedged under a 50 ms batch deadline; (e) fail-open
+        def wedged(label, policy):
+            ex.config.fail_policy = policy
+            h0 = monitor.host_action_counters()
+            CHAOS.wedge_adapter(prov)
+            try:
+                t = time.perf_counter()
+                got = win.run(label, lambda: srv._run_check_batch(
+                    bags, deadline=time.perf_counter()
+                    + EXECUTOR_DEADLINE_S), 1)
+                wall = time.perf_counter() - t
+                state = ex.lane(prov).breaker.state
+                again = win.run(label + " lane open", lambda:
+                                srv._run_check_batch(
+                                    bags, deadline=time.perf_counter()
+                                    + EXECUTOR_DEADLINE_S), 1)
+            finally:
+                CHAOS.unwedge_adapter(prov)
+                ex.config.fail_policy = "closed"
+            n_p = n_kind[prov]
+            mid = host_delta(h0)["by_handler"][prov]
+            over = mid.get("overrun", 0)
+            if over > 1 or over + mid.get("expired", 0) != n_p:
+                raise AssertionError(f"{label}: provlist outcomes {mid}")
+            # the first claim waits out the deadline (overrun), the later
+            # ones find it gone (expired); which of the two the first one
+            # counts depends on the host's time to the claim
+            host_step(label, host_want(
+                hs + hs, late_ok=n_p, provlist={
+                    "overrun": over, "expired": n_p - over,
+                    "breaker_open": n_p}), h0, wait_late=True)
+            if wall > EXECUTOR_DEADLINE_S + EXECUTOR_SLACK_S or \
+                    state != "open":
+                raise AssertionError(f"{label}: {wall:.3f} s, lane {state}")
+            return got, again, wall
+
+        got, again, wall = wedged("(d) provlist wedged", "closed")
+        for i, (a, c, h) in enumerate(zip(got, clean, hs)):
+            if h == prov:
+                if a.status_code != (14 if c.status_code == 0
+                                     else c.status_code) or \
+                        "host adapter unavailable (" not in a.status_message:
+                    raise AssertionError(f"(d) row {i}: {a}")
+            else:
+                compare_responses(f"[14b d] row {i}", [a], [c])
+        compare_responses("[14b d] lane open", again, [
+            with_fallback(c, CheckResult(status_code=14, status_message=(
+                "host adapter unavailable (breaker_open)"))) if h == prov
+            else c for c, h in zip(clean, hs)])
+        time.sleep(EXECUTOR_ARGS["host_breaker_reset_s"] + 0.01)
+        h0 = monitor.host_action_counters()
+        got = win.run("(d) recovered", lambda: srv.check_many(bags), 1)
+        compare_responses("[14b d] recovered", got, clean)
+        host_step("(d) recovered", host_want(hs), h0)
+        log(f"[14b d] provlist wedged: {n_kind[prov]} rows UNAVAILABLE in "
+            f"{wall * 1e3:.1f} ms (deadline {EXECUTOR_DEADLINE_S * 1e3:.0f} "
+            "ms), every other row equal to (a)'s, the lane open and the "
+            "next batch short-circuited; once unwedged the late completions "
+            "counted (their successes close the lane, as the reference's "
+            "do) and every answer equal to (a)'s")
+
+        fo = CheckResult(status_code=0, valid_duration_s=1.0,
+                         valid_use_count=1)
+        got, again, wall = wedged("(e) fail open", "open")
+        for tag, out in (("wedged", got), ("lane open", again)):
+            compare_responses(f"[14b e] {tag}", out, [
+                with_fallback(c, fo) if h == prov else c
+                for c, h in zip(clean, hs)])
+        time.sleep(EXECUTOR_ARGS["host_breaker_reset_s"] + 0.01)
+        h0 = monitor.host_action_counters()
+        compare_responses("[14b e] recovered", win.run(
+            "(e) recovered", lambda: srv.check_many(bags), 1), clean)
+        host_step("(e) recovered", host_want(hs), h0)
+        log("[14b e] host_fail_policy open: the wedged provlist rows answer "
+            "OK with a 1 s / 1-use TTL (deny rows keep their status), in "
+            f"{wall * 1e3:.1f} ms")
+
+        walls = {}
+        for b, (tb, th) in traffic.items():
+            walls[b] = {}
+            for mode in ("on", "off"):
+                d = srv.controller.dispatcher
+                d.executor = ex if mode == "on" else None
+                try:
+                    h0 = monitor.host_action_counters()
+
+                    def loop(tb=tb):
+                        ws = []
+                        for i in range(EXECUTOR_ITERS + 2):
+                            t = time.perf_counter()
+                            srv.check_many(tb)
+                            if i >= 2:
+                                ws.append((time.perf_counter() - t) * 1e3)
+                        return ws
+
+                    ws = win.run(f"walls B={b} executor {mode}", loop,
+                                 EXECUTOR_ITERS + 2)
+                finally:
+                    d.executor = ex
+                host_step(f"walls B={b} {mode}", host_want(
+                    th * (EXECUTOR_ITERS + 2) if mode == "on" else []), h0)
+                walls[b][mode] = {"p50_ms": float(np.percentile(ws, 50)),
+                                  "p99_ms": float(np.percentile(ws, 99))}
+        log("[14b] check_many on the overlay world, executor on / off: "
+            + ", ".join(f"B={b} p50 {r['on']['p50_ms']:.4f} / "
+                        f"{r['off']['p50_ms']:.4f} ms p99 "
+                        f"{r['on']['p99_ms']:.4f} / {r['off']['p99_ms']:.4f} "
+                        "ms" for b, r in walls.items()))
+
+        # (f) quota() through the memquota lane
+        g = rs.geometry
+        k1_trip = {"rule_match": 1, "dfa_scan": g["n_dfa_groups"],
+                   "byte_pred": g["n_byte_groups"],
+                   "atom_eval": int(g["n_prog_atoms"] > 0)}
+        qbags = [bag_from_mapping({"source.user": f"user{k % 7}",
+                                   "destination.service":
+                                       f"svc{k}.ns{k % 23}.svc.cluster.local"})
+                 for k in range(EXECUTOR_QUOTA_ITERS)]
+        h0 = monitor.host_action_counters()
+        k0 = dict(kernels.launches)
+        i0 = CHAOS.injected_adapter
+        qw = []
+        for k, qb in enumerate(qbags):
+            qa = QuotaArgs(quota_amount=1 + k % 3)
+            t = time.perf_counter()
+            r = srv.quota(qb, "rq", qa)
+            qw.append((time.perf_counter() - t) * 1e3)
+            w = cpu.quota(qb, "rq", qa)
+            if (r.granted_amount, r.status_code, r.status_message) != \
+                    (w.granted_amount, w.status_code, w.status_message):
+                raise AssertionError(f"(f) quota {k}: card {r}, CPU {w}")
+        calls = len(qbags)
+        CHAOS.wedge_adapter(MQ_HANDLER)
+        try:
+            t = time.perf_counter()
+            r = srv.quota(qbags[0], "rq", QuotaArgs(quota_amount=2))
+            q_wall = time.perf_counter() - t
+        finally:
+            CHAOS.unwedge_adapter(MQ_HANDLER)
+        calls += 1
+        dl = EXECUTOR_ARGS["default_check_deadline_ms"] / 1e3
+        if r != quota_fallback("closed", "overrun", 2) or \
+                not dl <= q_wall < dl + EXECUTOR_SLACK_S:
+            raise AssertionError(f"(f) wedged quota {r} in {q_wall:.3f} s")
+        host_step("(f) wedged", {
+            "by_handler": {MQ_HANDLER: {"submitted": calls,
+                                        "ok": calls - 1, "overrun": 1}},
+            "late": {"ok": 1, "error": 0}, "retries": 0, "exact": True},
+            h0, wait_late=True)
+        CHAOS.adapter_failures[MQ_HANDLER] = 10 ** 6
+        msg = (f"RuntimeError: chaos: injected adapter failure "
+               f"({MQ_HANDLER})")
+        for k, (policy, reason) in enumerate((("error", msg),
+                                              ("error", msg),
+                                              ("closed", "breaker_open"))):
+            r = srv.quota(qbags[k], "rq", QuotaArgs(quota_amount=3))
+            if r != quota_fallback(policy, reason, 3):
+                raise AssertionError(f"(f) failing quota {k}: {r}")
+        calls += 3
+        injected = CHAOS.injected_adapter - i0
+        CHAOS.reset()
+        time.sleep(EXECUTOR_ARGS["host_breaker_reset_s"] + 0.01)
+        r, w = (x.quota(qbags[1], "rq", QuotaArgs(quota_amount=1))
+                for x in (srv, cpu))
+        calls += 1
+        if (r.granted_amount, r.status_code) != \
+                (w.granted_amount, w.status_code) or \
+                ex.lane(MQ_HANDLER).breaker.state != "closed":
+            raise AssertionError(f"(f) probe {r} / {w}, lane "
+                                 f"{ex.lane(MQ_HANDLER).breaker.state}")
+        host_step("(f)", {
+            "by_handler": {MQ_HANDLER: {
+                "submitted": calls, "ok": calls - 4, "overrun": 1,
+                "error": 2, "breaker_open": 1}},
+            "late": {"ok": 1, "error": 0}, "retries": 2, "exact": True}, h0)
+        launched = {k: kernels.launches[k] - k0[k] for k in kernels.KERNELS}
+        want_l = {k: calls * k1_trip.get(k, 0) for k in kernels.KERNELS}
+        if launched != want_l or injected != 4:
+            raise AssertionError(f"(f) launches {launched}, want {want_l}; "
+                                 f"injected {injected}")
+        quota_walls = {"p50_ms": float(np.percentile(qw, 50)),
+                       "p99_ms": float(np.percentile(qw, 99))}
+        log(f"[14b f] quota(): {EXECUTOR_QUOTA_ITERS} grants equal to the "
+            f"CPU server's (p50 {quota_walls['p50_ms']:.4f} ms p99 "
+            f"{quota_walls['p99_ms']:.4f} ms); a wedged backend answered "
+            f"UNAVAILABLE by the default deadline in {q_wall * 1e3:.1f} ms; "
+            "2 injected failures INTERNAL, the open lane UNAVAILABLE, as "
+            f"quota_fallback builds them; the probe closed the lane; "
+            f"{calls} calls, {calls} K1 trips: launches {launched}")
+
+        # (g) check-cache grants on the check_grants card server
+        gwin = ResilienceWindow(gsrv, served_trip(
+            gsrv.controller.dispatcher.snapshot.ruleset))
+        mk = bag_from_mapping
+        allow = {"destination.service": "web.prod.svc.cluster.local",
+                 "request.path": "/api/items"}
+        deny = dict(allow, **{"request.path": "/admin/keys"})
+        pol = gsrv.grants
+        floor, cap = pol.ttl_floor_s, pol.ttl_cap_s
+        got = gwin.run("(g) grants", lambda: gsrv.check_many(
+            [mk(dict(allow)), mk(dict(deny))]), 1)
+        if [r.status_code for r in got] != [0, 7] or not all(
+                floor <= r.valid_duration_s <= cap and
+                grants.USE_FLOOR <= r.valid_use_count <= grants.USE_CAP
+                for r in got):
+            raise AssertionError(f"(g) grants {got}")
+        old = gsrv.controller.dispatcher
+        seen: list = []
+        real = pol.on_publish
+
+        def spy(changed=None):
+            seen.append((gsrv.controller._dispatcher is old,
+                         pol.generation))
+            real(changed)
+
+        pol.on_publish = spy
+        warm_trips: list = []
+        real_warm = FusedPlan.prewarm
+
+        def counted_warm(plan, buckets):
+            warm_trips.append(len(plan.all_warm_shapes(buckets)))
+            return real_warm(plan, buckets)
+
+        FusedPlan.prewarm = counted_warm
+        k0 = dict(kernels.launches)
+        try:
+            gen0 = pol.generation
+            gstore.delete(("rule", "istio-system", "r-deny"))
+            end = time.perf_counter() + 60.0
+            while gsrv.controller.dispatcher is old:
+                if time.perf_counter() > end:
+                    raise AssertionError("(g) the publish never landed")
+                time.sleep(0.001)
+            # the new generation's world has no byte group left
+            gwin2 = ResilienceWindow(gsrv, served_trip(
+                gsrv.controller.dispatcher.snapshot.ruleset))
+            first = gwin2.run("(g) new generation", lambda: gsrv.check_many(
+                [mk(dict(deny)), mk(dict(allow))]), 1)
+        finally:
+            pol.on_publish = real
+            FusedPlan.prewarm = real_warm
+        st = pol.stats()
+        age_q = (st["global_age_s"] // pol.quantum_s) * pol.quantum_s
+        bound = min(cap, floor + age_q * pol.ttl_ramp_per_s)
+        k1 = kernels.launches["rule_match"] - k0["rule_match"]
+        if seen != [(True, gen0)] or pol.generation != gen0 + 1 or \
+                [r.status_code for r in first] != [0, 0] or \
+                not all(floor <= r.valid_duration_s <= bound + 0.05
+                        for r in first) or k1 != 1 + sum(warm_trips):
+            raise AssertionError(
+                f"(g) revocations {seen} (generation {gen0} → "
+                f"{pol.generation}); first responses {first}, bound "
+                f"{bound}; rule_match {k1}, warm trips {warm_trips}")
+        log(f"[14b g] grants: allow and deny TTLs in [{floor}, {cap}]; the "
+            "store delete revoked (generation "
+            f"{gen0} → {pol.generation}) while the old dispatcher still "
+            "served; the new generation's first responses OK at "
+            f"{first[0].valid_duration_s} s (bound {bound}); "
+            f"{sum(warm_trips)} warm trips + 1 served trip")
+
+        # (h) the maintenance lane
+        calls_h = {"ok": 0, "fail": 0}
+        failing = {"on": False}
+
+        def provider():
+            if failing["on"]:
+                calls_h["fail"] += 1
+                raise RuntimeError("provider down (raised by chip_smoke)")
+            calls_h["ok"] += 1
+            return ["ns2", "ns4"]
+
+        lh = ListHandler({"provider": provider, "refresh_interval_s": 0.1},
+                         env=None)
+        calls_h["ok"] = 0
+        t0 = int(monitor.LIST_REFRESH_TOTAL.value())
+        f0 = int(monitor.LIST_REFRESH_FAILURES.value())
+        mex = AdapterExecutor(ExecutorConfig(maintenance_tick_s=0.02))
+        try:
+            mex.register_refreshable("chip.provlist", lh)
+            end = time.perf_counter() + 10.0
+            while calls_h["ok"] < 2 and time.perf_counter() < end:
+                time.sleep(0.01)
+            failing["on"] = True
+            while calls_h["fail"] < 2 and time.perf_counter() < end:
+                time.sleep(0.01)
+        finally:
+            mex.close()
+        snap = mex.snapshot()["maintenance"]["chip.provlist"]
+        total = int(monitor.LIST_REFRESH_TOTAL.value()) - t0
+        fails = int(monitor.LIST_REFRESH_FAILURES.value()) - f0
+        keeps = [lh.handle_check("listentry", {"value": v}).ok
+                 for v in ("ns2", "ns3")]
+        if calls_h["ok"] < 2 or calls_h["fail"] < 2 or \
+                total != calls_h["ok"] + calls_h["fail"] or \
+                fails != calls_h["fail"] or \
+                (snap["refresh_total"], snap["refresh_failures"]) != \
+                (total, fails) or \
+                lh.refresh_stats()["refresh_failures"] != fails or \
+                keeps != [True, False]:
+            raise AssertionError(
+                f"(h) provider calls {calls_h}, refresh totals {total} / "
+                f"{fails}, maintenance view {snap}, last good list {keeps}")
+        log(f"[14b h] maintenance lane: {total} refreshes every 0.1 s, "
+            f"{fails} failing ones counted, the last good list kept")
+
+        out = path_counts("[14b] executor path", SERVED_KERNELS,
+                          win.trips + gwin.trips + calls + sum(warm_trips))
+        hc = monitor.host_action_counters()
+        if not hc["exact"] or [ln for ln in (ex.lane(h) for h in
+                                             HOST_HANDLERS + (MQ_HANDLER,))
+                               if ln.breaker.state != "closed"]:
+            raise AssertionError(f"(14b) at quiescence: {hc}")
+        seconds = time.perf_counter() - t_phase
+        log(f"[t] phase 14b took {seconds:.1f} s")
+        return {**out, "rows": [], "walls": walls, "quota": quota_walls,
+                "seconds": seconds}
+    finally:
+        CHAOS.reset()
+        for x in (srv, cpu, gsrv):
+            x.close()
+        store.close()
+        gstore.close()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7721,6 +8421,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"int32 peak {int_rate:.4g} op/s ({int_how})")
 
+    track_lanes()
     log(f"[t] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 2: build
     t0 = time.perf_counter()
@@ -7952,6 +8653,11 @@ def main() -> int:
     # before its drive
     rz = resilience_phase()
 
+    log(f"[t] phase 14b starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 14b: the adapter-executor plane, counters zeroed just
+    # before its drive
+    ex = executor_phase()
+
     log(f"[t] phase 15 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 15: result lines. K1-K6 keep the headline served path's
     # row; list_banks reports the list path's, field_eval the report
@@ -7961,7 +8667,7 @@ def main() -> int:
     # its kernel's rows on the other paths under "paths".
     paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
              "adapters": ac, "quota": qt, "routes": rt, "discovery": dc,
-             "seq": sq, "mesh": mh, "resilience": rz}
+             "seq": sq, "mesh": mh, "resilience": rz, "executor": ex}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
                             ("atom_eval", "authz", az),
@@ -8073,6 +8779,14 @@ def main() -> int:
             for b, r in rz["walls"].items())
         + f"; brownout shed {rz['sheds']}; continuous "
         f"{json.dumps(rz['continuous'])}")
+    log(f"executor (phase 14b, {ex['seconds']:.1f} s; check_many on the "
+        "overlay world, make_store(10_000, host_overlay_every=5), executor "
+        "on / off): " + ", ".join(
+            f"B={b} p50 {r['on']['p50_ms']:.4f} / {r['off']['p50_ms']:.4f} "
+            f"ms p99 {r['on']['p99_ms']:.4f} / {r['off']['p99_ms']:.4f} ms"
+            for b, r in ex["walls"].items())
+        + f"; quota() p50 {ex['quota']['p50_ms']:.4f} ms p99 "
+        f"{ex['quota']['p99_ms']:.4f} ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -4,19 +4,25 @@ Reference: mixer/adapter/list/list.go (1,905 LoC; HandleListEntry :68,
 list refresh :115-247). Entry types match the reference's
 ListEntryType: STRINGS, CASE_INSENSITIVE_STRINGS, IP_ADDRESSES
 (entries are CIDRs or addresses), REGEX. Lists come from `overrides`
-config plus an optional provider read when the handler is built;
-`provider_url` supports file:// URLs and `provider` is a callable
-injection seam.
+config plus an optional refreshing provider; `provider_url` supports
+file:// URLs and `provider` is a callable injection seam.
 
 Port of istio_tpu/adapters/list_adapter.py: host code, the reference's
-own, less the provider's TTL refresh loop (`refresh`, driven by the
-adapter executor's maintenance lane, which is not ported).
+own. `refresh()` is the body of the provider's TTL loop
+(list.go:115-247), run every `refresh_interval_s` by the adapter
+executor's maintenance lane (runtime/executor.py). A refresh changes
+only the entries this handler holds. It never reaches a device list
+bank: the fused plan keeps every list with a provider on the host
+(runtime/fused._split_list_instances), and the banks it builds from
+provider-less lists come from the snapshot's config, never from a
+refresh.
 """
 from __future__ import annotations
 
 import ipaddress
 import re
 import threading
+import time
 from typing import Any, Callable, Mapping
 from urllib.parse import urlparse
 
@@ -48,8 +54,51 @@ class ListHandler(Handler):
                 ln.strip() for ln in open(path, encoding="utf-8")
                 if ln.strip()]
         self._base_overrides = tuple(config.get("overrides", ()))
+        # a provider that starts failing keeps the LAST GOOD list
+        # serving: these counts and the last refresh's age are the only
+        # signal of it
+        self.refresh_failures = 0
+        self.last_refresh_wall: float | None = None
+        self.last_refresh_error: str | None = None
         self._set_entries(list(self._base_overrides) +
                           (self._provider() if self._provider else []))
+        if self._provider is not None:
+            self.last_refresh_wall = time.time()
+        self.refresh_interval_s = float(
+            config.get("refresh_interval_s", 60.0))
+
+    def refresh(self) -> None:
+        """Pull the provider's list again. A failing provider never
+        replaces the last good list: the pull comes before
+        _set_entries, and the failure is counted and raised, so the
+        maintenance lane's counters move."""
+        if self._provider is None:
+            return
+        try:
+            entries = self._provider()
+        except Exception as exc:
+            with self._lock:
+                self.refresh_failures += 1
+                self.last_refresh_error = f"{type(exc).__name__}: {exc}"
+            raise
+        self._set_entries(list(self._base_overrides) + list(entries))
+        with self._lock:
+            self.last_refresh_wall = time.time()
+            self.last_refresh_error = None
+
+    def refresh_stats(self) -> dict:
+        """The provider's freshness."""
+        with self._lock:
+            last = self.last_refresh_wall
+            return {
+                "provider": self._provider is not None,
+                "entries": len(self.config_overrides),
+                "refresh_failures": self.refresh_failures,
+                "last_refresh_age_s":
+                    round(time.time() - last, 3) if last is not None
+                    else None,
+                "last_refresh_error": self.last_refresh_error,
+            }
 
     def _set_entries(self, entries: list[str]) -> None:
         et = self.entry_type

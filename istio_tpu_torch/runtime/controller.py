@@ -22,9 +22,14 @@ new plan's warm, with the new generation's pools, before the publish
 (the server warms its in-step quota trip there).
 
 `mesh` (parallel/mesh.Mesh, dp × mp) makes every plan's engine step the
-sharded one (runtime/fused.build_fused_plan). Not carried (each raises
-NotPorted when asked for): the config canary, the adapter executor and
-check-cache grants.
+sharded one (runtime/fused.build_fused_plan). `executor`
+(runtime/executor.AdapterExecutor) and `grants`
+(runtime/grants.GrantPolicy) go to every published Dispatcher; the
+grant policy revokes (`on_publish(None)`) immediately before each
+dispatcher swap, so a request served by the new generation never
+carries a grant computed from the old one's age. Not carried (each
+raises NotPorted when asked for): the config canary, the overlapped h2d
+staging and sharded serving (`warm_parent_plans=False`).
 """
 from __future__ import annotations
 
@@ -68,8 +73,7 @@ class Controller:
                  overlap_h2d: bool = False,
                  device: str | torch.device = "cuda"):
         for name, value in (("canary", canary),
-                            ("on_canary_reject", on_canary_reject),
-                            ("executor", executor), ("grants", grants)):
+                            ("on_canary_reject", on_canary_reject)):
             if value is not None:
                 raise NotPorted(f"Controller({name}=...)")
         if overlap_h2d:
@@ -78,6 +82,10 @@ class Controller:
             raise NotPorted("Controller(warm_parent_plans=False) "
                             "(sharded serving)")
         self.store = store
+        # handed to every published Dispatcher; the executor's lanes and
+        # breakers outlive snapshots
+        self.executor = executor
+        self.grants = grants
         self.identity_attr = identity_attr
         self.debounce_s = debounce_s
         self.on_publish = on_publish
@@ -162,7 +170,13 @@ class Controller:
         handlers, orphans = self._handler_table.rebuild(snapshot)
         dispatcher = Dispatcher(snapshot, handlers, self.identity_attr,
                                 fused=plan,
-                                buckets=self.prewarm_buckets)
+                                buckets=self.prewarm_buckets,
+                                executor=self.executor,
+                                grants=self.grants)
+        if self.grants is not None:
+            # revoke BEFORE the swap: the serving surface is this
+            # controller's dispatcher (monolithic mode)
+            self.grants.on_publish(None)
         self._dispatcher = dispatcher      # atomic publish (GIL ref swap)
         if orphans:
             t = threading.Timer(

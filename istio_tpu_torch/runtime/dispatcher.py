@@ -22,12 +22,19 @@ every lowered instance field (runtime/report_lower.py), and adapters
 receive finished instances. `check(instep=...)` carries an in-step quota
 allocation on the check trip (FusedPlan.packed_check_instep), and
 `quota` is the host quota path through the adapter, and `preprocess`
-the APA phase (one resolve trip per bag, as in the reference). Not
-carried in this slice: the adapter-executor plane, check-cache grants,
-the canary recorder and the overlapped h2d staging (their constructor
-arguments raise NotPorted when set).
-Host-overlay and host quota actions run inline, the reference's
-behavioural-oracle loop.
+the APA phase (one resolve trip per bag, as in the reference).
+
+With an `executor` (runtime/executor.AdapterExecutor) the fused path's
+host-overlay CHECK actions and quota()'s adapter call run on the
+handlers' lanes, bounded by the batch's deadline; without one they run
+inline in this thread, the reference's behavioural-oracle loop (the
+generic path and the host oracle always run them inline). With `grants`
+(runtime/grants.GrantPolicy) every check response's TTL and use count
+are min-folded with its namespace's grant. The reference also marks the
+grant fold as a stage of the flight recorder's tape
+(`RECORDER.stage_mark("grant")`); runtime/forensics.py is not ported, so
+that is left out. Not carried: the canary recorder and the overlapped
+h2d staging (their constructor arguments raise NotPorted when set).
 """
 from __future__ import annotations
 
@@ -97,16 +104,22 @@ class Dispatcher:
                  executor=None,
                  grants=None,
                  overlap_h2d: bool = False):
-        for name, value in (("recorder", recorder), ("executor", executor),
-                            ("grants", grants)):
-            if value is not None:
-                raise NotPorted(f"Dispatcher({name}=...)")
+        if recorder is not None:
+            raise NotPorted("Dispatcher(recorder=...)")
         if overlap_h2d:
             raise NotPorted("Dispatcher(overlap_h2d=True)")
         self.snapshot = snapshot
         self.handlers = dict(handlers)
         self.identity_attr = identity_attr
         self.fused = fused
+        # AdapterExecutor: the fused path's host-overlay CHECK actions
+        # and quota()'s adapter calls run on its lanes; None keeps the
+        # inline loop
+        self.executor = executor
+        # GrantPolicy: every check response's TTL / use count is
+        # min-folded with its namespace's grant
+        self.grants = grants
+        self._ns_name_of: dict | None = None   # lazy rs.ns_ids inverse
         # False = shadow-replay mode: no stage histograms, no
         # rule-telemetry folds, no chaos seam
         self.observe = observe
@@ -124,6 +137,31 @@ class Dispatcher:
     # ------------------------------------------------------------------
     # resolution
     # ------------------------------------------------------------------
+
+    def _grants_for_rows(self, ns_ids) -> list | None:
+        """Per-row (ttl_s, use_count) from the grant policy, one policy
+        round per distinct namespace of the batch; None when grants are
+        off."""
+        if self.grants is None:
+            return None
+        inv = self._ns_name_of
+        if inv is None:
+            inv = {v: k for k, v in self.snapshot.ruleset.ns_ids.items()}
+            self._ns_name_of = inv
+        uniq, inverse = np.unique(np.asarray(ns_ids), return_inverse=True)
+        gs = self.grants.grants_for([inv.get(int(u), "") for u in uniq])
+        return [gs[i] for i in inverse.reshape(-1)]
+
+    def _apply_grants(self, bags: Sequence[Bag], responses) -> None:
+        """The grant fold of the generic and oracle paths (a namespace
+        lookup per bag): min() like every other TTL source."""
+        if self.grants is None:
+            return
+        for bag, resp in zip(bags, responses):
+            ttl, uses = self.grants.grant(
+                _namespace_of(bag, self.identity_attr))
+            resp.valid_duration_s = min(resp.valid_duration_s, ttl)
+            resp.valid_use_count = min(resp.valid_use_count, uses)
 
     def _request_ns_ids(self, bags: Sequence[Bag]) -> np.ndarray:
         return np.asarray([self.snapshot.ruleset.namespace_id(
@@ -259,11 +297,14 @@ class Dispatcher:
         `on_pull(granted, gate)` right after the one pull, before any
         per-row response python. `pre_tensorized`: (batch, ns_ids)
         computed by the caller; must correspond to `bags` exactly. Both
-        require the fused path. `deadline` is accepted for the batcher's
-        contract; host actions run inline."""
+        require the fused path. `deadline`: the batch's earliest row
+        deadline (an absolute time.perf_counter() instant, from the
+        batcher); host actions on the executor inherit it. None =
+        unbounded (but for a configured per-action timeout)."""
         if self.fused is not None:
             return self._check_fused(bags, instep=instep,
-                                     pre_tensorized=pre_tensorized)
+                                     pre_tensorized=pre_tensorized,
+                                     deadline=deadline)
         if instep is not None:
             raise ValueError("Dispatcher.check(instep=...) needs the fused "
                              "path")
@@ -271,13 +312,15 @@ class Dispatcher:
         t_respond = time.perf_counter()
         out = [self._check_one(bag, rule_idxs, vis)
                for bag, rule_idxs, vis in zip(bags, actives, visibles)]
+        self._apply_grants(bags, out)
         if self.observe:
             monitor.observe_stage("respond",
                                   time.perf_counter() - t_respond)
         return out
 
     def _check_fused(self, bags: Sequence[Bag], instep: Any = None,
-                     pre_tensorized: Any = None) -> list[CheckResponse]:
+                     pre_tensorized: Any = None,
+                     deadline: float | None = None) -> list[CheckResponse]:
         """Fused serving path: ONE device step computes rule matching +
         denier/list verdicts + TTLs for the whole batch; the host loop
         below only touches rules with non-fusable actions (and rules
@@ -355,121 +398,193 @@ class Dispatcher:
         qa_rules = sorted({qa[0] for qa in plan.quota_actions})
         qa_pos = [col_pos[r] for r in qa_rules]
 
-        # Referenced/presence construction deduplicated across the
-        # batch: uniform traffic produces a handful of distinct
-        # (referenced bits, presence bits) signatures. Shared objects
-        # are read-only by contract.
-        ref_of = None
-        if n_words:
-            signature = np.concatenate(
-                [ref_bits[:, :len(plan.item_names)],
-                 present_np.astype(np.uint8),
-                 map_present_np.astype(np.uint8),
-                 active_sub.astype(np.uint8)], axis=1)
-            uniq, inverse = np.unique(signature, axis=0,
-                                      return_inverse=True)
-            inverse = inverse.reshape(-1)
-            names = plan.item_names
-            n_items = len(names)
-            shared: list[tuple[tuple, dict]] = []
-            for u in range(uniq.shape[0]):
-                row = uniq[u]
-                referenced = {names[j]
-                              for j in np.nonzero(row[:n_items])[0]}
-                act_row = row[n_items + present_np.shape[1] +
-                              map_present_np.shape[1]:]
-                for ridx, extra in plan.unmapped_instance_attrs.items():
-                    if act_row[col_pos[ridx]]:
-                        referenced |= extra
-                pres_row = row[n_items:n_items + present_np.shape[1]]
-                mp_row = row[n_items + present_np.shape[1]:
-                             n_items + present_np.shape[1] +
-                             map_present_np.shape[1]]
-                presence: dict = {}
-                for item in referenced:
-                    if isinstance(item, tuple):
-                        col = lay.derived_slots.get(item)
-                        if col is not None:
-                            presence[item] = bool(pres_row[col])
-                    else:
-                        col = lay.slots.get(item)
-                        if col is not None:
-                            presence[item] = bool(pres_row[col])
+        # the executor plane: submit every host action NOW, so the
+        # adapter calls run on their lanes while the fold below decodes
+        # the referenced / presence planes; the response loop then
+        # claims them in rule order, bounded by the deadline. One list a
+        # row of (rule idx, HostAction or final CheckResult), in the
+        # order the inline loop would run them, so lowest-rule-index-
+        # wins merging is byte-identical
+        ex = self.executor
+        host_pending: list[list] | None = None
+        # an exception from the first submit to the last claim abandons
+        # every unclaimed action: the conservation ledger stays exact, and
+        # a retried batch never leaves its first submission dangling
+        try:
+            if ex is not None and len(ha):
+                from istio_tpu_torch.runtime.executor import check_fallback
+                host_pending = []
+                for b, bag in enumerate(bags):
+                    row: list = []
+                    host_pending.append(row)
+                    for ridx in ha[active_sub[b, ha_pos]]:
+                        ridx = int(ridx)
+                        for hc, template, inst_names in plan.host_actions[ridx]:
+                            handler = self._handler_for(hc)
+                            if handler is None:
+                                continue
+                            hq = _qualify(hc.name, hc.namespace)
+                            for iname in inst_names:
+                                try:
+                                    instance = snap.instances[
+                                        iname].build(bag)
+                                except EvalError as exc:
+                                    # the build stays on this thread
+                                    # (_safe_check parity)
+                                    monitor.DISPATCH_ERRORS.inc()
+                                    row.append((ridx, CheckResult(
+                                        status_code=INTERNAL,
+                                        status_message=str(exc))))
+                                    continue
+                                row.append((ridx, ex.submit(
+                                    hq, self._bound_check(handler, template,
+                                                          instance),
+                                    check_fallback)))
+
+            # Referenced/presence construction deduplicated across the
+            # batch: uniform traffic produces a handful of distinct
+            # (referenced bits, presence bits) signatures. Shared objects
+            # are read-only by contract.
+            ref_of = None
+            if n_words:
+                signature = np.concatenate(
+                    [ref_bits[:, :len(plan.item_names)],
+                     present_np.astype(np.uint8),
+                     map_present_np.astype(np.uint8),
+                     active_sub.astype(np.uint8)], axis=1)
+                uniq, inverse = np.unique(signature, axis=0,
+                                          return_inverse=True)
+                inverse = inverse.reshape(-1)
+                names = plan.item_names
+                n_items = len(names)
+                shared: list[tuple[tuple, dict]] = []
+                for u in range(uniq.shape[0]):
+                    row = uniq[u]
+                    referenced = {names[j]
+                                  for j in np.nonzero(row[:n_items])[0]}
+                    act_row = row[n_items + present_np.shape[1] +
+                                  map_present_np.shape[1]:]
+                    for ridx, extra in plan.unmapped_instance_attrs.items():
+                        if act_row[col_pos[ridx]]:
+                            referenced |= extra
+                    pres_row = row[n_items:n_items + present_np.shape[1]]
+                    mp_row = row[n_items + present_np.shape[1]:
+                                 n_items + present_np.shape[1] +
+                                 map_present_np.shape[1]]
+                    presence: dict = {}
+                    for item in referenced:
+                        if isinstance(item, tuple):
+                            col = lay.derived_slots.get(item)
+                            if col is not None:
+                                presence[item] = bool(pres_row[col])
                         else:
-                            mcol = lay.map_slots.get(item)
-                            if mcol is not None:
-                                presence[item] = bool(mp_row[mcol])
-                shared.append((tuple(sorted(referenced, key=str)),
-                               presence))
-            ref_of = [shared[i] for i in inverse]
-        elif plan.unmapped_instance_attrs:
-            # no layout items at all, but some rules still carry
-            # instance attrs — merge them per row
-            ref_of = []
-            for b in range(n_real):
-                referenced: set = set()
-                for ridx, extra in plan.unmapped_instance_attrs.items():
-                    if active_sub[b, col_pos[ridx]]:
-                        referenced |= extra
-                ref_of.append((tuple(sorted(referenced, key=str)), {}))
-        t_respond = time.perf_counter()
-        if observe:
-            monitor.observe_stage("fold", t_respond - t_overlay)
-        tele = plan.telemetry if observe else None
-        tele_span = tr._current() if tele is not None else None
-        out = []
-        for b, bag in enumerate(bags):
-            resp = CheckResponse()
-            resp.valid_duration_s = min(resp.valid_duration_s,
-                                        float(dur[b]))
-            resp.valid_use_count = min(resp.valid_use_count, int(uses[b]))
-            dev_rule = int(deny_rule[b])
-            dev_applied = False
-            host_active = ha[active_sub[b, ha_pos]] if len(ha) else ()
-            for ridx in host_active:
-                ridx = int(ridx)
-                # ties at ridx == dev_rule follow the rule's config
-                # action order: if its first CHECK action is fused, the
-                # device result applies before the host actions
-                if not dev_applied and (
-                        ridx > dev_rule or
-                        (ridx == dev_rule and
-                         dev_rule in plan.fused_first_rules)):
+                            col = lay.slots.get(item)
+                            if col is not None:
+                                presence[item] = bool(pres_row[col])
+                            else:
+                                mcol = lay.map_slots.get(item)
+                                if mcol is not None:
+                                    presence[item] = bool(mp_row[mcol])
+                    shared.append((tuple(sorted(referenced, key=str)),
+                                   presence))
+                ref_of = [shared[i] for i in inverse]
+            elif plan.unmapped_instance_attrs:
+                # no layout items at all, but some rules still carry
+                # instance attrs — merge them per row
+                ref_of = []
+                for b in range(n_real):
+                    referenced: set = set()
+                    for ridx, extra in plan.unmapped_instance_attrs.items():
+                        if active_sub[b, col_pos[ridx]]:
+                            referenced |= extra
+                    ref_of.append((tuple(sorted(referenced, key=str)), {}))
+            t_respond = time.perf_counter()
+            if observe:
+                monitor.observe_stage("fold", t_respond - t_overlay)
+            tele = plan.telemetry if observe else None
+            tele_span = tr._current() if tele is not None else None
+            # check-cache grants: one (ttl, uses) pair per distinct
+            # namespace, min-folded into every response, allow and deny
+            grant_of = self._grants_for_rows(ns_ids)
+            out = []
+            for b, bag in enumerate(bags):
+                resp = CheckResponse()
+                resp.valid_duration_s = min(resp.valid_duration_s,
+                                            float(dur[b]))
+                resp.valid_use_count = min(resp.valid_use_count, int(uses[b]))
+                dev_rule = int(deny_rule[b])
+                dev_applied = False
+                host_active = ha[active_sub[b, ha_pos]] if len(ha) else ()
+                pend = host_pending[b] if host_pending is not None else None
+                pi = 0
+                for ridx in host_active:
+                    ridx = int(ridx)
+                    # ties at ridx == dev_rule follow the rule's config
+                    # action order: if its first CHECK action is fused, the
+                    # device result applies before the host actions
+                    if not dev_applied and (
+                            ridx > dev_rule or
+                            (ridx == dev_rule and
+                             dev_rule in plan.fused_first_rules)):
+                        self._apply_device_status(resp, plan, dev_rule,
+                                                  int(status[b]))
+                        dev_applied = True
+                    if pend is not None:
+                        # claim this rule's pre-submitted results, each
+                        # wait bounded by the batch deadline: one that
+                        # does not resolve answers its fail policy
+                        while pi < len(pend) and pend[pi][0] == ridx:
+                            item = pend[pi][1]
+                            pi += 1
+                            result = item if isinstance(item, CheckResult) \
+                                else ex.resolve(item, deadline)
+                            self._combine(resp, result)
+                        continue
+                    for hc, template, inst_names in plan.host_actions[ridx]:
+                        handler = self._handler_for(hc)
+                        if handler is None:
+                            continue
+                        for iname in inst_names:
+                            ib = snap.instances[iname]
+                            result = self._safe_check(handler, template,
+                                                      ib, bag)
+                            self._combine(resp, result)
+                if not dev_applied:
                     self._apply_device_status(resp, plan, dev_rule,
                                               int(status[b]))
-                    dev_applied = True
-                for hc, template, inst_names in plan.host_actions[ridx]:
-                    handler = self._handler_for(hc)
-                    if handler is None:
-                        continue
-                    for iname in inst_names:
-                        ib = snap.instances[iname]
-                        result = self._safe_check(handler, template, ib,
-                                                  bag)
-                        self._combine(resp, result)
-            if not dev_applied:
-                self._apply_device_status(resp, plan, dev_rule,
-                                          int(status[b]))
-            if status[b] != OK:
-                resp.deny_rule = dev_rule
-                if tele is not None:
-                    tele.sample(dev_rule, int(status[b]), bag, tele_span)
-            if ref_of is not None:
-                resp.referenced, resp.referenced_presence = ref_of[b]
-            if qa_rules:
-                resp.active_quota_rules = tuple(
-                    r for r, p in zip(qa_rules, qa_pos)
-                    if active_sub[b, p])
-                resp.quota_context = self
-            else:
-                resp.active_quota_rules = ()
-            out.append(resp)
-        if observe:
-            monitor.observe_stage("respond",
-                                  time.perf_counter() - t_respond)
-            tr.emit("serve.overlay", time.perf_counter() - t_overlay,
-                    batch=len(bags))
-        return out
+                if status[b] != OK:
+                    resp.deny_rule = dev_rule
+                    if tele is not None:
+                        tele.sample(dev_rule, int(status[b]), bag, tele_span)
+                if ref_of is not None:
+                    resp.referenced, resp.referenced_presence = ref_of[b]
+                if qa_rules:
+                    resp.active_quota_rules = tuple(
+                        r for r, p in zip(qa_rules, qa_pos)
+                        if active_sub[b, p])
+                    resp.quota_context = self
+                else:
+                    resp.active_quota_rules = ()
+                if grant_of is not None:
+                    g_ttl, g_uses = grant_of[b]
+                    resp.valid_duration_s = min(resp.valid_duration_s,
+                                                g_ttl)
+                    resp.valid_use_count = min(resp.valid_use_count,
+                                               g_uses)
+                out.append(resp)
+            if observe:
+                monitor.observe_stage("respond",
+                                      time.perf_counter() - t_respond)
+                tr.emit("serve.overlay", time.perf_counter() - t_overlay,
+                        batch=len(bags))
+            return out
+        except BaseException:
+            if host_pending is not None:
+                for row in host_pending:
+                    for _ridx, item in row:
+                        if not isinstance(item, CheckResult):
+                            ex.abandon(item)
+            raise
 
     @staticmethod
     def _apply_device_status(resp: CheckResponse, plan, dev_rule: int,
@@ -502,6 +617,7 @@ class Dispatcher:
             active, visible, errs = oracle.resolve(bag, ns)
             n_err += errs
             out.append(self._check_one(bag, active, visible))
+        self._apply_grants(bags, out)
         if n_err:
             monitor.RESOLVE_ERRORS.inc(n_err)
         return out
@@ -545,6 +661,24 @@ class Dispatcher:
                     self._combine(resp, result)
         resp.referenced = tuple(sorted(referenced, key=str))
         return resp
+
+    @staticmethod
+    def _bound_check(handler: Handler, template: str, instance) -> Any:
+        """The zero-argument adapter call of one CHECK action on the
+        executor: _safe_check's dispatch leg. A failing action's
+        dispatch error is counted once, by check_fallback."""
+        def call():
+            with monitor.dispatch_timer():
+                return handler.handle_check(template, instance)
+        return call
+
+    @staticmethod
+    def _bound_quota(handler: Handler, template: str, instance,
+                     args: QuotaArgs) -> Any:
+        def call():
+            with monitor.dispatch_timer():
+                return handler.handle_quota(template, instance, args)
+        return call
 
     def _safe_check(self, handler: Handler, template: str, ib,
                     bag: Bag) -> CheckResult:
@@ -722,8 +856,9 @@ class Dispatcher:
     def quota(self, bag: Bag, quota_name: str, args: QuotaArgs,
               deadline: float | None = None) -> QuotaResult:
         """The host quota path: dispatches to at most ONE handler
-        (dispatcher.go:242-260), inline (the adapter-executor plane is
-        not ported; `deadline` is accepted for its contract)."""
+        (dispatcher.go:242-260). With an executor the adapter call runs
+        on its handler's lane, bounded by `deadline`; inline
+        otherwise."""
         actives = self._resolve([bag])[0][0]
         for ridx in actives:
             for hc, template, inst_names in self.snapshot.actions_for(
@@ -750,6 +885,18 @@ class Dispatcher:
                         return QuotaResult(granted_amount=0,
                                            status_code=INTERNAL,
                                            status_message=str(exc))
+                    ex = self.executor
+                    if ex is not None:
+                        from istio_tpu_torch.runtime.executor import \
+                            quota_fallback
+                        amount = args.quota_amount
+                        act = ex.submit(
+                            _qualify(hc.name, hc.namespace),
+                            self._bound_quota(handler, template, instance,
+                                              args),
+                            lambda policy, reason, _a=amount:
+                                quota_fallback(policy, reason, _a))
+                        return ex.resolve(act, deadline)
                     try:
                         with monitor.dispatch_timer():
                             return handler.handle_quota(template, instance,

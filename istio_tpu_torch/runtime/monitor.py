@@ -9,6 +9,9 @@ counters (sheds, deadline expiries, oracle fallbacks, batch failures,
 device retries, the breaker state and its transitions:
 `resilience_counters()`) and the live latency window behind brownout
 (`CHECK_WINDOW`, `refresh_latency_gauges`, `reset_latency_window`);
+the adapter-executor plane's conservation families (submitted, resolved
+by handler and outcome, seconds, late completions, retries) and the
+list-provider refresh totals (`host_action_counters()`);
 for Report, the report stage
 histogram (`observe_report_stage`), the per-template and per-exporter
 record counts, and the record-conservation ledger (accepted == exported
@@ -35,20 +38,28 @@ _BUCKETS = (1e-6, 2.5e-6, 5e-6, 1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
 
 
 class Counter:
-    """A count per label value (one label at most)."""
+    """A count per label value. One label keys by its value; several
+    (always passed in the same keyword order) key by the tuple of their
+    values."""
 
     def __init__(self, name: str) -> None:
         self.name = name
-        self._v: dict[str, float] = {}
+        self._v: dict = {}
         self._lock = threading.Lock()
 
     def inc(self, n: float = 1.0, **labels: str) -> None:
-        key = next(iter(labels.values()), "")
+        key = next(iter(labels.values()), "") if len(labels) <= 1 \
+            else tuple(labels.values())
         with self._lock:
             self._v[key] = self._v.get(key, 0.0) + n
 
-    def value(self, label: str = "") -> float:
+    def value(self, label="") -> float:
         return self._v.get(label, 0.0)
+
+    def series(self) -> dict:
+        """A copy of every label key → count."""
+        with self._lock:
+            return dict(self._v)
 
 
 class Histogram:
@@ -209,6 +220,87 @@ def resilience_counters() -> dict:
         "cancelled_shed_total": int(CHECK_CANCELLED_SHED.value()),
         "device_retries_total": int(CHECK_DEVICE_RETRIES.value()),
         "breaker_state": int(BREAKER_STATE.value()),
+    }
+
+
+# -- the adapter-executor plane (runtime/executor.py). Every submitted
+# host action resolves with EXACTLY one outcome: ok (adapter result
+# used), error (adapter exception → safeDispatch INTERNAL), shed (lane
+# queue full / closed lane), expired (request deadline gone before the
+# wait), overrun (still running at the deadline → fail-policy verdict),
+# breaker_open (lane breaker short-circuit); so submitted ==
+# sum(outcomes) at quiescence. A worker finishing an action the fold
+# already abandoned counts late_{ok,error} apart: late results are
+# accounting, never verdicts. Labels: handler; handler and outcome;
+# handler and result.
+HOST_ACTION_OUTCOMES = ("ok", "error", "shed", "expired", "overrun",
+                        "breaker_open")
+HOST_ACTIONS_SUBMITTED = Counter("mixer_host_actions_submitted_total")
+HOST_ACTIONS = Counter("mixer_host_actions_total")
+HOST_ACTION_SECONDS = Histogram("mixer_host_action_seconds")
+HOST_ACTION_LATE = Counter("mixer_host_action_late_total")
+HOST_ACTION_RETRIES = Counter("mixer_host_action_retries_total")
+# provider refresh on the executor's maintenance lane: attempts and the
+# failures among them (a failing provider keeps its last good list)
+LIST_REFRESH_TOTAL = Counter("mixer_list_provider_refresh_total")
+LIST_REFRESH_FAILURES = Counter("mixer_list_provider_refresh_failures")
+
+
+def note_host_action_submitted(handler: str) -> None:
+    HOST_ACTIONS_SUBMITTED.inc(1, handler=handler)
+
+
+def note_host_action(handler: str, outcome: str,
+                     seconds: float | None = None) -> None:
+    """One resolved host action (AdapterExecutor.resolve / abandon, the
+    single accounting home)."""
+    HOST_ACTIONS.inc(1, handler=handler, outcome=outcome)
+    if seconds is not None:
+        HOST_ACTION_SECONDS.observe(seconds, handler=handler)
+
+
+def note_host_action_late(handler: str, result: str) -> None:
+    HOST_ACTION_LATE.inc(1, handler=handler, result=result)
+
+
+def note_host_action_retry(handler: str) -> None:
+    HOST_ACTION_RETRIES.inc(1, handler=handler)
+
+
+def host_action_counters() -> dict:
+    """The executor plane's counters as one JSON-able dict, with the
+    reference's keys and values. `exact` is the conservation check
+    (true whenever nothing is in flight)."""
+    by_handler: dict[str, dict] = {}
+    submitted_total = 0
+    for h, v in HOST_ACTIONS_SUBMITTED.series().items():
+        by_handler.setdefault(h, {"submitted": 0, "outcomes": {}})
+        by_handler[h]["submitted"] += int(v)
+        submitted_total += int(v)
+    resolved_total = 0
+    outcome_totals = {o: 0 for o in HOST_ACTION_OUTCOMES}
+    for (h, o), v in HOST_ACTIONS.series().items():
+        by_handler.setdefault(h, {"submitted": 0, "outcomes": {}})
+        by_handler[h]["outcomes"][o] = \
+            by_handler[h]["outcomes"].get(o, 0) + int(v)
+        outcome_totals[o] = outcome_totals.get(o, 0) + int(v)
+        resolved_total += int(v)
+    late = {"ok": 0, "error": 0}
+    for (_h, r), v in HOST_ACTION_LATE.series().items():
+        if r in late:
+            late[r] += int(v)
+    retries = sum(int(v) for v in HOST_ACTION_RETRIES.series().values())
+    return {
+        "submitted": submitted_total,
+        "resolved": resolved_total,
+        "in_flight": submitted_total - resolved_total,
+        "outcomes": outcome_totals,
+        "late": late,
+        "retries": retries,
+        "by_handler": by_handler,
+        "exact": submitted_total == resolved_total,
+        "refresh_total": int(LIST_REFRESH_TOTAL.value()),
+        "refresh_failures": int(LIST_REFRESH_FAILURES.value()),
     }
 
 

@@ -15,8 +15,10 @@ Port of istio_tpu/runtime/resilience.py's check plane:
     "closed" answers UNAVAILABLE;
   * ChaosHooks — the process-wide `CHAOS` fault-injection seams at the
     device step (FusedPlan.packed_check, Dispatcher._resolve: both fire
-    before the trip's first launch), the oracle fallback, the quota
-    backend (memquota) and the discovery publish.
+    before the trip's first launch), the oracle fallback, the host
+    adapter calls of the executor's lanes (latency, wedge, injected
+    errors; runtime/executor.py), the quota backend (memquota) and the
+    discovery publish.
 
 Every degraded answer is counted (monitor: retries, fallbacks by
 reason, breaker transitions) and logged at WARNING / ERROR.
@@ -100,9 +102,16 @@ class CircuitBreaker:
 
     CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
 
-    def __init__(self, failures: int = 3, reset_s: float = 5.0):
+    def __init__(self, failures: int = 3, reset_s: float = 5.0,
+                 publish: bool = True, name: str = "device"):
         self.failure_threshold = max(int(failures), 1)
         self.reset_s = reset_s
+        # which breaker this is in the log ("device", "handler:<name>")
+        self.name = name
+        # False for the adapter executor's lane breakers: they move
+        # neither the device breaker's state gauge nor its transitions
+        # counter (their state shows in the executor's snapshot)
+        self._publish_gauge = publish
         self._lock = threading.Lock()
         self._state = self.CLOSED
         self._consecutive = 0
@@ -111,6 +120,8 @@ class CircuitBreaker:
         self._publish()
 
     def _publish(self) -> None:
+        if not self._publish_gauge:
+            return
         from istio_tpu_torch.runtime import monitor
         monitor.BREAKER_STATE.set(
             {self.CLOSED: 0, self.HALF_OPEN: 1, self.OPEN: 2}[self._state])
@@ -118,10 +129,12 @@ class CircuitBreaker:
     def _transition(self, to: str) -> None:
         if to == self._state:
             return
-        from istio_tpu_torch.runtime import monitor
-        log.warning("circuit breaker device: %s -> %s", self._state, to)
+        log.warning("circuit breaker %s: %s -> %s", self.name, self._state,
+                    to)
         self._state = to
-        monitor.BREAKER_TRANSITIONS.inc(to=to)
+        if self._publish_gauge:
+            from istio_tpu_torch.runtime import monitor
+            monitor.BREAKER_TRANSITIONS.inc(to=to)
         self._publish()
 
     @property
@@ -210,6 +223,19 @@ class ChaosHooks:
             self.oracle_failures = 0
             self.injected_device = 0
             self.injected_oracle = 0
+            # the adapter seams of the executor's lanes, keyed by
+            # qualified handler name: a sleep before every call, and
+            # failing the next N calls
+            self.adapter_latency_s: dict[str, float] = {}
+            self.adapter_failures: dict[str, int] = {}
+            # wedged handlers: their calls block until the event sets
+            # (unwedge_adapter, or this reset, which releases every one)
+            wedged = getattr(self, "_adapter_wedged", None)
+            if wedged:
+                for ev in wedged.values():
+                    ev.set()
+            self._adapter_wedged: dict[str, threading.Event] = {}
+            self.injected_adapter = 0
             self.quota_latency_s: dict[str, float] = {}
             self.quota_failures: dict[str, int] = {}
             self.injected_quota = 0
@@ -246,6 +272,38 @@ class ChaosHooks:
             self.injected_oracle += 1
         raise RuntimeError("chaos: injected oracle failure")
 
+    def wedge_adapter(self, handler: str) -> None:
+        """Every later call on `handler`'s lane blocks until
+        unwedge_adapter(handler) or reset()."""
+        with self._lock:
+            self._adapter_wedged.setdefault(handler, threading.Event())
+
+    def unwedge_adapter(self, handler: str) -> None:
+        with self._lock:
+            ev = self._adapter_wedged.pop(handler, None)
+        if ev is not None:
+            ev.set()
+
+    def adapter_call(self, handler: str) -> None:
+        """Called by an executor lane's worker immediately before the
+        adapter call: the wedge, the latency and the injected errors of
+        `handler`."""
+        ev = self._adapter_wedged.get(handler)
+        if ev is not None:
+            ev.wait()
+        lat = self.adapter_latency_s.get(handler, 0.0)
+        if lat:
+            time.sleep(lat)
+        if self.adapter_failures.get(handler, 0) <= 0:
+            return
+        with self._lock:
+            n = self.adapter_failures.get(handler, 0)
+            if n <= 0:
+                return
+            self.adapter_failures[handler] = n - 1
+            self.injected_adapter += 1
+        raise RuntimeError(f"chaos: injected adapter failure ({handler})")
+
     def quota_call(self, name: str) -> None:
         """Called by MemQuotaHandler.handle_quota before the real cell
         allocation."""
@@ -279,6 +337,9 @@ class ChaosHooks:
         levers = {"device_failures": self.device_failures,
                   "device_latency_s": self.device_latency_s,
                   "oracle_failures": self.oracle_failures,
+                  "adapter_latency_s": any(self.adapter_latency_s.values()),
+                  "adapter_failures": any(self.adapter_failures.values()),
+                  "adapter_wedged": bool(self._adapter_wedged),
                   "quota_latency_s": any(self.quota_latency_s.values()),
                   "quota_failures": any(self.quota_failures.values()),
                   "discovery_push_delay_s": self.discovery_push_delay_s}
@@ -292,6 +353,10 @@ class ChaosHooks:
             "device_latency_s": self.device_latency_s,
             "injected_device": self.injected_device,
             "injected_oracle": self.injected_oracle,
+            "adapter_wedged": sorted(self._adapter_wedged),
+            "adapter_latency_s": dict(self.adapter_latency_s),
+            "adapter_failures_pending": dict(self.adapter_failures),
+            "injected_adapter": self.injected_adapter,
             "quota_latency_s": dict(self.quota_latency_s),
             "quota_failures_pending": dict(self.quota_failures),
             "injected_quota": self.injected_quota,

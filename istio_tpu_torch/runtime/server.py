@@ -20,22 +20,31 @@ per pool batch window), `check_batch_quota_instep` (with
 `quota_in_step`) allocates inside the check trip itself, and `quota` is
 the host path through the adapter. Every entry runs the APA phase
 (`preprocess`, one resolve trip per bag) first when the config has an
-ATTRIBUTE_GENERATOR rule. It takes one argument the reference
-lacks, `device` ("cuda" by default; tests pass "cpu", where every kernel
+ATTRIBUTE_GENERATOR rule. It takes one argument the reference lacks,
+`device` ("cuda" by default; tests pass "cpu", where every kernel
 wrapper runs its plain version).
+
+With `host_executor` (the default, as in the reference) the server owns
+an AdapterExecutor (runtime/executor.py): the fused path's host-overlay
+CHECK actions and quota()'s adapter calls run on per-handler lanes with
+their own workers, queue cap and circuit breaker, bounded by the batch's
+deadline (and `host_action_timeout_ms`); an action that does not
+resolve answers `host_fail_policy`'s verdict, an adapter exception gets
+one retry and then the inline path's INTERNAL; and list providers
+refresh on its maintenance lane. `host_executor=False` runs host actions
+inline, the reference's behavioural oracle. quota() takes
+`default_check_deadline_ms` as its deadline when the caller gives none.
+`check_grants` min-folds every check response's TTL and use count with
+a GrantPolicy's grant (runtime/grants.py), revoked at each publish.
 
 `mesh_shape=(dp, mp)` serves every batch through the dp × mp sharded
 engine step (parallel/mesh.py) over `platform.devices()`: the physical
 cards, or the virtual devices `platform.force_virtual_devices` made.
 `ServerArgs` keeps the reference's field names and defaults. The fields
-the port does not carry (sharding and replicas, the
-adapter executor with the default check deadline it enforces,
-overlap_h2d,
-grants, the flight recorder, the canary, the audit plane, mTLS) are
-accepted at their defaults, where the planes
-behind them simply do not run, and raise NotPorted when set to anything
-else. Host-overlay actions run inline (the reference's behavioural-
-oracle loop) whatever `host_executor` says.
+the port does not carry (sharding and replicas, overlap_h2d, the flight
+recorder, the canary, the audit plane, mTLS) are accepted at their
+defaults, where the planes behind them simply do not run, and raise
+NotPorted when set to anything else.
 
 On a CUDA device the constructor builds every kernel of
 `kernels.KERNELS` before anything else: a failed nvcc raises out of the
@@ -128,6 +137,31 @@ class ServerArgs:
     # continuous_depth frees (never waits for a window or a fill)
     continuous_batching: bool = False
     continuous_depth: int = 2
+    # quota()'s deadline when the caller passes none (ms; 0 = none)
+    default_check_deadline_ms: float = 0.0
+    # -- the adapter-executor plane (runtime/executor.py) --------------
+    # run host adapter work (the fused path's overlay CHECK actions,
+    # quota() adapter calls, provider refresh) on the executor; False =
+    # the inline loop (the behavioural oracle)
+    host_executor: bool = True
+    # worker threads and pending-action cap per handler lane
+    executor_workers: int = 2
+    executor_queue_cap: int = 256
+    # what an unresolvable host action answers: "open" → OK with a
+    # 1 s / 1-use TTL, "closed" → UNAVAILABLE
+    host_fail_policy: str = "closed"
+    # a bound on every host action even without a request deadline (ms;
+    # 0 = the request's deadline only)
+    host_action_timeout_ms: float = 0.0
+    # per-lane breaker: consecutive failed or overrun actions that trip
+    # it, and the open window before a half-open probe
+    host_breaker_failures: int = 3
+    host_breaker_reset_s: float = 5.0
+    # -- check-cache grants (runtime/grants.py) -------------------------
+    check_grants: bool = False
+    grant_ttl_floor_s: float = 1.0
+    grant_ttl_cap_s: float = 5.0
+    grant_ttl_ramp_per_s: float = 0.5
     # -- not carried: accepted at these defaults only -----------------
     shards: int = 0
     replicas: int = 1
@@ -135,20 +169,7 @@ class ServerArgs:
     shard_rebalance_budget: int = 0
     jax_compile_cache_dir: str | None = None
     mesh_shape: tuple[int, int] | None = None
-    # bounds quota() only through the adapter-executor plane
-    default_check_deadline_ms: float = 0.0
-    host_executor: bool = True
-    executor_workers: int = 2
-    executor_queue_cap: int = 256
-    host_fail_policy: str = "closed"
-    host_action_timeout_ms: float = 0.0
-    host_breaker_failures: int = 3
-    host_breaker_reset_s: float = 5.0
     overlap_h2d: bool | None = None
-    check_grants: bool = False
-    grant_ttl_floor_s: float = 1.0
-    grant_ttl_cap_s: float = 5.0
-    grant_ttl_ramp_per_s: float = 0.5
     flight_recorder: bool = True
     slow_threshold_ms: float = 0.0
     slow_adaptive: bool = False
@@ -171,8 +192,7 @@ class ServerArgs:
     mtls_rotation_fraction: float = 0.5
 
 
-# fields RuntimeServer reads; every other field must keep its default.
-# host_executor is accepted either way: host actions always run inline.
+# fields RuntimeServer reads; every other field must keep its default
 CARRIED_ARGS = frozenset({
     "identity_attr", "default_manifest", "batch_window_s", "max_batch",
     "pipeline", "hold_at", "buckets", "initial_prewarm", "max_str_len",
@@ -181,7 +201,11 @@ CARRIED_ARGS = frozenset({
     "report_queue_cap", "quota_in_step", "mesh_shape",
     "brownout", "check_fail_policy",
     "breaker_failures", "breaker_reset_s", "device_retry",
-    "continuous_batching", "continuous_depth"})
+    "continuous_batching", "continuous_depth",
+    "executor_workers", "executor_queue_cap", "host_fail_policy",
+    "host_action_timeout_ms", "host_breaker_failures",
+    "host_breaker_reset_s", "default_check_deadline_ms", "check_grants",
+    "grant_ttl_floor_s", "grant_ttl_cap_s", "grant_ttl_ramp_per_s"})
 
 
 def _check_carried(args: ServerArgs) -> None:
@@ -228,18 +252,46 @@ class RuntimeServer:
         # (draining the outgoing plan first); the drainer empties the
         # device accumulators on an interval so they never wrap
         self.rulestats = RuleStatsAggregator()
-        self.controller = Controller(
-            store, default_manifest=manifest,
-            identity_attr=self.args.identity_attr,
-            max_str_len=self.args.max_str_len,
-            on_publish=self._on_config_publish,
-            fused=self.args.fused,
-            prewarm_buckets=buckets,
-            mesh=mesh,
-            rule_telemetry=self.args.rule_telemetry,
-            initial_prewarm=self.args.initial_prewarm,
-            prewarm_hook=self._prewarm_instep_for,
-            device=self.device)
+        # the adapter-executor plane and the grant policy are built
+        # before the controller, so the first publish's dispatcher
+        # already has them; lanes and breakers outlive config swaps
+        self.executor = None
+        if self.args.host_executor:
+            from istio_tpu_torch.runtime.executor import (AdapterExecutor,
+                                                          ExecutorConfig)
+            self.executor = AdapterExecutor(ExecutorConfig(
+                workers=self.args.executor_workers,
+                queue_cap=self.args.executor_queue_cap,
+                fail_policy=self.args.host_fail_policy,
+                action_timeout_s=self.args.host_action_timeout_ms / 1e3,
+                breaker_failures=self.args.host_breaker_failures,
+                breaker_reset_s=self.args.host_breaker_reset_s))
+        self.grants = None
+        if self.args.check_grants:
+            from istio_tpu_torch.runtime.grants import GrantPolicy
+            self.grants = GrantPolicy(
+                ttl_floor_s=self.args.grant_ttl_floor_s,
+                ttl_cap_s=self.args.grant_ttl_cap_s,
+                ttl_ramp_per_s=self.args.grant_ttl_ramp_per_s)
+        try:
+            self.controller = Controller(
+                store, default_manifest=manifest,
+                identity_attr=self.args.identity_attr,
+                max_str_len=self.args.max_str_len,
+                on_publish=self._on_config_publish,
+                fused=self.args.fused,
+                prewarm_buckets=buckets,
+                mesh=mesh,
+                rule_telemetry=self.args.rule_telemetry,
+                initial_prewarm=self.args.initial_prewarm,
+                prewarm_hook=self._prewarm_instep_for,
+                executor=self.executor,
+                grants=self.grants,
+                device=self.device)
+        except BaseException:
+            if self.executor is not None:
+                self.executor.close()
+            raise
         self._rulestats_drainer = RuleStatsDrainer(
             self.rulestats, self.args.rulestats_drain_s) \
             if (self.args.rule_telemetry
@@ -295,12 +347,18 @@ class RuntimeServer:
 
     def _on_config_publish(self, dispatcher) -> None:
         """Controller publish hook: rebind the rule-stats aggregator to
-        the new snapshot. Telemetry observes a publish and never fails
-        it."""
+        the new snapshot, and register the published handlers' provider
+        refreshes on the executor's maintenance lane. Neither ever fails
+        a publish."""
         try:
             self.rulestats.attach(dispatcher)
         except Exception:
             log.exception("rulestats attach failed")
+        if self.executor is not None:
+            try:
+                self.executor.register_refreshables(dispatcher.handlers)
+            except Exception:
+                log.exception("refreshable registration failed")
 
     # -- API surface (grpcServer.go Check semantics) --
     # Preprocessing (the APA phase) happens exactly ONCE per request, in
@@ -417,10 +475,16 @@ class RuntimeServer:
               preprocessed: bool = False,
               deadline: float | None = None) -> QuotaResult:
         """The host quota path (Dispatcher.quota): resolves the bag's
-        rules and calls the one matching quota handler."""
+        rules and calls the one matching quota handler. `deadline`: an
+        absolute time.perf_counter() instant bounding the adapter call
+        on the executor; a caller without one gets the server's
+        default_check_deadline_ms."""
         d = self.controller.dispatcher
         if not preprocessed:
             bag = self.preprocess(bag)
+        if deadline is None and self.args.default_check_deadline_ms:
+            deadline = time.perf_counter() + \
+                self.args.default_check_deadline_ms / 1e3
         return d.quota(bag, quota_name, args or QuotaArgs(),
                        deadline=deadline)
 
@@ -616,8 +680,10 @@ class RuntimeServer:
     def shutdown(self, deadline: float | None = 5.0) -> None:
         """Ordered graceful shutdown: stop admission, drain the batchers
         (bounded by `deadline` seconds each), close them, stop the
-        rule-stats drainer and drain once more, then close the controller
-        (closes handlers). Idempotent."""
+        rule-stats drainer and drain once more, close the executor (no
+        batch can submit a host action any more; wedged workers are left
+        as daemon threads), then close the controller (closes handlers).
+        Idempotent."""
         if getattr(self, "_shutdown_done", False):
             return
         self._shutdown_done = True
@@ -641,6 +707,15 @@ class RuntimeServer:
         if self._rulestats_drainer is not None:
             self._rulestats_drainer.close()
             self.rulestats.drain()     # what the last interval left
+        if self.executor is not None:
+            self.executor.close()
+            hc = monitor.host_action_counters()
+            if not hc["exact"]:
+                # counters are process-wide: another live server may
+                # legitimately hold actions
+                log.warning("host action conservation residue at "
+                            "shutdown: submitted=%d resolved=%d",
+                            hc["submitted"], hc["resolved"])
         self.controller.close()
 
     def close(self) -> None:

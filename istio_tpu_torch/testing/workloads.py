@@ -2,8 +2,9 @@
 
 The Check() world of the reference: Bookinfo-style denier + listchecker
 rules, authz predicates over source/destination attributes, and
-header/URI match clauses (exact, prefix, glob, regex), and Pilot's
-route world and discovery fleet. These copies produce the same rules,
+header/URI match clauses (exact, prefix, glob, regex), the OPA overlay
+world and the shared-quota store of the adapter-executor plane, and
+Pilot's route world and discovery fleet. These copies produce the same rules,
 bags, services and configs as the reference's for the same arguments;
 `make_engine` builds the port's PolicyEngine on `device`.
 """
@@ -254,6 +255,140 @@ def make_store(n_rules: int, n_services: int | None = None,
                             "instances": []})
         s.set(("rule", rule.namespace, rule.name),
               {"match": rule.match, "actions": actions})
+    return s
+
+
+OPA_POLICY = """package mixerauthz
+
+    policy = [
+      {
+        "rule": {
+          "verbs": [
+            "GET"
+          ],
+          "users": [
+            "reader",
+            "admin"
+          ]
+        }
+      },
+      {
+        "rule": {
+          "verbs": [
+            "GET",
+            "POST",
+            "DELETE"
+          ],
+          "users": [
+            "admin"
+          ]
+        }
+      }
+    ]
+
+    default allow = false
+
+    allow = true {
+      rule = policy[_].rule
+      input.subject.user = rule.users[_]
+      input.action.method = rule.verbs[_]
+    }"""
+"""Rego module for the OPA overlay scenario (the reference adapter's
+bucket-admins policy shape, opa_test.go:180): readers may GET, admins
+may do anything, everyone else is denied — evaluated per request by
+the native Rego-subset engine (adapters/rego.py) on the adapter
+executor's opa lane."""
+
+
+def make_opa_store(n_rules: int, n_services: int | None = None,
+                   opa_every: int = 7, fail_close: bool = True,
+                   seed: int | None = None):
+    """make_store's world with every `opa_every`-th rule additionally
+    carrying an OPA authorization action: the 776-line Rego engine
+    runs per matching request as a genuine external policy check —
+    the authorization template has no device lowering for the opa
+    adapter, so these are first-class host-overlay actions on the
+    executor's opa lane. Requests crafted by make_opa_requests carry
+    subject users the policy allows AND denies, so oracle-parity
+    gates see real PERMISSION_DENIED flips."""
+    s = make_store(n_rules, n_services, seed=seed)
+    s.set(("handler", "istio-system", "opah"), {
+        "adapter": "opa",
+        "params": {"policies": [OPA_POLICY],
+                   "check_method": "data.mixerauthz.allow",
+                   "fail_close": fail_close}})
+    s.set(("instance", "istio-system", "authzi"), {
+        "template": "authorization",
+        "params": {
+            "subject": {"user": 'source.user | ""'},
+            "action": {"service": 'destination.service | ""',
+                       "method": 'request.method | ""',
+                       "path": 'request.path | ""'}}})
+    for i in range(0, n_rules, opa_every):
+        key = ("rule", f"ns{i % 23}", f"rule{i}")
+        spec = dict(s.get(key))
+        spec["actions"] = list(spec["actions"]) + [
+            {"handler": "opah.istio-system",
+             "instances": ["authzi.istio-system"]}]
+        s.set(key, spec)
+    return s
+
+
+def make_opa_requests(batch: int, n_rules: int,
+                      n_services: int | None = None,
+                      opa_every: int = 7, seed: int = 5) -> list[dict]:
+    """Traffic targeting make_opa_store's OPA-carrying rules: each
+    request addresses rule i (i % opa_every == 0) by its exact
+    service, with the user cycling allowed (admin/reader-GET) and
+    denied (reader-POST / intern) shapes — so every request fires the
+    Rego check and the corpus carries both verdicts."""
+    n_services = n_services or max(n_rules // 2, 1)
+    rng = np.random.default_rng(seed)
+    out = []
+    opa_rules = list(range(0, n_rules, opa_every))
+    for j in range(batch):
+        i = opa_rules[int(rng.integers(len(opa_rules)))]
+        kind = j % 4
+        user, method = (("admin", "POST"), ("reader", "GET"),
+                        ("reader", "DELETE"), ("intern", "GET"))[kind]
+        out.append({
+            "destination.service":
+                f"svc{i % n_services}.ns{i % 23}.svc.cluster.local",
+            "source.user": user,
+            "source.namespace": f"ns{2 * int(rng.integers(12)) % 23}",
+            "request.method": method,
+            "request.path": f"/api/v{i % 3}/items",
+        })
+    return out
+
+
+def make_shared_quota_store(backend=None, max_amount: int = 64,
+                            duration_s: float = 0.0,
+                            min_dedup_s: float = 5.0):
+    """One global memquota rule over a SHARED QuotaBackend (adapters/
+    memquota.QuotaBackend) — the cross-replica shared-quota dedup
+    scenario: N stores built over the same `backend` give N replicas
+    whose handlers allocate against one set of cells and one dedup
+    cache, through the adapter executor's mq lane. A dedup_id retried
+    on ANY replica replays the original grant; the window max is
+    enforced globally."""
+    from istio_tpu_torch.runtime.store import MemStore
+
+    s = MemStore()
+    params: dict = {"quotas": [{"name": "rq.istio-system",
+                                "max_amount": max_amount,
+                                "valid_duration_s": duration_s}],
+                    "min_deduplication_duration_s": min_dedup_s}
+    if backend is not None:
+        params["backend"] = backend
+    s.set(("handler", "istio-system", "mq"), {
+        "adapter": "memquota", "params": params})
+    s.set(("instance", "istio-system", "rq"), {
+        "template": "quota",
+        "params": {"dimensions": {"user": 'source.user | "anon"'}}})
+    s.set(("rule", "istio-system", "quota-rule"), {
+        "match": "",
+        "actions": [{"handler": "mq", "instances": ["rq"]}]})
     return s
 
 

@@ -55,7 +55,7 @@ def test_every_module_imports_without_jax_and_istio_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 73
+    assert len(names) >= 75
     assert {"istio_tpu_torch.compiler.rbac_lower",
             "istio_tpu_torch.adapters.rbac",
             "istio_tpu_torch.adapters.rego",
@@ -74,6 +74,8 @@ def test_every_module_imports_without_jax_and_istio_tpu():
             "istio_tpu_torch.parallel.mesh_fold",
             "istio_tpu_torch.parallel.seq_match",
             "istio_tpu_torch.runtime.resilience",
+            "istio_tpu_torch.runtime.executor",
+            "istio_tpu_torch.runtime.grants",
             "istio_tpu_torch.runtime.batcher",
             "istio_tpu_torch.runtime.monitor"} <= set(names)
 

@@ -6,9 +6,9 @@ neither is ported) runs on both packages from the same inputs, and the
 outcomes must be equal: responses, typed error class and gRPC code,
 counter deltas, breaker states. Then scripts/chaos_smoke.py's checks
 (without its introspect scrape) on a small RuntimeServer of each
-package, the continuous-batching lane across a config publish, quota()
-(default_check_deadline_ms stays unported), and the seven resilience
-fields of ServerArgs. The card's strict checker (a device fault that
+package, the continuous-batching lane across a config publish, quota() (with the
+server's default_check_deadline_ms bounding a wedged quota lane on the
+executor), and the seven resilience fields of ServerArgs. The card's strict checker (a device fault that
 CHAOS did not inject raises) is held against the reference's chain for
 the faults CHAOS injects.
 
@@ -1108,19 +1108,46 @@ def test_continuous_lane_across_a_publish():
 # ---------------------------------------------------------------------
 
 def test_default_check_deadline_stays_unported():
-    """default_check_deadline_ms bounds quota() only through the
-    adapter-executor plane, which the port does not carry: setting it
-    raises NotPorted. quota() itself (the reference with its host
-    actions inline, host_executor=False, as the port always runs them)
-    answers alike, with or without a deadline of the caller's."""
-    from istio_tpu_torch.device import NotPorted
-    store = workloads.make_store(8)
+    """default_check_deadline_ms is carried (the name predates it): a
+    quota() call without a deadline of the caller's takes the server's
+    default, so a wedged quota lane on the executor answers the host fail
+    policy (UNAVAILABLE, granted 0) within that deadline, as the
+    reference's does; a call with a deadline of its own keeps it. With
+    the executor off (host_executor=False, the inline loop) quota()
+    answers alike on both packages, with or without a deadline."""
+    def wedged(p_name, srv, mk):
+        CHAOS = ref_resilience.CHAOS if p_name == "ref" else resilience.CHAOS
+        d = _dicts(1)[0]
+        # the reference's first one-bag resolve compiles: warm it under a
+        # deadline it cannot outlive, before the default one applies
+        srv.quota(mk(d), "rq", deadline=time.perf_counter() + 600.0)
+        clean = srv.quota(mk(d), "rq")
+        CHAOS.wedge_adapter("mq.istio-system")
+        try:
+            t0 = time.perf_counter()
+            r = srv.quota(mk(d), "rq")
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            own = srv.quota(mk(d), "rq", deadline=time.perf_counter() + 0.05)
+            own_wall = time.perf_counter() - t0
+        finally:
+            CHAOS.reset()
+        return ((clean.granted_amount, clean.status_code),
+                (r.granted_amount, r.status_code, r.status_message),
+                wall < 0.25 + 0.35, wall >= 0.25,
+                (own.granted_amount, own.status_code), own_wall < 0.25)
+
+    pair = _server_pair(12, default_check_deadline_ms=250.0)
     try:
-        with pytest.raises(NotPorted):
-            RuntimeServer(store, ServerArgs(default_check_deadline_ms=250.0),
-                          device="cpu")
+        seen = {name: wedged(name, pair[name], mk)
+                for name, mk in (("ref", ref_bag), ("port", bag_from_mapping))}
+        assert seen["ref"] == seen["port"]
+        assert seen["port"][1] == (0, 14, "quota adapter unavailable "
+                                          "(overrun)")
+        assert seen["port"][2:4] == (True, True)
+        assert seen["port"][4] == (0, 14) and seen["port"][5]
     finally:
-        store.close()
+        _close_pair(pair)
     pair = _server_pair(12, host_executor=False)
     try:
         d = _dicts(1)[0]

@@ -368,6 +368,8 @@ def test_unported_options_raise():
     try:
         with pytest.raises(NotPorted):
             RuntimeServer(store, ServerArgs(shards=2), device="cpu")
+        with pytest.raises(NotPorted):
+            RuntimeServer(store, ServerArgs(overlap_h2d=True), device="cpu")
         # mesh serving is carried, over platform.devices(): no card and
         # no virtual devices here, so even a 1 x 1 mesh has no device
         with pytest.raises(ValueError, match="need 1 devices, have 0"):
@@ -382,7 +384,9 @@ def test_unported_options_raise():
             assert pre.names() == ["request.method"]
             assert pre.get("request.method") == ("GET", True)
             with pytest.raises(NotPorted):
-                type(d)(d.snapshot, d.handlers, executor=object())
+                type(d)(d.snapshot, d.handlers, recorder=object())
+            with pytest.raises(NotPorted):
+                type(d)(d.snapshot, d.handlers, overlap_h2d=True)
         finally:
             got.close()
     finally:
