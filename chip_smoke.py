@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's served Check(), Report() and Quota() paths, Pilot's route
 selection and discovery service, sequence-parallel DFA matching and mesh
-serving on virtual devices, and their kernels on one NVIDIA H100.
+serving on virtual devices, the config canary's shadow replay, and their
+kernels on one NVIDIA H100.
 
     python3 chip_smoke.py            (from the root of a checkout)
 
@@ -292,7 +293,36 @@ Phases, each fatal on failure:
      late completions, device trips, launches) equals what the schedule
      predicts; check_many walls with the executor on and off, and
      quota() walls;
-  15. print the kernels JSON line, the card line, and last the device
+  15. the config canary (canary_phase; counters zeroed just before it,
+     every kernel of a replay trip must launch): (a) the three seeded
+     pairs of testing/corpus.make_canary_snapshot_pairs on a card server
+     (canary="gate", buckets (16, 32)) beside a device="cpu" server fed
+     the same traffic: the divergent swap vetoed on both with equal
+     reports (the planted rule under the planted kind, every status-flip
+     exemplar oracle-confirmed), the old dispatcher serving on with the
+     base's answers, the identical swap published with 0 divergences;
+     canary="warn" publishes the divergent candidate, re-baselines the
+     ring, and the refilled ring replays with 0 divergences; on the first
+     pair a replay device fault CHAOS did not inject (rule_match made to
+     raise) raises out of Controller.rebuild() with nothing published.
+     (b) make_store(10_000) on a card server with canary="gate" at the
+     defaults (capacity 2,048, replay_limit 1,024): 2,048 check_many
+     rows (headline and hit traffic interleaved) recorded; a deny rule
+     that fired, with `&& request.method == "DELETE"` appended, vetoed
+     with exactly the status flips the saved corpus counts; the replay's
+     launches exactly rule_match, dfa_scan, byte_pred, verdict_fold and
+     check_pack, one trip a chunk, each held against its plain version;
+     the saved corpus replayed by the CPU port equal to the card's
+     replay; check_many and quota() after the veto unchanged; the same
+     rules in reversed store order published with 0 divergences; replay
+     wall and rows/s, publish delay and candidate host compile printed.
+     (c) make_store(10_000, host_overlay_every=5) with the executor on:
+     served rows carry host-overlay denials the recorded device planes
+     lack, and the identical swap publishes with 0 divergences. Its
+     gate starts from a reading taken after 14b, and the gate after
+     every phase also fails on any canary evaluation that failed open
+     (mixer_canary_errors_total);
+  16. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
 is not beside this script.
@@ -7242,6 +7272,7 @@ def resilience_reading() -> dict:
                          "oracle": snap["injected_oracle"],
                          "adapter": snap["injected_adapter"]},
             "host": monitor.host_action_counters(),
+            "canary_errors": canary_errors(),
             "armed": CHAOS.armed()}
 
 
@@ -7272,14 +7303,16 @@ def resilience_gate(label: str) -> None:
     closed), and every CHAOS lever inert; on the host plane no outcome
     other than ok and no injected adapter failure since the last gate,
     the conservation ledger exact and every lane breaker closed; or the
-    run fails naming the phase. A card server raises a device fault that
-    CHAOS did not inject; this gate also catches any degraded answer
-    that would have slipped past that, and a host adapter that failed
-    for real on the card's host."""
+    run fails naming the phase; and no canary evaluation that failed open
+    (mixer_canary_errors_total). A card server raises a device fault
+    that CHAOS did not inject; this gate also catches any degraded
+    answer that would have slipped past that, and a host adapter that
+    failed for real on the card's host."""
     now = resilience_reading()
     base = _GATE.get("base", now)
     moved = {k: (base[k], now[k]) for k in ("retries", "fallback",
-                                            "transitions", "injected")
+                                            "transitions", "injected",
+                                            "canary_errors")
              if now[k] != base[k]}
     host, host0 = now["host"], base["host"]
     not_ok = {o: n - host0["outcomes"][o]
@@ -8397,6 +8430,458 @@ def executor_phase() -> dict:
         gstore.close()
 
 
+# ---- phase 15: the config canary
+
+CANARY_SEED = 20
+CANARY_BUCKETS = (16, 32)    # scripts/canary_smoke.py's serving buckets
+CANARY_B = 2048              # (b): recorded rows, half headline, half hit
+CANARY_OVERLAY_B = 256       # (c): overlay rows, half of them host-denied
+# the kernels of a replay trip: no rule_stats (observe off), no quota
+CANARY_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
+                  "check_pack")
+
+
+def canary_errors() -> float:
+    """mixer_canary_errors_total: canary evaluations that failed open."""
+    from istio_tpu_torch.canary.gate import FAMILIES
+    return FAMILIES["errors"].value()
+
+
+def canary_view(rep) -> dict:
+    """A CanaryReport without wall times and trace ids."""
+    d = rep.to_dict()
+    for k in ("replay_rows_per_s", "replay_wall_s"):
+        d.pop(k)
+    for c in d["per_rule"].values():
+        for ex in c["exemplars"]:
+            ex.pop("trace_id")
+    return d
+
+
+def canary_docs(store, docs) -> None:
+    """Apply [(key, spec)] docs with no watcher delivery: the phase
+    rebuilds explicitly, and a debounced rebuild would race it."""
+    from istio_tpu_torch.runtime.store import Event
+    store.apply_events([Event(k, dict(s)) for k, s in docs], notify=False)
+
+
+def canary_swap(store, old_docs, new_docs) -> None:
+    from istio_tpu_torch.runtime.store import Event
+    gone = {k for k, _ in old_docs} - {k for k, _ in new_docs}
+    store.apply_events([Event(k, None) for k in gone], notify=False)
+    canary_docs(store, new_docs)
+
+
+def canary_serve(srv, bags, buckets=CANARY_BUCKETS) -> list:
+    """check_many over chunks of the largest bucket, each padded to its
+    bucket (the shapes the batcher forms)."""
+    from istio_tpu_torch.runtime.batcher import pad_to_bucket
+    out = []
+    for lo in range(0, len(bags), buckets[-1]):
+        chunk = bags[lo:lo + buckets[-1]]
+        out.extend(srv.check_many(pad_to_bucket(chunk, buckets))[:len(chunk)])
+    return out
+
+
+class ReplaySpy:
+    """Keeps each ReplayResult the gate's replay_entries returns (the
+    main path's own replay, not a second one)."""
+
+    def __init__(self):
+        from istio_tpu_torch.canary import gate
+        self._gate, self._real = gate, gate.replay_entries
+        self.results: list = []
+
+        def spied(*a, **kw):
+            out = self._real(*a, **kw)
+            self.results.append(out)
+            return out
+
+        gate.replay_entries = spied
+
+    def close(self) -> None:
+        self._gate.replay_entries = self._real
+
+
+def canary_pairs_leg() -> int:
+    """(a) The three seeded pairs (testing/corpus.make_canary_snapshot_pairs)
+    on a card server and a device="cpu" server fed the same traffic, in
+    gate mode and in warn mode. → the number of oracle-confirmed
+    status-flip exemplars."""
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.canary import CanaryRejected
+    from istio_tpu_torch.compiler import ruleset
+    from istio_tpu_torch.runtime import MemStore, RuntimeServer, ServerArgs
+    from istio_tpu_torch.testing import corpus
+
+    args = dict(batch_window_s=0.0005, max_batch=CANARY_BUCKETS[-1],
+                buckets=CANARY_BUCKETS, rulestats_drain_s=0,
+                default_manifest=corpus.ANALYZER_MANIFEST)
+    confirmed = 0
+    for pi, pair in enumerate(corpus.make_canary_snapshot_pairs(CANARY_SEED)):
+        tag = f"[15a {pair.kind}]"
+        bags = [bag_from_mapping(d)
+                for d in corpus.make_canary_traffic(pair, CANARY_SEED)]
+        for mode in ("gate", "warn"):
+            legs = {}
+            for dev in ("cuda", "cpu"):
+                store = MemStore()
+                canary_docs(store, pair.base_docs)
+                legs[dev] = (RuntimeServer(store, ServerArgs(
+                    canary=mode, **args), device=dev), store)
+            try:
+                (srv, store), (cpu, cpu_store) = legs["cuda"], legs["cpu"]
+                base = canary_serve(srv, bags)
+                compare_responses(f"{tag} {mode} recorded", base,
+                                  canary_serve(cpu, bags))
+                d0 = srv.controller.dispatcher
+                for st in (store, cpu_store):
+                    canary_swap(st, pair.base_docs, pair.divergent_docs)
+                d1 = srv.controller.rebuild()
+                c1 = cpu.controller.rebuild()
+                rep = srv.canary.reports()[-1]
+                if canary_view(rep) != canary_view(cpu.canary.reports()[-1]):
+                    raise AssertionError(f"{tag} {mode}: the card's report "
+                                         "differs from the CPU server's")
+                c = rep.per_rule.get(pair.divergent_rule, {})
+                if not c.get(pair.expected):
+                    raise AssertionError(
+                        f"{tag} {mode}: planted rule {pair.divergent_rule} "
+                        f"not named under {pair.expected}: "
+                        f"{sorted(rep.per_rule)}")
+                if mode == "warn":
+                    if d1 is d0 or rep.verdict != "warn" or \
+                            srv.canary.recorder.stats()["entries"]:
+                        raise AssertionError(
+                            f"{tag} warn: published {d1 is not d0}, "
+                            f"verdict {rep.verdict}, ring "
+                            f"{srv.canary.recorder.stats()}")
+                    # re-baselined: refilled under the published config,
+                    # the same config replays with no divergence
+                    compare_responses(f"{tag} warn refill",
+                                      canary_serve(srv, bags),
+                                      canary_serve(cpu, bags))
+                    srv.controller.rebuild()
+                    cpu.controller.rebuild()
+                    for x in (srv, cpu):
+                        last = x.canary.reports()[-1]
+                        if last.verdict != "publish" or last.n_divergent:
+                            raise AssertionError(
+                                f"{tag} warn: the re-baselined ring "
+                                f"reported {last.n_divergent} divergences")
+                    continue
+                rej = srv.controller.last_canary_rejection
+                if d1 is not d0 or c1 is not cpu.controller.dispatcher or \
+                        not isinstance(rej, CanaryRejected) or \
+                        rep.verdict != "veto":
+                    raise AssertionError(f"{tag}: the divergent candidate "
+                                         "was not vetoed on both servers")
+                for ex in c["exemplars"]:
+                    if ex["kind"] == "status_flip":
+                        if ex.get("oracle_confirmed") is not True:
+                            raise AssertionError(f"{tag}: exemplar not "
+                                                 f"oracle-confirmed: {ex}")
+                        confirmed += 1
+                after = canary_serve(srv, bags)
+                compare_responses(f"{tag} after the veto", after, base)
+                if srv.controller.dispatcher is not d0:
+                    raise AssertionError(f"{tag}: the veto swapped")
+                if pi == 0:
+                    canary_strict_fault(srv, ruleset, tag)
+                for st in (store, cpu_store):
+                    canary_swap(st, pair.divergent_docs,
+                                pair.identical_docs)
+                d2 = srv.controller.rebuild()
+                cpu.controller.rebuild()
+                for x in (srv, cpu):
+                    last = x.canary.reports()[-1]
+                    if last.verdict != "publish" or last.n_divergent:
+                        raise AssertionError(
+                            f"{tag}: the identical swap reported "
+                            f"{last.n_divergent} divergences")
+                if d2 is d0 or srv.controller.last_canary_rejection:
+                    raise AssertionError(f"{tag}: the identical candidate "
+                                         "did not publish")
+            finally:
+                for x, st in legs.values():
+                    x.close()
+                    st.close()
+        log(f"{tag} vetoed on the card and the CPU server with equal "
+            f"reports (planted {pair.divergent_rule} under {pair.expected}, "
+            f"{rep.n_divergent}/{rep.n_rows} rows); the old dispatcher "
+            "served on, equal to the base; the identical swap published "
+            "with 0 divergences; warn mode published, re-baselined, and "
+            "the refilled ring replayed with 0 divergences")
+    return confirmed
+
+
+def canary_strict_fault(srv, ruleset, tag: str) -> None:
+    """(a) on the first pair: the replay's device trip raises an exception
+    CHAOS did not inject (rule_match made to fail, as a kernel that does
+    not launch would). The card server's strict canary raises it out of
+    Controller.rebuild(): no swap, mixer_canary_errors_total unchanged."""
+    real = ruleset.rule_match
+
+    def failing(*a, **kw):
+        raise RuntimeError("rule_match launch failed (raised by chip_smoke)")
+
+    d0, e0 = srv.controller.dispatcher, canary_errors()
+    ruleset.rule_match = failing
+    try:
+        srv.controller.rebuild()
+    except RuntimeError as exc:
+        if not getattr(exc, "canary_strict", False):
+            raise
+    else:
+        raise AssertionError(f"{tag}: a replay device fault published")
+    finally:
+        ruleset.rule_match = real
+    if srv.controller.dispatcher is not d0 or canary_errors() != e0:
+        raise AssertionError(f"{tag}: the strict fault swapped or failed "
+                             "open")
+    log(f"{tag} a replay device fault CHAOS did not inject raised out of "
+        "rebuild(): no swap, no canary error counted")
+
+
+def canary_full_width() -> dict:
+    """(b) make_store(10_000) on a card server with canary="gate" at the
+    defaults (capacity 2,048, replay_limit 1,024, sample_every 1)."""
+    import os
+    import tempfile
+    from collections import Counter
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.adapters.sdk import QuotaArgs
+    from istio_tpu_torch.canary import (load_corpus, replay_entries,
+                                        save_corpus)
+    from istio_tpu_torch.attribute.global_dict import GLOBAL_MANIFEST
+    from istio_tpu_torch.canary.gate import FAMILIES
+    from istio_tpu_torch.compiler.layout import InternTable
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.runtime.config import SnapshotBuilder
+    from istio_tpu_torch.runtime.fused import build_fused_plan
+    from istio_tpu_torch.runtime.store import Event
+    from istio_tpu_torch.testing import workloads
+
+    t0 = time.perf_counter()
+    store = workloads.make_store(HEADLINE_RULES)
+    srv = RuntimeServer(store, ServerArgs(canary="gate"), device="cuda")
+    spy = ReplaySpy()
+    try:
+        build_s = time.perf_counter() - t0
+        cfg = srv.canary.config
+        half = CANARY_B // 2
+        head = served_traffic("headline", HEADLINE_RULES, half, seed=150)
+        hit = served_traffic("hit", HEADLINE_RULES, half, seed=151)
+        bags = [b for pair in zip(head, hit) for b in pair]
+        cap = srv.args.max_batch
+        served = []
+        for lo in range(0, len(bags), cap):
+            served += srv.check_many(bags[lo:lo + cap])
+        quota_bag = bags[1]
+        q_before = [srv.quota(quota_bag, "rq.istio-system", QuotaArgs())
+                    for _ in range(2)]
+        rec = srv.canary.recorder.stats()
+        if rec["entries"] != cfg.capacity or rec["seen"] != CANARY_B:
+            raise AssertionError(f"[15b] recorder {rec}")
+        entries = srv.canary.recorder.corpus(limit=cfg.replay_limit)
+        path = os.path.join(tempfile.mkdtemp(), "canary_corpus.json")
+        save_corpus(path, entries)
+        names = srv.controller.dispatcher.snapshot.qualified_rule_names()
+        # the victim: the deny rule that fired on most replayed rows
+        denies = Counter(e.deny_rule for e in entries
+                         if e.status and e.deny_rule)
+        victim = next(n for n, _ in denies.most_common()
+                      if n.split("/")[-1].startswith("rule")
+                      and int(n.split("rule")[-1]) % 3 == 0)
+        ns, rule = victim.split("/", 1)
+        key = ("rule", ns, rule)
+        spec = store.get(key)
+        # the divergent count, from the saved corpus alone: rows the
+        # victim denied whose method is not DELETE
+        want_div = 0
+        for e in load_corpus(path):
+            method, _ = e.bag().get("request.method")
+            want_div += e.deny_rule == victim and method != "DELETE"
+        divergent = dict(spec, match=spec["match"]
+                         + ' && request.method == "DELETE"')
+        store.apply_events([Event(key, divergent)], notify=False)
+        d0 = srv.controller.dispatcher
+        delay = FAMILIES["publish_delay_seconds"]
+        s0 = delay.sum()
+        k0 = dict(kernels.launches)
+        t1 = time.perf_counter()
+        with kernels.launches.capture() as captured:
+            srv.controller.rebuild()
+        torch.cuda.synchronize()
+        counts = {k: v - k0[k] for k, v in kernels.launches.items()
+                  if v != k0[k]}
+        rebuild_s = time.perf_counter() - t1
+        delay_s = delay.sum() - s0
+        rej = srv.controller.last_canary_rejection
+        rep = rej.report if rej is not None else None
+        if srv.controller.dispatcher is not d0 or rep is None or \
+                rep.verdict != "veto":
+            raise AssertionError("[15b] the divergent candidate was not "
+                                 "vetoed")
+        if rep.n_rows != cfg.replay_limit or \
+                rep.diverging_rules() != [victim] or \
+                rep.n_divergent != want_div or \
+                rep.by_kind != {"status_flip": want_div}:
+            raise AssertionError(
+                f"[15b] report: {rep.n_divergent}/{rep.n_rows} rows "
+                f"{rep.by_kind} rules {rep.diverging_rules()[:5]}; the "
+                f"corpus says {want_div} rows of {victim}")
+        replay = spy.results[-1]
+        # the replay's launches: exactly the kernels of a check trip
+        # without the telemetry fold, one trip a chunk
+        got = sorted({n for n, _ in captured})
+        if got != sorted(CANARY_KERNELS):
+            raise AssertionError(f"[15b] the replay launched {got}, want "
+                                 f"{sorted(CANARY_KERNELS)}")
+        chunks = -(-cfg.replay_limit // srv._buckets[-1])
+        plan = rej.candidate_plan
+        trip = {k: v for k, v in served_trip(plan.engine.ruleset).items()
+                if v and k != "rule_stats"}
+        if counts != {k: chunks * v for k, v in trip.items()}:
+            raise AssertionError(f"[15b] replay launches {counts}, "
+                                 f"{chunks} chunks of {trip}")
+        with uncounted():
+            check_kernels(captured, plan.engine.quota_counts.clone())
+        # card against CPU: the saved corpus replayed by the CPU port
+        t2 = time.perf_counter()
+        cpu_snap = SnapshotBuilder(GLOBAL_MANIFEST, InternTable(), None,
+                                   lower_rbac=True, device="cpu").build(store)
+        cpu_plan = build_fused_plan(cpu_snap)
+        cpu_replay = replay_entries(cpu_snap, cpu_plan, load_corpus(path),
+                                    buckets=srv._buckets)
+        cpu_s = time.perf_counter() - t2
+        fields = ("status", "valid_duration_s", "valid_use_count",
+                  "deny_rule", "quota_rules", "n_rows")
+        for f in fields:
+            if getattr(replay, f) != getattr(cpu_replay, f):
+                raise AssertionError(f"[15b] the card's replay {f} differs "
+                                     "from the CPU port's")
+        # the veto left the serving state as it was
+        again = []
+        for lo in range(0, len(bags), cap):
+            again += srv.check_many(bags[lo:lo + cap])
+        compare_responses("[15b] check_many after the veto", again, served)
+        q_after = [srv.quota(quota_bag, "rq.istio-system", QuotaArgs())
+                   for _ in range(2)]
+        if q_after != q_before:
+            raise AssertionError(f"[15b] quota() after the veto {q_after}, "
+                                 f"before {q_before}")
+        # the identical candidate: the base rules in reversed store order
+        rules = [k for k in store.list("rule")]
+        specs = {k: store.get(k) for k in rules}
+        specs[key] = spec
+        store.apply_events([Event(k, None) for k in rules]
+                           + [Event(k, specs[k]) for k in reversed(rules)],
+                           notify=False)
+        t3 = time.perf_counter()
+        d2 = srv.controller.rebuild()
+        ident_s = time.perf_counter() - t3
+        last = srv.canary.reports()[-1]
+        renumbered = d2.snapshot.qualified_rule_names() != names
+        if d2 is d0 or last.verdict != "publish" or last.n_divergent or \
+                not renumbered:
+            raise AssertionError(
+                f"[15b] the identical candidate: published {d2 is not d0}, "
+                f"{last.n_divergent} divergences, renumbered {renumbered}")
+        out = {"rules": len(names), "rows": replay.n_rows,
+               "divergent": rep.n_divergent, "victim": victim,
+               "replay_wall_s": replay.wall_s,
+               "replay_rows_per_s": replay.rows_per_s,
+               "publish_delay_s": delay_s,
+               "host_compile_s": rebuild_s - delay_s,
+               "identical_rebuild_s": ident_s, "server_build_s": build_s,
+               "cpu_replay_s": cpu_s, "chunks": chunks,
+               "launches_per_chunk": {k: v / chunks
+                                      for k, v in counts.items()}}
+        log(f"[15b] make_store({HEADLINE_RULES}) ({len(names)} rules), "
+            f"canary=gate at the defaults: {CANARY_B} served rows "
+            f"recorded, the newest {replay.n_rows} replayed in {chunks} "
+            f"chunk(s); the divergent candidate ({victim} && DELETE) "
+            f"vetoed with {rep.n_divergent} status flips, as the saved "
+            f"corpus counts; replay {replay.wall_s * 1e3:.2f} ms = "
+            f"{replay.rows_per_s:,.0f} rows/s; publish delay "
+            f"{delay_s * 1e3:.2f} ms; candidate host compile "
+            f"{rebuild_s - delay_s:.2f} s; launches a chunk "
+            f"{out['launches_per_chunk']}, each equal to its plain version;"
+            f" the CPU port's replay of the saved corpus equal "
+            f"({cpu_s:.2f} s); check_many and quota() after the veto "
+            f"unchanged; the reversed store order published with 0 "
+            f"divergences (rebuild {ident_s:.2f} s)")
+        return out
+    finally:
+        spy.close()
+        srv.close()
+        store.close()
+
+
+def canary_overlay() -> dict:
+    """(c) make_store(10_000, host_overlay_every=5) on a card server with
+    the executor on: half the overlay rows are denied by their host list
+    action, which the device planes never see; the recorder keeps the
+    device planes, so an identical swap publishes with 0 divergences."""
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.testing import workloads
+
+    store = workloads.make_store(HEADLINE_RULES, host_overlay_every=5)
+    srv = RuntimeServer(store, ServerArgs(canary="gate"), device="cuda")
+    try:
+        bags, _handlers = overlay_traffic(CANARY_OVERLAY_B, HEADLINE_RULES)
+        from istio_tpu_torch.attribute.bag import bag_from_mapping
+        # a namespace no whitelist holds: cilist and provlist deny it
+        bags = [bag_from_mapping({**{n: b.get(n)[0] for n in b.names()},
+                                  "source.namespace": "ns1"})
+                if j % 2 else b for j, b in enumerate(bags)]
+        got = srv.check_many(bags)
+        entries = srv.canary.recorder.corpus()
+        host_denied = sum(1 for r, e in zip(got, entries)
+                          if r.status_code != 0 and e.status == 0)
+        if not host_denied:
+            raise AssertionError("[15c] no served row carries a host-overlay "
+                                 "verdict the device planes lack")
+        d0 = srv.controller.dispatcher
+        d1 = srv.controller.rebuild()            # the identical config
+        last = srv.canary.reports()[-1]
+        if d1 is d0 or last.verdict != "publish" or last.n_divergent:
+            raise AssertionError(f"[15c] the identical overlay swap: "
+                                 f"{last.n_divergent} divergences")
+        log(f"[15c] overlay world (make_store({HEADLINE_RULES}, "
+            f"host_overlay_every=5)), executor on: {host_denied} of "
+            f"{len(bags)} served rows denied by a host list action the "
+            f"device planes lack; recorded {len(entries)} device-plane "
+            "rows; the identical swap published with 0 divergences")
+        return {"host_denied": host_denied, "rows": len(entries)}
+    finally:
+        srv.close()
+        store.close()
+
+
+def canary_phase() -> dict:
+    """Phase 15: the config canary on the card, counters zeroed just
+    before its drive and read just after: (a) the seeded pairs beside a
+    CPU server, (b) the headline world at full width, (c) the overlay
+    world."""
+    from istio_tpu_torch import kernels
+    t_phase = time.perf_counter()
+    kernels.launches.reset()
+    confirmed = canary_pairs_leg()
+    log(f"[15a] {confirmed} status-flip exemplars, every one "
+        "oracle-confirmed")
+    full = canary_full_width()
+    overlay = canary_overlay()
+    out = path_counts("[15] canary path", CANARY_KERNELS,
+                      kernels.launches["check_pack"])
+    seconds = time.perf_counter() - t_phase
+    log(f"[t] phase 15 took {seconds:.1f} s")
+    return {**out, "rows": [], "full": full, "overlay": overlay,
+            "confirmed": confirmed, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8659,7 +9144,15 @@ def main() -> int:
     ex = executor_phase()
 
     log(f"[t] phase 15 starts at {time.perf_counter() - t_start:.1f} s")
-    # ---- phase 15: result lines. K1-K6 keep the headline served path's
+    # ---- phase 15: the config canary, counters zeroed just before its
+    # drive; its gate counts from here (14 and 14b move the counters on
+    # purpose)
+    _GATE["base"] = resilience_reading()
+    cz = canary_phase()
+    resilience_gate("[15] end")
+
+    log(f"[t] phase 16 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 16: result lines. K1-K6 keep the headline served path's
     # row; list_banks reports the list path's, field_eval the report
     # path's, quota_alloc the quota path's (its in-step trip, with every
     # mode's row under "modes") and route_select the route path's (its
@@ -8667,7 +9160,8 @@ def main() -> int:
     # its kernel's rows on the other paths under "paths".
     paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
              "adapters": ac, "quota": qt, "routes": rt, "discovery": dc,
-             "seq": sq, "mesh": mh, "resilience": rz, "executor": ex}
+             "seq": sq, "mesh": mh, "resilience": rz, "executor": ex,
+             "canary": cz}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
                             ("atom_eval", "authz", az),
@@ -8787,6 +9281,17 @@ def main() -> int:
             for b, r in ex["walls"].items())
         + f"; quota() p50 {ex['quota']['p50_ms']:.4f} ms p99 "
         f"{ex['quota']['p99_ms']:.4f} ms")
+    cf = cz["full"]
+    log(f"canary (phase 15, {cz['seconds']:.1f} s; make_store("
+        f"{HEADLINE_RULES}), canary=gate at the defaults): replay of "
+        f"{cf['rows']} recorded rows {cf['replay_wall_s'] * 1e3:.2f} ms = "
+        f"{cf['replay_rows_per_s']:,.0f} rows/s in {cf['chunks']} chunk(s), "
+        f"launches a chunk {json.dumps(cf['launches_per_chunk'])}; publish "
+        f"delay {cf['publish_delay_s'] * 1e3:.2f} ms; candidate host "
+        f"compile {cf['host_compile_s']:.2f} s; {cf['divergent']} "
+        f"divergent rows vetoed ({cf['victim']}); overlay world "
+        f"{cz['overlay']['host_denied']} host-denied rows, identical swap "
+        "published with 0 divergences")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

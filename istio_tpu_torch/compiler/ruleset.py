@@ -765,6 +765,48 @@ def rule_match(ids: torch.Tensor, present: torch.Tensor,
     return tuple(outs)
 
 
+def fused_check_status(snapshot, plan, ridx: int, bag) -> int:
+    """The status the FUSED device lowering of rule `ridx`'s check
+    actions produces for `bag`, re-derived host-side from the
+    snapshot's action metadata (port of the reference's
+    compiler/ruleset.py:317): denier codes via plan.deny_info,
+    STRINGS-list membership with the blacklist → PERMISSION_DENIED /
+    whitelist-miss → NOT_FOUND / absent → INTERNAL codes of
+    models/policy_engine. The decision-status derivation beside
+    SnapshotOracle, both the host-side truth the device path is judged
+    against: the config canary confirms its exemplars with it
+    (canary/differ.py)."""
+    from istio_tpu_torch.templates import Variety
+
+    info = plan.deny_info.get(ridx) if plan is not None else None
+    if info is not None:
+        return info[0]
+    if plan is not None and ridx in plan.list_rules:
+        for hc, _template, inst_names in snapshot.actions_for(
+                ridx, Variety.CHECK):
+            if hc.adapter != "list":
+                continue
+            entries = set(map(str, hc.params.get("overrides", ())))
+            blacklist = bool(hc.params.get("blacklist", False))
+            for iname in inst_names:
+                ref = snapshot.instances[iname].value_attr_ref()
+                if isinstance(ref, tuple):
+                    c, ok = bag.get(ref[0])
+                    v = c.get(ref[1]) if ok and \
+                        isinstance(c, Mapping) else None
+                    ok = v is not None
+                else:
+                    v, ok = bag.get(ref)
+                if not ok or not isinstance(v, str):
+                    return 13            # INTERNAL: absent value
+                member = v in entries
+                if member and blacklist:
+                    return 7             # PERMISSION_DENIED
+                if not member and not blacklist:
+                    return 5             # NOT_FOUND
+    return 0
+
+
 class SnapshotOracle:
     """Whole-snapshot CPU oracle executor — the graceful-degradation
     resolve path the device circuit breaker falls back to

@@ -27,8 +27,22 @@ sharded one (runtime/fused.build_fused_plan). `executor`
 (runtime/grants.GrantPolicy) go to every published Dispatcher; the
 grant policy revokes (`on_publish(None)`) immediately before each
 dispatcher swap, so a request served by the new generation never
-carries a grant computed from the old one's age. Not carried (each
-raises NotPorted when asked for): the config canary, the overlapped h2d
+carries a grant computed from the old one's age.
+
+`canary` (canary/gate.ConfigCanary): every rebuild after the first
+replays the canary's recorded traffic through the candidate plan and
+diffs it before anything is published; a veto (`CanaryRejected`, kept
+in `last_canary_rejection` and handed to `on_canary_reject`) keeps the
+old dispatcher, handler table and quota pools serving untouched. The
+gate runs straight after the candidate plan is built, ahead of the
+quota pool rebuild and the warm (the reference gates after its warm and
+rebuilds the pools after the gate; here the in-step warm needs the new
+pools, so the gate moved ahead of both). A strict canary's replay
+device fault raises out of rebuild() with nothing published. Every
+published dispatcher taps the canary's recorder, and `on_published`
+re-baselines it after the swap. The reference's `canary_veto` forensics
+event waits for the forensics plane; the veto is logged at ERROR. Not
+carried (each raises NotPorted when asked for): the overlapped h2d
 staging and sharded serving (`warm_parent_plans=False`).
 """
 from __future__ import annotations
@@ -72,10 +86,6 @@ class Controller:
                  grants=None,
                  overlap_h2d: bool = False,
                  device: str | torch.device = "cuda"):
-        for name, value in (("canary", canary),
-                            ("on_canary_reject", on_canary_reject)):
-            if value is not None:
-                raise NotPorted(f"Controller({name}=...)")
         if overlap_h2d:
             raise NotPorted("Controller(overlap_h2d=True)")
         if not warm_parent_plans:
@@ -86,6 +96,12 @@ class Controller:
         # breakers outlive snapshots
         self.executor = executor
         self.grants = grants
+        # config canary: shadow-replays recorded live traffic through
+        # every candidate before its publish; a veto keeps the old
+        # dispatcher serving
+        self.canary = canary
+        self.on_canary_reject = on_canary_reject
+        self.last_canary_rejection = None
         self.identity_attr = identity_attr
         self.debounce_s = debounce_s
         self.on_publish = on_publish
@@ -155,6 +171,26 @@ class Controller:
             from istio_tpu_torch.runtime.fused import build_fused_plan
             plan = build_fused_plan(snapshot, mesh=self.mesh,
                                     rule_telemetry=self.rule_telemetry)
+        # config canary: replay recorded live traffic through the
+        # candidate BEFORE any publish side effect — the quota pools,
+        # the warm that runs on them and the handler table below all
+        # move shared state toward the new snapshot, and a vetoed
+        # candidate must leave them untouched so the old dispatcher
+        # keeps serving unchanged
+        if self.canary is not None and self._dispatcher is not None:
+            rejection = self.canary.gate(self._dispatcher, snapshot,
+                                         plan, self.prewarm_buckets)
+            if rejection is not None:
+                self.last_canary_rejection = rejection
+                log.error("config publish VETOED (generation %d kept "
+                          "serving): %s", self._dispatcher.snapshot
+                          .revision, rejection)
+                if self.on_canary_reject is not None:
+                    try:
+                        self.on_canary_reject(rejection)
+                    except Exception:
+                        log.exception("on_canary_reject hook failed")
+                return self._dispatcher
         quota_orphans: list = []
         if self._quota_table is not None:
             self.device_quotas, quota_orphans = \
@@ -171,6 +207,8 @@ class Controller:
         dispatcher = Dispatcher(snapshot, handlers, self.identity_attr,
                                 fused=plan,
                                 buckets=self.prewarm_buckets,
+                                recorder=self.canary.recorder
+                                if self.canary is not None else None,
                                 executor=self.executor,
                                 grants=self.grants)
         if self.grants is not None:
@@ -178,6 +216,12 @@ class Controller:
             # controller's dispatcher (monolithic mode)
             self.grants.on_publish(None)
         self._dispatcher = dispatcher      # atomic publish (GIL ref swap)
+        # a successful publish supersedes any earlier veto
+        self.last_canary_rejection = None
+        if self.canary is not None:
+            # post-swap: re-baselines the recorder when the published
+            # candidate was divergent (gate.on_published)
+            self.canary.on_published(dispatcher)
         if orphans:
             t = threading.Timer(
                 self.ORPHAN_DRAIN_S,

@@ -33,8 +33,14 @@ generic path and the host oracle always run them inline). With `grants`
 are min-folded with its namespace's grant. The reference also marks the
 grant fold as a stage of the flight recorder's tape
 (`RECORDER.stage_mark("grant")`); runtime/forensics.py is not ported, so
-that is left out. Not carried: the canary recorder and the overlapped
-h2d staging (their constructor arguments raise NotPorted when set).
+that is left out. With a `recorder` (canary/recorder.TrafficRecorder)
+the fused path taps every served batch after its response loop: the
+padding-trimmed rows with the DEVICE planes (status, TTL, use count,
+deny rule from the packed pull, before the host overlay and the grant
+fold) and the batch's trace span; the generic path is not tapped, as in
+the reference. `observe=False` is the canary's shadow-replay mode. Not
+carried: the overlapped h2d staging (`overlap_h2d=True` raises
+NotPorted).
 """
 from __future__ import annotations
 
@@ -104,8 +110,6 @@ class Dispatcher:
                  executor=None,
                  grants=None,
                  overlap_h2d: bool = False):
-        if recorder is not None:
-            raise NotPorted("Dispatcher(recorder=...)")
         if overlap_h2d:
             raise NotPorted("Dispatcher(overlap_h2d=True)")
         self.snapshot = snapshot
@@ -119,6 +123,9 @@ class Dispatcher:
         # GrantPolicy: every check response's TTL / use count is
         # min-folded with its namespace's grant
         self.grants = grants
+        # canary TrafficRecorder (canary/recorder.py): the fused path
+        # taps every served batch's device planes into it
+        self.recorder = recorder
         self._ns_name_of: dict | None = None   # lazy rs.ns_ids inverse
         # False = shadow-replay mode: no stage histograms, no
         # rule-telemetry folds, no chaos seam
@@ -502,7 +509,10 @@ class Dispatcher:
             if observe:
                 monitor.observe_stage("fold", t_respond - t_overlay)
             tele = plan.telemetry if observe else None
-            tele_span = tr._current() if tele is not None else None
+            # the canary recorder shares the span so its samples join
+            # the batch's trace
+            tele_span = tr._current() \
+                if tele is not None or self.recorder is not None else None
             # check-cache grants: one (ttl, uses) pair per distinct
             # namespace, min-folded into every response, allow and deny
             grant_of = self._grants_for_rows(ns_ids)
@@ -577,6 +587,14 @@ class Dispatcher:
                                       time.perf_counter() - t_respond)
                 tr.emit("serve.overlay", time.perf_counter() - t_overlay,
                         batch=len(bags))
+            if self.recorder is not None:
+                # canary tap: bags / out are padding-trimmed; one stride
+                # check a batch, a bounded append a sampled row. The
+                # DEVICE planes are recorded, not the merged responses:
+                # the shadow replay runs no host adapter and no grant
+                self.recorder.tap(bags, out, snap, self.identity_attr,
+                                  tele_span,
+                                  device=(status, dur, uses, deny_rule))
             return out
         except BaseException:
             if host_pending is not None:

@@ -24,9 +24,10 @@ on them.
 `RuleStatsAggregator` folds drained deltas into cumulative counts keyed
 by qualified rule name (surviving config swaps), and `RuleStatsDrainer`
 drains it on an interval, so the int32 accumulators never run long
-enough to wrap. Not carried: the aggregator's metric families,
-exporters, exemplar rendering, the top-k `snapshot()` view and
-sharded lanes.
+enough to wrap. `preview_attributes` is the exemplar rendering the
+config canary's reports use (canary/differ.py). Not carried: the
+aggregator's metric families, exporters, its own exemplars, the top-k
+`snapshot()` view and sharded lanes.
 """
 from __future__ import annotations
 
@@ -124,6 +125,23 @@ def rule_stats(matched: torch.Tensor, err: torch.Tensor,
                      matched, err, status, deny_rule, req_ns, real, rule_ns,
                      default_ns, n_slots, err_rows)
     return None
+
+
+def preview_attributes(bag, limit: int = 16,
+                       value_len: int = 128) -> dict:
+    """Bounded attribute preview of one sampled request: the exemplar
+    rendering contract the config canary's reports share with the
+    reference's /debug/rulestats (first `limit` attributes, reprs
+    truncated to `value_len`, decode failures sentineled)."""
+    attrs: dict = {}
+    try:
+        for name in list(bag.names())[:limit]:
+            v, ok = bag.get(name)
+            if ok:
+                attrs[str(name)] = repr(v)[:value_len]
+    except Exception:
+        attrs = {"<decode-failed>": "1"}
+    return attrs
 
 
 class RuleTelemetry:

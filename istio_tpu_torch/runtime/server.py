@@ -40,11 +40,20 @@ a GrantPolicy's grant (runtime/grants.py), revoked at each publish.
 `mesh_shape=(dp, mp)` serves every batch through the dp × mp sharded
 engine step (parallel/mesh.py) over `platform.devices()`: the physical
 cards, or the virtual devices `platform.force_virtual_devices` made.
+`canary` ("off" by default; "warn" or "gate") builds a ConfigCanary
+(canary/gate.py) from the six `canary*` fields: every served fused batch
+taps its recorder, and every config rebuild replays the recorded
+traffic through the candidate plan before the publish; "gate" vetoes a
+candidate whose divergence rate exceeds `canary_max_divergence`. On a
+CUDA device the canary is strict: a fault of the replay's device trip
+raises out of the rebuild with nothing published, where the reference
+fails open.
+
 `ServerArgs` keeps the reference's field names and defaults. The fields
 the port does not carry (sharding and replicas, overlap_h2d, the flight
-recorder, the canary, the audit plane, mTLS) are accepted at their
-defaults, where the planes behind them simply do not run, and raise
-NotPorted when set to anything else.
+recorder, the audit plane, mTLS) are accepted at their defaults, where
+the planes behind them simply do not run, and raise NotPorted when set
+to anything else.
 
 On a CUDA device the constructor builds every kernel of
 `kernels.KERNELS` before anything else: a failed nvcc raises out of the
@@ -162,6 +171,26 @@ class ServerArgs:
     grant_ttl_floor_s: float = 1.0
     grant_ttl_cap_s: float = 5.0
     grant_ttl_ramp_per_s: float = 0.5
+    # -- config canary (canary/) ----------------------------------------
+    # shadow-replay recorded live Check() traffic through every rebuilt
+    # snapshot before the atomic publish: "off" disables the recorder
+    # and the replay; "warn" replays and records the diff report but
+    # always publishes; "gate" VETOES a publish whose divergence rate
+    # exceeds canary_max_divergence (the old dispatcher keeps serving;
+    # Controller.last_canary_rejection holds the CanaryRejected)
+    canary: str = "off"
+    # recorder sampling ring: capacity bounds memory, sample_every=k
+    # keeps every k-th request (uniform stride across batches)
+    canary_capacity: int = 2048
+    canary_sample_every: int = 1
+    # newest recorded rows replayed per candidate evaluation
+    canary_replay_limit: int = 1024
+    # non-waived divergent rows / replayed rows beyond which "gate"
+    # vetoes (strictly greater-than; 0.0 = any divergence vetoes)
+    canary_max_divergence: float = 0.0
+    # qualified rule names ("ns/name") whose divergences are reported
+    # but never gate
+    canary_waivers: tuple = ()
     # -- not carried: accepted at these defaults only -----------------
     shards: int = 0
     replicas: int = 1
@@ -176,12 +205,6 @@ class ServerArgs:
     slow_ring_capacity: int = 256
     event_ring_capacity: int = 512
     profile_dir: str | None = None
-    canary: str = "off"
-    canary_capacity: int = 2048
-    canary_sample_every: int = 1
-    canary_replay_limit: int = 1024
-    canary_max_divergence: float = 0.0
-    canary_waivers: tuple = ()
     audit: bool = True
     audit_interval_s: float = 0.5
     audit_quota_every: int = 8
@@ -205,7 +228,9 @@ CARRIED_ARGS = frozenset({
     "executor_workers", "executor_queue_cap", "host_fail_policy",
     "host_action_timeout_ms", "host_breaker_failures",
     "host_breaker_reset_s", "default_check_deadline_ms", "check_grants",
-    "grant_ttl_floor_s", "grant_ttl_cap_s", "grant_ttl_ramp_per_s"})
+    "grant_ttl_floor_s", "grant_ttl_cap_s", "grant_ttl_ramp_per_s",
+    "canary", "canary_capacity", "canary_sample_every",
+    "canary_replay_limit", "canary_max_divergence", "canary_waivers"})
 
 
 def _check_carried(args: ServerArgs) -> None:
@@ -252,6 +277,21 @@ class RuntimeServer:
         # (draining the outgoing plan first); the drainer empties the
         # device accumulators on an interval so they never wrap
         self.rulestats = RuleStatsAggregator()
+        # config canary: built before the controller so the very first
+        # dispatcher already carries the recorder tap — the gate itself
+        # only engages from the second rebuild on. Strict on the card: a
+        # replay device fault fails the publish instead of failing open
+        self.canary = None
+        if self.args.canary != "off":
+            from istio_tpu_torch.canary import CanaryConfig, ConfigCanary
+            self.canary = ConfigCanary(CanaryConfig(
+                mode=self.args.canary,
+                max_divergence_rate=self.args.canary_max_divergence,
+                waivers=tuple(self.args.canary_waivers),
+                capacity=self.args.canary_capacity,
+                sample_every=self.args.canary_sample_every,
+                replay_limit=self.args.canary_replay_limit),
+                strict=self.device.type == "cuda")
         # the adapter-executor plane and the grant policy are built
         # before the controller, so the first publish's dispatcher
         # already has them; lanes and breakers outlive config swaps
@@ -285,6 +325,7 @@ class RuntimeServer:
                 rule_telemetry=self.args.rule_telemetry,
                 initial_prewarm=self.args.initial_prewarm,
                 prewarm_hook=self._prewarm_instep_for,
+                canary=self.canary,
                 executor=self.executor,
                 grants=self.grants,
                 device=self.device)

@@ -1,9 +1,9 @@
 """The expression-conformance corpus: the port's own copy of the JAX
 package's istio_tpu/testing/corpus.py (its CORPUS_MANIFEST, Case and
-CORPUS; the analyzer and canary corpora are not copied), so code that
-may not import the JAX package (chip_smoke.py's atom world) can build
-atoms from it. tests/test_torch_atoms.py holds it equal to the
-original.
+CORPUS, ANALYZER_MANIFEST and the canary corpus; the analyzer's cases are
+not copied), so code that may not import the JAX package (chip_smoke.py's
+atom world and canary phase) can build from it. tests/test_torch_atoms.py
+and tests/test_torch_canary.py hold it equal to the original.
 
 One shared table of cases proving the semantics contract of the policy
 expression language (reference behavior defined by mixer/pkg/il/testing/
@@ -706,3 +706,199 @@ CORPUS: list[Case] = [
          name="mixed-shortcircuit-chain"),
 ]
 
+
+# The attribute vocabulary of the analyzer and canary worlds.
+ANALYZER_MANIFEST = {
+    "destination.service": V.STRING,
+    "source.namespace": V.STRING,
+    "source.user": V.STRING,
+    "request.path": V.STRING,
+    "request.method": V.STRING,
+    "request.host": V.STRING,
+    "request.headers": V.STRING_MAP,
+    "connection.mtls": V.BOOL,
+}
+
+
+# MemStore-ready config docs: the base (the world live traffic was
+# recorded against), a SEMANTICALLY IDENTICAL rewrite (conjuncts
+# reordered, store insertion order shuffled — the canary must publish
+# it with zero reported divergences), and a DELIBERATELY DIVERGENT
+# rewrite planting exactly one decision-flipping defect class at an
+# rng-chosen victim (port of istio_tpu/testing/corpus.py:899-1070, made
+# with numpy from the seed, so both packages give the same docs).
+# Consumed by tests/test_torch_canary.py and chip_smoke.py's phase 15.
+
+@dataclasses.dataclass
+class CanaryPair:
+    """One seeded (identical, divergent) snapshot pair."""
+    kind: str                  # planted defect class (see below)
+    expected: str              # divergence kind the differ must report
+    base_docs: list            # [(key, spec)] — MemStore.set pairs
+    identical_docs: list
+    divergent_docs: list
+    divergent_rule: str        # qualified rule name ("ns/name") the
+    #                            report must attribute divergences to
+    services: list             # victim services (traffic targets)
+
+
+def _canary_world(rng, n_rules: int) -> tuple[list, list, dict]:
+    """(docs, rule specs, meta) for one seeded base world: denier /
+    whitelist handlers + per-service rules, every 3rd carrying the
+    deny action, one rng-chosen rule the quota rule."""
+    docs = [
+        (("handler", "istio-system", "denyall"),
+         {"adapter": "denier",
+          "params": {"status_code": 7,
+                     "status_message": "denied by canary world",
+                     "valid_duration_s": 2.5,
+                     "valid_use_count": 500}}),
+        (("handler", "istio-system", "mq"),
+         {"adapter": "memquota",
+          "params": {"quotas": [{"name": "rq.istio-system",
+                                 "max_amount": 1 << 20,
+                                 "valid_duration_s": 600.0}]}}),
+        (("instance", "istio-system", "rq"),
+         {"template": "quota", "params": {"dimensions": {}}}),
+        (("instance", "istio-system", "nothing"),
+         {"template": "checknothing", "params": {}}),
+    ]
+    # the quota rule must not double as a deny rule: a tightened match
+    # on a deny+quota rule classifies as status_flip (checked first),
+    # and the quota-drop pair pins the pure quota-delta class
+    quota_at = int(rng.integers(n_rules))
+    while quota_at % 3 == 0:
+        quota_at = int(rng.integers(n_rules))
+    rules = []
+    for i in range(n_rules):
+        ns = f"ns{i % 5}"
+        svc = f"svc{i}.{ns}.svc.cluster.local"
+        conjuncts = [f'destination.service == "{svc}"',
+                     f'source.namespace != "locked{int(rng.integers(7))}"']
+        actions = []
+        if i % 3 == 0:
+            actions.append({"handler": "denyall.istio-system",
+                            "instances": ["nothing.istio-system"]})
+        if i == quota_at:
+            actions.append({"handler": "mq.istio-system",
+                            "instances": ["rq.istio-system"]})
+        rules.append({"name": f"canary{i}", "namespace": ns,
+                      "svc": svc, "conjuncts": conjuncts,
+                      "actions": actions, "idx": i})
+    meta = {"quota_at": quota_at,
+            "deny_idx": [i for i in range(n_rules) if i % 3 == 0]}
+    return docs, rules, meta
+
+
+def _canary_rule_doc(r, conjuncts=None) -> tuple:
+    return (("rule", r["namespace"], r["name"]),
+            {"match": " && ".join(conjuncts or r["conjuncts"]),
+             "actions": [dict(a) for a in r["actions"]]})
+
+
+def make_canary_snapshot_pairs(seed: int, n_rules: int = 12
+                               ) -> list[CanaryPair]:
+    """Three seeded pairs, one per divergence class the differ
+    classifies:
+
+      tightened-match — a firing deny rule's match gains an extra
+          conjunct excluding the recorded traffic: DENY→OK status
+          flips attributed to that rule;
+      ttl-change — the shared denier handler's valid_duration_s
+          param changes: same statuses, precondition (TTL) divergence
+          on every denied row;
+      quota-drop — the quota rule's match is tightened so it stops
+          activating for recorded traffic: quota-set divergence.
+
+    Identical variants reorder each rule's conjuncts AND reverse the
+    store insertion order (rule indices renumber; decisions must not).
+    """
+    import numpy as np
+
+    out: list[CanaryPair] = []
+    rng = np.random.default_rng(seed)
+
+    def build():
+        docs, rules, meta = _canary_world(
+            np.random.default_rng(int(rng.integers(1 << 30))), n_rules)
+        base = list(docs) + [_canary_rule_doc(r) for r in rules]
+        ident_rules = [_canary_rule_doc(r, list(reversed(r["conjuncts"])))
+                       for r in rules]
+        identical = list(docs) + list(reversed(ident_rules))
+        return docs, rules, meta, base, identical
+
+    # 1. tightened-match → status_flip on an rng-chosen deny rule
+    docs, rules, meta, base, identical = build()
+    victim = rules[int(rng.choice(meta["deny_idx"]))]
+    divergent = list(docs) + [
+        _canary_rule_doc(r, r["conjuncts"] +
+                         ['request.method == "DELETE"']
+                         if r is victim else None)
+        for r in rules]
+    out.append(CanaryPair(
+        kind="tightened-match", expected="status_flip",
+        base_docs=base, identical_docs=identical,
+        divergent_docs=divergent,
+        divergent_rule=f"{victim['namespace']}/{victim['name']}",
+        services=[r["svc"] for r in rules]))
+
+    # 2. ttl-change → precondition divergence on every denied row
+    docs, rules, meta, base, identical = build()
+    victim = rules[meta["deny_idx"][0]]
+    divergent = []
+    for key, spec in base:
+        if key == ("handler", "istio-system", "denyall"):
+            spec = {"adapter": "denier",
+                    "params": dict(spec["params"],
+                                   valid_duration_s=1.25)}
+        divergent.append((key, spec))
+    out.append(CanaryPair(
+        kind="ttl-change", expected="precondition",
+        base_docs=base, identical_docs=identical,
+        divergent_docs=divergent,
+        divergent_rule=f"{victim['namespace']}/{victim['name']}",
+        services=[r["svc"] for r in rules]))
+
+    # 3. quota-drop → quota-set divergence on the quota rule
+    docs, rules, meta, base, identical = build()
+    victim = rules[meta["quota_at"]]
+    divergent = list(docs) + [
+        _canary_rule_doc(r, r["conjuncts"] +
+                         ['request.method == "DELETE"']
+                         if r is victim else None)
+        for r in rules]
+    out.append(CanaryPair(
+        kind="quota-drop", expected="quota",
+        base_docs=base, identical_docs=identical,
+        divergent_docs=divergent,
+        divergent_rule=f"{victim['namespace']}/{victim['name']}",
+        services=[r["svc"] for r in rules]))
+    return out
+
+
+def make_canary_traffic(pair: CanaryPair, seed: int,
+                        extra_noise: int = 8) -> list[dict]:
+    """Seeded request dicts exercising every rule of a canary world
+    (GET traffic per victim service — the divergent variants all key
+    on method/quota activity for that traffic) plus rng noise rows
+    addressed at unknown services."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dicts = []
+    for svc in pair.services:
+        dicts.append({
+            "destination.service": svc,
+            "source.namespace": f"src{int(rng.integers(9))}",
+            "request.method": "GET",
+            "request.path": f"/api/v{int(rng.integers(3))}/items",
+        })
+    for _ in range(extra_noise):
+        dicts.append({
+            "destination.service":
+                f"noise{int(rng.integers(99))}.nsX.svc.cluster.local",
+            "source.namespace": "srcN",
+            "request.method": "GET",
+            "request.path": "/healthz",
+        })
+    return dicts

@@ -697,13 +697,16 @@ def test_executor_smoke_checks():
     breaker short-circuits are counted and the ledger is exact; the
     executor's snapshot shows the wedged lane open and the provider in
     its maintenance view; the lane recovers by its half-open probe."""
-    n_rules, n_checks, deadline_ms = 60, 24, 400.0
+    # the lane breaker's reset outlasts the short-circuited checks, so no
+    # half-open probe lands inside the loop on a slow or loaded CPU and
+    # both packages count the same overruns and short-circuits
+    n_rules, n_checks, deadline_ms, reset_s = 60, 24, 400.0, 2.0
 
     def scenario(p):
         n_services = n_rules // 2
         store = p.workloads.make_store(n_rules, host_overlay_every=5)
         srv = _server(p, store, default_check_deadline_ms=deadline_ms,
-                      host_breaker_failures=2, host_breaker_reset_s=0.4)
+                      host_breaker_failures=2, host_breaker_reset_s=reset_s)
         try:
             base = p.monitor.host_action_counters()
             ci_rules = [i for i in range(2, n_rules, 5) if (i // 5) % 3 == 0]
@@ -735,7 +738,7 @@ def test_executor_smoke_checks():
             same_ledger = snap["counters"]["submitted"] == \
                 p.monitor.host_action_counters()["submitted"]
             p.CHAOS.unwedge_adapter(CI)
-            time.sleep(0.45)
+            time.sleep(reset_s + 0.05)
             recovered = resp(srv.check(ci_bag))
             closed = srv.executor.lane(CI).breaker.state
         finally:

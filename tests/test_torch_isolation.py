@@ -77,7 +77,11 @@ def test_every_module_imports_without_jax_and_istio_tpu():
             "istio_tpu_torch.runtime.executor",
             "istio_tpu_torch.runtime.grants",
             "istio_tpu_torch.runtime.batcher",
-            "istio_tpu_torch.runtime.monitor"} <= set(names)
+            "istio_tpu_torch.runtime.monitor",
+            "istio_tpu_torch.attribute.compressed",
+            "istio_tpu_torch.utils.metrics",
+            *(f"istio_tpu_torch.canary{m}" for m in (
+                "", ".recorder", ".replay", ".differ", ".gate"))} <= set(names)
 
 
 def test_the_refusing_hook_would_catch_a_leak():

@@ -383,8 +383,10 @@ def test_unported_options_raise():
             pre = d.preprocess(bag_from_mapping({"request.method": "GET"}))
             assert pre.names() == ["request.method"]
             assert pre.get("request.method") == ("GET", True)
-            with pytest.raises(NotPorted):
-                type(d)(d.snapshot, d.handlers, recorder=object())
+            # the canary recorder is carried (tests/test_torch_canary.py)
+            rec = object()
+            assert type(d)(d.snapshot, d.handlers,
+                           recorder=rec).recorder is rec
             with pytest.raises(NotPorted):
                 type(d)(d.snapshot, d.handlers, overlap_h2d=True)
         finally:
