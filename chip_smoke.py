@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's served Check(), Report() and Quota() paths, Pilot's route
 selection and discovery service, sequence-parallel DFA matching and mesh
-serving on virtual devices, the config canary's shadow replay, and their
-kernels on one NVIDIA H100.
+serving on virtual devices, the config canary's shadow replay, the sharded
+serving plane, and their kernels on one NVIDIA H100.
 
     python3 chip_smoke.py            (from the root of a checkout)
 
@@ -322,7 +322,32 @@ Phases, each fatal on failure:
      gate starts from a reading taken after 14b, and the gate after
      every phase also fails on any canary evaluation that failed open
      (mixer_canary_errors_total);
-  16. print the kernels JSON line, the card line, and last the device
+  16. the sharded serving plane (shards_phase; counters zeroed just
+     before it, every kernel of a bank trip, the pair world's and the
+     quota leg's must launch): (a) make_fleet_store(100_000, 512, seed=7)
+     on a card server with shards=8, replicas=2, telemetry off and
+     scripts/shard_smoke.py's buckets (16,): the parent plan is never
+     warmed and runs no trip, every bank plan is warmed before the lanes
+     see it; every config rule in exactly one bank and LPT balance;
+     check_many at B = 64, 256, 2,048 (512 rows of each held against
+     oracle_check_statuses on status and global deny_rule; walls and the
+     shard_dispatch / bank_check / fold split); 2,048 rows through both
+     lanes at once from two threads equal to check_many; routing_stats
+     with 0 misroutes and exactly the rows served; one B = 2,048 batch
+     captured: one rule_match, verdict_fold and check_pack a (bank,
+     chunk) trip, each held against its plain version. (b) the
+     one-namespace constant edit of scripts/delta_smoke.py republished:
+     1 bank recompiled, 7 carried as the same objects, plan stability
+     byte-stable, the probe flips from deny to allow, oracle parity
+     again. (c) make_store(10_000) with shards=0, replicas=2 and
+     telemetry on: lane 0 on the published dispatcher, lane 1 on its own
+     plan, responses and rule counts equal to a card server without
+     replicas. (d) tests/test_sharding.py's pair world (240 rules, 3
+     shards, 2 lanes) and global quota leg equal to the CPU port; an
+     RBAC snapshot falls back to replica-only and says why; a fault
+     CHAOS did not inject raises out of check_many; a CHAOS fault on one
+     bank opens that bank's breaker alone and its oracle answers;
+  17. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
 is not beside this script.
@@ -8882,6 +8907,649 @@ def canary_phase() -> dict:
             "confirmed": confirmed, "seconds": seconds}
 
 
+# ---- phase 16: the sharded serving plane
+
+SHARD_RULES = 100_000        # scripts/shard_smoke.py's gate: 100,000 rules
+SHARD_NAMESPACES = 512       # over 512 namespaces,
+SHARD_COUNT = 8              # 8 shards
+SHARD_REPLICAS = 2           # behind 2 replica lanes
+SHARD_SEED = 7
+# scripts/shard_smoke.py's serving args (its buckets: every bank trip is
+# a 16-row chunk)
+SHARD_ARGS = dict(batch_window_s=0.0005, max_batch=16, buckets=(16,),
+                  rule_telemetry=False, initial_prewarm=False)
+SHARD_B = (64, 256, 2048)
+SHARD_ORACLE_ROWS = 512      # rows of each batch size held against the oracle
+SHARD_ITERS = 10             # timed check_many calls per batch size
+SHARD_LANE_ROWS = 2048       # rows submitted through both lanes at once,
+SHARD_LANE_WINDOW = 32       # by closed-loop callers of this many in flight
+# the kernels of phase 16: a fleet bank trip is rule_match, verdict_fold
+# and check_pack (no subject group, telemetry off); the pair world adds
+# the subject groups' dfa_scan / byte_pred and rule_stats, the global
+# quota leg quota_alloc (the classic pool flush)
+SHARD_KERNELS = ("rule_match", "dfa_scan", "byte_pred", "verdict_fold",
+                 "check_pack", "rule_stats", "quota_alloc")
+# the pair world of tests/test_sharding.py
+PAIR_RULES = 240
+PAIR_ARGS = dict(batch_window_s=0.001, buckets=(16, 64), max_batch=64)
+
+
+class PlanSpy:
+    """Counts FusedPlan.packed_check calls by plan: every bank trip is
+    one (phase 16 requires one rule_match launch a trip and none from
+    the parent plan)."""
+
+    def __init__(self):
+        from istio_tpu_torch.runtime.fused import FusedPlan
+        self._cls, self._real = FusedPlan, FusedPlan.packed_check
+        self.calls: dict[int, int] = {}
+        spy = self
+
+        def packed_check(plan, *a, **kw):
+            spy.calls[id(plan)] = spy.calls.get(id(plan), 0) + 1
+            return spy._real(plan, *a, **kw)
+
+        FusedPlan.packed_check = packed_check
+
+    def close(self) -> None:
+        self._cls.packed_check = self._real
+
+
+class CompileSpy:
+    """Times each bank compile of the server's rebuilds (the sharding
+    package's compile_shard_bank, which _rebuild_sharded looks up per
+    call)."""
+
+    def __init__(self):
+        import istio_tpu_torch.sharding as pkg
+        self._pkg, self._real = pkg, pkg.compile_shard_bank
+        self.walls: list[tuple[int, float]] = []
+
+        def timed_compile(*a, **kw):
+            t = time.perf_counter()
+            bank = self._real(*a, **kw)
+            self.walls.append((bank.shard_id, time.perf_counter() - t))
+            return bank
+
+        pkg.compile_shard_bank = timed_compile
+
+    def close(self) -> None:
+        self._pkg.compile_shard_bank = self._real
+
+
+def fleet_bags(n: int) -> list:
+    """The first `n` rows of make_fleet_traffic against the fleet world
+    (its seed must be the store's: the traffic aims at the rules of the
+    namespace assignment that seed makes)."""
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.testing import workloads
+    return [bag_from_mapping(d) for d in workloads.make_fleet_traffic(
+        n, SHARD_RULES, SHARD_NAMESPACES, SHARD_SEED)]
+
+
+def bank_trips(srv, bags) -> dict:
+    """{bank plan id: trips} a check_many of `bags` makes: one a
+    16-row chunk of each bank's rows."""
+    from istio_tpu_torch.runtime.dispatcher import _namespace_of
+    st = srv._sharded
+    rows: dict[int, int] = {}
+    for b in bags:
+        k = st["plan"].shard_of(_namespace_of(b, srv.args.identity_attr))
+        rows[k] = rows.get(k, 0) + 1
+    banks = {b.shard_id: b for b in st["banks"]}
+    out = {}
+    for k, n in rows.items():
+        cap = banks[k].dispatcher.buckets[-1]
+        out[id(banks[k].dispatcher.fused)] = -(-n // cap)
+    return out
+
+
+def oracle_parity(label: str, srv, bags, got) -> int:
+    """Every served row's status and global deny_rule equal
+    oracle_check_statuses' over the parent snapshot. → denied rows."""
+    from istio_tpu_torch.sharding import oracle_check_statuses
+    d = srv.controller.dispatcher
+    want = oracle_check_statuses(d.snapshot, d.fused, bags)
+    denied = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g.status_code, g.deny_rule) != (w["status"], w["deny_rule"]):
+            raise AssertionError(
+                f"{label}: row {i} status {g.status_code} deny_rule "
+                f"{g.deny_rule}, the oracle {w['status']} / "
+                f"{w['deny_rule']}")
+        denied += w["status"] != 0
+    if not denied:
+        raise AssertionError(f"{label}: the oracle saw no deny")
+    return denied
+
+
+def shard_plan_checks(srv) -> dict:
+    """(a) plan: every config rule in exactly one bank, the global rules
+    in all of them, LPT balance as scripts/shard_smoke.py's check 3."""
+    st = srv._sharded
+    plan, banks = st["plan"], st["banks"]
+    n_cfg = len(srv.controller.dispatcher.snapshot.rules)
+    if st["mode"] != "sharded" or len(banks) != SHARD_COUNT:
+        raise AssertionError(f"[16a] mode {st['mode']} "
+                             f"({st['fallback_reason']}), {len(banks)} banks")
+    n_global = len(plan.global_rules)
+    covered = sum(len(r) for r in plan.shard_rules)
+    seen = set()
+    for k, idxs in enumerate(plan.shard_rules):
+        seen.update(idxs)
+        if banks[k].n_rules != len(idxs) or \
+                list(banks[k].local_to_global) != idxs:
+            raise AssertionError(f"[16a] bank {k} holds {banks[k].n_rules} "
+                                 f"rules, the plan {len(idxs)}")
+    if covered != n_cfg + (SHARD_COUNT - 1) * n_global or \
+            len(seen) != n_cfg:
+        raise AssertionError(f"[16a] the plan covers {covered} rule slots "
+                             f"({len(seen)} distinct) of {n_cfg} rules and "
+                             f"{n_global} globals")
+    bal = plan.balance()
+    if bal["max_over_mean_cost"] > 2.0:
+        raise AssertionError(f"[16a] shard balance {bal}")
+    return bal
+
+
+def shard_walls(serve, bags_by_b: dict) -> dict:
+    """(a) check_many walls at each B (the first batch of each B, timed
+    SHARD_ITERS times; every repeat equal to the first answer) and the
+    shard stage split over the timed calls."""
+    from istio_tpu_torch.runtime import monitor
+    out = {}
+    for b, batches in bags_by_b.items():
+        first = serve(batches[0])
+        base = monitor.shard_stage_baseline()
+        r = timed_walls(lambda: serve(batches[0]), SHARD_ITERS)
+        r["stages"] = monitor.shard_latency_snapshot(since=base)["stages"]
+        compare_responses(f"[16a] B={b} repeat", serve(batches[0]), first)
+        out[b] = r
+        log(f"[16a] B={b:5d}: check_many {wall_line(r)}; stages "
+            + ", ".join(f"{s} n={v['count']} sum {v['sum_ms']:.3f} ms "
+                        f"p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f}"
+                        for s, v in r["stages"].items()))
+    return out
+
+
+def lane_streams(srv) -> list:
+    """Each replica lane's CUDA stream (its router's virtual device)."""
+    return [r.lane.stream for r in srv.batcher.routers]
+
+
+def both_lanes(srv, bags) -> list:
+    """(a) `bags` submitted through the replica front from two threads
+    at once (each thread half the rows, SHARD_LANE_WINDOW in flight at a
+    time, well under each lane's queue cap); → the responses in
+    order."""
+    import threading
+    out: list = [None] * len(bags)
+    errors: list = []
+
+    def submit(lo: int, hi: int) -> None:
+        try:
+            for w in range(lo, hi, SHARD_LANE_WINDOW):
+                idx = range(w, min(w + SHARD_LANE_WINDOW, hi))
+                futs = [srv.batcher.submit(bags[i]) for i in idx]
+                for i, f in zip(idx, futs):
+                    out[i] = f.result(timeout=300)
+        except Exception as exc:   # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    half = len(bags) // 2
+    threads = [threading.Thread(target=submit, args=(0, half)),
+               threading.Thread(target=submit, args=(half, len(bags)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError("[16a] a submitting thread hung")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def shards_full() -> dict:
+    """(a) + (b): make_fleet_store(100_000, 512) on a card server with
+    8 shards behind 2 replica lanes, then a one-namespace constant edit
+    republished on the same server."""
+    import torch
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.runtime.store import Event
+    from istio_tpu_torch.testing import workloads
+    from istio_tpu_torch.testing.workloads import _fleet_ns_assignment
+
+    t0 = time.perf_counter()
+    store = workloads.make_fleet_store(SHARD_RULES, SHARD_NAMESPACES,
+                                       SHARD_SEED)
+    store_s = time.perf_counter() - t0
+    spy, comp = PlanSpy(), CompileSpy()
+    srv = None
+    try:
+        t1 = time.perf_counter()
+        srv = RuntimeServer(store, ServerArgs(
+            shards=SHARD_COUNT, replicas=SHARD_REPLICAS,
+            default_manifest=workloads.MESH_MANIFEST, **SHARD_ARGS),
+            device="cuda")
+        build_s = time.perf_counter() - t1
+        parent = srv.controller.dispatcher.fused
+        parent_s = srv.controller.last_publish_wall_s
+        st = srv._sharded
+        gen_s = st["build_wall_s"]
+        bank_s = sorted(comp.walls)
+        if spy.calls.get(id(parent)) or srv.controller.warm_parent_plans:
+            raise AssertionError("[16a] the parent plan was warmed")
+        bank_plans = {id(b.dispatcher.fused) for b in st["banks"]}
+        if set(spy.calls) != bank_plans:
+            raise AssertionError("[16a] not every bank plan was warmed "
+                                 "before the lanes saw it")
+        bal = shard_plan_checks(srv)
+        log(f"[16a] make_fleet_store({SHARD_RULES}, {SHARD_NAMESPACES}) in "
+            f"{store_s:.2f} s; server build {build_s:.2f} s: parent host "
+            f"compile (snapshot, fused plan, never warmed) {parent_s:.2f} s, "
+            f"sharded generation {gen_s:.2f} s, bank compiles "
+            + ", ".join(f"{k}: {s:.2f} s" for k, s in bank_s)
+            + f"; rules a bank {bal['rules_per_shard']}, namespaces a bank "
+            f"{bal['namespaces_per_shard']}, max / mean cost "
+            f"{bal['max_over_mean_cost']}")
+        # every check_many of (a) goes through serve(), which counts
+        # the rows the routers must account for
+        served = [0]
+
+        def serve(batch):
+            served[0] += len(batch)
+            return srv.check_many(batch)
+
+        # -- serving: the same SHARD_ORACLE_ROWS rows served at each
+        # batch size (as SHARD_ORACLE_ROWS / B batches, or leading a
+        # larger batch), each size's answers held against one oracle
+        # pass over them
+        traffic = fleet_bags(max(SHARD_B) + SHARD_LANE_ROWS)
+        sample = traffic[:SHARD_ORACLE_ROWS]
+        fill = traffic[SHARD_ORACLE_ROWS:max(SHARD_B)]
+        bags_by_b, got_by_b = {}, {}
+        for b in SHARD_B:
+            rows = sample + fill[:max(b - SHARD_ORACLE_ROWS, 0)]
+            bags_by_b[b] = [rows[lo:lo + b] for lo in range(0, len(rows), b)]
+            got_by_b[b] = [r for batch in bags_by_b[b]
+                           for r in serve(batch)][:SHARD_ORACLE_ROWS]
+        walls = shard_walls(serve, bags_by_b)
+        t2 = time.perf_counter()
+        denied = oracle_parity("[16a] oracle", srv, sample,
+                               got_by_b[SHARD_B[0]])
+        oracle_s = time.perf_counter() - t2
+        for b in SHARD_B[1:]:
+            compare_responses(f"[16a] B={b} against B={SHARD_B[0]}",
+                              got_by_b[b], got_by_b[SHARD_B[0]])
+        # -- both lanes at once, from two threads
+        lane_bags = traffic[max(SHARD_B):]
+        want = serve(lane_bags)
+        r0 = [r.stats()["rows"] for r in srv.batcher.routers]
+        t3 = time.perf_counter()
+        lanes = both_lanes(srv, lane_bags)
+        lane_s = time.perf_counter() - t3
+        compare_responses("[16a] lane-served rows", lanes, want)
+        r1 = [r.stats()["rows"] for r in srv.batcher.routers]
+        streams = lane_streams(srv)
+        if r1[1] == r0[1] or None in streams or \
+                len(set(map(id, streams))) != SHARD_REPLICAS:
+            raise AssertionError(f"[16a] lane 1 served {r1[1] - r0[1]} rows "
+                                 "or a lane has no stream of its own")
+        served[0] += SHARD_LANE_ROWS
+        # -- the launches of one B = 2,048 batch
+        cap_bags = bags_by_b[SHARD_B[-1]][0]
+        trips = bank_trips(srv, cap_bags)
+        spy.calls.clear()
+        k0 = dict(kernels.launches)
+        with kernels.launches.capture() as captured:
+            serve(cap_bags)
+        torch.cuda.synchronize()
+        counts = {k: v - k0[k] for k, v in kernels.launches.items()
+                  if v != k0[k]}
+        n_trips = sum(trips.values())
+        if spy.calls != trips or counts != {"rule_match": n_trips,
+                                            "verdict_fold": n_trips,
+                                            "check_pack": n_trips}:
+            raise AssertionError(f"[16a] B=2048 launches {counts}, trips by "
+                                 f"plan {spy.calls}, want {trips}")
+        if id(parent) in spy.calls:
+            raise AssertionError("[16a] the parent plan ran a trip")
+        with uncounted():
+            check_kernels(captured, st["banks"][0].dispatcher.fused.engine
+                          .quota_counts.clone())
+        routing = srv.batcher.routing_stats()
+        if routing["misrouted"] or routing["rows_total"] != served[0]:
+            raise AssertionError(f"[16a] routing {routing}, served "
+                                 f"{served[0]}")
+        log(f"[16a] the {len(sample)} rows served at each B equal to "
+            f"oracle_check_statuses in status and global deny_rule "
+            f"({denied} denied; {oracle_s:.2f} s) and to each other in every "
+            f"field; "
+            f"{SHARD_LANE_ROWS} rows through both lanes from two threads "
+            f"({lane_s * 1e3:.1f} ms; lane rows {[b - a for a, b in zip(r0, r1)]}"
+            f") equal to check_many; routing {json.dumps(routing)} = the "
+            f"{served[0]} rows served; one B=2048 batch: {n_trips} bank trips, "
+            f"launches {counts}, each equal to its plain version, none from "
+            "the parent plan")
+        # -- (b) the one-namespace constant edit of scripts/delta_smoke.py
+        plan0 = st["plan"]
+        banks0 = {b.shard_id: b for b in st["banks"]}
+        probe_i = next(i for i in range(0, SHARD_RULES, 12)
+                       if i % 3 == 0 and i % 4 < 2)
+        ns_of = _fleet_ns_assignment(SHARD_RULES, SHARD_NAMESPACES,
+                                     SHARD_SEED)
+        probe_ns = f"ns{int(ns_of[probe_i])}"
+        probe = bag_from_mapping({
+            "destination.service":
+                f"svc{probe_i}.{probe_ns}.svc.cluster.local",
+            "source.namespace": "probe-team", "source.user": "sidecar-probe",
+            "request.method": "GET", "connection.mtls": True,
+            "request.path": "/probe"})
+        if srv.check_many([probe])[0].status_code != 7:
+            raise AssertionError("[16b] the probe is not denied before the "
+                                 "edit")
+        key = ("rule", probe_ns, f"fleet{probe_i}")
+        spec = dict(store.get(key))
+        locked = f'"locked{probe_i % 5}"'
+        spec["match"] = spec["match"].replace(locked, '"probe-team"')
+        store.apply_events([Event(key, spec)], notify=False)
+        comp.walls.clear()
+        t4 = time.perf_counter()
+        srv.controller.rebuild()
+        rebuild_s = time.perf_counter() - t4
+        st = srv._sharded
+        rs = srv._rebuild_status
+        want_shard = plan0.shard_of(probe_ns)
+        stab = {"mode": "delta", "kept": len(plan0.ns_to_shard), "new": 0,
+                "removed": 0, "moved": [], "moved_kept": [],
+                "rebalance_budget": 0}
+        carried = {b.shard_id: b for b in st["banks"]}
+        if st["delta"]["recompiled"] != [want_shard] or \
+                (rs["banks_reused"], rs["banks_recompiled"]) != \
+                (SHARD_COUNT - 1, 1) or rs["errors"] or \
+                [k for k, _ in comp.walls] != [want_shard] or \
+                json.dumps(st["plan"].stability, sort_keys=True) != \
+                json.dumps(stab, sort_keys=True) or \
+                st["plan"].ns_to_shard != plan0.ns_to_shard:
+            raise AssertionError(f"[16b] delta {st['delta']}, ledger {rs}, "
+                                 f"compiled {comp.walls}, want shard "
+                                 f"{want_shard}")
+        for k, b in carried.items():
+            same = b.dispatcher is banks0[k].dispatcher and \
+                b.checker is banks0[k].checker
+            if same == (k == want_shard):
+                raise AssertionError(f"[16b] bank {k} carried {same}")
+        if srv.check_many([probe])[0].status_code != 0:
+            raise AssertionError("[16b] the probe still denies after the "
+                                 "edit")
+        got = srv.check_many(sample)
+        denied_b = oracle_parity("[16b] oracle after the delta", srv,
+                                 sample, got)
+        log(f"[16b] probe fleet{probe_i} ({probe_ns}, shard {want_shard}) "
+            f"edited: rebuild {rebuild_s:.2f} s (sharded generation "
+            f"{st['build_wall_s']:.2f} s, the one bank compile "
+            f"{comp.walls[0][1]:.2f} s); 1 bank recompiled, "
+            f"{SHARD_COUNT - 1} carried as the same objects; plan stability "
+            f"{json.dumps(st['plan'].stability)}; the probe flipped 7 -> 0; "
+            f"(a)'s {len(sample)} rows equal to the oracle again "
+            f"({denied_b} denied)")
+        return {"rules": SHARD_RULES, "store_s": store_s,
+                "build_s": build_s, "parent_compile_s": parent_s,
+                "bank_compile_s": [s for _, s in bank_s],
+                "sharded_build_s": gen_s, "walls": walls,
+                "oracle_rows": len(sample), "oracle_s": oracle_s,
+                "lane_ms": lane_s * 1e3, "trips_2048": n_trips,
+                "rebuild_s": rebuild_s, "balance": bal}
+    finally:
+        spy.close()
+        comp.close()
+        if srv is not None:
+            srv.close()
+        store.close()
+
+
+def shards_replica_only() -> dict:
+    """(c) make_store(10_000) with shards=0 and replicas=2, telemetry on,
+    beside a card server without replicas: lane 0 serves on the
+    published dispatcher, lane 1 on its own plan; every response and the
+    rule counts equal."""
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    from istio_tpu_torch.testing import workloads
+
+    store = workloads.make_store(HEADLINE_RULES)
+    store2 = workloads.make_store(HEADLINE_RULES)
+    rep = RuntimeServer(store, ServerArgs(replicas=2, rulestats_drain_s=0),
+                        device="cuda")
+    one = RuntimeServer(store2, ServerArgs(rulestats_drain_s=0),
+                        device="cuda")
+    try:
+        st = rep._sharded
+        lanes = st["banks"]
+        if st["mode"] != "replica-only" or \
+                lanes[0].dispatcher is not rep.controller.dispatcher or \
+                lanes[1].dispatcher.fused is lanes[0].dispatcher.fused:
+            raise AssertionError(f"[16c] replica-only lanes: {st['mode']}")
+        bags = served_traffic("headline", HEADLINE_RULES, 256, seed=160) + \
+            served_traffic("hit", HEADLINE_RULES, 256, seed=161)
+        before, before1 = rule_counts(rep), rule_counts(one)
+        r0 = [r.stats()["rows"] for r in rep.batcher.routers]
+        got = [f.result(timeout=300)
+               for f in [rep.batcher.submit(b) for b in bags]]
+        want = one.check_many(bags)
+        compare_responses("[16c] replica lanes", got, want)
+        r1 = [r.stats()["rows"] for r in rep.batcher.routers]
+        if min(b - a for a, b in zip(r0, r1)) == 0:
+            raise AssertionError(f"[16c] a lane served nothing: {r0} {r1}")
+        compare_counts("[16c] rule counts", counts_since(rep, before),
+                       counts_since(one, before1))
+        log(f"[16c] make_store({HEADLINE_RULES}), shards=0 replicas=2: "
+            f"{len(bags)} rows through both lanes (lane rows "
+            f"{[b - a for a, b in zip(r0, r1)]}; lane 0 on the published "
+            "dispatcher, lane 1 on its own plan) equal to a card server "
+            "without replicas, rule counts equal (attach_lanes)")
+        return {"lane_rows": [b - a for a, b in zip(r0, r1)]}
+    finally:
+        rep.close()
+        one.close()
+        store.close()
+        store2.close()
+
+
+def pair_servers(make_store, args: dict):
+    """A card server and a device="cpu" server over their own copies of
+    one store."""
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    stores = [make_store(), make_store()]
+    card = RuntimeServer(stores[0], ServerArgs(**args), device="cuda")
+    cpu = RuntimeServer(stores[1], ServerArgs(**args), device="cpu")
+    return card, cpu, stores
+
+
+def close_all(servers, stores) -> None:
+    for s in servers:
+        s.close()
+    for s in stores:
+        s.close()
+
+
+def shards_unit() -> dict:
+    """(d) tests/test_sharding.py's worlds on the card beside the CPU
+    port: the pair world, the global quota leg, the RBAC fallback, a
+    CHAOS fault on one bank and a fault CHAOS did not inject."""
+    from istio_tpu_torch.adapters.sdk import QuotaArgs
+    from istio_tpu_torch.attribute.bag import bag_from_mapping
+    from istio_tpu_torch.runtime.resilience import CHAOS
+    from istio_tpu_torch.sharding import oracle_check_statuses
+    from istio_tpu_torch.testing import workloads
+
+    mesh = workloads.MESH_MANIFEST
+    out = {}
+    # the pair world: 240 rules with host-overlay lists, 3 shards, 2 lanes
+    card, cpu, stores = pair_servers(
+        lambda: workloads.make_store(PAIR_RULES, host_overlay_every=10,
+                                     seed=5),
+        dict(shards=3, replicas=2, default_manifest=mesh, **PAIR_ARGS))
+    try:
+        dicts = workloads.make_request_dicts(64, seed=6) + \
+            workloads.make_hit_requests(PAIR_RULES, 64, seed=7)[0]
+        bags = [bag_from_mapping(d) for d in dicts]
+        compare_responses("[16d] pair world check_many",
+                          card.check_many(bags), cpu.check_many(bags))
+        got = [f.result(timeout=300)
+               for f in [card.batcher.submit(b) for b in bags]]
+        compare_responses("[16d] pair world lanes", got, cpu.check_many(bags))
+        if card.batcher.routing_stats()["misrouted"]:
+            raise AssertionError("[16d] misrouted rows")
+        out["pair_rows"] = 2 * len(bags)
+    finally:
+        close_all((card, cpu), stores)
+    # the global quota leg: one pool for every bank, grants as the CPU's
+    card, cpu, stores = pair_servers(
+        lambda: workloads.make_fleet_store(60, 6, seed=4, with_quota=True),
+        dict(shards=3, replicas=2, default_manifest=mesh,
+             batch_window_s=0.001, buckets=(16,), max_batch=16))
+    try:
+        grants = []
+        for d in workloads.make_fleet_traffic(12, 60, 6, seed=4):
+            row = []
+            for srv in (card, cpu):
+                bag = bag_from_mapping(d)
+                r = srv.check_many([bag])[0]
+                q = srv.quota_fused(bag, "rq.istio-system",
+                                    QuotaArgs(quota_amount=3), r)
+                q = q.result() if hasattr(q, "result") else q
+                row.append((q.granted_amount, q.status_code))
+            if row[0] != row[1]:
+                raise AssertionError(f"[16d] quota grants {row}")
+            grants.append(row[0])
+        if len({id(p) for p in card.controller.device_quotas.values()}) != 1:
+            raise AssertionError("[16d] more than one quota pool")
+        out["quota_grants"] = grants
+    finally:
+        close_all((card, cpu), stores)
+    # an RBAC snapshot: replica-only lanes, and why
+    card, cpu, stores = pair_servers(
+        lambda: workloads.make_rbac_store(40),
+        dict(shards=2, replicas=2, batch_window_s=0.001, buckets=(16,),
+             max_batch=16))
+    try:
+        st = card._sharded
+        if st["mode"] != "replica-only" or \
+                "pseudo-rule" not in st["fallback_reason"] or \
+                st["fallback_reason"] != cpu._sharded["fallback_reason"]:
+            raise AssertionError(f"[16d] RBAC fallback: {st['mode']} "
+                                 f"({st['fallback_reason']})")
+        bags = [bag_from_mapping(d)
+                for d in workloads.make_rbac_request_dicts(24)]
+        compare_responses("[16d] RBAC replica-only", card.check_many(bags),
+                          cpu.check_many(bags))
+        out["rbac_reason"] = st["fallback_reason"]
+    finally:
+        close_all((card, cpu), stores)
+    resilience_gate("[16d] before its fault legs")
+    # faults on one bank: CHAOS opens that bank's breaker alone; a fault
+    # CHAOS did not inject raises (the bank checkers are strict)
+    store = workloads.make_fleet_store(90, 6, seed=6)
+    from istio_tpu_torch.runtime import RuntimeServer, ServerArgs
+    srv = RuntimeServer(store, ServerArgs(
+        shards=2, device_retry=False, breaker_failures=1,
+        breaker_reset_s=60.0, default_manifest=mesh,
+        batch_window_s=0.001, buckets=(16,), max_batch=16), device="cuda")
+    try:
+        banks = srv._sharded["banks"]
+        if not all(b.checker.strict_device for b in banks):
+            raise AssertionError("[16d] a card bank checker is not strict")
+        plan = srv._sharded["plan"]
+        bags = [bag_from_mapping(d) for d in
+                workloads.make_fleet_traffic(32, 90, 6, seed=6)]
+        from istio_tpu_torch.runtime.dispatcher import _namespace_of
+        shard = [plan.shard_of(_namespace_of(b, srv.args.identity_attr))
+                 for b in bags]
+        one = [b for b, s in zip(bags, shard) if s == shard[0]]
+        healthy = srv.check_many(bags)
+        victim = next(b for b in banks if b.shard_id == shard[0])
+
+        def faulty(bags, deadline=None):
+            raise RuntimeError("device fault (raised by chip_smoke)")
+
+        real = victim.checker.device
+        victim.checker.device = faulty
+        try:
+            srv.check_many(one)
+        except RuntimeError as exc:
+            if "raised by chip_smoke" not in str(exc):
+                raise
+        else:
+            raise AssertionError("[16d] a real bank fault was answered")
+        finally:
+            victim.checker.device = real
+        if any(b.checker.breaker.state != "closed" for b in banks):
+            raise AssertionError("[16d] a real fault moved a breaker")
+        resilience_gate("[16d] after the real fault")
+        CHAOS.device_failures = 1
+        try:
+            got = srv.check_many(one)
+            injected = CHAOS.injected_device
+        finally:
+            CHAOS.reset()
+        states = {b.shard_id: b.checker.breaker.state for b in banks}
+        d = srv.controller.dispatcher
+        want = oracle_check_statuses(d.snapshot, d.fused, one)
+        if injected != 1 or states[shard[0]] != "open" or \
+                sorted(s for k, s in states.items() if k != shard[0]) != \
+                ["closed"] or [r.status_code for r in got] != \
+                [w["status"] for w in want]:
+            raise AssertionError(f"[16d] CHAOS on bank {shard[0]}: injected "
+                                 f"{injected}, breakers {states}")
+        again = srv.check_many(bags)
+        if [r.status_code for r in again] != \
+                [r.status_code for r in healthy]:
+            raise AssertionError("[16d] the open bank's oracle answers "
+                                 "differ")
+        out["chaos_bank"] = shard[0]
+    finally:
+        srv.close()
+        store.close()
+    # the CHAOS leg moved the resilience counters on purpose
+    _GATE["base"] = resilience_reading()
+    log(f"[16d] pair world ({PAIR_RULES} rules, 3 shards, 2 lanes): "
+        f"{out['pair_rows']} card responses equal to the CPU port's field "
+        f"by field; global quota: grants {out['quota_grants']} equal to the "
+        "CPU's from one pool; RBAC: replica-only "
+        f"({out['rbac_reason'][:60]}...); a fault CHAOS did not inject "
+        "raised out of check_many with every breaker closed; a CHAOS fault "
+        f"on bank {out['chaos_bank']} opened its breaker alone and its "
+        "oracle answered")
+    return out
+
+
+def shards_phase() -> dict:
+    """Phase 16: the sharded serving plane on the card, counters zeroed
+    just before its drive and read just after: (a) + (b) the fleet world
+    at full size with a delta, (c) replica-only lanes, (d) the unit-size
+    worlds beside the CPU port."""
+    from istio_tpu_torch import kernels
+    t_phase = time.perf_counter()
+    kernels.launches.reset()
+    full = shards_full()
+    resilience_gate("[16ab] end")
+    t_c = time.perf_counter()
+    replica = shards_replica_only()
+    resilience_gate("[16c] end")
+    t_d = time.perf_counter()
+    unit = shards_unit()
+    out = path_counts("[16] shards path", SHARD_KERNELS,
+                      kernels.launches["check_pack"])
+    seconds = time.perf_counter() - t_phase
+    log(f"[t] phase 16 took {seconds:.1f} s ((a)+(b) {t_c - t_phase:.1f} s, "
+        f"(c) {t_d - t_c:.1f} s, (d) {time.perf_counter() - t_d:.1f} s)")
+    return {**out, "rows": [], "full": full, "replica": replica,
+            "unit": unit, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9152,7 +9820,14 @@ def main() -> int:
     resilience_gate("[15] end")
 
     log(f"[t] phase 16 starts at {time.perf_counter() - t_start:.1f} s")
-    # ---- phase 16: result lines. K1-K6 keep the headline served path's
+    # ---- phase 16: the sharded serving plane, counters zeroed just
+    # before its drive; (d)'s CHAOS leg moves the counters on purpose and
+    # re-bases the gate after it
+    sh = shards_phase()
+    resilience_gate("[16] end")
+
+    log(f"[t] phase 17 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 17: result lines. K1-K6 keep the headline served path's
     # row; list_banks reports the list path's, field_eval the report
     # path's, quota_alloc the quota path's (its in-step trip, with every
     # mode's row under "modes") and route_select the route path's (its
@@ -9161,7 +9836,7 @@ def main() -> int:
     paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
              "adapters": ac, "quota": qt, "routes": rt, "discovery": dc,
              "seq": sq, "mesh": mh, "resilience": rz, "executor": ex,
-             "canary": cz}
+             "canary": cz, "shards": sh}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
                             ("atom_eval", "authz", az),
@@ -9292,6 +9967,16 @@ def main() -> int:
         f"divergent rows vetoed ({cf['victim']}); overlay world "
         f"{cz['overlay']['host_denied']} host-denied rows, identical swap "
         "published with 0 divergences")
+    sf = sh["full"]
+    log(f"shards (phase 16, {sh['seconds']:.1f} s; make_fleet_store("
+        f"{SHARD_RULES:,}, {SHARD_NAMESPACES}), {SHARD_COUNT} shards x "
+        f"{SHARD_REPLICAS} lanes, buckets {SHARD_ARGS['buckets']}): parent "
+        f"host compile {sf['parent_compile_s']:.2f} s, bank compiles "
+        + " / ".join(f"{x:.2f}" for x in sf["bank_compile_s"])
+        + f" s, sharded build {sf['sharded_build_s']:.2f} s; check_many "
+        + ", ".join(f"B={b} {wall_line(r)}" for b, r in sf["walls"].items())
+        + f"; {sf['trips_2048']} bank trips a B=2048 batch; delta rebuild "
+        f"{sf['rebuild_s']:.2f} s (1 bank)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

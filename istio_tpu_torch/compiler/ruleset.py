@@ -298,6 +298,12 @@ class RuleSetProgram:
     attr_names: list[set]                     # per REAL rule (n_rules)
     rule_ns: np.ndarray                       # int32 [n_rows]
     ns_ids: dict[str, int]
+    # ---- retained source structure, not device state: every atom's
+    #      AST and each rule's (m, n) DNF (None = host fallback); the
+    #      shard planner prices rules from these (sharding/planner.py
+    #      costs_from_ruleset)
+    atom_asts: list[Any] = dataclasses.field(default_factory=list)
+    per_rule_dnf: list[Any] = dataclasses.field(default_factory=list)
     # ---- evaluation tier of each atom ("id-eq", "slot-eq", "dfa-pack",
     #      "tensor")
     atom_tier: dict[int, str] = dataclasses.field(default_factory=dict)
@@ -1326,6 +1332,7 @@ def compile_ruleset(rules: Sequence[Rule], finder: AttributeDescriptorFinder,
         host_fallback=host_fallback, fallback_reason=fallback_reason,
         attr_mask=attr_mask, attr_names=attr_names,
         rule_ns=rule_ns, ns_ids=ns_ids,
+        atom_asts=list(atoms.asts), per_rule_dnf=list(per_rule),
         atom_tier=atom_tier, geometry=geometry, device=dev,
         atoms=atom_prog)
 

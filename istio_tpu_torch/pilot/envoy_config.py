@@ -292,7 +292,10 @@ def build_outbound_listeners(services: Sequence[Service],
             if not claim(port.port, kind, service.hostname):
                 continue
             if kind == "http":
-                listeners.setdefault(port.port, http_listener(port.port))
+                # built once a port (not per service that exposes it):
+                # its fault filters scan every service
+                if port.port not in listeners:
+                    listeners[port.port] = http_listener(port.port)
             elif kind == "redis":
                 listeners[port.port] = {
                     "address": f"tcp://0.0.0.0:{port.port}",
@@ -336,8 +339,9 @@ def build_outbound_listeners(services: Sequence[Service],
         host = str(rule.spec.get("destination", {}).get("service", ""))
         for pnum, proto in _egress_rule_ports(rule):
             if proto in ("http", "http2", "grpc"):
-                if claim(pnum, "http", f"egress {host}"):
-                    listeners.setdefault(pnum, http_listener(pnum))
+                if claim(pnum, "http", f"egress {host}") and \
+                        pnum not in listeners:
+                    listeners[pnum] = http_listener(pnum)
             else:
                 if not claim(pnum, "tcp", f"egress {host}"):
                     continue

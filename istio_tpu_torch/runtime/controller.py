@@ -41,9 +41,14 @@ pools, so the gate moved ahead of both). A strict canary's replay
 device fault raises out of rebuild() with nothing published. Every
 published dispatcher taps the canary's recorder, and `on_published`
 re-baselines it after the swap. The reference's `canary_veto` forensics
-event waits for the forensics plane; the veto is logged at ERROR. Not
-carried (each raises NotPorted when asked for): the overlapped h2d
-staging and sharded serving (`warm_parent_plans=False`).
+event waits for the forensics plane; the veto is logged at ERROR.
+
+`warm_parent_plans=False` (the sharded serving plane, sharding/): the
+published plan is built for its metadata and the host oracle only; it is
+not warmed (nor is `prewarm_hook` called) and the controller does not
+revoke grants — the RuntimeServer warms the shard banks and revokes
+before its own router swap. Not carried (raises NotPorted when asked
+for): the overlapped h2d staging.
 """
 from __future__ import annotations
 
@@ -88,10 +93,14 @@ class Controller:
                  device: str | torch.device = "cuda"):
         if overlap_h2d:
             raise NotPorted("Controller(overlap_h2d=True)")
-        if not warm_parent_plans:
-            raise NotPorted("Controller(warm_parent_plans=False) "
-                            "(sharded serving)")
         self.store = store
+        # False when a sharded serving plane owns the check path
+        # (istio_tpu_torch/sharding): the parent monolithic plan is
+        # then a metadata / oracle surface only — never warmed, and no
+        # device trip ever runs on it. The RuntimeServer warms the shard
+        # BANKS instead, inside its own publish hook, and revokes grants
+        # before its router swap
+        self.warm_parent_plans = warm_parent_plans
         # handed to every published Dispatcher; the executor's lanes and
         # breakers outlive snapshots
         self.executor = executor
@@ -195,7 +204,8 @@ class Controller:
         if self._quota_table is not None:
             self.device_quotas, quota_orphans = \
                 self._quota_table.rebuild(snapshot)
-        if plan is not None and self.prewarm_buckets and (
+        if plan is not None and self.prewarm_buckets and \
+                self.warm_parent_plans and (
                 self._dispatcher is not None or self.initial_prewarm):
             plan.prewarm(self.prewarm_buckets)
             if self.prewarm_hook is not None:
@@ -211,9 +221,10 @@ class Controller:
                                 if self.canary is not None else None,
                                 executor=self.executor,
                                 grants=self.grants)
-        if self.grants is not None:
+        if self.grants is not None and self.warm_parent_plans:
             # revoke BEFORE the swap: the serving surface is this
-            # controller's dispatcher (monolithic mode)
+            # controller's dispatcher (monolithic mode); under sharding
+            # the server revokes, delta-scoped, before its router swap
             self.grants.on_publish(None)
         self._dispatcher = dispatcher      # atomic publish (GIL ref swap)
         # a successful publish supersedes any earlier veto

@@ -18,10 +18,14 @@ record counts, and the record-conservation ledger (accepted == exported
 + rejected at quiescence; `report_conservation`); for Pilot's discovery
 service, its stage histogram, push fan-out histogram, cache-event
 counts and generation (`observe_discovery_stage` …
-`discovery_latency_snapshot`). The reference exports
-them through prometheus_client and its own registry; the port keeps
-plain in-process counters (the card's machine has no prometheus_client),
-and the exposition and /debug views wait for the fronts.
+`discovery_latency_snapshot`); for the sharded serving plane, its
+stage histogram and per-replica families (`SHARD_STAGES`,
+`observe_shard_stage`, `observe_replica_batch`, `shard_stage_baseline`,
+`shard_latency_snapshot`), which sit on utils/metrics.default_registry
+as in the reference. The reference exports the others through
+prometheus_client and its own registry; the port keeps plain in-process
+counters for them (the card's machine has no prometheus_client), and
+the exposition and /debug views wait for the fronts.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ import contextlib
 import threading
 import time
 from typing import Iterable
+
+from istio_tpu_torch.utils import metrics as hostmetrics
 
 _BUCKETS = (1e-6, 2.5e-6, 5e-6, 1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
             1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.25, 0.5, 1.0,
@@ -547,3 +553,71 @@ def discovery_latency_snapshot(since: dict | None = None) -> dict:
                 ph.buckets, counts, n, 0.99) * 1e3, 3),
         })
     return {"stages": stages, "push": push}
+
+
+# -- sharded serving plane (istio_tpu_torch/sharding) ------------------
+#
+# Stage semantics (one observation per unit of router work;
+# bank_check is per (batch, bank) so a batch spanning B banks
+# contributes B observations — the device-trip fan-out IS the cost
+# being attributed):
+#   shard_dispatch — namespace extraction + row bucketing, per batch
+#   bank_check     — one bank's full fused check on its sub-batch
+#                    (tensorize → device trip → overlay, the existing
+#                    CHECK stages decompose it further)
+#   fold           — response scatter back into row order + bank-local
+#                    → global deny-index remap, per batch
+SHARD_STAGES = ("shard_dispatch", "bank_check", "fold")
+
+SHARD_STAGE_SECONDS = hostmetrics.default_registry.histogram(
+    "mixer_shard_stage_seconds",
+    "per-batch sharded-serving stage latency (label: stage; see "
+    "runtime/monitor.py SHARD_STAGES for unit semantics)")
+REPLICA_BATCH_SECONDS = hostmetrics.default_registry.histogram(
+    "mixer_replica_batch_seconds",
+    "per-replica served batch wall seconds (label: replica)")
+REPLICA_ROWS = hostmetrics.default_registry.counter(
+    "mixer_replica_rows_total",
+    "check rows served per replica lane (label: replica)")
+REPLICA_ROWS.inc(0)   # zero-series before the first routed batch
+
+
+def observe_shard_stage(stage: str, seconds: float) -> None:
+    SHARD_STAGE_SECONDS.observe(seconds, stage=stage)
+
+
+def observe_replica_batch(replica: int, seconds: float,
+                          rows: int) -> None:
+    REPLICA_BATCH_SECONDS.observe(seconds, replica=str(replica))
+    REPLICA_ROWS.inc(rows, replica=str(replica))
+
+
+def shard_stage_baseline() -> dict:
+    """Subtraction token for shard_latency_snapshot(since=...) — the
+    same delta-window discipline as discovery_stage_baseline()."""
+    return {stage: SHARD_STAGE_SECONDS.state(stage=stage)
+            for stage in SHARD_STAGES}
+
+
+def shard_latency_snapshot(since: dict | None = None) -> dict:
+    """Sharded-path stage decomposition (count/sum/p50/p99 per stage)
+    as one JSON-able dict."""
+    empty = ([], 0.0, 0)
+    stages: dict[str, dict] = {}
+    h = SHARD_STAGE_SECONDS
+    for stage in SHARD_STAGES:
+        counts, total, n = h.state(stage=stage)
+        if since is not None:
+            counts, total, n = _delta((counts, total, n),
+                                      since.get(stage, empty))
+        if not n:
+            continue
+        stages[stage] = {
+            "count": n,
+            "sum_ms": round(total * 1e3, 3),
+            "p50_ms": round(quantile_from_counts(
+                h.buckets, counts, n, 0.5) * 1e3, 3),
+            "p99_ms": round(quantile_from_counts(
+                h.buckets, counts, n, 0.99) * 1e3, 3),
+        }
+    return {"stages": stages}

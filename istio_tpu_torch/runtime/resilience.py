@@ -402,7 +402,8 @@ class ResilientChecker:
     def __init__(self, device: Callable[[Sequence[Any]], Sequence[Any]],
                  oracle: Callable[[Sequence[Any]], Sequence[Any]],
                  config: ResilienceConfig | None = None,
-                 strict_device: bool = False):
+                 strict_device: bool = False,
+                 name: str = "device"):
         self.device = device
         self.oracle = oracle
         self.strict_device = strict_device
@@ -410,8 +411,11 @@ class ResilientChecker:
         # deadline; plain (bags)-shaped callables keep working
         self._device_takes_deadline = _takes_deadline(device)
         self.config = config or ResilienceConfig()
+        # the breaker's name in the log: "device" for the server's
+        # checker, "bank:<k>" for a shard bank's (sharding/)
         self.breaker = CircuitBreaker(self.config.breaker_failures,
-                                      self.config.breaker_reset_s)
+                                      self.config.breaker_reset_s,
+                                      name=name)
 
     @staticmethod
     def _n_real(bags: Sequence[Any]) -> int:

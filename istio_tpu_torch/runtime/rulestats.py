@@ -24,10 +24,11 @@ on them.
 `RuleStatsAggregator` folds drained deltas into cumulative counts keyed
 by qualified rule name (surviving config swaps), and `RuleStatsDrainer`
 drains it on an interval, so the int32 accumulators never run long
-enough to wrap. `preview_attributes` is the exemplar rendering the
-config canary's reports use (canary/differ.py). Not carried: the
-aggregator's metric families, exporters, its own exemplars, the top-k
-`snapshot()` view and sharded lanes.
+enough to wrap; `attach_lanes` adds the sharded serving plane's bank
+plans as drain sources (sharding/). `preview_attributes` is the
+exemplar rendering the config canary's reports use (canary/differ.py).
+Not carried: the aggregator's metric families, exporters, its own
+exemplars and the top-k `snapshot()` view.
 """
 from __future__ import annotations
 
@@ -331,6 +332,12 @@ class RuleStatsAggregator:
         # swapped-out plans still being swept: (plan, names, slot
         # names, drop-after timestamp)
         self._retired: list[tuple] = []
+        # sharded serving lanes (istio_tpu_torch/sharding): bank
+        # dispatchers' plans swept on every drain alongside the main
+        # plan — their per-rule counts merge into the same name-keyed
+        # cumulative stats (bank rule names ARE the global qualified
+        # names). See attach_lanes(). Entries: (plan, names, slot_names).
+        self._lanes: list[tuple] = []
 
     def attach(self, dispatcher) -> None:
         """Bind to a freshly published dispatcher (drains the old plan
@@ -348,21 +355,63 @@ class RuleStatsAggregator:
             has_tele = plan is not None and plan.telemetry is not None
             self._plan = plan if has_tele else None
             self._names = list(snap.qualified_rule_names())
-            by_id = {v: k for k, v in rs.ns_ids.items()}
-            n_slots = len(rs.ns_ids) + 1
-            self._slot_names = [
-                by_id.get(i, f"ns#{i}") or "(default)"
-                for i in range(n_slots - 1)] + ["(unknown)"]
+            self._slot_names = self._slot_names_of(rs)
             for name in self._names:
                 self._cum.setdefault(
                     name, {"hits": 0, "denies": 0, "errors": 0, "ns": {}})
 
+    @staticmethod
+    def _slot_names_of(rs) -> list[str]:
+        by_id = {v: k for k, v in rs.ns_ids.items()}
+        n_slots = len(rs.ns_ids) + 1
+        return [by_id.get(i, f"ns#{i}") or "(default)"
+                for i in range(n_slots - 1)] + ["(unknown)"]
+
+    def attach_lanes(self, dispatchers) -> None:
+        """Bind the sharded plane's bank dispatchers as additional
+        drain sources (config swaps call this right after the lane
+        publish). The PREVIOUS lane set is retired for continued
+        sweeping exactly like attach()'s old plan — a batch in flight
+        on an old bank can fold after the rebind, and a swap must
+        never drop counts. The main attached plan is skipped if it
+        also appears as a lane (replica-only mode's lane 0 rides the
+        published dispatcher). A bank plan run by two lanes folds from
+        both lanes' streams; its telemetry keeps an event per stream,
+        so a drain waits for every lane's folds."""
+        lanes: list[tuple] = []
+        seen: set[int] = set()
+        with self._lock:
+            main = self._plan
+        for d in dispatchers:
+            plan = getattr(d, "fused", None)
+            if plan is None or plan is main or id(plan) in seen:
+                continue
+            if getattr(plan, "telemetry", None) is None:
+                continue
+            seen.add(id(plan))
+            snap = d.snapshot
+            lanes.append((plan, list(snap.qualified_rule_names()),
+                          self._slot_names_of(snap.ruleset)))
+        with self._lock:
+            for _plan, names, _slots in lanes:
+                for name in names:
+                    self._cum.setdefault(
+                        name, {"hits": 0, "denies": 0, "errors": 0,
+                               "ns": {}})
+            old = self._lanes
+            self._lanes = lanes
+            deadline = time.time() + self.RETIRE_SWEEP_S
+            live = {id(p) for p, _, _ in lanes}
+            for plan, names, slots in old:
+                if id(plan) not in live:
+                    self._retired.append((plan, names, slots, deadline))
+
     def drain(self) -> dict | None:
-        """Pull the retired plans' and the attached plan's deltas and
-        fold them into the cumulative counts. Returns the live plan's
-        raw drain dict (None when no telemetry is attached). Called by
-        the RuntimeServer's drainer thread and on demand, never by the
-        serving path."""
+        """Pull the retired plans', the attached plan's and the sharded
+        lanes' deltas and fold them into the cumulative counts. Returns
+        the live plan's raw drain dict (None when no telemetry is
+        attached). Called by the RuntimeServer's drainer thread and on
+        demand, never by the serving path."""
         with self._drain_serial:
             with self._lock:
                 plan = self._plan
@@ -371,15 +420,25 @@ class RuleStatsAggregator:
                 now = time.time()
                 retired = list(self._retired)
                 self._retired = [r for r in self._retired if r[3] > now]
+                lanes = list(self._lanes)
             for rplan, rnames, rslots, _deadline in retired:
                 try:
                     self._fold(rplan.telemetry.drain(), rnames, rslots)
                 except Exception:
                     log.exception("retired-plan drain failed")
-            if plan is None:
-                return None
-            d = plan.telemetry.drain()
-            self._fold(d, names, slot_names)
+            d = None
+            if plan is not None:
+                d = plan.telemetry.drain()
+                self._fold(d, names, slot_names)
+            # sharded serving lanes: every bank's accumulators drain
+            # into the same name-keyed stats (each rule lives in exactly
+            # one bank per generation, global rules in every bank but
+            # each request served by exactly one)
+            for lplan, lnames, lslots in lanes:
+                try:
+                    self._fold(lplan.telemetry.drain(), lnames, lslots)
+                except Exception:
+                    log.exception("lane-plan drain failed")
             return d
 
     def _fold(self, d: dict, names: list[str],

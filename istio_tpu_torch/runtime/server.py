@@ -49,11 +49,23 @@ CUDA device the canary is strict: a fault of the replay's device trip
 raises out of the rebuild with nothing published, where the reference
 fails open.
 
+`shards` / `replicas` serve checks through the sharded serving plane
+(sharding/): `self.batcher` becomes a ReplicaRouter of `replicas`
+CheckBatcher lanes (each router on its own CUDA stream on a card), the
+published snapshot's rules are compiled into `shards` namespace banks
+(or, with `shards=0` or a snapshot that cannot shard, one full plan a
+lane), `check_many` routes through the first lane's router, and every
+publish rebuilds the banks, delta-compiled by content key when
+`delta_compile` is on (`_rebuild_sharded`; the records `_sharded` and
+`_rebuild_status`). The parent plan is then never warmed and never runs
+a trip; each bank has its own ResilientChecker (`bank:<k>`, strict on a
+card), and in-step quota is refused.
+
 `ServerArgs` keeps the reference's field names and defaults. The fields
-the port does not carry (sharding and replicas, overlap_h2d, the flight
-recorder, the audit plane, mTLS) are accepted at their defaults, where
-the planes behind them simply do not run, and raise NotPorted when set
-to anything else.
+the port does not carry (overlap_h2d, the flight recorder, the audit
+plane, mTLS, the XLA compile cache) are accepted at their defaults,
+where the planes behind them simply do not run, and raise NotPorted when
+set to anything else.
 
 On a CUDA device the constructor builds every kernel of
 `kernels.KERNELS` before anything else: a failed nvcc raises out of the
@@ -191,11 +203,30 @@ class ServerArgs:
     # qualified rule names ("ns/name") whose divergences are reported
     # but never gate
     canary_waivers: tuple = ()
-    # -- not carried: accepted at these defaults only -----------------
+    # -- the sharded serving plane (sharding/) --------------------------
+    # >0: partition the snapshot's rules by namespace into this many
+    # banks (each its own compiled RuleSetProgram + FusedPlan) and serve
+    # checks through the shard-routed path — verdict-identical to the
+    # monolithic compile, which is then never warmed and never runs a
+    # device trip. 0 = monolithic serving (the default).
     shards: int = 0
+    # serving lanes behind the one front: each lane is its own
+    # CheckBatcher + router, on its own CUDA stream on a card
+    # (sticky-by-namespace routing). With shards=0 each replica owns its
+    # own FusedPlan over the full snapshot (lane 0 the published one);
+    # with shards>0 the banks are shared. 1 = single lane.
     replicas: int = 1
+    # True: config republishes under sharding diff the new snapshot
+    # against the live plan by content hash and rebuild ONLY the banks
+    # whose namespaces (or the replicated global set) changed; untouched
+    # banks carry across generations with their warmed shapes, breaker
+    # and rulestats bindings. False rebuilds every bank on every publish.
     delta_compile: bool = True
+    # namespaces the delta planner may RELOCATE per republish to chase
+    # LPT balance — each move recompiles two banks (0 = perfect plan
+    # stability, the default; sharding/planner.plan_shards)
     shard_rebalance_budget: int = 0
+    # -- not carried: accepted at these defaults only -----------------
     jax_compile_cache_dir: str | None = None
     mesh_shape: tuple[int, int] | None = None
     overlap_h2d: bool | None = None
@@ -230,7 +261,8 @@ CARRIED_ARGS = frozenset({
     "host_breaker_reset_s", "default_check_deadline_ms", "check_grants",
     "grant_ttl_floor_s", "grant_ttl_cap_s", "grant_ttl_ramp_per_s",
     "canary", "canary_capacity", "canary_sample_every",
-    "canary_replay_limit", "canary_max_divergence", "canary_waivers"})
+    "canary_replay_limit", "canary_max_divergence", "canary_waivers",
+    "shards", "replicas", "delta_compile", "shard_rebalance_budget"})
 
 
 def _check_carried(args: ServerArgs) -> None:
@@ -256,6 +288,46 @@ class RuntimeServer:
             raise ValueError(
                 f"check_fail_policy must be 'open' or 'closed', got "
                 f"{self.args.check_fail_policy!r}")
+        # the sharded serving plane (sharding/): when shards or extra
+        # replicas are requested the check path serves through
+        # namespace-sharded banks / replica lanes and the parent
+        # monolithic plan stays un-warmed (metadata + oracle only)
+        if self.args.shards < 0 or self.args.replicas < 1:
+            raise ValueError(
+                f"shards must be >= 0 and replicas >= 1, got "
+                f"shards={self.args.shards} "
+                f"replicas={self.args.replicas}")
+        self._sharded_serving = (self.args.shards > 0
+                                 or self.args.replicas > 1)
+        if self._sharded_serving and not self.args.fused:
+            raise ValueError("sharded/replica serving requires "
+                             "fused=True")
+        if self._sharded_serving and self.args.mesh_shape is not None:
+            raise ValueError("sharded serving and mesh_shape are "
+                             "mutually exclusive (banks own their "
+                             "device leases)")
+        # the published sharded generation (plan, banks, content keys,
+        # mode, delta attribution) and the delta-compilation rebuild
+        # ledger, zero-shaped before the first sharded publish: per-
+        # generation and cumulative reused-vs-recompiled bank counts, the
+        # last rebuild wall, and the last rebuild ERROR with the
+        # generation it struck
+        self._sharded: dict | None = None
+        self._rebuild_status: dict = {
+            "rebuilds": 0,
+            "banks_reused": 0,
+            "banks_recompiled": 0,
+            "banks_reused_total": 0,
+            "banks_recompiled_total": 0,
+            "last_wall_s": 0.0,
+            "revision": 0,
+            "errors": 0,
+            "last_error": None,
+            "last_error_revision": None,
+        }
+        # each bank's circuit breaker by shard id, kept across swaps
+        self._bank_breakers: dict = {}
+        self._replica_router = None
         manifest = self.args.default_manifest
         if manifest is None:
             manifest = GLOBAL_MANIFEST
@@ -326,6 +398,7 @@ class RuntimeServer:
                 initial_prewarm=self.args.initial_prewarm,
                 prewarm_hook=self._prewarm_instep_for,
                 canary=self.canary,
+                warm_parent_plans=not self._sharded_serving,
                 executor=self.executor,
                 grants=self.grants,
                 device=self.device)
@@ -352,17 +425,37 @@ class RuntimeServer:
             strict_device=self.device.type == "cuda")
         cap = self.args.check_queue_cap
         max_queue = 8 * self.args.max_batch if cap is None else cap
-        self.batcher = CheckBatcher(
-            self._run_check_batch,
-            window_s=self.args.batch_window_s,
-            max_batch=self.args.max_batch,
-            pipeline=self.args.pipeline,
-            buckets=buckets,
-            hold_at=self.args.hold_at,
-            max_queue=max_queue,
-            brownout=self.args.brownout,
-            continuous=self.args.continuous_batching,
-            continuous_depth=self.args.continuous_depth)
+        batcher_kw = dict(window_s=self.args.batch_window_s,
+                          max_batch=self.args.max_batch,
+                          pipeline=self.args.pipeline,
+                          buckets=buckets,
+                          hold_at=self.args.hold_at,
+                          max_queue=max_queue,
+                          brownout=self.args.brownout,
+                          continuous=self.args.continuous_batching,
+                          continuous_depth=self.args.continuous_depth)
+        if self._sharded_serving:
+            # N CheckBatcher lanes behind the one front attribute; each
+            # lane's admission control (cap, deadline, brownout) is the
+            # same CheckBatcher machinery, per lane
+            from istio_tpu_torch.sharding import ReplicaRouter
+            self._replica_router = ReplicaRouter(
+                self.args.replicas, self.args.identity_attr, batcher_kw)
+            self.batcher = self._replica_router
+            # the controller's initial publish fired before the router
+            # existed — build the first generation's banks now
+            try:
+                self._rebuild_sharded(self.controller.dispatcher)
+            except BaseException:
+                self._replica_router.close()
+                if self._rulestats_drainer is not None:
+                    self._rulestats_drainer.close()
+                if self.executor is not None:
+                    self.executor.close()
+                self.controller.close()
+                raise
+        else:
+            self.batcher = CheckBatcher(self._run_check_batch, **batcher_kw)
         # the REPORT coalescer: records from concurrent report() calls
         # share packed device trips. Its own instance, so report trips
         # are counted apart and the two queues cannot starve each
@@ -400,6 +493,258 @@ class RuntimeServer:
                 self.executor.register_refreshables(dispatcher.handlers)
             except Exception:
                 log.exception("refreshable registration failed")
+        # the sharded serving plane: rebuild the shard banks / replica
+        # lanes for the freshly published snapshot and swap every lane
+        # atomically (set_routers) — old banks keep serving while the
+        # new generation compiles. A bank build error keeps the previous
+        # generation serving and is recorded in the rebuild ledger
+        # instead of killing the publish
+        if self._replica_router is not None:
+            try:
+                self._rebuild_sharded(dispatcher)
+            except Exception as exc:
+                # conservative revoke: a failed rebuild left grant
+                # state un-attributed — shortening budgets is always
+                # safe, a stale long grant is not
+                if self.grants is not None:
+                    self.grants.on_publish(None)
+                st = self._rebuild_status
+                st["errors"] += 1
+                st["last_error"] = f"{type(exc).__name__}: {exc}"
+                st["last_error_revision"] = dispatcher.snapshot.revision
+                log.exception("sharded serving rebuild failed for "
+                              "generation %d; previous generation keeps "
+                              "serving", dispatcher.snapshot.revision)
+
+    def _rebuild_sharded(self, dispatcher) -> None:
+        """Build the sharded serving generation for a published
+        dispatcher and fan it across every surface coherently: plan
+        (delta-stable against the live plan) → DIFF by bank content
+        hash → compile only the banks whose namespaces (or the
+        replicated global set) changed, carrying every untouched bank —
+        warmed shapes, breaker state, rulestats bindings — across the
+        generation (off-path; the previous generation keeps serving),
+        warm the NEW banks' serving shapes, swap all replica lanes with
+        one atomic set_routers, rebind the rulestats aggregator to the
+        bank dispatchers (name-keyed counts merge globally), and record
+        the plan decision + the reused-vs-recompiled ledger. The canary
+        recorder taps the bank dispatchers the same way it taps a
+        monolithic one — bank-local rule indices resolve through the
+        bank's own qualified_rule_names, which are the global names."""
+        from istio_tpu_torch.sharding import (ShardRouter,
+                                              bank_content_key,
+                                              compile_shard_bank,
+                                              snapshot_static_digest)
+        from istio_tpu_torch.sharding.banks import (ShardingUnsupported,
+                                                    full_bank)
+        from istio_tpu_torch.sharding.planner import (costs_from_ruleset,
+                                                      plan_shards,
+                                                      trivial_plan)
+
+        router = self._replica_router
+        snap = dispatcher.snapshot
+        recorder = self.canary.recorder if self.canary is not None \
+            else None
+        buckets = self.controller.prewarm_buckets
+        bank_kw = dict(identity_attr=self.args.identity_attr,
+                       buckets=buckets,
+                       rule_telemetry=self.args.rule_telemetry,
+                       recorder=recorder, executor=self.executor,
+                       grants=self.grants)
+        t0 = time.perf_counter()
+        n_lanes = router.n_replicas
+        reason = ""
+        bank_keys: list[str] = []
+        reused_ids: list[int] = []
+
+        def replica_lanes():
+            # each lane owns its own FusedPlan over the full snapshot
+            # (lane 0 rides the published dispatcher)
+            plan = trivial_plan(n_lanes)
+            banks = [full_bank(snap, dispatcher.handlers, i,
+                               dispatcher=dispatcher if i == 0 else None,
+                               **bank_kw)
+                     for i in range(n_lanes)]
+            # no delta attribution: conservative global revoke, same as
+            # monolithic
+            if self.grants is not None:
+                self.grants.on_publish(None)
+            routers = [ShardRouter({s: banks[i]
+                                    for s in range(plan.n_shards)},
+                                   plan, self.args.identity_attr,
+                                   replica=i)
+                       for i in range(n_lanes)]
+            return plan, banks, routers
+
+        if self.args.shards > 0:
+            try:
+                preds = snap.ruleset.rules[:snap.n_config_rules]
+                # costs come from the decomposition compile_ruleset just
+                # retained — never a second 100k-rule parse + DNF pass
+                costs = costs_from_ruleset(
+                    snap.ruleset, snap.finder)[:snap.n_config_rules]
+                # the content-addressed bank cache: the previous
+                # generation's banks keyed by their content hash. Delta
+                # planning keeps unchanged namespaces on their shards,
+                # so an unchanged shard's key matches and its compiled
+                # bank carries over; pop-on-use so two identical shards
+                # (possible when both hold only replicated globals)
+                # never share one bank object
+                prev = self._sharded if self.args.delta_compile else None
+                prev_plan = None
+                cache: dict[str, Any] = {}
+                if prev is not None and prev.get("mode") == "sharded":
+                    prev_plan = prev["plan"]
+                    for b, key in zip(prev["banks"],
+                                      prev.get("bank_keys", ())):
+                        cache.setdefault(key, b)
+                plan = plan_shards(
+                    preds, snap.finder, self.args.shards, costs=costs,
+                    revision=snap.revision, prev=prev_plan,
+                    rebalance_budget=self.args.shard_rebalance_budget)
+                static = snapshot_static_digest(
+                    snap, identity_attr=self.args.identity_attr,
+                    buckets=buckets,
+                    rule_telemetry=self.args.rule_telemetry)
+                banks = []
+                for k in range(plan.n_shards):
+                    key = bank_content_key(snap, plan, k, static)
+                    bank_keys.append(key)
+                    carried = cache.pop(key, None)
+                    if carried is not None:
+                        # carry the compiled artifact by SHALLOW COPY:
+                        # the new generation's bank shares the
+                        # dispatcher / snapshot / checker but owns its
+                        # local_to_global — the outgoing generation's
+                        # routers keep the ORIGINAL object, so in-flight
+                        # folds never see the incoming numbering and a
+                        # rebuild that fails on a later bank leaves
+                        # serving state untouched
+                        banks.append(dataclasses.replace(
+                            carried, shard_id=k,
+                            local_to_global=np.asarray(
+                                plan.shard_rules[k], np.int64),
+                            predicted_cost=float(plan.shard_cost[k])
+                            if plan.shard_cost else 0.0))
+                        reused_ids.append(k)
+                    else:
+                        b = compile_shard_bank(snap, dispatcher.handlers,
+                                               plan, k, **bank_kw)
+                        b.content_key = key
+                        banks.append(b)
+                # grant revocation scoped to the DELTA: only the
+                # recompiled banks' namespaces drop to the TTL floor; a
+                # scratch rebuild (nothing reused) revokes globally.
+                # Before the router swap below — new-generation
+                # responses never carry old-generation grants
+                if self.grants is not None:
+                    changed = {k for k in range(plan.n_shards)
+                               if k not in reused_ids}
+                    if reused_ids:
+                        # union the OLD plan's namespaces for the
+                        # changed shards: a namespace whose rules were
+                        # all DELETED is absent from the new ns_to_shard
+                        # but its cached verdicts still need revoking
+                        # (shard ids are stable under delta planning)
+                        ns_maps = [plan.ns_to_shard]
+                        if prev_plan is not None:
+                            ns_maps.append(prev_plan.ns_to_shard)
+                        self.grants.on_publish(
+                            {ns for m in ns_maps
+                             for ns, s in m.items() if s in changed})
+                    else:
+                        self.grants.on_publish(None)
+                bank_map = {b.shard_id: b for b in banks}
+                routers = [ShardRouter(bank_map, plan,
+                                       self.args.identity_attr,
+                                       replica=i)
+                           for i in range(n_lanes)]
+            except ShardingUnsupported as exc:
+                # un-shardable snapshot (rbac pseudo-rules): fall back
+                # to replica-only lanes over the monolithic plan — the
+                # server keeps serving, and the record says why
+                reason = str(exc)
+                plan, banks, routers = replica_lanes()
+        else:
+            plan, banks, routers = replica_lanes()
+        # each bank carries its OWN resilience wrap: retry → per-bank
+        # circuit breaker → the bank's CPU-oracle fallback
+        # (Dispatcher.check_host_oracle over the bank's rules), strict on
+        # the card as the server's own checker is. The CHECKER is per
+        # generation (its callables belong to THIS generation's banks);
+        # only the BREAKER persists across swaps, keyed by shard id
+        breakers = self._bank_breakers
+        reused_set = set(reused_ids)
+        for b in banks:
+            if b.shard_id in reused_set and b.checker is not None:
+                # carried bank: its checker's callables ARE this bank's
+                # dispatcher — checker, breaker state and all
+                breakers[b.shard_id] = b.checker.breaker
+                continue
+            b.checker = ResilientChecker(
+                device=b.dispatcher.check,
+                oracle=b.dispatcher.check_host_oracle,
+                config=ResilienceConfig(
+                    fail_policy=self.args.check_fail_policy,
+                    breaker_failures=self.args.breaker_failures,
+                    breaker_reset_s=self.args.breaker_reset_s,
+                    retry=self.args.device_retry),
+                strict_device=self.device.type == "cuda",
+                name=f"bank:{b.shard_id}")
+            prev_brk = breakers.get(b.shard_id)
+            if prev_brk is not None:
+                b.checker.breaker = prev_brk
+            else:
+                breakers[b.shard_id] = b.checker.breaker
+        # warm each NEW bank's serving shapes BEFORE the lane swap, in
+        # this thread, as the controller warms a swapped plan: the
+        # previous generation serves meanwhile, and the warm's pulls
+        # finish every launch this thread's stream queued on the bank's
+        # tables before any lane stream reads them. Carried banks keep
+        # their warmed shape set — not warmed again, which is what delta
+        # compilation saves
+        distinct = {id(b.dispatcher.fused): b for b in banks
+                    if b.dispatcher.fused is not None
+                    and b.shard_id not in reused_set}
+        for b in distinct.values():
+            b.dispatcher.fused.prewarm(buckets)
+        router.set_routers(routers, plan)
+        # telemetry fan: bank plans' per-rule accumulators merge into
+        # the one aggregator by qualified rule name (lane 0 in
+        # replica-only mode IS the attached parent dispatcher — the
+        # aggregator dedups by plan identity)
+        try:
+            self.rulestats.attach_lanes([b.dispatcher for b in banks])
+        except Exception:
+            log.exception("rulestats lane attach failed")
+        wall = time.perf_counter() - t0
+        n_recompiled = len(banks) - len(reused_ids)
+        self._sharded = {
+            "plan": plan,
+            "banks": banks,
+            "bank_keys": bank_keys,
+            "revision": snap.revision,
+            "mode": "sharded" if self.args.shards > 0 and not reason
+                    else "replica-only",
+            "fallback_reason": reason,
+            "build_wall_s": wall,
+            "built_wall": time.time(),
+            "delta": {
+                "reused": sorted(reused_ids),
+                "recompiled": sorted(
+                    b.shard_id for b in banks
+                    if b.shard_id not in reused_set),
+                "plan_stability": dict(plan.stability),
+            },
+        }
+        st = self._rebuild_status
+        st["rebuilds"] += 1
+        st["banks_reused"] = len(reused_ids)
+        st["banks_recompiled"] = n_recompiled
+        st["banks_reused_total"] += len(reused_ids)
+        st["banks_recompiled_total"] += n_recompiled
+        st["last_wall_s"] = round(wall, 4)
+        st["revision"] = snap.revision
 
     # -- API surface (grpcServer.go Check semantics) --
     # Preprocessing (the APA phase) happens exactly ONCE per request, in
@@ -416,6 +761,13 @@ class RuntimeServer:
     def _run_check_batch(self, bags: Sequence[Bag],
                          deadline: float | None = None
                          ) -> Sequence[CheckResponse]:
+        # pre-batched entries (check_many) under sharded serving route
+        # through the shard path too — a mixed-namespace batch fans
+        # across banks inside the router; lane attribution rides
+        # replica 0 (the submitting caller chose no lane)
+        rr = self._replica_router
+        if rr is not None and rr.routers:
+            return rr.routers[0].check(bags, deadline=deadline)
         return self.resilience.run_batch(bags, deadline=deadline)
 
     def _run_check_batch_device(self, bags: Sequence[Bag],
@@ -578,6 +930,12 @@ class RuntimeServer:
         whose rule predicate is device-evaluated. None → callers use the
         classic check-then-quota_fused path."""
         if not self.args.quota_in_step:
+            return None
+        if self._replica_router is not None:
+            # the merged check+quota program is ONE device program per
+            # pool over ONE ruleset; bank-local rule indices and per-bank
+            # trips leave no single program to merge into — sharded
+            # serving keeps the classic check-then-quota_fused path
             return None
         d = self.controller.dispatcher
         cached = getattr(self, "_instep_cache", None)

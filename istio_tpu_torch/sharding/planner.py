@@ -19,12 +19,13 @@ per request, the scarcest serving resource). Namespaces are placed
 LPT-greedy (largest predicted cost first onto the least-loaded shard)
 — deterministic for a given rule list.
 
-Port of the part of istio_tpu/sharding/planner.py that Pilot's discovery
-snapshots call: `ShardPlan` and `plan_shards` (scratch and delta
-modes) with the per-rule cost model `predict_rule_costs` and its
-layout-free EQ classification. The publish-path `costs_from_ruleset`,
-`trivial_plan` and the rest of `sharding/` (banks, router, parity) are
-not carried (ROADMAP.md).
+Port of istio_tpu/sharding/planner.py: `ShardPlan` and `plan_shards`
+(scratch and delta modes), the per-rule cost model `predict_rule_costs`
+with its layout-free EQ classification (the reference takes it from
+analysis/budget.py), the publish-path `costs_from_ruleset` (prices an
+already compiled RuleSetProgram from its retained decomposition) and
+`trivial_plan` (the replica-only lanes' plan). Pilot's discovery
+snapshots and the sharded serving plane (banks.py, router.py) call it.
 """
 from __future__ import annotations
 
@@ -100,6 +101,21 @@ def _eq_shaped(e: Expression, finder) -> bool:
                for x, y in ((f.args[0], f.args[1]),
                             (f.args[1], f.args[0])))
 
+
+def _dnf_cost(m, n, atom_eq) -> float:
+    """One decomposed rule's predicted budget: all-EQ conjunctions on
+    the fused eqc_* lanes (2.5 a literal), the rest one lit_idx entry a
+    literal, plus the rule's conjunction-index rows."""
+    c = 0.0
+    for conj in (m | n):
+        lanes = max(len(conj), 1)
+        if all(atom_eq(a) for a, _kind in conj):
+            c += 2.5 * lanes          # fused eqc_* lanes
+        else:
+            c += float(lanes)         # legacy lit_idx row
+    return c + RULE_ROW_COST * max(len(m), len(n), 1)
+
+
 def predict_rule_costs(preds: Sequence, finder: AttributeDescriptorFinder,
                        dnf_cap: int = DEFAULT_DNF_CAP) -> np.ndarray:
     """Per-rule predicted device budget (float array, len(preds)) —
@@ -133,16 +149,36 @@ def predict_rule_costs(preds: Sequence, finder: AttributeDescriptorFinder,
             table.revert(mark)
             costs[ridx] = HOST_FALLBACK_COST
             continue
-        c = 0.0
-        for conj in (m | n):
-            lanes = max(len(conj), 1)
-            if all(atom_eq(a) for a, _kind in conj):
-                c += 2.5 * lanes          # fused eqc_* lanes
-            else:
-                c += float(lanes)         # legacy lit_idx row
-        c += RULE_ROW_COST * max(len(m), len(n), 1)
-        costs[ridx] = c
+        costs[ridx] = _dnf_cost(m, n, atom_eq)
     return costs[:len(preds)]
+
+
+def costs_from_ruleset(rs, finder: AttributeDescriptorFinder
+                       ) -> np.ndarray:
+    """Per-rule predicted costs from an ALREADY-COMPILED
+    RuleSetProgram — the publish-path variant: compile_ruleset just
+    ran the full decomposition and retained it (per_rule_dnf /
+    atom_asts / host_fallback), so a 100k-rule config swap must not
+    pay a second parse + DNF pass on the rebuild thread. Same cost
+    model as predict_rule_costs (which remains the standalone entry
+    for un-compiled rule lists)."""
+    eq_cache: dict[int, bool] = {}
+
+    def atom_eq(aidx: int) -> bool:
+        hit = eq_cache.get(aidx)
+        if hit is None:
+            hit = _eq_shaped(rs.atom_asts[aidx], finder)
+            eq_cache[aidx] = hit
+        return hit
+
+    n = len(rs.per_rule_dnf)
+    costs = np.zeros(max(n, 1), np.float64)
+    for ridx, mn in enumerate(rs.per_rule_dnf):
+        if mn is None or ridx in rs.host_fallback:
+            costs[ridx] = HOST_FALLBACK_COST
+            continue
+        costs[ridx] = _dnf_cost(*mn, atom_eq)
+    return costs[:n]
 
 
 @dataclasses.dataclass
@@ -208,6 +244,17 @@ class ShardPlan:
             "balance": self.balance(),
             "stability": dict(self.stability) or {"mode": "scratch"},
         }
+
+
+def trivial_plan(n_lanes: int) -> ShardPlan:
+    """The no-sharding plan replica-only serving routes through: K
+    lane slots, no namespace assignments — shard_of() falls through to
+    the stable hash, giving sticky-by-namespace lane selection without
+    a compiled partition."""
+    n = max(n_lanes, 1)
+    return ShardPlan(n_shards=n, ns_to_shard={},
+                     shard_rules=[[] for _ in range(n)],
+                     global_rules=[], shard_cost=[0.0] * n, ns_cost={})
 
 
 def plan_shards(preds: Sequence, finder: AttributeDescriptorFinder,

@@ -3,8 +3,10 @@
 The Check() world of the reference: Bookinfo-style denier + listchecker
 rules, authz predicates over source/destination attributes, and
 header/URI match clauses (exact, prefix, glob, regex), the OPA overlay
-world and the shared-quota store of the adapter-executor plane, and
-Pilot's route world and discovery fleet. These copies produce the same rules,
+world and the shared-quota store of the adapter-executor plane, the
+fleet world of the sharded serving plane (make_fleet_rules /
+make_fleet_store / make_fleet_traffic), and Pilot's route world and
+discovery fleet. These copies produce the same rules,
 bags, services and configs as the reference's for the same arguments;
 `make_engine` builds the port's PolicyEngine on `device`.
 """
@@ -582,6 +584,146 @@ def _fleet_ns_assignment(n_rules: int, n_namespaces: int,
     rng = np.random.default_rng(seed)
     return ((rng.zipf(1.1, n_rules) - 1) % n_namespaces).astype(
         np.int64)
+
+
+def make_fleet_rules(n_rules: int, n_namespaces: int,
+                     seed: int = 0) -> list[Rule]:
+    """Fleet-scale rule set for the sharded serving plane
+    (istio_tpu_torch/sharding): n_rules EQ-dominated predicates
+    partitioned over n_namespaces namespaces (sizes Zipf-skewed via
+    _fleet_ns_assignment — the shard planner has to balance REAL
+    namespace skew, not uniform confetti). Rule i guards its own
+    unique service `svc{i}.ns{k}.svc.cluster.local`, so a request is
+    attributable to exactly the rules crafted for it, plus one extra
+    conjunct cycling through the vectorized-tier shapes. Every
+    predicate stays inside the fused gather-compare envelope by
+    design: fleet scale is the point, and a 100k-rule snapshot must
+    compile in host seconds."""
+    ns_of = _fleet_ns_assignment(n_rules, n_namespaces, seed)
+    rules = []
+    for i in range(n_rules):
+        ns = f"ns{int(ns_of[i])}"
+        svc = f"svc{i}.{ns}.svc.cluster.local"
+        parts = [f'destination.service == "{svc}"']
+        k = i % 4
+        if k < 2:
+            parts.append(f'source.namespace != "locked{i % 5}"')
+        elif k == 2:
+            parts.append('request.method == "GET"')
+        else:
+            parts.append('connection.mtls')
+        rules.append(Rule(name=f"fleet{i}", match=" && ".join(parts),
+                          namespace=ns))
+    return rules
+
+
+def make_fleet_store(n_rules: int, n_namespaces: int, seed: int = 0,
+                     with_quota: bool = False):
+    """MemStore carrying make_fleet_rules as real config kinds: every
+    3rd rule denies (status 7), every 97th runs a source-namespace
+    whitelist, the rest a bare denier action with no instances (the
+    no-op check) — make_store's action mix at fleet scale, WITHOUT the
+    mesh-wide report rule (a 100k-rule parent snapshot must not lower
+    a report plane the sharded path never serves). `with_quota` adds
+    one GLOBAL per-user memquota rule — the shape the sharding tests
+    pin: replicated into every bank, allocated once per request from
+    the one controller-owned pool."""
+    from istio_tpu_torch.runtime.store import MemStore
+
+    s = MemStore()
+    s.set(("handler", "istio-system", "denyall"), {
+        "adapter": "denier", "params": {"status_code": 7}})
+    s.set(("handler", "istio-system", "nswhitelist"), {
+        "adapter": "list",
+        "params": {"overrides": [f"team{j}" for j in range(0, 40, 2)],
+                   "blacklist": False}})
+    s.set(("instance", "istio-system", "nothing"), {
+        "template": "checknothing", "params": {}})
+    s.set(("instance", "istio-system", "srcns"), {
+        "template": "listentry", "params": {"value": "source.namespace"}})
+    if with_quota:
+        s.set(("handler", "istio-system", "mq"), {
+            "adapter": "memquota",
+            "params": {"quotas": [{"name": "rq.istio-system",
+                                   "max_amount": 1 << 30}]}})
+        s.set(("instance", "istio-system", "rq"), {
+            "template": "quota",
+            "params": {"dimensions": {"user": 'source.user | "anon"'}}})
+        s.set(("rule", "istio-system", "quota-rule"), {
+            "match": "",
+            "actions": [{"handler": "mq", "instances": ["rq"]}]})
+    for i, rule in enumerate(make_fleet_rules(n_rules, n_namespaces,
+                                              seed)):
+        if i % 3 == 0:
+            actions = [{"handler": "denyall.istio-system",
+                        "instances": ["nothing.istio-system"]}]
+        elif i % 97 == 1:
+            actions = [{"handler": "nswhitelist.istio-system",
+                        "instances": ["srcns.istio-system"]}]
+        else:
+            actions = [{"handler": "denyall.istio-system",
+                        "instances": []}]
+        s.set(("rule", rule.namespace, rule.name),
+              {"match": rule.match, "actions": actions})
+    return s
+
+
+FLEET_ZIPF_A = 1.2
+"""Zipf skew of fleet sidecar traffic (make_fleet_traffic): namespace
+index drawn as `(zipf(a=1.2) - 1) mod n_namespaces`, i.e. P(ns k) ∝
+the mass the Zipf tail folds onto k — ns0 is the hot head (P(rank 1)
+= 1/ζ(1.2) ≈ 18% of draws, plus whatever tail mass the mod folds
+back), with a long informative tail. Rule namespaces are sized with
+a=1.1 (_fleet_ns_assignment); traffic skew deliberately does NOT
+match rule skew — hot traffic landing on namespaces of every size is
+what makes shard occupancy a real measurement."""
+
+
+def make_fleet_traffic(n_requests: int, n_rules: int,
+                       n_namespaces: int, seed: int = 0,
+                       zipf_a: float = FLEET_ZIPF_A,
+                       sidecar_ids: int = 20_000) -> list[dict]:
+    """Zipf-skewed sidecar Check() traffic against a make_fleet_rules
+    world: each request carries a sidecar identity drawn uniformly
+    from a `sidecar_ids`-wide id space (`source.user` = sidecar{i}),
+    and picks a namespace by Zipf rank (see FLEET_ZIPF_A), then a
+    uniform rule within it, addressing that rule's own service — so
+    predicates actually fire and deny/whitelist rules exercise their
+    device lowerings. ~10% of rows carry a `locked{...}` source
+    namespace (the k<2 rules' not-matched branch) and ~10% a
+    namespace no rule knows (global rules only). Fully reproducible
+    for one (n_rules, n_namespaces, seed, zipf_a, sidecar_ids)."""
+    ns_of = _fleet_ns_assignment(n_rules, n_namespaces, seed)
+    by_ns: dict[int, list[int]] = {}
+    for i, k in enumerate(ns_of):
+        by_ns.setdefault(int(k), []).append(i)
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for j in range(n_requests):
+        ns_rank = int((rng.zipf(zipf_a) - 1) % n_namespaces)
+        roll = rng.random()
+        if roll < 0.10 or ns_rank not in by_ns:
+            # unknown-namespace traffic: only global rules can apply
+            d = {"destination.service":
+                 f"ghost{j % 251}.void{ns_rank}.svc.cluster.local"}
+            ridx = None
+        else:
+            rules = by_ns[ns_rank]
+            ridx = rules[int(rng.integers(len(rules)))]
+            d = {"destination.service":
+                 f"svc{ridx}.ns{ns_rank}.svc.cluster.local"}
+        locked = rng.random() < 0.10
+        d.update({
+            "source.namespace":
+                f"locked{(j if ridx is None else ridx) % 5}" if locked
+                else f"team{int(rng.integers(40))}",
+            "source.user": f"sidecar{int(rng.integers(sidecar_ids))}",
+            "request.method": "GET" if rng.random() < 0.8 else "POST",
+            "connection.mtls": bool(rng.random() < 0.8),
+            "request.path": f"/api/v{j % 3}/items",
+        })
+        out.append(d)
+    return out
 
 
 def make_route_world(n_routes: int = 1000, n_services: int | None = None,

@@ -6,7 +6,9 @@ Port of istio_tpu/utils/metrics.py's registry and text exposition
 card's machine lacks). Role of the reference's Prometheus self-monitoring
 (mixer/pkg/runtime/monitor.go:34-88, pilot discovery.go:53-113).
 Host-side only. The config canary registers its mixer_canary_* families
-on `default_registry` (canary/gate.py); the /metrics scrape that would
+on `default_registry` (canary/gate.py), the sharded serving plane its
+mixer_shard_stage_seconds and mixer_replica_* families
+(runtime/monitor.py); the /metrics scrape that would
 serve `expose_text()` waits for the introspect plane, and with it the
 reference's quantile readers and SlidingWindow (runtime/monitor.py keeps
 its own live window).
@@ -102,11 +104,26 @@ class Histogram:
             self._sum[key] += value
             self._n[key] += 1
 
+    @property
+    def buckets(self) -> tuple[float, ...]:
+        return self._buckets
+
     def count(self, **labels: str) -> int:
         return self._n.get(_label_key(labels), 0)
 
     def sum(self, **labels: str) -> float:
         return self._sum.get(_label_key(labels), 0.0)
+
+    def state(self, **labels: str) -> tuple[list[int], float, int]:
+        """(per-bucket counts copy, sum, n) for one label set — the
+        subtraction token for windowed readings: two states taken
+        around a phase delta to that phase's own histogram (histograms
+        are process-lifetime cumulative by design)."""
+        key = _label_key(labels)
+        with self._lock:
+            counts = list(self._counts.get(key, ()))
+            return (counts, self._sum.get(key, 0.0),
+                    self._n.get(key, 0))
 
     def expose(self) -> Iterable[str]:
         if self.help:

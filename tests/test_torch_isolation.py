@@ -65,7 +65,8 @@ def test_every_module_imports_without_jax_and_istio_tpu():
             "istio_tpu_torch.ops.route_ops",
             "istio_tpu_torch.pilot.route_nfa",
             "istio_tpu_torch.pilot.discovery",
-            "istio_tpu_torch.sharding.planner",
+            *(f"istio_tpu_torch.sharding{m}" for m in (
+                "", ".planner", ".banks", ".router", ".parity")),
             "istio_tpu_torch.compiler.op_lower",
             "istio_tpu_torch.testing.corpus",
             "istio_tpu_torch.platform",

@@ -367,7 +367,8 @@ def test_unported_options_raise():
     store = workloads.make_store(8)
     try:
         with pytest.raises(NotPorted):
-            RuntimeServer(store, ServerArgs(shards=2), device="cpu")
+            RuntimeServer(store, ServerArgs(jax_compile_cache_dir="cache"),
+                          device="cpu")
         with pytest.raises(NotPorted):
             RuntimeServer(store, ServerArgs(overlap_h2d=True), device="cpu")
         # mesh serving is carried, over platform.devices(): no card and
