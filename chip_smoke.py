@@ -157,7 +157,11 @@ Phases, each fatal on failure:
      quota_fused (unit-mode flushes) and through
      check_batch_quota_instep, and at amounts 1-5 in-step (the seg kernel
      gated on the verdict), B in {64, 256, 2048}: every CheckResponse and
-     QuotaResult equal; mixed-amount classic flushes on the card alone;
+     QuotaResult equal; (d) then both servers' auditors read the pool:
+     quota_conservation ok over the 100,000 live keys, its device_pools
+     evidence equal on the card and the CPU, violated under
+     quota_negative_cells_skew=1; mixed-amount classic flushes on the
+     card alone;
      one quota_alloc launch per flush and per in-step trip; the plane
      reads back the grants of each key's window and no key gets more
      than 5,000 in one; quota_alloc against its plain version on a
@@ -198,7 +202,10 @@ Phases, each fatal on failure:
      program carried while its digest holds; one rule_match launch per
      batched generation, every one of them held against its plain
      versions and the largest timed; cold / warm poll rates and the
-     route_eval stage;
+     route_eval stage; (e) two small make_store(40) servers (card, CPU)
+     whose auditors attach the two services: plane_agreement ok over
+     the scope program's pairs, pairs and evidence equal, a tampered
+     pair (SEAMS.plane_pairs_extra) violated with a witness finding;
   12. sequence-parallel DFA matching (B13) on 8 virtual devices of card
      0, each its own stream: long subjects (2,048 rows of 8 KiB as 64
      chunks of 128 bytes; 256 rows at Envoy's 60 KiB header limit as 480
@@ -293,7 +300,9 @@ Phases, each fatal on failure:
      last good list kept. Every count (outcomes by handler, retries,
      late completions, device trips, launches) equals what the schedule
      predicts; check_many walls with the executor on and off, and
-     quota() walls;
+     quota() walls; (g) also holds the grant server's auditor:
+     grant_coherence ok across the store-delete publish, revocations
+     keeping pace with publishes, and violated under grant_issue_skew;
   15. the config canary (canary_phase; counters zeroed just before it,
      every kernel of a replay trip must launch): (a) the three seeded
      pairs of testing/corpus.make_canary_snapshot_pairs on a card server
@@ -347,7 +356,9 @@ Phases, each fatal on failure:
      shards, 2 lanes) and global quota leg equal to the CPU port; an
      RBAC snapshot falls back to replica-only and says why; a fault
      CHAOS did not inject raises out of check_many; a CHAOS fault on one
-     bank opens that bank's breaker alone and its oracle answers;
+     bank opens that bank's breaker alone and its oracle answers; (g) the
+     fleet server's auditor: routing_conservation ok with rows_total the
+     rows routed, a skewed misroute reading violated;
   17. the tail-latency forensics plane (forensics_phase; counters zeroed
      just before its drive, every kernel of a served trip must launch):
      make_store(10_000, host_overlay_every=5) on a card server with the
@@ -372,6 +383,20 @@ Phases, each fatal on failure:
      off, on at a 10 s threshold and on at the default threshold, 7
      interleaved rounds (forensics_overhead_pct of each "on"); (f) the
      SLO scorecard, whose check_wire plane has data;
+  17b. the mesh audit plane (audit_phase, on phase 17's servers; counters
+     zeroed just before its drive, every kernel of a served trip must
+     launch): (a) after check_many and a drained report() on both, the
+     six invariants ok, no violation counted, explainability a vacuous
+     1.0, the scorecard's audit plane ok, the card's snapshot equal to
+     the CPU server's less walls; (b) cilist wedged for 6 checks under a
+     600 ms deadline, then 3 injected device faults over 6 checks: both
+     explained by named evidence, rate 1.0, none unexplained (the gate
+     re-based after it); (c) report_accepted_skew=7 violated within
+     stuck_floor_s + 10 s (healthy false, an audit_violation event,
+     in_flight 7, the scorecard's audit plane miss), ok once cleared; (h)
+     check_many B = 256 walls with the auditor on at 0.2 s and stopped,
+     30 calls each (audit_overhead_pct, no limit), one evaluate(), the
+     quota read and the plane check timed;
   18. print the kernels JSON line, the card line, and last the device
      line {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when CUDA is absent or the package
@@ -468,6 +493,37 @@ def device_ms(fn, iters: int) -> float | None:
     return us / 1e3 / iters if us > 0 else None
 
 
+PROFILE_WARMUP_CALLS = 3   # calls a profile window runs before it records
+
+
+def profile_calls(fn, calls: int, warm: bool = True):
+    """torch.profiler (CPU and CUDA) over `calls` calls of fn, each
+    call's CUDA work finished before the next; PROFILE_WARMUP_CALLS calls
+    run first with the profiler already tracing and are left out of the
+    result. A window opened cold misses every kernel record of a call
+    now and then, the more of them the more the process has run before
+    (PERF.md §7): the warm-up keeps that start out of the window. With
+    warm=False, the cold window the run used before: the calls alone,
+    one synchronize after the last (kept to compare the two)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    if not warm:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return prof
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=PROFILE_WARMUP_CALLS,
+                                   active=calls, repeat=1)) as prof:
+        for _ in range(PROFILE_WARMUP_CALLS + calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def timed(fn, iters: int) -> tuple[float, float, str]:
     """→ (ms, call_ms, source): call_ms is CUDA-event time per call of a
     back-to-back loop (host launch cost included); ms is the profiler's
@@ -524,26 +580,23 @@ def graph_ms(fn, reps: int, want=None, replays: int = 5) -> float:
 
 
 def kernel_ms(fn, name: str, per_call: int, iters: int = 2,
-              windows: int = 7) -> tuple[float, int]:
+              windows: int = 7, warm: bool = True) -> tuple[float, int]:
     """Device ms per launch of the `__global__` function `name` (a
     substring of the profiler's kernel name) made `per_call` times by
     each call of fn: the median over profiler windows of `iters` calls
     whose kernel-record count is exactly per_call * iters (the profiler
     drops records now and then: a window short of one is profiled again,
     up to 8 * windows windows) → (ms, windows kept). Raises, with the
-    counts seen, when no window saw every launch."""
+    counts seen and, for the short windows, the launches each saw by
+    device and stream (launch_sites), when no window saw every launch.
+    warm=False profiles through the cold window (profile_calls)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    kept, seen = [], []
+    kept, seen, short = [], [], {}
     for _ in range(8 * windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        prof = profile_calls(fn, iters, warm)
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and name in e.key]
         n = sum(e.count for e in evs)
@@ -552,11 +605,48 @@ def kernel_ms(fn, name: str, per_call: int, iters: int = 2,
             kept.append(sum(e.self_device_time_total for e in evs) / 1e3 / n)
             if len(kept) == windows:
                 break
+        else:
+            sites = json.dumps(launch_sites(prof, name), sort_keys=True)
+            short[sites] = short.get(sites, 0) + 1
     if not kept:
-        raise AssertionError(f"kernel_ms: no profiler window saw all "
-                             f"{per_call * iters} launches of {name} (saw "
-                             f"{sorted(set(seen))})")
+        raise AssertionError(
+            f"kernel_ms: no profiler window saw all {per_call * iters} "
+            f"launches of {name} (saw {sorted(set(seen))}); the launches "
+            f"by device and stream of the short windows (→ how many "
+            f"windows saw that split): {short}; the calling thread's "
+            f"stream {torch.cuda.current_stream()}")
     return sorted(kept)[len(kept) // 2], len(kept)
+
+
+def cold_kernel_ms(fn, name: str, per_call: int) -> float | None:
+    """kernel_ms through the cold window, beside the warm one in the same
+    run, so a change of window shows as a change of time; None where no
+    cold window saw every launch (of up to 24)."""
+    try:
+        return kernel_ms(fn, name, per_call, windows=3, warm=False)[0]
+    except AssertionError:
+        return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "none whole" if ms is None else f"{ms:.5f} ms"
+
+
+def launch_sites(prof, name: str) -> dict:
+    """The profiled kernel records whose name holds `name`, counted by
+    device and stream ("cuda:<device> stream <id>" → records), from
+    prof.events()."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or name not in e.name:
+            continue
+        stream = getattr(e, "device_resource_id", None)
+        if stream is None:
+            stream = getattr(e, "thread", "?")
+        key = f"cuda:{getattr(e, 'device_index', '?')} stream {stream}"
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def assert_equal(name: str, got, want) -> None:
@@ -1265,6 +1355,10 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
                 per = pe.quota_plan(int(matched.shape[0])).launches
                 extra["quota_ms"] = kernel_ms(fold, "quota_grant",
                                               per)[0] * per
+                cold = cold_kernel_ms(fold, "quota_grant", per)
+                extra["cold_window"] = {
+                    "row_fold_ms": cold_kernel_ms(fold, "row_fold", 1),
+                    "quota_ms": None if cold is None else cold * per}
                 keys = quota_keys(matched, req, batch, params, c,
                                   int(quota0.shape[1]), lstate, kind)
                 qb, qo = quota_grant_work(
@@ -1467,7 +1561,9 @@ def check_kernels(captured: list, quota0, int_rate: float | None = None
                f"{extra['quota_ms']:.5f} ms (bound "
                f"{extra['quota_bound_ms']:.6f}, "
                f"{extra['quota_bound_by']}; stable argsort of the keys "
-               f"{extra['quota_argsort_ms']:.5f})")
+               f"{extra['quota_argsort_ms']:.5f}); cold windows: row fold "
+               f"{fmt_ms(extra['cold_window']['row_fold_ms'])}, quota "
+               f"launch {fmt_ms(extra['cold_window']['quota_ms'])}")
             + ("" if lib is None else
                f"   library {lib:9.5f} ms ({lib_call})"))
         row = rows.setdefault(name, {
@@ -2429,17 +2525,16 @@ def ext_stage(fn, steps: int, srcs=("byte_pred", "dfa_scan")) -> dict:
     §7): a stage may read one launch short, never one long."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     table = hand_written()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
+    prof = profile_calls(fn, steps)
+    # a window's prof.step() adds a ProfilerStep annotation on the device
+    # that spans the step's work: no op of it
     evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA),
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith("ProfilerStep")),
                  key=lambda e: e.time_range.start)
     tagged = [(e, *source_of_event(e.name, table)) for e in evs]
     other = [e for e, src, _ in tagged if src is None]
@@ -2518,7 +2613,8 @@ def check_ext_stage(label: str, fn, ruleset, steps: int = 10,
         f"{st['other_ms']:.5f} ms a step")
     return {"launches": want, "ms": ms, "ops": ops, "whole": len(whole),
             "steps": steps, "profiles": attempt,
-            "calls": attempt * (steps + 1), "other_ms": st["other_ms"],
+            "calls": attempt * (steps + 1 + PROFILE_WARMUP_CALLS),
+            "other_ms": st["other_ms"],
             "other_ops": st["other_ops"]}
 
 
@@ -5219,6 +5315,36 @@ def quota_ledger_checks(pool, ledger: list) -> dict:
             "max_window": worst, "ticks": span}
 
 
+def audit_quota_leg(srv, cpu) -> None:
+    """Phase 9 (d): the audit plane's quota_conservation over the live
+    pool (QUOTA_KEYS keys, fed alike on both servers so far): ok, its
+    device_pools evidence equal on the card and the CPU, and a skewed
+    negative-cell reading violated."""
+    from istio_tpu_torch.runtime.audit import SEAMS
+    t0 = time.perf_counter()
+    got = fresh_quota_check(srv.audit)
+    read_s = time.perf_counter() - t0
+    want = fresh_quota_check(cpu.audit)
+    pools = got["evidence"]["device_pools"]
+    if got["status"] != "ok" or want["status"] != "ok" or \
+            pools != want["evidence"]["device_pools"] or \
+            [p["n_used"] for p in pools.values()] != [QUOTA_KEYS]:
+        raise AssertionError(f"[9d] quota_conservation card {got}, CPU "
+                             f"{want}")
+    SEAMS.quota_negative_cells_skew = 1
+    try:
+        bad = fresh_quota_check(srv.audit)
+    finally:
+        SEAMS.reset()
+    if bad["status"] != "violated":
+        raise AssertionError(f"[9d] a negative cell read {bad}")
+    log(f"[9d] audit quota_conservation over the live pool ok, an "
+        f"evaluate() that reads it {read_s * 1e3:.2f} ms (the counter plane "
+        f"pulled on the auditor's stream after its producing stream): "
+        f"{json.dumps(pools)}, equal to the CPU "
+        f"server's; quota_negative_cells_skew=1 → violated ({bad['note']})")
+
+
 def quota_phase(int_rate: float) -> dict:
     """Phase 9: the served Quota() path on the quota world
     (make_store(10_000) + the Bookinfo sample's limit, 100,000 live
@@ -5394,6 +5520,7 @@ def quota_phase(int_rate: float) -> dict:
         f"QuotaResult equal to the CPU server's; RESOURCE_EXHAUSTED: "
         f"{exhausted['in-step unit']} unit, {exhausted['in-step mixed']} "
         "mixed")
+    audit_quota_leg(srv, cpu)
     # ---- classic path, mixed amounts, the card alone (seg flushes)
     for s in range(2):
         users = zipf_users(rng, HEADLINE_B)
@@ -6093,6 +6220,64 @@ def discovery_poll(ds, nodes, meta) -> tuple[list, float]:
     return bodies, time.perf_counter() - t0
 
 
+AUDIT_DISCOVERY_RULES = 40     # (e): the small servers whose auditors
+#                                attach the fleet's discovery services
+
+
+def audit_discovery_leg(ds, cpu_ds) -> dict:
+    """Phase 11 (e): the auditor of a small server on each side with the
+    fleet's DiscoveryService attached (the card's to the card server's):
+    plane_agreement ok over the scope program's pairs, the pairs and the
+    evidence equal on the card and the CPU; a tampered pair in
+    SEAMS.plane_pairs_extra violated with a witness finding."""
+    from istio_tpu_torch.runtime.audit import SEAMS
+    t0 = time.perf_counter()
+    args = dict(initial_prewarm=False, buckets=(8,), max_batch=8)
+    built = [served(AUDIT_DISCOVERY_RULES, dev, args)
+             for dev in ("cuda", "cpu")]
+    try:
+        (srv, _), (cpu, _) = built
+        srv.audit.attach_discovery(ds)
+        cpu.audit.attach_discovery(cpu_ds)
+        got = audit_check(srv.audit.evaluate(), "plane_agreement")
+        want = audit_check(cpu.audit.evaluate(), "plane_agreement")
+        limit = srv.audit.max_pairs
+        pairs = ds.snapshot.scope_audit_pairs(limit=limit)
+        strip = lambda c: {k: v for k, v in c["evidence"].items()
+                           if k not in AUDIT_VOLATILE}
+        if got["status"] != "ok" or strip(got) != strip(want) or \
+                got["evidence"]["n_discovery_pairs"] != len(pairs) or \
+                not pairs or pairs != cpu_ds.snapshot.scope_audit_pairs(
+                    limit=limit):
+            raise AssertionError(f"[11e] plane_agreement card {got}, CPU "
+                                 f"{want}; {len(pairs)} pairs")
+        tamper = (f"tampered:{pairs[0][0]}", pairs[0][1], "true")
+        SEAMS.plane_pairs_extra = [tamper]
+        try:
+            bad = audit_check(srv.audit.evaluate(), "plane_agreement")
+        finally:
+            SEAMS.reset()
+        found = bad["evidence"].get("findings", [])
+        again = audit_check(srv.audit.evaluate(), "plane_agreement")
+        if bad["status"] != "violated" or \
+                [f["code"] for f in found] != ["plane-divergence"] or \
+                again["status"] != "ok":
+            raise AssertionError(f"[11e] tampered pair {tamper}: {bad}; "
+                                 f"after the seam cleared {again}")
+    finally:
+        for x in built:
+            for y in x:
+                y.close()
+    seconds = time.perf_counter() - t0
+    log(f"[11e] audit plane_agreement with the fleet's discovery attached: "
+        f"ok over {got['evidence']['n_pairs']} mixer and "
+        f"{len(pairs)} discovery pairs (e.g. {pairs[0]}), equal to the CPU "
+        f"port's; the tampered pair {tamper} violated ({found[0]['message']})"
+        f"; ok again once cleared ({seconds:.1f} s with the two small "
+        "servers' builds)")
+    return {"pairs": len(pairs), "seconds": seconds}
+
+
 def discovery_phase(int_rate: float) -> dict:
     """Phase 11: Pilot's discovery service at bench.py's fleet
     (make_discovery_world: 2,000 services over 64 namespaces, 5 replicas
@@ -6226,9 +6411,13 @@ def discovery_phase(int_rate: float) -> dict:
         f"[{big[1][0].shape[0]}, {big[1][4]['conj_m_idx'].shape[0]}]) "
         "timed:")
     rows = check_kernels([big], None, int_rate)
-    for d in (ds, cpu):
-        d.stop()
+    try:
+        disc_audit = audit_discovery_leg(ds, cpu)
+    finally:
+        for d in (ds, cpu):
+            d.stop()
     return {**out, "rows": rows, "cold_s": cold_s, "warm_s": warm_s,
+            "audit": disc_audit,
             "churn_s": churn_walls, "stages": lat,
             "sidecars": len(nodes), "groups": groups, "admits": admits,
             "scope_reused": reused}
@@ -6997,7 +7186,9 @@ def mesh_entry_times(tag: str, inputs, int_rate: float,
         ms, kept = kernel_ms(lambda: mf.mesh_fold(parts, params, scratch, c,
                                                   lk, dev), kname, per)
         out[ent] = {"ms": ms, "launches_per_call": per, "windows": kept,
-                    "ms_source": "profiler (every launch seen)"}
+                    "ms_source": "profiler (every launch seen)",
+                    "cold_ms": cold_kernel_ms(lambda: mf.mesh_fold(
+                        parts, params, scratch, c, lk, dev), kname, per)}
     bd = int(parts[0][0].matched.shape[0])
     rec = torch.stack([mf.partial_record(p, n_rules, c, n_q)[0]
                        for p in parts[0]])
@@ -7031,8 +7222,8 @@ def mesh_entry_times(tag: str, inputs, int_rate: float,
             max(part_b, 0.0) / (dp * mp), max(part_o, 0.0) / (dp * mp),
             int_rate)
     log(f"  {tag:<16} per launch: " + ", ".join(
-        f"{e} {x['ms']:.5f} ms x {x['launches_per_call']}"
-        for e, x in out.items())
+        f"{e} {x['ms']:.5f} ms x {x['launches_per_call']} (cold windows "
+        f"{fmt_ms(x['cold_ms'])})" for e, x in out.items())
         + f"; mesh_combine bound {comb['bound_ms']:.6f} ms "
         f"({comb['bound_by']}), torch.amin {comb['library_ms']:.5f} ms"
         + "".join(f"; {e} bound {x['bound_ms']:.7f} ms ({x['bound_by']})"
@@ -7984,6 +8175,31 @@ GRANT_ARGS = dict(check_grants=True, grant_ttl_floor_s=0.3,
                   buckets=(8,), max_batch=8)
 
 
+def grant_audit_leg(gsrv, before: dict) -> None:
+    """Phase 14b (g): the audit plane's grant_coherence on the
+    check_grants card server, ok before and after the store-delete
+    publish with revocations keeping pace with publishes; a grant issued
+    past the watermark (grant_issue_skew) violated."""
+    from istio_tpu_torch.runtime.audit import SEAMS
+    after = audit_check(gsrv.audit.evaluate(), "grant_coherence")
+    ev = after["evidence"]
+    if before["status"] != "ok" or after["status"] != "ok" or \
+            ev["publishes_since_audit_start"] < 1 or \
+            ev["revocations_since_audit_start"] < \
+            ev["publishes_since_audit_start"]:
+        raise AssertionError(f"[14b g] grant_coherence before {before}, "
+                             f"after the publish {after}")
+    SEAMS.grant_issue_skew = ev["policy_generation"] + 10
+    try:
+        bad = audit_check(gsrv.audit.evaluate(), "grant_coherence")
+    finally:
+        SEAMS.reset()
+    if bad["status"] != "violated":
+        raise AssertionError(f"[14b g] grant_issue_skew: {bad}")
+    log(f"[14b g] audit grant_coherence ok across the publish: "
+        f"{json.dumps(ev)}; grant_issue_skew → violated ({bad['note']})")
+
+
 def executor_phase() -> dict:
     """Phase 14b: the adapter-executor plane on the card. A card server
     (EXECUTOR_ARGS) and a device="cpu" server with host_executor=False
@@ -8382,6 +8598,7 @@ def executor_phase() -> dict:
 
         FusedPlan.prewarm = counted_warm
         k0 = dict(kernels.launches)
+        g_audit = audit_check(gsrv.audit.evaluate(), "grant_coherence")
         try:
             gen0 = pol.generation
             gstore.delete(("rule", "istio-system", "r-deny"))
@@ -8416,6 +8633,7 @@ def executor_phase() -> dict:
             "served; the new generation's first responses OK at "
             f"{first[0].valid_duration_s} s (bound {bound}); "
             f"{sum(warm_trips)} warm trips + 1 served trip")
+        grant_audit_leg(gsrv, g_audit)
 
         # (h) the maintenance lane
         calls_h = {"ok": 0, "fail": 0}
@@ -9136,6 +9354,31 @@ def both_lanes(srv, bags) -> list:
     return out
 
 
+def routing_audit_leg(srv, routing: dict, rows: int) -> None:
+    """Phase 16 (g): the audit plane's routing_conservation on the
+    sharded card server: ok, its rows_total the rows the phase routed;
+    a misrouted reading (routing_misrouted_skew) violated."""
+    from istio_tpu_torch.runtime.audit import SEAMS
+    chk = audit_check(srv.audit.evaluate(), "routing_conservation")
+    ev = chk["evidence"]
+    if chk["status"] != "ok" or not ev["enabled"] or \
+            ev["rows_total"] != rows or \
+            ev["rows_per_shard"] != routing["rows_per_shard"]:
+        raise AssertionError(f"[16g] routing_conservation {chk}, routed "
+                             f"{rows}")
+    SEAMS.routing_misrouted_skew = 1
+    try:
+        bad = audit_check(srv.audit.evaluate(), "routing_conservation")
+    finally:
+        SEAMS.reset()
+    if bad["status"] != "violated":
+        raise AssertionError(f"[16g] routing_misrouted_skew: {bad}")
+    log(f"[16g] audit routing_conservation ok: rows_total "
+        f"{ev['rows_total']} = the rows routed, misrouted "
+        f"{ev['misrouted']}; routing_misrouted_skew=1 → violated "
+        f"({bad['note']})")
+
+
 def shards_full() -> dict:
     """(a) + (b): make_fleet_store(100_000, 512) on a card server with
     8 shards behind 2 replica lanes, then a one-namespace constant edit
@@ -9260,6 +9503,7 @@ def shards_full() -> dict:
             f"{served[0]} rows served; one B=2048 batch: {n_trips} bank trips, "
             f"launches {counts}, each equal to its plain version, none from "
             "the parent plan")
+        routing_audit_leg(srv, routing, served[0])
         # -- (b) the one-namespace constant edit of scripts/delta_smoke.py
         plan0 = st["plan"]
         banks0 = {b.shard_id: b for b in st["banks"]}
@@ -9957,6 +10201,9 @@ def forensics_phase() -> dict:
             + "; check_wire " + json.dumps(
                 {k: v for k, v in card["planes"]["check_wire"].items()
                  if k != "verdict"}))
+        t_leg = time.perf_counter()
+        au = audit_phase(srv, cpu, big, ci_bags, required)
+        legs["17b"] = time.perf_counter() - t_leg
     finally:
         CHAOS.reset()
         rec.configure(enabled=True, threshold_ms=0.0)
@@ -9968,7 +10215,279 @@ def forensics_phase() -> dict:
     log(f"[t] phase 17 took {seconds:.1f} s (build {built_s:.1f} s, "
         + ", ".join(f"({k}) {v:.1f} s" for k, v in legs.items()) + ")")
     return {**out, "rows": [], "overhead": over, "scorecard": card,
-            "legs": legs, "seconds": seconds}
+            "legs": legs, "seconds": seconds, "audit": au}
+
+
+
+# ---- phase 17b: the mesh audit plane, on phase 17's servers
+
+AUDIT_REPORT_ROWS = 64         # (a): report() rows drained before the read
+AUDIT_WEDGE_CHECKS = 6         # (b): scripts/audit_smoke.py's wedged checks
+AUDIT_DEVICE_FAULTS = 3        # (b): injected device-step failures
+AUDIT_DEVICE_CHECKS = 6        # (b): checks sent under them
+AUDIT_SEAM_SKEW = 7            # (c): report_accepted_skew
+AUDIT_COST_CALLS = 30          # (h): check_many calls a mode
+AUDIT_COST_INTERVAL_S = 0.2    # (h): the auditor's interval when on
+# evidence fields that follow the evaluation history, not the served state
+AUDIT_VOLATILE = ("frozen_s", "stuck_evaluations", "memoized", "sampled")
+
+
+def audit_check(snap: dict, name: str) -> dict:
+    return next(c for c in snap["checks"] if c["name"] == name)
+
+
+def audit_view(snap: dict) -> dict:
+    """Each invariant's status and evidence, less walls and the fields
+    that follow the evaluation history (AUDIT_VOLATILE)."""
+    return {c["name"]: (c["status"],
+                        {k: v for k, v in c["evidence"].items()
+                         if k not in AUDIT_VOLATILE})
+            for c in snap["checks"]}
+
+
+def fresh_quota_check(aud) -> dict:
+    """quota_conservation from an evaluate() that reads the pools: the
+    auditor reads them every quota_every-th evaluation, so with
+    quota_every 1 every evaluation does."""
+    every = aud.quota_every
+    aud.quota_every = 1
+    try:
+        return audit_check(aud.evaluate(), "quota_conservation")
+    finally:
+        aud.quota_every = every
+
+
+def audit_phase(srv, cpu, big: list, ci_bags: list, required: tuple) -> dict:
+    """Phase 17b: the mesh audit plane on phase 17's overlay card server
+    (and its CPU twin), the launch counters zeroed just before its drive
+    and read just after: (a) clean traffic drained → six invariants ok,
+    no violation counted, explainability vacuous, the audit plane of the
+    scorecard ok, the card's snapshot equal to the CPU server's; (b) a
+    wedged cilist lane and injected device faults, both explained by
+    named evidence; (c) a skewed report counter caught as violated with
+    its evidence and event, then recovered; (h) check_many walls with the
+    auditor on at AUDIT_COST_INTERVAL_S and stopped (audit_overhead_pct)."""
+    import numpy as np
+    from istio_tpu_torch import kernels
+    from istio_tpu_torch.runtime import forensics, monitor, slo
+    from istio_tpu_torch.runtime.audit import INJECTIONS, SEAMS
+    from istio_tpu_torch.runtime.resilience import CHAOS
+
+    t_phase = time.perf_counter()
+    ci = HOST_HANDLERS[0]
+    aud = srv.audit
+    legs: dict = {}
+    if aud is None or cpu.audit is None or \
+            not aud.snapshot()["running"]:
+        raise AssertionError("[17b] the default servers run no auditor")
+    earlier = INJECTIONS.evaluate(aud.explain_window_s)
+    log(f"[17b] the injection ledger over phases 5-17 before its reset: "
+        f"rate {earlier['rate']}, {earlier['matched']} matched, "
+        f"{earlier['unexplained']} unexplained, {earlier['pending']} "
+        "pending")
+    INJECTIONS.reset()
+    SEAMS.reset()
+    kernels.launches.reset()
+    steps = 0
+
+    # (a) clean: phase 17's traffic and a report() drained, then read
+    t_leg = time.perf_counter()
+    base = monitor.audit_counters()
+    srv.check_many(big)
+    cpu.check_many(big)
+    srv.report(big[:AUDIT_REPORT_ROWS])
+    cpu.report(big[:AUDIT_REPORT_ROWS])
+    steps += 2
+    end = time.perf_counter() + 20.0
+    while monitor.report_conservation()["in_flight"]:
+        if time.perf_counter() > end:
+            raise AssertionError(f"[17b a] reports never drained: "
+                                 f"{monitor.report_conservation()}")
+        time.sleep(0.02)
+    t = time.perf_counter()
+    snap = aud.evaluate()
+    eval_ms = (time.perf_counter() - t) * 1e3
+    cpu_snap = cpu.audit.evaluate()
+    now = monitor.audit_counters()
+    bad = {c["name"]: c for c in snap["checks"] if c["status"] != "ok"}
+    ex = snap["explainability"]
+    card = slo.scorecard(monitor, forensics, audit=snap)
+    if bad or not snap["healthy"] or now["violations"] != base["violations"] \
+            or (ex["rate"], ex["matched"], ex["unexplained"]) != (1.0, 0, 0) \
+            or card["planes"]["audit"]["verdict"] != "ok":
+        raise AssertionError(
+            f"[17b a] clean: not ok {bad}; healthy {snap['healthy']}; "
+            f"violations {base['violations']} -> {now['violations']}; "
+            f"explainability {ex}; scorecard {card['planes']['audit']}")
+    if audit_view(snap) != audit_view(cpu_snap):
+        raise AssertionError(f"[17b a] card {audit_view(snap)} != CPU "
+                             f"{audit_view(cpu_snap)}")
+    cons = audit_check(snap, "report_conservation")["evidence"]
+    quota = audit_check(snap, "quota_conservation")["evidence"]
+    planes = audit_check(snap, "plane_agreement")["evidence"]
+    legs["a"] = time.perf_counter() - t_leg
+    log(f"[17b a] clean: {len(big)} checks and {AUDIT_REPORT_ROWS} report "
+        f"rows a server, drained (accepted {cons['accepted']} = exported "
+        f"{cons['exported']} + rejected {cons['rejected_total']}); "
+        f"evaluate() {eval_ms:.2f} ms: six invariants ok, violations "
+        "unmoved, explainability 1.0 with no injection, scorecard audit "
+        f"ok (overall {card['overall']}); {planes['n_pairs']} plane pairs; "
+        f"pools {json.dumps(quota['device_pools'])}; the card's snapshot "
+        "equal to the CPU server's in every status and evidence")
+
+    # (b) chaos: a wedged cilist lane, then injected device faults. The
+    # gate first closes phase 17's legs and 17b (a)
+    resilience_gate("[17b] before its chaos")
+    t_leg = time.perf_counter()
+    CHAOS.wedge_adapter(ci)
+    codes = []
+    try:
+        for k in range(AUDIT_WEDGE_CHECKS):
+            codes.append(srv.check(ci_bags[k % len(ci_bags)], deadline=(
+                time.perf_counter() + FORENSICS_DEADLINE_S)).status_code)
+            steps += 1
+    finally:
+        CHAOS.unwedge_adapter(ci)
+    fb0 = monitor.resilience_counters()["fallback_total"]
+    CHAOS.device_failures = AUDIT_DEVICE_FAULTS
+    try:
+        for b in big[:AUDIT_DEVICE_CHECKS]:
+            codes.append(srv.check(b).status_code)
+            steps += 1
+    finally:
+        CHAOS.reset()
+    fallbacks = monitor.resilience_counters()["fallback_total"] - fb0
+    time.sleep(0.3)
+    snap = aud.evaluate()
+    ex = snap["explainability"]
+    matched = {r["kind"]: r["matched_by"] for r in ex["records"]
+               if r["matched"]}
+    if set(matched) != {"wedge", "device"} or not all(matched.values()) \
+            or ex["rate"] != 1.0 or ex["unexplained"] or ex["pending"]:
+        raise AssertionError(f"[17b b] chaos explainability {ex}")
+    # the lane's half-open probe closes it again
+    time.sleep(FORENSICS_ARGS["host_breaker_reset_s"] + 0.05)
+    srv.check_many(ci_bags[:1])
+    steps += 1
+    lane = srv.executor.lane(ci).breaker.state
+    if lane != "closed":
+        raise AssertionError(f"[17b b] the {ci} lane stayed {lane}")
+    legs["b"] = time.perf_counter() - t_leg
+    log(f"[17b b] {ci} wedged for {AUDIT_WEDGE_CHECKS} checks at a "
+        f"{FORENSICS_DEADLINE_S * 1e3:.0f} ms deadline, then "
+        f"device_failures={AUDIT_DEVICE_FAULTS} over {AUDIT_DEVICE_CHECKS} "
+        f"checks ({fallbacks} answered by the oracle; statuses "
+        f"{sorted(set(codes))}): explained {json.dumps(matched)}, rate "
+        f"{ex['rate']}, {ex['unexplained']} unexplained; the lane closed "
+        "again after its probe")
+    # the wedge and the faults moved the host ledger and the fallbacks on
+    # purpose: the gate counts from here
+    _GATE["base"] = resilience_reading()
+
+    # (c) a skewed report counter: violated within the stuck window
+    t_leg = time.perf_counter()
+    t_seam = time.perf_counter()
+    SEAMS.report_accepted_skew = AUDIT_SEAM_SKEW
+    try:
+        end = time.perf_counter() + aud.stuck_floor_s + 10.0
+        rc = audit_check(aud.evaluate(), "report_conservation")
+        while rc["status"] != "violated" and time.perf_counter() < end:
+            time.sleep(0.2)
+            rc = audit_check(aud.evaluate(), "report_conservation")
+        caught_s = time.perf_counter() - t_seam
+        snap = aud.snapshot()
+        events = [e["detail"] for e in forensics_events("audit_violation",
+                                                        t_seam)
+                  if e["detail"].get("invariant") == "report_conservation"]
+        card = slo.scorecard(monitor, forensics, audit=snap)
+        if rc["status"] != "violated" or snap["healthy"] or \
+                rc["evidence"]["in_flight"] != AUDIT_SEAM_SKEW or \
+                not events or card["planes"]["audit"]["verdict"] != "miss":
+            raise AssertionError(
+                f"[17b c] skew {AUDIT_SEAM_SKEW}: {rc}; healthy "
+                f"{snap['healthy']}; events {events}; scorecard "
+                f"{card['planes']['audit']}")
+    finally:
+        SEAMS.reset()
+    snap = aud.evaluate()
+    if audit_check(snap, "report_conservation")["status"] != "ok" or \
+            not snap["healthy"]:
+        raise AssertionError(f"[17b c] no recovery: {audit_view(snap)}")
+    legs["c"] = time.perf_counter() - t_leg
+    log(f"[17b c] report_accepted_skew={AUDIT_SEAM_SKEW}: violated after "
+        f"{caught_s:.2f} s (stuck_floor_s {aud.stuck_floor_s}, "
+        f"{rc['evidence']['stuck_evaluations']} frozen evaluations), "
+        f"in_flight {rc['evidence']['in_flight']}, healthy false, "
+        f"audit_violation event {events[0]}, scorecard audit miss; ok and "
+        "healthy again once the seam cleared")
+
+    # (h) the auditor's cost on the served batch
+    t_leg = time.perf_counter()
+    cpu.audit.stop()
+    aud.stop()
+    interval = aud.interval_s
+    aud.interval_s = AUDIT_COST_INTERVAL_S
+    walls: dict = {"on": [], "off": []}
+    evals_on = 0
+    try:
+        for _ in range(2):
+            srv.check_many(big)
+        for mode in ("on", "off", "off", "on"):
+            if mode == "on":
+                aud.start()
+                e0 = aud.snapshot()["evaluations"]
+                while aud.snapshot()["evaluations"] == e0:
+                    time.sleep(0.005)   # the auditor is cycling
+                e0 = aud.snapshot()["evaluations"]
+            for _ in range(AUDIT_COST_CALLS // 2):
+                t = time.perf_counter()
+                srv.check_many(big)
+                walls[mode].append((time.perf_counter() - t) * 1e3)
+            if mode == "on":
+                evals_on += aud.snapshot()["evaluations"] - e0
+                aud.stop()
+        steps += 2 + 2 * AUDIT_COST_CALLS
+        eval_walls = []
+        for _ in range(5):
+            t = time.perf_counter()
+            aud.evaluate()
+            eval_walls.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        fresh_quota_check(aud)
+        quota_ms = (time.perf_counter() - t) * 1e3
+        # phase 17's servers attach no discovery service: attaching none
+        # only makes the next evaluation recompute the plane check
+        aud.attach_discovery(None)
+        t = time.perf_counter()
+        aud.evaluate()
+        plane_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        aud.interval_s = interval
+        aud.start()
+    p50 = {m: float(np.median(w)) for m, w in walls.items()}
+    cost = {"p50_ms": p50,
+            "p99_ms": {m: float(np.percentile(w, 99))
+                       for m, w in walls.items()},
+            "audit_overhead_pct": (p50["on"] / p50["off"] - 1.0) * 100.0,
+            "evaluations_during_on": evals_on,
+            "evaluate_ms": float(np.median(eval_walls)),
+            "evaluate_quota_ms": quota_ms, "evaluate_plane_ms": plane_ms}
+    legs["h"] = time.perf_counter() - t_leg
+    log(f"[17b h] check_many B={len(big)}, {AUDIT_COST_CALLS} calls a mode "
+        f"(on, off, off, on): auditor on at {AUDIT_COST_INTERVAL_S} s p50 "
+        f"{p50['on']:.4f} ms p99 {cost['p99_ms']['on']:.4f} ms "
+        f"({evals_on} evaluations inside the on windows), stopped p50 "
+        f"{p50['off']:.4f} ms p99 {cost['p99_ms']['off']:.4f} ms: "
+        f"audit_overhead_pct {cost['audit_overhead_pct']:.2f}; one "
+        f"memoized evaluate() {cost['evaluate_ms']:.3f} ms, one that "
+        f"reads the pool {quota_ms:.3f} ms, one that recomputes the "
+        f"plane check {plane_ms:.3f} ms")
+    out = path_counts("[17b] audit path", required, steps)
+    seconds = time.perf_counter() - t_phase
+    log(f"[t] phase 17b took {seconds:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in legs.items()) + ")")
+    return {**out, "rows": [], "cost": cost, "legs": legs,
+            "seconds": seconds}
 
 
 def main() -> int:
@@ -10264,7 +10783,8 @@ def main() -> int:
     paths = {"served": sv, "authz": az, "lists": ls, "report": rp,
              "adapters": ac, "quota": qt, "routes": rt, "discovery": dc,
              "seq": sq, "mesh": mh, "resilience": rz, "executor": ex,
-             "canary": cz, "shards": sh, "forensics": fz}
+             "canary": cz, "shards": sh, "forensics": fz,
+             "audit": fz["audit"]}
     by_name = {r["name"]: r for r in table}
     for name, path, res in (("list_banks", "lists", ls),
                             ("atom_eval", "authz", az),
@@ -10413,6 +10933,14 @@ def main() -> int:
                if "forensics_overhead_pct" in r else "")
             for m, r in fz["overhead"].items())
         + f"; scorecard {fz['scorecard']['overall']}")
+    ac = fz["audit"]["cost"]
+    log(f"audit (phase 17b, {fz['audit']['seconds']:.1f} s; check_many B="
+        f"{FORENSICS_B} on phase 17's server): auditor on at "
+        f"{AUDIT_COST_INTERVAL_S} s p50 {ac['p50_ms']['on']:.4f} ms, stopped "
+        f"p50 {ac['p50_ms']['off']:.4f} ms (audit_overhead_pct "
+        f"{ac['audit_overhead_pct']:.2f}); evaluate() {ac['evaluate_ms']:.3f} "
+        f"ms memoized, {ac['evaluate_plane_ms']:.3f} ms recomputing the "
+        f"plane check, {ac['evaluate_quota_ms']:.3f} ms reading the pool")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -220,6 +220,40 @@ class DiscoverySnapshot:
         filter."""
         return self.rules_by_host.get(hostname, ())
 
+    def scope_audit_pairs(self, limit: int = 256) -> list:
+        """(name, served-plane predicate, compiled-plane predicate)
+        pairs for the mesh audit plane's plane_agreement check
+        (runtime/audit.py): the source constraints re-derived from the
+        served rules_by_host against the constraints the carried
+        RouteScopeProgram compiled (`_constrained` / `_sources`). The
+        program rides across generations whenever its content digest
+        matches, so this is the live check that a carried program still
+        encodes the routes being served. A constraint on one side only
+        pairs against 'true', which the planes checker refutes with a
+        witness."""
+        served: dict[tuple, str] = {}
+        for host in sorted(self.rules_by_host):
+            for i, rule in enumerate(self.rules_by_host[host]):
+                src = (rule.spec.get("match") or {}).get("source")
+                if src:
+                    served[(host, i)] = str(src)
+        compiled = {pair: self.scope._sources[j]
+                    for j, pair in enumerate(self.scope._constrained)}
+
+        def _pred(src: str | None) -> str:
+            if src is None:
+                return "true"
+            return 'source.service == "%s"' % src.replace('"', '\\"')
+
+        pairs = []
+        for host, i in sorted(set(served) | set(compiled)):
+            pairs.append((f"{host}[{i}]",
+                          _pred(served.get((host, i))),
+                          _pred(compiled.get((host, i)))))
+            if len(pairs) >= limit:
+                break
+        return pairs
+
     def node_instances(self, node: str) -> list[ServiceInstance]:
         return self.registry.host_instances(
             {Node.parse(node).ip_address})

@@ -35,8 +35,15 @@ chains on a predecessor's plane runs after it on the card.
 
 Every flush records a `quota_flush` event (items, coalesced over
 0.25 s) on the forensics event timeline (runtime/forensics.py).
-`audit_view` is ported as a read-out; the audit plane that reads it is
-not.
+
+`audit_view` is the mesh audit plane's read of the newest plane
+(runtime/audit.py, from its own thread). A plane's producer may still
+run on the card when the auditor reads it, and since the sharded plane's
+lanes an in-step trip may run on a lane's own stream: so each plane
+keeps the stream that produced it (`_counts_stream`), and the pull runs
+on a private stream of the auditor's that first waits for the work
+enqueued on that stream so far. No serving stream ever waits on the
+audit read.
 """
 from __future__ import annotations
 
@@ -140,6 +147,9 @@ class DeviceQuotaPool:
         # shapes once before the worker starts: the first flush must not
         # pay nvcc behind its futures
         self._prewarm()
+        # the stream that produced `counts`, and the audit pull's own
+        self._counts_stream = self._producer_stream()
+        self._audit_stream = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="device-quota")
         self._thread.start()
@@ -292,17 +302,25 @@ class DeviceQuotaPool:
                                 status_message="quota pool closed"))
 
     def audit_view(self) -> dict:
-        """Counter-plane read-out (the reference's audit plane reads it;
-        that plane is not ported). Takes the current plane under the
-        locks, in the _counts_lock → _lock order, and pulls outside
-        both: planes are never mutated once published (each trip
-        allocates into a clone), so a slow pull only delays this
-        reader."""
+        """Counter-plane read-out for the mesh audit plane. Takes the
+        current plane and its producing stream under the locks, in the
+        _counts_lock → _lock order, and pulls outside both: planes are
+        never mutated once published (each trip allocates into a clone),
+        so a slow pull only delays this reader. On the card the pull is
+        a copy on the auditor's own stream, ordered after the work
+        enqueued on the producing stream."""
         with self._counts_lock:
             with self._lock:
-                handle = self.counts
+                handle, stream = self.counts, self._counts_stream
                 n_used = len(self._bucket_of)
-        arr = handle.cpu().numpy()
+        if handle.is_cuda:
+            if self._audit_stream is None:
+                self._audit_stream = torch.cuda.Stream(device=handle.device)
+            with torch.cuda.stream(self._audit_stream):
+                self._audit_stream.wait_stream(stream)
+                arr = handle.cpu().numpy()
+        else:
+            arr = handle.cpu().numpy()
         max_limit = max((lim["max"] for lim in self.limits.values()),
                         default=0)
         used = arr[:n_used]
@@ -319,6 +337,14 @@ class DeviceQuotaPool:
         }
 
     # -- internals ------------------------------------------------------
+
+    def _producer_stream(self):
+        """The current stream, which the launch that just produced the
+        newest plane ran on (None off the card). Called where the plane
+        is published, with _counts_lock held."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
 
     def _stage(self, rows: np.ndarray) -> list[torch.Tensor]:
         """One host→device copy of the staged int32 block [8, n] → the
@@ -472,6 +498,7 @@ class DeviceQuotaPool:
             else:
                 alloc = self._alloc_fast
             granted, self.counts = alloc(self.counts, *self._stage(rows))
+            self._counts_stream = self._producer_stream()
             granted = granted.cpu().numpy()   # the worker's one pull
         with self._lock:
             for i, (_, amount, _, _, duration, dedup_id, fut) \
@@ -626,6 +653,7 @@ class InlineQuotaSession:
         release the token — the next trip chains on it."""
         self.new_counts = new_counts
         self.pool.counts = new_counts
+        self.pool._counts_stream = self.pool._producer_stream()
         self._token_held = False
         self.pool._counts_lock.release()
 
@@ -729,6 +757,8 @@ class InlineQuotaSession:
                         p._dedup_pending.pop(did, None)
             with p._counts_lock:
                 if p.counts is self.new_counts:
+                    # committed after its pull (or prewarmed): complete,
+                    # so the audit pull may wait on any stream
                     p.counts = p._counts_good
         finally:
             self._end_turn()

@@ -28,7 +28,14 @@ as in the reference; for the tail-latency forensics plane
 stage tap the flight recorder's tape hangs on (`set_stage_tap`: every
 `observe_stage` call also lands on the open tape); and the exporters'
 last dispatch wall (`REPORT_EXPORTER_LAG_MS`, on the default registry,
-read by runtime/slo.py). The reference exports the others through
+read by runtime/slo.py); the wire fronts' decoded / answered Check()
+counts (`CHECK_REQUESTS`, `CHECK_RESPONSES`, `serving_counters()`: the
+fronts that move them are not ported yet); and the mesh audit plane's
+families (runtime/audit.py: `AUDIT_CHECKS` by invariant and status,
+`AUDIT_VIOLATIONS`, `AUDIT_EVALUATIONS`, `AUDIT_HEALTHY`, the
+explainability scorer's `FAULT_INJECTIONS` / `FAULT_MATCHED` by kind and
+`FAULT_EXPLAINABILITY`; zero-shaped; `audit_counters()`). The reference
+exports the others through
 prometheus_client and its own registry; the port keeps plain in-process
 counters for them (the card's machine has no prometheus_client), and
 the exposition and /debug views wait for the fronts.
@@ -193,6 +200,11 @@ CHECK_E2E_SECONDS = Histogram("mixer_check_e2e_seconds")
 CHECK_BATCH_SIZE = Histogram("mixer_check_batch_size",
                              buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256,
                                       512, 1024, 2048, 4096))
+# the wire fronts' decoded / answered Check() counts (grpcServer.go's
+# monitoring role): read by serving_counters() and the audit plane's
+# check_accounting
+CHECK_REQUESTS = Counter("mixer_grpc_check_requests")
+CHECK_RESPONSES = Counter("mixer_grpc_check_responses")
 CHECK_P99_TARGET_MS = 1.0   # BASELINE north star: <1ms p99 at 10k rules
 # the live window of per-request e2e latencies: brownout reads its p99
 CHECK_WINDOW = SlidingWindow(4096)
@@ -497,6 +509,32 @@ def note_adapter_export(exporter: str, template: str, n_records: int,
     REPORT_EXPORTER_LAG_MS.set(seconds * 1e3, exporter=exporter)
 
 
+def serving_counters() -> dict:
+    """The serving-path counters as one JSON-able dict, with the
+    reference's keys: requests decoded vs answered by the fronts, and
+    how batch formation went (non-empty size buckets)."""
+    counts, rows, _n = CHECK_BATCH_SIZE.state()
+    hist: dict[str, int] = {}
+    for i, c in enumerate(counts):
+        if c:
+            b = CHECK_BATCH_SIZE.buckets[i] \
+                if i < len(CHECK_BATCH_SIZE.buckets) else None
+            hist["inf" if b is None else str(int(b))] = int(c)
+    decoded = int(CHECK_REQUESTS.value())
+    sent = int(CHECK_RESPONSES.value())
+    _c, report_rows, report_n = REPORT_BATCH_SIZE.state()
+    return {
+        "requests_decoded": decoded,
+        "responses_sent": sent,
+        "in_flight": decoded - sent,
+        "batches_formed": sum(hist.values()),
+        "batch_rows": int(rows),
+        "batch_size_hist": hist,
+        "report_batch_rows": int(report_rows),
+        "report_batches_formed": int(report_n),
+    }
+
+
 def report_conservation(since: dict | None = None) -> dict:
     """accepted == exported + rejected at quiescence; in_flight is the
     transient difference and `exact` holds only when the plane is
@@ -680,3 +718,55 @@ def shard_latency_snapshot(since: dict | None = None) -> dict:
                 h.buckets, counts, n, 0.99) * 1e3, 3),
         }
     return {"stages": stages}
+
+
+# -- the mesh audit plane (runtime/audit.py). Zero-shaped: every
+# (invariant, status) series exists before the first evaluation, since
+# "no audit data" and "audit never ran" are different incidents. Labels:
+# invariant and status; invariant; kind.
+AUDIT_INVARIANTS = ("report_conservation", "check_accounting",
+                    "quota_conservation", "grant_coherence",
+                    "plane_agreement", "routing_conservation")
+AUDIT_STATUSES = ("ok", "degraded", "violated")
+FAULT_KINDS = ("wedge", "device", "oracle", "adapter", "quota",
+               "discovery")
+# evaluations per invariant per verdict
+AUDIT_CHECKS = Counter("mixer_audit_checks")
+# transitions of an invariant into the violated state
+AUDIT_VIOLATIONS = Counter("mixer_audit_violations")
+AUDIT_EVALUATIONS = Counter("mixer_audit_evaluations")
+# 1 while no invariant is violated
+AUDIT_HEALTHY = Gauge("mixer_audit_healthy")
+# chaos injections registered with the explainability scorer, and those
+# matched to forensics evidence within the window
+FAULT_INJECTIONS = Counter("mixer_fault_explainability_injections")
+FAULT_MATCHED = Counter("mixer_fault_explainability_matched")
+# matched / (matched + expired unmatched); vacuously 1.0
+FAULT_EXPLAINABILITY = Gauge("mixer_fault_explainability_rate")
+for _inv in AUDIT_INVARIANTS:
+    AUDIT_VIOLATIONS.inc(0, invariant=_inv)
+    for _st in AUDIT_STATUSES:
+        AUDIT_CHECKS.inc(0, invariant=_inv, status=_st)
+for _k in FAULT_KINDS:
+    FAULT_INJECTIONS.inc(0, kind=_k)
+    FAULT_MATCHED.inc(0, kind=_k)
+AUDIT_HEALTHY.set(1.0)
+FAULT_EXPLAINABILITY.set(1.0)
+
+
+def audit_counters() -> dict:
+    """One JSON-able reading of the audit and explainability families,
+    with the reference's keys."""
+    return {
+        "evaluations": int(AUDIT_EVALUATIONS.value()),
+        "healthy": bool(AUDIT_HEALTHY.value() >= 1.0),
+        "checks": {inv: {st: int(AUDIT_CHECKS.value((inv, st)))
+                         for st in AUDIT_STATUSES}
+                   for inv in AUDIT_INVARIANTS},
+        "violations": {inv: int(AUDIT_VIOLATIONS.value(inv))
+                       for inv in AUDIT_INVARIANTS},
+        "explainability_rate": float(FAULT_EXPLAINABILITY.value()),
+        "injections": {k: int(FAULT_INJECTIONS.value(k))
+                       for k in FAULT_KINDS},
+        "matched": {k: int(FAULT_MATCHED.value(k)) for k in FAULT_KINDS},
+    }

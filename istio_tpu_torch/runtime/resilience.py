@@ -35,7 +35,11 @@ breaker never opens on a real fault. Every
 breaker transition records a `breaker` event (name, from, to) on the
 forensics event timeline (runtime/forensics.py), under the breaker lock
 (the ring lock is a leaf), and CHAOS's adapter wedges record
-`chaos_wedge` / `chaos_unwedge`. Admission
+`chaos_wedge` / `chaos_unwedge`. `CHAOS.on_inject`, when set (the mesh
+audit plane's injection ledger, runtime/audit.py), is called outside the
+chaos lock at each injection's commit point — a wedge, an adapter, quota,
+device or oracle failure, a delayed discovery publish — and survives
+reset(); an observer that raises changes nothing. Admission
 control (queue cap, brownout, deadlines) lives in runtime/batcher.py.
 """
 from __future__ import annotations
@@ -219,6 +223,21 @@ class ChaosHooks:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.reset()
+        # the injection observer (the audit plane's explainability
+        # scorer registers expected-signature records through it). Set
+        # after reset() and never touched by it: the registration must
+        # survive the per-scenario resets. Called outside self._lock at
+        # each injection's commit point; never raises out of a seam
+        self.on_inject: Callable[..., None] | None = None
+
+    def _notify(self, kind: str, **detail) -> None:
+        cb = self.on_inject
+        if cb is None:
+            return
+        try:
+            cb(kind, **detail)
+        except Exception:
+            pass
 
     def reset(self) -> None:
         with self._lock:
@@ -263,6 +282,7 @@ class ChaosHooks:
                 return
             self.device_failures -= 1
             self.injected_device += 1
+        self._notify("device")
         exc = self.device_exception
         err = exc() if exc is not None else \
             RuntimeError("chaos: injected device-step failure")
@@ -278,6 +298,7 @@ class ChaosHooks:
                 return
             self.oracle_failures -= 1
             self.injected_oracle += 1
+        self._notify("oracle")
         raise RuntimeError("chaos: injected oracle failure")
 
     def wedge_adapter(self, handler: str) -> None:
@@ -289,6 +310,7 @@ class ChaosHooks:
         # attributed to the wedge that caused it
         from istio_tpu_torch.runtime import forensics
         forensics.record_event("chaos_wedge", handler=handler)
+        self._notify("wedge", handler=handler)
 
     def unwedge_adapter(self, handler: str) -> None:
         with self._lock:
@@ -316,6 +338,7 @@ class ChaosHooks:
                 return
             self.adapter_failures[handler] = n - 1
             self.injected_adapter += 1
+        self._notify("adapter", handler=handler)
         raise RuntimeError(f"chaos: injected adapter failure ({handler})")
 
     def quota_call(self, name: str) -> None:
@@ -332,6 +355,7 @@ class ChaosHooks:
                 return
             self.quota_failures[name] = n - 1
             self.injected_quota += 1
+        self._notify("quota", handler=name)
         raise RuntimeError(
             f"chaos: injected quota-backend failure ({name})")
 
@@ -344,6 +368,7 @@ class ChaosHooks:
             time.sleep(lat)
             with self._lock:
                 self.injected_discovery += 1
+            self._notify("discovery")
 
     def armed(self) -> list[str]:
         """The names of the levers that would inject a fault or a delay

@@ -72,9 +72,15 @@ batchers open it on their worker threads), a sharded rebuild records a
 `capture_profile(seconds)` runs one torch.profiler capture into
 `profile_dir` (None → a fresh temporary directory).
 
+The mesh audit plane (runtime/audit.py, `audit` and its three fields) is
+created last in the constructor and started: a `mesh-audit` thread
+evaluating the six invariants every `audit_interval_s`. `shutdown` stops
+it first. `audit=False` leaves `self.audit` None. Callers hand
+`self.audit.snapshot()` to `slo.scorecard(..., audit=)`.
+
 `ServerArgs` keeps the reference's field names and defaults. The fields
-the port does not carry (overlap_h2d, the audit plane, mTLS, the XLA
-compile cache) are accepted at their defaults, where the planes behind
+the port does not carry (overlap_h2d, mTLS, the XLA compile cache) are
+accepted at their defaults, where the planes behind
 them simply do not run, and raise NotPorted when set to anything else.
 
 On a CUDA device the constructor builds every kernel of
@@ -258,13 +264,22 @@ class ServerArgs:
     # torch.profiler capture directory of capture_profile (None → a
     # fresh temporary directory a capture)
     profile_dir: str | None = None
-    # -- not carried: accepted at these defaults only -----------------
-    jax_compile_cache_dir: str | None = None
-    overlap_h2d: bool | None = None
+    # -- mesh audit plane (runtime/audit.py) ---------------------------
+    # the background invariant auditor: report / check / quota
+    # conservation, grant coherence, plane agreement, routing
+    # conservation, and the fault-explainability scorer. Violations
+    # record audit_violation events, bump mixer_audit_* and flip the
+    # mixer_audit_healthy gauge. The quota pools' counter planes are
+    # pulled every audit_quota_every-th evaluation (the one audit read
+    # that touches the card)
     audit: bool = True
     audit_interval_s: float = 0.5
     audit_quota_every: int = 8
+    # how long an injection may stay unexplained before it expires
     audit_explain_window_s: float = 10.0
+    # -- not carried: accepted at these defaults only -----------------
+    jax_compile_cache_dir: str | None = None
+    overlap_h2d: bool | None = None
     mtls: str = "off"
     mtls_identity: str = ""
     mtls_cert_ttl_minutes: int = 60
@@ -289,7 +304,9 @@ CARRIED_ARGS = frozenset({
     "canary_replay_limit", "canary_max_divergence", "canary_waivers",
     "shards", "replicas", "delta_compile", "shard_rebalance_budget",
     "flight_recorder", "slow_threshold_ms", "slow_adaptive",
-    "slow_ring_capacity", "event_ring_capacity", "profile_dir"})
+    "slow_ring_capacity", "event_ring_capacity", "profile_dir",
+    "audit", "audit_interval_s", "audit_quota_every",
+    "audit_explain_window_s"})
 
 
 def _check_carried(args: ServerArgs) -> None:
@@ -514,6 +531,18 @@ class RuntimeServer:
                 "coalesce_wait", w),
             max_queue=16 * self.args.max_batch if rcap is None
             else rcap) if self.args.report_batching else None
+        # the mesh audit plane, created LAST so every surface it reads
+        # (controller, batchers, grants, routers) already exists; it
+        # reads snapshots and ledgers only, off the hot path
+        self.audit = None
+        if self.args.audit:
+            from istio_tpu_torch.runtime.audit import AuditPlane
+            self.audit = AuditPlane(
+                self,
+                interval_s=self.args.audit_interval_s,
+                explain_window_s=self.args.audit_explain_window_s,
+                quota_every=self.args.audit_quota_every)
+            self.audit.start()
 
     def _on_config_publish(self, dispatcher) -> None:
         """Controller publish hook: rebind the rule-stats aggregator to
@@ -1127,7 +1156,8 @@ class RuntimeServer:
         return responses, results
 
     def shutdown(self, deadline: float | None = 5.0) -> None:
-        """Ordered graceful shutdown: stop admission, drain the batchers
+        """Ordered graceful shutdown: stop the auditor, stop admission,
+        drain the batchers
         (bounded by `deadline` seconds each), close them, stop the
         rule-stats drainer and drain once more, close the executor (no
         batch can submit a host action any more; wedged workers are left
@@ -1136,6 +1166,10 @@ class RuntimeServer:
         if getattr(self, "_shutdown_done", False):
             return
         self._shutdown_done = True
+        # the auditor first: a mid-teardown evaluation would read the
+        # batchers and pools as they close
+        if getattr(self, "audit", None) is not None:
+            self.audit.stop()
         forensics.record_event("shutdown", deadline_s=deadline)
         self.controller.begin_close()
         rb = self._report_batcher

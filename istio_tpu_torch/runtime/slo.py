@@ -12,7 +12,9 @@ and which plane is missing". The verdicts of a plane:
 
 `overall` is the worst plane verdict (miss > ok > no_data). Pure reads of
 gauges, ledgers and the event ring, never the hot path. The audit plane
-is not ported: callers pass `audit=None` and that plane reads no_data.
+reads the snapshot a caller passes (`RuntimeServer.audit.snapshot()`,
+runtime/audit.py): ok while healthy with every injection explained, miss
+otherwise, and no_data when `audit` is None.
 """
 from __future__ import annotations
 

@@ -397,8 +397,7 @@ def test_server_args_carry_the_forensics_fields(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("audit", False), ("audit_interval_s", 1.0), ("audit_quota_every", 2),
-    ("audit_explain_window_s", 1.0), ("mtls", "strict"),
+    ("mtls", "strict"),
     ("mtls_identity", "spiffe://x"), ("mtls_cert_ttl_minutes", 5),
     ("mtls_rotation_fraction", 0.9), ("overlap_h2d", True),
     ("jax_compile_cache_dir", "cache")])

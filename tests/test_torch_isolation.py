@@ -81,6 +81,10 @@ def test_every_module_imports_without_jax_and_istio_tpu():
             "istio_tpu_torch.runtime.monitor",
             "istio_tpu_torch.runtime.forensics",
             "istio_tpu_torch.runtime.slo",
+            "istio_tpu_torch.runtime.audit",
+            *(f"istio_tpu_torch.analysis{m}" for m in (
+                "", ".findings", ".dfa_ops", ".atoms", ".reach",
+                ".planes")),
             "istio_tpu_torch.attribute.compressed",
             "istio_tpu_torch.utils.metrics",
             *(f"istio_tpu_torch.canary{m}" for m in (

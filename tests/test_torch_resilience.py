@@ -340,8 +340,11 @@ def test_chaos_armed_names_every_lever():
     reset() defines, alone, and nothing once reset."""
     chaos = resilience.CHAOS
     modifiers = {"device_exception"}   # shapes a fault, injects none
+    # the injection observer (the audit plane's ledger) is set after
+    # reset() and is not a lever
+    observers = {"on_inject"}
     levers = [k for k in vars(chaos) if not k.startswith(("_", "injected_"))
-              and k not in modifiers]
+              and k not in modifiers | observers]
     assert chaos.armed() == []
     for k in levers:
         v = getattr(chaos, k)
